@@ -1,0 +1,216 @@
+"""The static padded complex schema (numpy parts of ``diffdock_tpu/data/complexes.py``).
+
+One :class:`ComplexData` holds a single protein-ligand complex as
+fixed-shape arrays with validity masks: ligand and receptor nodes, dense
+receiver-major neighbour lists, rotatable bonds. It is built and padded on
+the host with numpy; :func:`to_device` turns it into torch tensors.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from diffdock_tpu_torch.data.featurize import LIG_CATEGORICAL_DIMS
+from diffdock_tpu_torch.geometry.torsion import rotatable_bond_mask
+
+
+class ComplexData(NamedTuple):
+    """Fields as in the JAX package; numpy arrays or torch tensors."""
+
+    # --- ligand (static across poses/steps) ---
+    lig_cat: object  # (NL, 16) int categorical features
+    lig_mask: object  # (NL,) bool
+    lig_pos: object  # (NL, 3) f32 reference pose (receptor-centered)
+    lig_bond_nbr: object  # (NL, KB) int bonded neighbor indices
+    lig_bond_mask: object  # (NL, KB) bool
+    lig_bond_attr: object  # (NL, KB, 4) f32 bond-type one-hot
+
+    # --- rotatable bonds ---
+    rot_u: object  # (B,) int fixed-side atom
+    rot_v: object  # (B,) int rotated-side atom
+    rot_mask: object  # (B,) bool
+    mask_rotate: object  # (B, NL) bool
+
+    # --- receptor (fully static) ---
+    rec_cat: object  # (NR, 1) int residue identity
+    rec_lm: object  # (NR, LM) f32 language-model embedding (LM may be 0)
+    rec_mask: object  # (NR,) bool
+    rec_pos: object  # (NR, 3) f32 C-alpha coords (receptor-centered)
+    rec_nbr: object  # (NR, KR) int precomputed kNN neighbors
+    rec_nbr_mask: object  # (NR, KR) bool
+
+    # --- bookkeeping ---
+    original_center: object  # (3,) f32 receptor centroid in input frame
+
+    @property
+    def n_lig(self) -> int:
+        return self.lig_cat.shape[0]
+
+    @property
+    def n_rec(self) -> int:
+        return self.rec_cat.shape[0]
+
+    @property
+    def n_bonds(self) -> int:
+        return self.rot_u.shape[0]
+
+
+def to_device(data: ComplexData, device) -> ComplexData:
+    """numpy ComplexData -> torch tensors on ``device`` (indices as int64,
+    masks as bool, coordinates and features as float32)."""
+
+    def conv(a):
+        a = np.asarray(a)
+        if a.dtype == np.bool_:
+            t = torch.from_numpy(a.copy())
+        elif np.issubdtype(a.dtype, np.integer):
+            t = torch.from_numpy(a.astype(np.int64))
+        else:
+            t = torch.from_numpy(a.astype(np.float32))
+        return t.to(device)
+
+    return ComplexData(*[conv(a) for a in data])
+
+
+def _round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+# geometric bucket ladders (ratio ~1.4-1.5), as in the JAX package
+LIG_BUCKETS = (16, 24, 32, 48, 64, 96, 128, 192, 256)
+REC_BUCKETS = (64, 128, 192, 320, 448, 704, 1024, 1536, 2304, 3072)
+BOND_BUCKETS = (8, 16, 32, 64, 128)
+
+
+def _ladder(n: int, rungs: Tuple[int, ...], quantum: int) -> int:
+    for r in rungs:
+        if n <= r:
+            return r
+    return max(_round_up(n, quantum), rungs[-1] + quantum)
+
+
+def bucket_sizes(n_lig: int, n_rec: int, n_bonds: int) -> Tuple[int, int, int]:
+    """Round sizes up the geometric bucket ladders; past the last rung,
+    up to multiples of 16 atoms, 64 residues and 8 bonds."""
+    return (
+        _ladder(n_lig, LIG_BUCKETS, 16),
+        _ladder(n_rec, REC_BUCKETS, 64),
+        _ladder(max(n_bonds, 1), BOND_BUCKETS, 8),
+    )
+
+
+def pad_to(data: ComplexData, nl: int, nr: int, nb: int) -> ComplexData:
+    """Pad a numpy ComplexData to bucket sizes; the bonded-neighbour width
+    becomes at least 4, as in the JAX package."""
+
+    def pad(a, target_rows, fill=0, cols=None):
+        a = np.asarray(a)
+        pad_width = [(0, target_rows - a.shape[0])] + [(0, 0)] * (a.ndim - 1)
+        if cols is not None:
+            pad_width[1] = (0, cols - a.shape[1])
+        return np.pad(a, pad_width, constant_values=fill)
+
+    cur_nl, cur_nr, cur_nb = data.lig_cat.shape[0], data.rec_cat.shape[0], data.rot_u.shape[0]
+    if not (nl >= cur_nl and nr >= cur_nr and nb >= cur_nb):
+        raise ValueError(f"pad_to: bucket ({nl}, {nr}, {nb}) smaller than ({cur_nl}, {cur_nr}, {cur_nb})")
+    kb = max(4, data.lig_bond_nbr.shape[1])
+    mask_rotate = np.pad(
+        np.asarray(data.mask_rotate), [(0, nb - cur_nb), (0, nl - cur_nl)],
+        constant_values=False,
+    )
+    return ComplexData(
+        lig_cat=pad(data.lig_cat, nl),
+        lig_mask=pad(data.lig_mask, nl, False),
+        lig_pos=pad(data.lig_pos, nl),
+        lig_bond_nbr=pad(data.lig_bond_nbr, nl, cols=kb),
+        lig_bond_mask=pad(data.lig_bond_mask, nl, False, cols=kb),
+        lig_bond_attr=pad(data.lig_bond_attr, nl, cols=kb),
+        rot_u=pad(data.rot_u, nb),
+        rot_v=pad(data.rot_v, nb),
+        rot_mask=pad(data.rot_mask, nb, False),
+        mask_rotate=mask_rotate,
+        rec_cat=pad(data.rec_cat, nr),
+        rec_lm=pad(data.rec_lm, nr),
+        rec_mask=pad(data.rec_mask, nr, False),
+        rec_pos=pad(data.rec_pos, nr),
+        rec_nbr=pad(data.rec_nbr, nr),
+        rec_nbr_mask=pad(data.rec_nbr_mask, nr, False),
+        original_center=np.asarray(data.original_center),
+    )
+
+
+def build_knn_neighbors(pos: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-side kNN neighbour lists for the receptor graph (the JAX
+    package's numpy path, without its radius cap): each node's k nearest
+    other nodes."""
+    n = pos.shape[0]
+    k = min(k, max(n - 1, 1))
+    d = np.linalg.norm(pos[:, None] - pos[None, :], axis=-1)
+    np.fill_diagonal(d, np.inf)
+    idx = np.argsort(d, axis=1)[:, :k]
+    mask = np.isfinite(np.take_along_axis(d, idx, axis=1))
+    return idx.astype(np.int32), mask
+
+
+def synthetic_complex(
+    rng: np.random.RandomState,
+    n_lig: int = 12,
+    n_rec: int = 48,
+    n_bonds: int = 3,
+    lm_dim: int = 0,
+) -> ComplexData:
+    """Random but structurally valid complex for tests and benchmarks; the
+    same draws from ``rng`` as the JAX package's ``synthetic_complex``."""
+    # ligand: a random chain so rotatable bonds are well-defined
+    lig_pos = np.cumsum(rng.randn(n_lig, 3).astype(np.float32) * 0.8, axis=0)
+    lig_pos = lig_pos - lig_pos.mean(0)
+    bonds = [(i, i + 1) for i in range(n_lig - 1)]
+
+    edge_mask, mask_rotate = rotatable_bond_mask(n_lig, bonds)
+    directed = [e for ij in bonds for e in (ij, ij[::-1])]
+    rot_edges = [directed[i] for i in np.flatnonzero(edge_mask)]
+    rot_edges, mask_rotate = rot_edges[:n_bonds], mask_rotate[:n_bonds]
+
+    kb = 4
+    bond_nbr = np.zeros((n_lig, kb), np.int32)
+    bond_mask = np.zeros((n_lig, kb), bool)
+    bond_attr = np.zeros((n_lig, kb, 4), np.float32)
+    deg = np.zeros(n_lig, int)
+    for (i, j) in bonds:
+        for a, b in ((i, j), (j, i)):
+            bond_nbr[a, deg[a]] = b
+            bond_mask[a, deg[a]] = True
+            bond_attr[a, deg[a], rng.randint(4)] = 1.0
+            deg[a] += 1
+
+    rec_pos = (rng.randn(n_rec, 3) * 8.0).astype(np.float32)
+    rec_pos = rec_pos - rec_pos.mean(0)
+    rec_nbr, rec_nbr_mask = build_knn_neighbors(rec_pos, 10)
+
+    lig_cat = np.stack(
+        [rng.randint(0, d, size=n_lig) for d in LIG_CATEGORICAL_DIMS], axis=1
+    ).astype(np.int32)
+
+    nb = len(rot_edges)
+    return ComplexData(
+        lig_cat=lig_cat,
+        lig_mask=np.ones(n_lig, bool),
+        lig_pos=lig_pos,
+        lig_bond_nbr=bond_nbr,
+        lig_bond_mask=bond_mask,
+        lig_bond_attr=bond_attr,
+        rot_u=np.array([e[0] for e in rot_edges], np.int32),
+        rot_v=np.array([e[1] for e in rot_edges], np.int32),
+        rot_mask=np.ones(nb, bool),
+        mask_rotate=mask_rotate.astype(bool),
+        rec_cat=rng.randint(0, 20, size=(n_rec, 1)).astype(np.int32),
+        rec_lm=np.zeros((n_rec, lm_dim), np.float32),
+        rec_mask=np.ones(n_rec, bool),
+        rec_pos=rec_pos,
+        rec_nbr=rec_nbr,
+        rec_nbr_mask=rec_nbr_mask,
+        original_center=np.zeros(3, np.float32),
+    )

@@ -1,0 +1,117 @@
+"""Isotropic Gaussian on SO(3): score-norm tables on the device.
+
+Port of ``diffdock_tpu/diffusion/so3.py``. The tables are generated with
+the same numpy code (two (N_EPS, L) @ (L, X_N) matmuls in float64), so they
+are bit-identical to the JAX package's; lookups replicate its
+nearest-log-grid rounding in float32.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from diffdock_tpu_torch.diffusion.tables import cached_tables
+
+
+@dataclasses.dataclass(frozen=True)
+class SO3Config:
+    """Grid parameters; defaults match reference ``utils/so3.py:6-7``."""
+
+    min_eps: float = 0.0005
+    max_eps: float = 4.0
+    n_eps: int = 2000
+    x_n: int = 2000
+    l_max: int = 2000  # series truncation L
+
+
+def _generate_tables(cfg: SO3Config) -> Tuple[np.ndarray, ...]:
+    """Compute (omegas, cdf_vals, score_norms, exp_score_norms) in float64."""
+    omegas = np.linspace(0, np.pi, cfg.x_n + 1)[1:]
+    eps_grid = 10 ** np.linspace(
+        np.log10(cfg.min_eps), np.log10(cfg.max_eps), cfg.n_eps
+    )
+
+    l_vec = np.arange(cfg.l_max, dtype=np.float64)
+    # coeff[e, l] = (2l+1) exp(-l(l+1) eps^2 / 2)
+    coeff = (2 * l_vec + 1) * np.exp(
+        -l_vec * (l_vec + 1) * (eps_grid[:, None] ** 2) / 2
+    )
+    hi = np.sin(np.outer(l_vec + 0.5, omegas))  # (L, X)
+    lo = np.sin(omegas / 2)  # (X,)
+    sinterm = hi / lo  # (L, X)
+
+    exp_vals = coeff @ sinterm  # (N_EPS, X)
+    pdf_vals = exp_vals * (1 - np.cos(omegas)) / np.pi
+    cdf_vals = np.cumsum(pdf_vals, axis=1) / cfg.x_n * np.pi
+
+    dhi = (l_vec[:, None] + 0.5) * np.cos(np.outer(l_vec + 0.5, omegas))
+    dlo = 0.5 * np.cos(omegas / 2)
+    dterm = (lo * dhi - hi * dlo) / lo**2  # (L, X)
+    dsigma = coeff @ dterm
+    score_norms = dsigma / exp_vals
+
+    with np.errstate(invalid="ignore"):
+        exp_score_norms = np.sqrt(
+            np.sum(score_norms**2 * pdf_vals, axis=1)
+            / np.sum(pdf_vals, axis=1)
+            / np.pi
+        )
+
+    # the truncated series cannot resolve eps < ~10/L: use the exact
+    # small-eps limit (IGSO3 -> 3D Gaussian) there, as the JAX package does
+    bad = eps_grid < 10.0 / cfg.l_max
+    if bad.any():
+        eps_b = eps_grid[bad][:, None]
+        pdf_b = omegas**2 / eps_b**3 * np.exp(-(omegas**2) / (2 * eps_b**2))
+        cdf_b = np.cumsum(pdf_b, axis=1)
+        cdf_b /= cdf_b[:, -1:]
+        cdf_vals[bad] = cdf_b
+        score_norms[bad] = -omegas / eps_b**2
+        exp_score_norms[bad] = np.sqrt(3.0 / np.pi) / eps_b[:, 0]
+
+    return omegas, cdf_vals, score_norms, exp_score_norms
+
+
+@dataclasses.dataclass(frozen=True)
+class SO3Tables:
+    cfg: SO3Config
+    omegas: torch.Tensor  # (X,)
+    cdf_vals: torch.Tensor  # (N_EPS, X)
+    score_norms: torch.Tensor  # (N_EPS, X)
+    exp_score_norms: torch.Tensor  # (N_EPS,)
+
+    def _eps_idx(self, eps: torch.Tensor) -> torch.Tensor:
+        """Nearest log-grid index (reference ``utils/so3.py:76-78``)."""
+        c = self.cfg
+        idx = (
+            (torch.log10(eps) - float(np.log10(c.min_eps)))
+            / float(np.log10(c.max_eps) - np.log10(c.min_eps))
+            * c.n_eps
+        )
+        return torch.clamp(torch.round(idx), 0, c.n_eps - 1).long()
+
+    def score_norm(self, eps: torch.Tensor) -> torch.Tensor:
+        """E[||score||^2]^{1/2} lookup (reference ``utils/so3.py:89-93``)."""
+        return self.exp_score_norms[self._eps_idx(eps)]
+
+
+def _so3_arrays(cfg: SO3Config):
+    def generate():
+        omegas, cdf, sn, esn = _generate_tables(cfg)
+        return dict(omegas=omegas, cdf_vals=cdf, score_norms=sn, exp_score_norms=esn)
+
+    return cached_tables("so3", cfg, generate)
+
+
+@functools.lru_cache(maxsize=4)
+def get_so3_tables(cfg: SO3Config = SO3Config(), device="cuda") -> SO3Tables:
+    """Build (or load cached) tables and put them on ``device`` as float32."""
+    a = _so3_arrays(cfg)
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32).to(device)
+    return SO3Tables(cfg, f32(a["omegas"]), f32(a["cdf_vals"]),
+                     f32(a["score_norms"]), f32(a["exp_score_norms"]))

@@ -1,0 +1,104 @@
+"""Feature encoders (port of ``diffdock_tpu/models/encoders.py``).
+
+Submodule and parameter names follow the flax modules so that
+:func:`diffdock_tpu_torch.utils.convert.state_dict_from_flax` is a name map:
+flax ``Dense_{i}`` -> ``layers.{i}``, ``cat_{i}`` -> ``embeddings.{i}``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+
+class FCBlock(nn.Module):
+    """MLP emitting tensor-product weights (reference ``models/layers.py:10``).
+
+    The output layer's kernel/bias are direct parameters (``out_kernel``
+    (hidden, out), ``out_bias`` (out,)), not a Linear submodule, so the
+    factored tensor-product path contracts them AFTER the neighbour
+    reduction — see ``models/tpconv.py``. Activation: ReLU (the
+    score model's).
+    """
+
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int, layers: int = 2):
+        super().__init__()
+        if layers < 2:
+            raise ValueError("FCBlock needs at least 2 layers")
+        dims = [in_dim] + [hidden_dim] * (layers - 1)
+        self.layers = nn.ModuleList(
+            nn.Linear(dims[i], dims[i + 1]) for i in range(layers - 1)
+        )
+        self.out_kernel = nn.Parameter(torch.zeros(hidden_dim, out_dim))
+        self.out_bias = nn.Parameter(torch.zeros(out_dim))
+
+    def hidden(self, x: torch.Tensor) -> torch.Tensor:
+        """The hidden activations; the weights are ``hidden(x) @ out_kernel
+        + out_bias``, contracted only after the neighbour reduction."""
+        for layer in self.layers:
+            x = torch.relu(layer(x))
+        return x
+
+
+class GaussianSmearing(nn.Module):
+    """RBF distance embedding (reference ``models/layers.py:20-30``)."""
+
+    def __init__(self, start: float = 0.0, stop: float = 5.0, num_gaussians: int = 50):
+        super().__init__()
+        offset = np.linspace(start, stop, num_gaussians)
+        self.coeff = -0.5 / float(offset[1] - offset[0]) ** 2
+        self.register_buffer(
+            "offset", torch.as_tensor(offset, dtype=torch.float32), persistent=False
+        )
+
+    def forward(self, dist: torch.Tensor) -> torch.Tensor:
+        d = dist[..., None] - self.offset
+        return torch.exp(self.coeff * d * d)
+
+
+class AtomEncoder(nn.Module):
+    """Sum of categorical embeddings + linear fuse of extra scalar features
+    (reference ``models/layers.py:33-68``, the 'new' encoder)."""
+
+    def __init__(self, emb_dim: int, categorical_dims: Sequence[int], scalar_dim: int = 0):
+        super().__init__()
+        self.embeddings = nn.ModuleList(nn.Embedding(d, emb_dim) for d in categorical_dims)
+        self.scalar_dim = scalar_dim
+        if scalar_dim > 0:
+            self.fuse = nn.Linear(emb_dim + scalar_dim, emb_dim)
+
+    def forward(self, x_cat: torch.Tensor, x_scalar: Optional[torch.Tensor] = None) -> torch.Tensor:
+        emb = 0.0
+        for i, table in enumerate(self.embeddings):
+            emb = emb + table(x_cat[..., i])
+        if self.scalar_dim > 0:
+            if x_scalar is None or x_scalar.shape[-1] != self.scalar_dim:
+                raise ValueError(f"AtomEncoder expects {self.scalar_dim} scalar features")
+            emb = self.fuse(torch.cat([emb, x_scalar], dim=-1))
+        return emb
+
+
+class MLP2(nn.Module):
+    """Dense-ReLU-Dense, the reference's edge-embedding Sequential (dropout
+    is the identity at inference)."""
+
+    def __init__(self, in_dim: int, out_dim: int):
+        super().__init__()
+        self.layers = nn.ModuleList([nn.Linear(in_dim, out_dim), nn.Linear(out_dim, out_dim)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.layers[1](torch.relu(self.layers[0](x)))
+
+
+class FinalNormLayer(nn.Module):
+    """Norm-conditioned rescaling head (reference ``cg_model.py:229-230``)."""
+
+    def __init__(self, in_dim: int, ns: int):
+        super().__init__()
+        self.layers = nn.ModuleList([nn.Linear(in_dim, ns), nn.Linear(ns, 1)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.layers[1](torch.relu(self.layers[0](x)))

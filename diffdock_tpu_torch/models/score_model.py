@@ -1,0 +1,534 @@
+"""The coarse-grained score network (port of ``diffdock_tpu/models/score_model.py``).
+
+``CGScoreModel`` — a heterogeneous equivariant GNN over ligand atoms and
+receptor residues with the translation/rotation head and the torsion head.
+The confidence head and ``predict_affinity`` are not ported yet.
+
+Where the JAX model runs one pose and is ``vmap``ped, this one takes a
+batch of poses: ``lig_pos`` is (P, NL, 3) and the outputs are (P, 3),
+(P, 3), (P, n_bonds). The time-independent receptor embedding
+(:meth:`CGScoreModel.embed_receptor`) and the pose-independent layer-0
+receptor message (:meth:`CGScoreModel.step_cache`) are computed once and
+shared by every pose, as in the JAX package.
+
+Submodule names follow the flax module tree (``rec_emb_{i}`` ->
+``rec_emb_layers.{i}``, ``lig_emb_{i}`` -> ``lig_emb_layers.{i}``,
+``conv_{i}`` -> ``conv_layers.{i}``); see ``utils/convert.py``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from diffdock_tpu_torch.data.complexes import ComplexData
+from diffdock_tpu_torch.diffusion.schedules import t_to_sigma
+from diffdock_tpu_torch.diffusion.so3 import SO3Tables
+from diffdock_tpu_torch.diffusion.time_embed import get_timestep_embedding
+from diffdock_tpu_torch.diffusion.torus import TorusTables
+from diffdock_tpu_torch.models.config import ConfigError, ScoreModelConfig
+from diffdock_tpu_torch.models.encoders import (
+    AtomEncoder,
+    FCBlock,
+    FinalNormLayer,
+    GaussianSmearing,
+    MLP2,
+)
+from diffdock_tpu_torch.models.tpconv import (
+    JointTPConvLayer,
+    NeighborBlock,
+    TPConvLayer,
+    gather_nodes,
+)
+from diffdock_tpu_torch.ops.batch_norm import IrrepsBatchNorm
+from diffdock_tpu_torch.ops.irreps import Irreps, get_irrep_seq
+from diffdock_tpu_torch.ops.spherical import irrep1_to_vector, spherical_harmonics
+from diffdock_tpu_torch.ops.tensor_product import FullTensorProduct
+
+
+class RecCache(NamedTuple):
+    """Time-independent receptor embedding, computed once per complex."""
+
+    node_attr: torch.Tensor  # (NR, F)
+    edge_attr: torch.Tensor  # (NR, KR, ns)
+    edge_sh: torch.Tensor  # (NR, KR, sh_dim)
+    edge_weight: Optional[torch.Tensor] = None  # (NR, KR) smooth-edge ramp
+
+
+class ScoreOutput(NamedTuple):
+    tr: torch.Tensor  # (P, 3)
+    rot: torch.Tensor  # (P, 3)
+    tor: torch.Tensor  # (P, B)
+
+
+def _pairwise(sender_pos: torch.Tensor, receiver_pos: torch.Tensor):
+    """vec[..., i, j] = sender_pos[..., j] - receiver_pos[..., i]."""
+    vec = sender_pos[..., None, :, :] - receiver_pos[..., :, None, :]
+    return vec, torch.linalg.norm(vec, dim=-1)
+
+
+def _check_supported(cfg: ScoreModelConfig) -> None:
+    unsupported = {
+        "confidence_mode": cfg.confidence_mode,
+        "old_architecture": cfg.old_architecture,
+        "all_atoms": cfg.all_atoms,
+        "depthwise_convolution": cfg.depthwise_convolution,
+        "sidechain_pred": cfg.sidechain_pred,
+        "crop_beyond": cfg.crop_beyond is not None,
+        "factored_tp=False": not cfg.factored_tp,
+        f"compute_dtype={cfg.compute_dtype}": cfg.compute_dtype != "float32",
+    }
+    bad = [name for name, on in unsupported.items() if on]
+    if bad:
+        raise ConfigError(f"not ported yet: {', '.join(bad)}")
+
+
+class CGScoreModel(nn.Module):
+    """``reference_kernels=True`` routes every merged TP contraction through
+    the kernel's plain version instead of the kernel (a numeric oracle for
+    the card)."""
+
+    def __init__(self, cfg: ScoreModelConfig, reference_kernels: bool = False):
+        super().__init__()
+        _check_supported(cfg)
+        self.cfg = cfg
+        ns, nv = cfg.ns, cfg.nv
+        self.irrep_seq = get_irrep_seq(ns, nv, cfg.use_second_order_repr, cfg.reduce_pseudoscalars)
+        sh = str(Irreps.spherical_harmonics(cfg.sh_lmax))
+        self.timestep_emb = get_timestep_embedding(
+            cfg.embedding_type, cfg.sigma_embed_dim, cfg.embedding_scale
+        )
+        sig, dist = cfg.sigma_embed_dim, cfg.distance_embed_dim
+
+        self.lig_node_embedding = AtomEncoder(ns, cfg.lig_node_categorical_dims, sig)
+        self.lig_edge_embedding = MLP2(cfg.in_lig_edge_features + sig + dist, ns)
+        self.rec_node_embedding = AtomEncoder(ns, cfg.rec_node_categorical_dims, cfg.lm_embedding_dim)
+        self.rec_edge_embedding = MLP2(dist, ns)
+        self.rec_sigma_embedding = MLP2(sig, ns)
+        self.cross_edge_embedding = MLP2(sig + cfg.cross_distance_embed_dim, ns)
+
+        self.lig_distance_expansion = GaussianSmearing(0.0, cfg.lig_max_radius, dist)
+        self.rec_distance_expansion = GaussianSmearing(0.0, cfg.rec_max_radius, dist)
+        self.cross_distance_expansion = GaussianSmearing(
+            0.0, cfg.cross_max_distance, cfg.cross_distance_embed_dim
+        )
+
+        conv = dict(
+            n_edge_features=3 * ns, hidden_features=3 * ns, batch_norm=cfg.batch_norm,
+            tp_weights_layers=cfg.tp_weights_layers, reference_kernels=reference_kernels,
+        )
+        npe, n_joint = cfg.num_prot_emb_layers, cfg.num_conv_layers
+        if cfg.embed_also_ligand:
+            self.lig_emb_layers = nn.ModuleList(
+                TPConvLayer(self._ladder(i), sh, self._ladder(i + 1), residual=True, **conv)
+                for i in range(npe)
+            )
+        self.rec_emb_layers = nn.ModuleList(
+            TPConvLayer(self._ladder(i), sh, self._ladder(i + 1), residual=True, **conv)
+            for i in range(npe)
+        )
+        self.conv_layers = nn.ModuleList(
+            JointTPConvLayer(
+                self._ladder(npe + i), sh, self._ladder(npe + i + 1),
+                last_layer=(i == n_joint - 1),
+                differentiate_convolutions=cfg.differentiate_convolutions,
+                residual=True, **conv,
+            )
+            for i in range(n_joint)
+        )
+        final_ladder = self._ladder(npe + n_joint)
+
+        # score heads
+        self.center_distance_expansion = GaussianSmearing(0.0, cfg.center_max_distance, dist)
+        self.center_edge_embedding = MLP2(dist + sig, ns)
+        self.final_conv = TPConvLayer(
+            final_ladder, sh, "1x1o + 1x1e" if cfg.odd_parity else "2x1o + 2x1e",
+            n_edge_features=2 * ns, residual=False, batch_norm=cfg.batch_norm,
+            tp_weights_layers=cfg.tp_weights_layers, reference_kernels=reference_kernels,
+        )
+        self.tr_final_layer = FinalNormLayer(1 + sig, ns)
+        self.rot_final_layer = FinalNormLayer(1 + sig, ns)
+        if not cfg.no_torsion:
+            self.final_edge_embedding = MLP2(dist, ns)
+            self.final_tp_tor = FullTensorProduct(sh, "2e")
+            tor_out = f"{ns}x0o" if cfg.odd_parity else f"{ns}x0o + {ns}x0e"
+            self.tor_bond_conv = TPConvLayer(
+                final_ladder, str(self.final_tp_tor.irreps_out), tor_out,
+                n_edge_features=3 * ns, residual=False, batch_norm=cfg.batch_norm,
+                tp_weights_layers=cfg.tp_weights_layers, reference_kernels=reference_kernels,
+            )
+            self.tor_final_dense1 = nn.Linear(Irreps(tor_out).dim, ns, bias=False)
+            self.tor_final_dense2 = nn.Linear(ns, 1, bias=False)
+
+    def _ladder(self, i: int) -> str:
+        return self.irrep_seq[min(i, len(self.irrep_seq) - 1)]
+
+    def _edge_weight(self, dist, max_norm):
+        """Cosine edge-weight ramp (reference ``get_edge_weight``); None
+        when smooth_edges is off."""
+        if not self.cfg.smooth_edges:
+            return None
+        x = torch.clamp(dist * math.pi / max_norm, max=math.pi)
+        return 0.5 * (torch.cos(x) + 1.0)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """Random weights with the flax initializers' scales: Linear and FC
+        output kernels normal(0, 1/fan_in), biases zero, embeddings
+        Glorot-uniform, batch norm at identity statistics."""
+        for m in self.modules():
+            if isinstance(m, nn.Linear):
+                m.weight.normal_(0.0, 1.0 / math.sqrt(m.in_features), generator=generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.Embedding):
+                a = math.sqrt(6.0 / (m.num_embeddings + m.embedding_dim))
+                m.weight.uniform_(-a, a, generator=generator)
+            elif isinstance(m, FCBlock):
+                m.out_kernel.normal_(0.0, 1.0 / math.sqrt(m.out_kernel.shape[0]), generator=generator)
+                m.out_bias.zero_()
+            elif isinstance(m, IrrepsBatchNorm):
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+
+    # ------------------------------------------------------------------
+    # receptor embedding (time-independent; compute once per complex)
+    # ------------------------------------------------------------------
+    def embed_receptor(self, data: ComplexData) -> RecCache:
+        cfg = self.cfg
+        ns = cfg.ns
+        rec_scalar = data.rec_lm if cfg.lm_embedding_dim > 0 else None
+        node_attr = self.rec_node_embedding(data.rec_cat, rec_scalar)[None]  # (1, NR, F)
+
+        vec = data.rec_pos[data.rec_nbr] - data.rec_pos[:, None, :]
+        dist = torch.linalg.norm(vec, dim=-1)
+        edge_attr = self.rec_edge_embedding(self.rec_distance_expansion(dist))
+        edge_sh = spherical_harmonics(vec, cfg.sh_lmax)
+        edge_weight = self._edge_weight(dist, cfg.rec_max_radius)
+
+        nbr = data.rec_nbr[None]
+        for layer in self.rec_emb_layers:
+            block = NeighborBlock(
+                sender_attr=node_attr, nbr_idx=nbr, nbr_mask=data.rec_nbr_mask[None],
+                edge_attr=self._with_scalars(ns, node_attr, edge_attr[None], nbr),
+                edge_sh=edge_sh[None],
+                edge_weight=None if edge_weight is None else edge_weight[None],
+            )
+            node_attr = layer(node_attr, [block])
+        return RecCache(node_attr=node_attr[0], edge_attr=edge_attr,
+                        edge_sh=edge_sh, edge_weight=edge_weight)
+
+    @staticmethod
+    def _with_scalars(ns, node_attr, base_attr, nbr_idx):
+        """Edge features: [base, receiver scalars, sender scalars]."""
+        send = gather_nodes(node_attr[..., :ns], nbr_idx)  # (B, R, K, ns)
+        recv = node_attr[:, :, None, :ns].expand(send.shape)
+        return torch.cat([base_attr.expand(send.shape[:-1] + base_attr.shape[-1:]), recv, send],
+                         dim=-1)
+
+    def _rec_rec_block(self, data, rec_node_attr, rec_edge_attr_base, rec_cache) -> NeighborBlock:
+        nbr = data.rec_nbr[None]
+        return NeighborBlock(
+            sender_attr=rec_node_attr, nbr_idx=nbr, nbr_mask=data.rec_nbr_mask[None],
+            edge_attr=self._with_scalars(self.cfg.ns, rec_node_attr, rec_edge_attr_base[None], nbr),
+            edge_sh=rec_cache.edge_sh[None],
+            edge_weight=None if rec_cache.edge_weight is None else rec_cache.edge_weight[None],
+        )
+
+    def _sigma_embedding(self, t: torch.Tensor) -> torch.Tensor:
+        return self.timestep_emb(t.reshape(1).to(torch.float32))[0]
+
+    def _rec_step_attr(self, rec_cache: RecCache, sigma_emb: torch.Tensor):
+        """Receptor node features and edge base for one step (the cached
+        embedding plus the sigma conditioning, reference cg_model.py:297-301)."""
+        ns = self.cfg.ns
+        rec_sigma = self.rec_sigma_embedding(sigma_emb[None])[0]
+        node = rec_cache.node_attr.clone()
+        node[:, :ns] += rec_sigma
+        return node[None], rec_cache.edge_attr + rec_sigma
+
+    def step_cache(self, data: ComplexData, t: torch.Tensor, rec_cache: RecCache):
+        """Pose-independent per-(complex, step) precompute: the joint layer-0
+        rec<-rec factored message, (sum (1, NR, D), counts (1, NR)); None
+        when there is no non-last joint layer."""
+        if self.cfg.num_conv_layers <= 1:
+            return None
+        rec_node_attr, rec_edge_attr_base = self._rec_step_attr(rec_cache, self._sigma_embedding(t))
+        block = self._rec_rec_block(data, rec_node_attr, rec_edge_attr_base, rec_cache)
+        (part,) = self.conv_layers[0].rec_messages([block], (2,))
+        return part
+
+    # ------------------------------------------------------------------
+    # ligand embedding (per step: positions and sigma change)
+    # ------------------------------------------------------------------
+    def _ligand_graph(self, data, lig_pos, sigma_emb):
+        """Geometry-dependent ligand edge structure, computed once per
+        forward; layers only refresh node scalars."""
+        cfg = self.cfg
+        P, nl = lig_pos.shape[:2]
+
+        # bonded block (static topology, dynamic geometry)
+        bvec = lig_pos[:, data.lig_bond_nbr] - lig_pos[:, :, None, :]  # (P, NL, KB, 3)
+        bdist = torch.linalg.norm(bvec, dim=-1)
+        bond_raw = torch.cat(
+            [
+                data.lig_bond_attr.expand(bdist.shape + data.lig_bond_attr.shape[-1:]),
+                sigma_emb.expand(bdist.shape + sigma_emb.shape[-1:]),
+                self.lig_distance_expansion(bdist),
+            ],
+            dim=-1,
+        )
+        bond_attr = self.lig_edge_embedding(bond_raw)
+        bond_sh = spherical_harmonics(bvec, cfg.sh_lmax)
+
+        # all-pairs radius block (the reference's per-step radius_graph)
+        rvec, rdist = _pairwise(lig_pos, lig_pos)  # (P, NL, NL, ...)
+        eye = torch.eye(nl, dtype=torch.bool, device=lig_pos.device)
+        rmask = (
+            (rdist <= cfg.lig_max_radius)
+            & ~eye
+            & data.lig_mask[:, None]
+            & data.lig_mask[None, :]
+        )
+        radius_raw = torch.cat(
+            [
+                rdist.new_zeros(rdist.shape + (cfg.in_lig_edge_features,)),
+                sigma_emb.expand(rdist.shape + sigma_emb.shape[-1:]),
+                self.lig_distance_expansion(rdist),
+            ],
+            dim=-1,
+        )
+        radius_attr = self.lig_edge_embedding(radius_raw)
+        radius_sh = spherical_harmonics(rvec, cfg.sh_lmax)
+        bond_idx = data.lig_bond_nbr.expand((P,) + data.lig_bond_nbr.shape)
+        all_idx = torch.arange(nl, device=lig_pos.device).expand(P, nl, nl)
+        bond_w = self._edge_weight(bdist, cfg.lig_max_radius)
+        radius_w = self._edge_weight(rdist, cfg.lig_max_radius)
+        return (bond_attr, bond_sh, bond_idx, radius_attr, radius_sh, rmask, all_idx,
+                bond_w, radius_w)
+
+    def _lig_blocks_from_graph(self, data, graph, node_attr):
+        ns = self.cfg.ns
+        (bond_attr, bond_sh, bond_idx, radius_attr, radius_sh, rmask, all_idx,
+         bond_w, radius_w) = graph
+        bond_block = NeighborBlock(
+            sender_attr=node_attr, nbr_idx=bond_idx,
+            nbr_mask=data.lig_bond_mask.expand(bond_idx.shape),
+            edge_attr=self._with_scalars(ns, node_attr, bond_attr, bond_idx),
+            edge_sh=bond_sh, edge_weight=bond_w,
+        )
+        radius_block = NeighborBlock(
+            sender_attr=node_attr, nbr_idx=all_idx, nbr_mask=rmask,
+            edge_attr=self._with_scalars(ns, node_attr, radius_attr, all_idx),
+            edge_sh=radius_sh, edge_weight=radius_w,
+        )
+        return bond_block, radius_block
+
+    def _embed_ligand(self, data, lig_graph, sigma_emb, n_poses):
+        nl = data.lig_cat.shape[0]
+        node_scalar = sigma_emb.expand(nl, sigma_emb.shape[-1])
+        node_attr = self.lig_node_embedding(data.lig_cat, node_scalar)
+        node_attr = node_attr.expand((n_poses,) + node_attr.shape)
+        if self.cfg.embed_also_ligand:
+            for layer in self.lig_emb_layers:
+                bond_block, radius_block = self._lig_blocks_from_graph(data, lig_graph, node_attr)
+                node_attr = layer(node_attr, [bond_block, radius_block])
+        return node_attr
+
+    # ------------------------------------------------------------------
+    # full forward
+    # ------------------------------------------------------------------
+    def forward(
+        self,
+        data: ComplexData,
+        lig_pos: torch.Tensor,
+        t: torch.Tensor,
+        so3_tables: SO3Tables,
+        torus_tables: TorusTables,
+        rec_cache: Optional[RecCache] = None,
+        step_cache=None,
+    ) -> ScoreOutput:
+        """Scores for a batch of poses ``lig_pos`` (P, NL, 3) at time ``t``
+        (0-d float32). ``step_cache``: optional precomputed layer-0 rec<-rec
+        message from :meth:`step_cache`."""
+        cfg = self.cfg
+        ns = cfg.ns
+        P, nl = lig_pos.shape[:2]
+        nr = data.rec_pos.shape[0]
+        t = torch.as_tensor(t, dtype=torch.float32, device=lig_pos.device)
+        tr_sigma, rot_sigma, tor_sigma = t_to_sigma(t, t, t, cfg.sigma)
+        sigma_emb = self._sigma_embedding(t)
+
+        if rec_cache is None:
+            rec_cache = self.embed_receptor(data)
+        rec_node_attr, rec_edge_attr_base = self._rec_step_attr(rec_cache, sigma_emb)
+
+        lig_graph = self._ligand_graph(data, lig_pos, sigma_emb)
+        lig_node_attr = self._embed_ligand(data, lig_graph, sigma_emb, P)
+
+        # cross graph (dynamic cutoff, reference cg_model.py:321-324)
+        cross_cutoff = tr_sigma * 3.0 + 20.0 if cfg.dynamic_max_cross else cfg.cross_max_distance
+        cvec, cdist = _pairwise(data.rec_pos, lig_pos)  # (P, NL, NR, ...)
+        cmask = (cdist <= cross_cutoff) & data.lig_mask[:, None] & data.rec_mask[None, :]
+        cross_raw = torch.cat(
+            [sigma_emb.expand(cdist.shape + sigma_emb.shape[-1:]),
+             self.cross_distance_expansion(cdist)],
+            dim=-1,
+        )
+        cross_attr = self.cross_edge_embedding(cross_raw)
+        cross_sh = spherical_harmonics(cvec, cfg.sh_lmax)
+        rev_cross_sh = spherical_harmonics(-cvec.transpose(1, 2), cfg.sh_lmax)
+        cross_w = self._edge_weight(cdist, cross_cutoff)
+        rev_cross_w = None if cross_w is None else cross_w.transpose(1, 2)
+        rec_idx_all = torch.arange(nr, device=lig_pos.device).expand(P, nl, nr)
+        lig_idx_all = torch.arange(nl, device=lig_pos.device).expand(P, nr, nl)
+
+        for li, layer in enumerate(self.conv_layers):
+            bond_block, radius_block = self._lig_blocks_from_graph(data, lig_graph, lig_node_attr)
+            lig_cross_block = NeighborBlock(
+                sender_attr=rec_node_attr, nbr_idx=rec_idx_all, nbr_mask=cmask,
+                edge_attr=self._cross_attr(lig_node_attr, rec_node_attr, cross_attr, rec_idx_all),
+                edge_sh=cross_sh, edge_weight=cross_w,
+            )
+            lig_blocks = [bond_block, radius_block, lig_cross_block]
+            lig_groups = (0, 0, 1)
+
+            rec_extra = None
+            if li < len(self.conv_layers) - 1:
+                rec_cross_block = NeighborBlock(
+                    sender_attr=lig_node_attr, nbr_idx=lig_idx_all,
+                    nbr_mask=cmask.transpose(1, 2),
+                    edge_attr=self._cross_attr(rec_node_attr, lig_node_attr,
+                                               cross_attr.transpose(1, 2), lig_idx_all),
+                    edge_sh=rev_cross_sh, edge_weight=rev_cross_w,
+                )
+                if li == 0 and step_cache is not None:
+                    rec_blocks, rec_groups, rec_extra = [rec_cross_block], (3,), step_cache
+                else:
+                    rec_rec_block = self._rec_rec_block(
+                        data, rec_node_attr, rec_edge_attr_base, rec_cache
+                    )
+                    rec_blocks, rec_groups = [rec_rec_block, rec_cross_block], (2, 3)
+            else:
+                rec_blocks, rec_groups = [], ()
+
+            lig_node_attr, rec_node_attr = layer(
+                lig_node_attr, rec_node_attr, lig_blocks, lig_groups,
+                rec_blocks, rec_groups, rec_extra=rec_extra,
+            )
+
+        tr_pred, rot_pred = self._center_head(
+            data, lig_pos, lig_node_attr, sigma_emb, tr_sigma, rot_sigma, so3_tables
+        )
+        nb = data.rot_u.shape[0]
+        if cfg.no_torsion or nb == 0:
+            tor_pred = lig_pos.new_zeros(P, nb)
+        else:
+            tor_pred = self._torsion_head(data, lig_pos, lig_node_attr, tor_sigma, torus_tables)
+        return ScoreOutput(tr=tr_pred, rot=rot_pred, tor=tor_pred)
+
+    def _cross_attr(self, recv_attr, send_attr, base, send_idx):
+        ns = self.cfg.ns
+        send = gather_nodes(send_attr[..., :ns], send_idx)  # (P, R, K, ns)
+        recv = recv_attr[:, :, None, :ns].expand(send.shape)
+        return torch.cat([base, recv, send], dim=-1)
+
+    # ------------------------------------------------------------------
+    def _center_head(self, data, lig_pos, lig_node_attr, sigma_emb, tr_sigma, rot_sigma,
+                     so3_tables):
+        cfg = self.cfg
+        ns = cfg.ns
+        P, nl = lig_pos.shape[:2]
+        w = data.lig_mask[:, None].to(lig_pos.dtype)
+        center = (lig_pos * w).sum(1) / torch.clamp(w.sum(), min=1.0)  # (P, 3)
+
+        evec = lig_pos - center[:, None]  # sender (atom) - receiver (center)
+        dist = torch.linalg.norm(evec, dim=-1)  # (P, NL)
+        edge_attr = torch.cat(
+            [self.center_distance_expansion(dist),
+             sigma_emb.expand(dist.shape + sigma_emb.shape[-1:])],
+            dim=-1,
+        )
+        edge_attr = self.center_edge_embedding(edge_attr)
+        if cfg.fixed_center_conv:
+            scalars = lig_node_attr[..., :ns]
+        else:
+            # reference quirk (cg_model.py:374): atom 0's features for all
+            scalars = lig_node_attr[:, :1, :ns].expand(P, nl, ns)
+        edge_attr = torch.cat([edge_attr, scalars], dim=-1)
+
+        block = NeighborBlock(
+            sender_attr=lig_node_attr,
+            nbr_idx=torch.arange(nl, device=lig_pos.device).expand(P, 1, nl),
+            nbr_mask=data.lig_mask.expand(P, 1, nl),
+            edge_attr=edge_attr[:, None],
+            edge_sh=spherical_harmonics(evec, cfg.sh_lmax)[:, None],
+        )
+        global_pred = self.final_conv(None, [block])[:, 0]  # (P, D)
+
+        if cfg.odd_parity:
+            tr_pred = irrep1_to_vector(global_pred[:, :3])
+            rot_pred = irrep1_to_vector(global_pred[:, 3:6])
+        else:
+            tr_pred = irrep1_to_vector(global_pred[:, :3] + global_pred[:, 6:9])
+            rot_pred = irrep1_to_vector(global_pred[:, 3:6] + global_pred[:, 9:12])
+
+        sig = sigma_emb.expand(P, sigma_emb.shape[-1])
+        tr_norm = torch.linalg.norm(tr_pred, dim=-1, keepdim=True)
+        tr_pred = tr_pred / torch.clamp(tr_norm, min=1e-12) * self.tr_final_layer(
+            torch.cat([tr_norm, sig], dim=-1)
+        )
+        rot_norm = torch.linalg.norm(rot_pred, dim=-1, keepdim=True)
+        rot_pred = rot_pred / torch.clamp(rot_norm, min=1e-12) * self.rot_final_layer(
+            torch.cat([rot_norm, sig], dim=-1)
+        )
+        if cfg.scale_by_sigma:
+            tr_pred = tr_pred / tr_sigma
+            rot_pred = rot_pred * so3_tables.score_norm(rot_sigma)
+        return tr_pred, rot_pred
+
+    # ------------------------------------------------------------------
+    def _torsion_head(self, data, lig_pos, lig_node_attr, tor_sigma, torus_tables):
+        cfg = self.cfg
+        ns = cfg.ns
+        P, nl = lig_pos.shape[:2]
+        nb = data.rot_u.shape[0]
+
+        bond_pos = 0.5 * (lig_pos[:, data.rot_u] + lig_pos[:, data.rot_v])  # (P, B, 3)
+        evec, dist = _pairwise(lig_pos, bond_pos)  # (P, B, NL, ...)
+        mask = (
+            (dist <= cfg.lig_max_radius)
+            & data.lig_mask[None, :]
+            & data.rot_mask[:, None]
+        )
+        edge_attr = self.final_edge_embedding(self.lig_distance_expansion(dist))
+
+        bond_vec = lig_pos[:, data.rot_v] - lig_pos[:, data.rot_u]
+        bond_sh2e = spherical_harmonics(bond_vec, 2)[..., 4:9]  # (P, B, 5)
+        edge_sh = spherical_harmonics(evec, cfg.sh_lmax)
+        tor_edge_sh = self.final_tp_tor(edge_sh, bond_sh2e[:, :, None, :])
+
+        bond_attr = lig_node_attr[:, data.rot_u] + lig_node_attr[:, data.rot_v]  # (P, B, F)
+        send = lig_node_attr[:, None, :, :ns].expand(P, nb, nl, ns)
+        recv = bond_attr[:, :, None, :ns].expand(P, nb, nl, ns)
+        full_edge_attr = torch.cat([edge_attr, send, recv], dim=-1)
+
+        block = NeighborBlock(
+            sender_attr=lig_node_attr,
+            nbr_idx=torch.arange(nl, device=lig_pos.device).expand(P, nb, nl),
+            nbr_mask=mask,
+            edge_attr=full_edge_attr,
+            edge_sh=tor_edge_sh,
+            edge_weight=self._edge_weight(dist, cfg.lig_max_radius),
+        )
+        out = self.tor_bond_conv(None, [block])  # (P, B, D)
+        out = torch.tanh(self.tor_final_dense1(out))
+        tor_pred = self.tor_final_dense2(out)[..., 0]
+        if cfg.scale_by_sigma:
+            tor_pred = tor_pred * torch.sqrt(torus_tables.score_norm(tor_sigma))
+        return tor_pred * data.rot_mask

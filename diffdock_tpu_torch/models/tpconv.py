@@ -1,0 +1,236 @@
+"""Tensor-product graph convolutions over dense neighbour blocks.
+
+Port of ``diffdock_tpu/models/tpconv.py`` (inference, factored path). Each
+receiver set consumes dense neighbour blocks: gather senders -> per-edge
+hidden activations -> factored tensor-product message summed over the
+neighbours -> mean over all blocks -> batch norm -> residual.
+
+Where the JAX package ``vmap``s over poses, every tensor here carries a
+leading batch axis B (poses, or 1 for pose-independent receptor work):
+a :class:`NeighborBlock` holds (B, R, K, ...) edge tensors.
+
+The merged contraction (``_tp_message_reduced``, ``merged=True``) goes
+through the gen-3 Hopper kernel (:func:`diffdock_tpu_torch.ops.fused_tp3.fused_tp3`)
+or, for layers built with ``reference_kernels=True``, through its plain
+version. The per-class branch (``merged=False``) stays as the numeric
+oracle, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from diffdock_tpu_torch.models.encoders import FCBlock
+from diffdock_tpu_torch.ops.batch_norm import IrrepsBatchNorm
+from diffdock_tpu_torch.ops.fused_tp3 import fused_tp3, fused_tp3_reference
+from diffdock_tpu_torch.ops.irreps import Irreps
+from diffdock_tpu_torch.ops.tensor_product import FullyConnectedTensorProduct
+
+
+class NeighborBlock(NamedTuple):
+    """One dense edge group targeting a common receiver set.
+
+    sender_attr: (B, S, F_in) sender node features.
+    nbr_idx: (B, R, K) int64 indices into the sender axis.
+    nbr_mask: (B, R, K) bool edge validity.
+    edge_attr: (B, R, K, E) scalar edge features.
+    edge_sh: (B, R, K, sh_dim) spherical harmonics of the edge vectors.
+    edge_weight: optional (B, R, K) smooth-edge weights.
+
+    Tensors may be broadcast views (``expand``) along B.
+    """
+
+    sender_attr: torch.Tensor
+    nbr_idx: torch.Tensor
+    nbr_mask: torch.Tensor
+    edge_attr: torch.Tensor
+    edge_sh: torch.Tensor
+    edge_weight: Optional[torch.Tensor] = None
+
+
+def gather_nodes(attr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """attr (B, S, F), idx (B, R, K) -> (B, R, K, F) with
+    out[b, r, k] = attr[b, idx[b, r, k]]."""
+    B = max(attr.shape[0], idx.shape[0])
+    attr = attr.expand((B,) + attr.shape[1:])
+    idx = idx.expand((B,) + idx.shape[1:])
+    batch = torch.arange(B, device=idx.device).view(B, 1, 1)
+    return attr[batch, idx]
+
+
+Contraction = Callable[..., torch.Tensor]
+
+
+def _tp_message_reduced(tp: FullyConnectedTensorProduct, fc: FCBlock, blk: NeighborBlock,
+                        merged: bool = True, contraction: Contraction = fused_tp3):
+    """Factored message computation: reduce over neighbours BEFORE applying
+    the weight-generating FC's last (linear) layer — an exact reassociation
+    of fc + tp + sum (see the JAX package's docstring).
+
+    Returns (summed_messages (B, R, out_dim), valid_counts (B, R)).
+    """
+    mask = blk.nbr_mask.to(torch.float32)
+    mw = mask if blk.edge_weight is None else mask * blk.edge_weight
+    h = fc.hidden(blk.edge_attr) * mw[..., None]
+    x_nbr = gather_nodes(blk.sender_attr, blk.nbr_idx)  # (B, R, K, F_in)
+    # the block's tensors may broadcast along B (shared receptor features)
+    lead = torch.broadcast_shapes(
+        mw.shape[:-1], h.shape[:-2], x_nbr.shape[:-2], blk.edge_sh.shape[:-2]
+    )  # (B, R)
+    K = mw.shape[-1]
+    counts = mask.sum(dim=-1).expand(lead)
+
+    rows = math.prod(lead)
+    flat = lambda x: x.expand(lead + x.shape[-2:]).reshape(rows, K, x.shape[-1])
+    h, x_nbr, edge_sh = flat(h), flat(x_nbr), flat(blk.edge_sh)
+    mw = mw.expand(lead + (K,)).reshape(rows, K)
+
+    if merged:
+        out = contraction(tp, x_nbr, edge_sh, h, mw, fc.out_kernel, fc.out_bias)
+        return out.reshape(lead + (out.shape[-1],)), counts
+
+    # per-class reference path (the merged layout's numeric oracle)
+    H = h.shape[-1]
+    outs = []
+    for k, ((offset, fan, mul), ek) in enumerate(zip(tp.weight_slices(), tp.irreps_out)):
+        if fan == 0:
+            outs.append(h.new_zeros(rows, ek.dim))
+            continue
+        d3 = ek.ir.dim
+        coupled = tp.coupled_class_merged(k, x_nbr, edge_sh)  # (rows, K, fan*d3)
+        p_h = torch.einsum("rkh,rkF->rhF", h, coupled)
+        p_b = torch.einsum("rk,rkF->rF", mw, coupled)
+        t_k = fc.out_kernel[:, offset : offset + fan * mul].reshape(H, fan, mul)
+        b_k = fc.out_bias[offset : offset + fan * mul].reshape(fan, mul)
+        tt = tp.expand_weight_identity(t_k, d3)  # (H*fan*d3, mul*d3)
+        bb = tp.expand_bias_identity(b_k, d3)  # (fan*d3, mul*d3)
+        out_k = (p_h.reshape(rows, H * fan * d3) @ tt + p_b @ bb) / math.sqrt(fan)
+        outs.append(out_k)
+    out = torch.cat(outs, dim=-1)
+    return out.reshape(lead + (out.shape[-1],)), counts
+
+
+def _combine_reduced(parts, eps: float = 1e-16) -> torch.Tensor:
+    """Mean over several (sum, count) neighbour blocks per receiver."""
+    total = sum(p[0] for p in parts)
+    counts = sum(p[1] for p in parts)
+    return total / torch.clamp(counts[..., None], min=eps)
+
+
+def _residual_pad(out: torch.Tensor, attr: torch.Tensor) -> torch.Tensor:
+    pad = out.shape[-1] - attr.shape[-1]
+    return out + nn.functional.pad(attr, (0, pad))
+
+
+class _ConvBase(nn.Module):
+    def __init__(self, in_irreps, sh_irreps, out_irreps, n_edge_features: int,
+                 hidden_features: Optional[int], tp_weights_layers: int,
+                 batch_norm: bool, residual: bool, reference_kernels: bool):
+        super().__init__()
+        self.tp = FullyConnectedTensorProduct(in_irreps, sh_irreps, out_irreps)
+        self.out_irreps = Irreps(out_irreps)
+        self._fc_args = dict(
+            in_dim=n_edge_features,
+            hidden_dim=hidden_features or n_edge_features,
+            out_dim=self.tp.weight_numel,
+            layers=tp_weights_layers,
+        )
+        self.residual = residual
+        self.bn = IrrepsBatchNorm(out_irreps) if batch_norm else None
+        self.contraction = fused_tp3_reference if reference_kernels else fused_tp3
+
+    def _make_fc(self) -> FCBlock:
+        return FCBlock(**self._fc_args)
+
+    def _message(self, fc: FCBlock, blk: NeighborBlock):
+        return _tp_message_reduced(self.tp, fc, blk, contraction=self.contraction)
+
+    def _finish(self, out: torch.Tensor, receiver_attr: Optional[torch.Tensor]) -> torch.Tensor:
+        if self.bn is not None:
+            out = self.bn(out)
+        if self.residual:
+            if receiver_attr is None:
+                raise ValueError("a residual conv needs the receiver features")
+            out = _residual_pad(out, receiver_attr)
+        return out
+
+
+class TPConvLayer(_ConvBase):
+    """One receiver set with one shared FC (flax name ``fc``)."""
+
+    def __init__(self, in_irreps, sh_irreps, out_irreps, n_edge_features: int,
+                 residual: bool = True, batch_norm: bool = True,
+                 hidden_features: Optional[int] = None, tp_weights_layers: int = 2,
+                 reference_kernels: bool = False):
+        super().__init__(in_irreps, sh_irreps, out_irreps, n_edge_features,
+                         hidden_features, tp_weights_layers, batch_norm, residual,
+                         reference_kernels)
+        self.fc = self._make_fc()
+
+    def forward(self, receiver_attr: Optional[torch.Tensor],
+                blocks: Sequence[NeighborBlock]) -> torch.Tensor:
+        out = _combine_reduced([self._message(self.fc, blk) for blk in blocks])
+        return self._finish(out, receiver_attr)
+
+
+class JointTPConvLayer(_ConvBase):
+    """Ligand+receptor joint conv with per-edge-type FC groups
+    (0 = lig<-lig, 1 = lig<-rec, 2 = rec<-rec, 3 = rec<-lig; flax names
+    ``fc_{g}``, or ``fc_shared`` without ``differentiate_convolutions``).
+    With ``last_layer`` only ligand receivers get messages; batch norm still
+    sees the zero receptor rows, as in the reference."""
+
+    def __init__(self, in_irreps, sh_irreps, out_irreps, n_edge_features: int,
+                 last_layer: bool = False, differentiate_convolutions: bool = True,
+                 residual: bool = True, batch_norm: bool = True,
+                 hidden_features: Optional[int] = None, tp_weights_layers: int = 2,
+                 reference_kernels: bool = False):
+        super().__init__(in_irreps, sh_irreps, out_irreps, n_edge_features,
+                         hidden_features, tp_weights_layers, batch_norm, residual,
+                         reference_kernels)
+        self.last_layer = last_layer
+        self.differentiate_convolutions = differentiate_convolutions
+        if differentiate_convolutions:
+            for g in ((0, 1) if last_layer else (0, 1, 2, 3)):
+                self.add_module(f"fc_{g}", self._make_fc())
+        else:
+            self.fc_shared = self._make_fc()
+
+    def get_fc(self, g: int) -> FCBlock:
+        return getattr(self, f"fc_{g}") if self.differentiate_convolutions else self.fc_shared
+
+    def rec_messages(self, rec_blocks: Sequence[NeighborBlock], rec_groups: Sequence[int]):
+        """Receptor factored message parts only (the per-step precompute)."""
+        return [self._message(self.get_fc(g), blk) for g, blk in zip(rec_groups, rec_blocks)]
+
+    def forward(self, lig_attr: torch.Tensor, rec_attr: torch.Tensor,
+                lig_blocks: Sequence[NeighborBlock], lig_groups: Sequence[int],
+                rec_blocks: Sequence[NeighborBlock], rec_groups: Sequence[int],
+                rec_extra: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """lig_attr (B, NL, F), rec_attr (B or 1, NR, F). ``rec_extra``: a
+        precomputed (summed_messages, counts) receptor part folded into the
+        receptor mean (the pose-independent layer-0 rec<-rec messages)."""
+        lig_out = _combine_reduced(
+            [self._message(self.get_fc(g), blk) for g, blk in zip(lig_groups, lig_blocks)]
+        )
+        B = lig_out.shape[0]
+        if self.last_layer:
+            if rec_blocks:
+                raise ValueError("the last joint layer takes no receptor blocks")
+            rec_out = lig_out.new_zeros((B,) + rec_attr.shape[1:-1] + (lig_out.shape[-1],))
+        else:
+            rec_parts = self.rec_messages(rec_blocks, rec_groups)
+            if rec_extra is not None:
+                rec_parts.append(rec_extra)
+            rec_out = _combine_reduced(rec_parts).expand((B,) + rec_attr.shape[1:-1] + (lig_out.shape[-1],))
+
+        nl = lig_attr.shape[1]
+        out = torch.cat([lig_out, rec_out], dim=1)
+        attr = torch.cat([lig_attr, rec_attr.expand((B,) + rec_attr.shape[1:])], dim=1)
+        out = self._finish(out, attr)
+        return out[:, :nl], out[:, nl:]
