@@ -20,7 +20,10 @@ Phases, each timed on its own line:
    poses must agree;
 6. timings: each kernel, its plain version and one PyTorch library call of
    the same function, with CUDA events, beside the least time the card
-   could take (bytes over 3.35 TB/s or FLOPs over 67 TFLOP/s float32).
+   could take (bytes over 3.35 TB/s or FLOPs over 67 TFLOP/s float32);
+7. profile: ``torch.profiler`` over a warm 2-step dock — device time by
+   kernel, the hand-written kernels' share and the device's busy share
+   (information only).
 
 It then prints the card line (``nvidia-smi --query-gpu=name,power.limit``),
 one JSON line with the kernels' numbers, and, last, the result line
@@ -307,6 +310,16 @@ def run(args) -> dict:
     report["timings"] = timings
     _log(f"[6 timings] {time.perf_counter() - t0:.1f} s")
 
+    # 7. where a dock's device time goes (information only: a missing
+    # profiler does not fail the run)
+    t0 = time.perf_counter()
+    try:
+        report["profile"] = profile_dock(warm, data, P)
+    except Exception as exc:  # noqa: BLE001 - the run goes on without it
+        report["profile"] = {"error": repr(exc)}
+        _log(f"  profiler unavailable: {exc!r}")
+    _log(f"[7 profile] 2-step dock | {time.perf_counter() - t0:.1f} s")
+
     main = timings["rec<-lig cross (conv)"]
     report["kernels"] = [{
         "name": "fused_tp3",
@@ -322,6 +335,49 @@ def run(args) -> dict:
         "library_ms": main["library_ms"],
     }]
     return report
+
+
+def profile_dock(pipe, data, n_poses: int) -> dict:
+    """torch.profiler over one warm dock of ``pipe``: device time by
+    kernel and the share of the hand-written kernels; the device's busy
+    share is taken against the same dock timed without the profiler (whose
+    own overhead inflates the traced wall time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.dock_complex(data, num_poses=n_poses, seed=2)
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pipe.dock_complex(data, num_poses=n_poses, seed=2)
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        for name in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(e, name):
+                return float(getattr(e, name))
+        return 0.0
+
+    kernels = [(e.key, dev_us(e), e.count) for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA and dev_us(e) > 0]
+    kernels.sort(key=lambda k: -k[1])
+    total = sum(k[1] for k in kernels)
+    ours = sum(k[1] for k in kernels if "fused_tp3" in k[0])
+    launches = sum(k[2] for k in kernels)
+    out = {"wall_ms_unprofiled": wall_us / 1e3, "device_ms": total / 1e3,
+           "device_busy_share": total / wall_us, "fused_tp3_ms": ours / 1e3,
+           "fused_tp3_share_of_device": ours / total if total else None,
+           "kernel_launches": launches,
+           "top": [{"name": k[0][:90], "ms": k[1] / 1e3, "count": k[2]} for k in kernels[:8]]}
+    _log(f"  wall {wall_us / 1e3:.1f} ms (unprofiled) | device busy {total / 1e3:.1f} ms "
+         f"({100 * out['device_busy_share']:.1f} %) | fused_tp3 {ours / 1e3:.1f} ms "
+         f"({100 * (out['fused_tp3_share_of_device'] or 0):.1f} % of device) | {launches} kernel launches")
+    for k in out["top"]:
+        _log(f"    {k['ms']:9.2f} ms  x{k['count']:<5d} {k['name']}")
+    return out
 
 
 def _block_diag_t3(tp, classes, out_kernel, out_bias):

@@ -15,19 +15,25 @@
 //
 // What bounds it on an H100: float32 FMAs. At the main path's shapes
 // (K = 32 neighbours, H+1 = 145, fan*d3 <= 234) both contractions do
-// 30-50 FLOP per byte they must read, above the card's fp32 ridge of
+// 30-80 FLOP per byte they must read, above the card's fp32 ridge of
 // 67 TFLOP/s / 3.35 TB/s = 20 FLOP/byte. The design therefore keeps P out
 // of device memory (it lives in shared memory, one 16-row chunk of hidden
-// channels at a time, the same role VMEM plays on the TPU), stages each
-// chunk of h_aug in shared memory so the inner loop does 16 FMAs per global
-// load of `coupled`, and walks the hidden channels in a loop inside the
-// block where the TPU walked its sequential grid. Tensor cores are not
-// used: the port keeps full float32 (no TF32), so wgmma/TMA and bf16 are a
-// later step.
-//
-// Grid: (ceil(n_rows / TILE_ROWS), n_classes). One block owns TILE_ROWS
-// receivers and one class; every output element is written by exactly one
-// thread, so the result does not depend on scheduling.
+// channels at a time, the role VMEM plays on the TPU) and walks the hidden
+// channels in a loop inside the block where the TPU walked its sequential
+// grid:
+//   - P phase: each thread owns one column j of P for all 16 hidden rows
+//     of the chunk (16 register accumulators); h_aug's chunk is staged in
+//     shared memory and read as float4 broadcasts, so every global load
+//     of `coupled` feeds 16 FMAs;
+//   - weight phase: the reduction over (h, u) is split into contiguous u
+//     slices across the threads that would otherwise idle (a block has far
+//     fewer outputs than threads), and the partial sums are added in a
+//     fixed order, so the result does not depend on scheduling.
+// Blocks own TR receivers and one class. TR = 4 shares each weight load
+// among 4 rows; when that leaves too few blocks to fill the card (few
+// receivers with many neighbours, as in the ligand-receivers cross block)
+// TR = 1. Tensor cores are not used: the port keeps full float32 (no TF32),
+// so wgmma/TMA and bf16 are a later step.
 //
 // Plain C interface (no PyTorch headers), built with nvcc into a shared
 // library and called through ctypes; see diffdock_tpu_torch/ops/fused_tp3.py.
@@ -39,7 +45,6 @@
 namespace {
 
 constexpr int kMaxClasses = 16;
-constexpr int kTileRows = 4;
 constexpr int kHChunk = 16;
 constexpr int kKChunk = 32;
 constexpr int kThreads = 256;
@@ -53,6 +58,7 @@ struct ClassTable {
   long long w_off[kMaxClasses];  // element offset of the class's W_c
 };
 
+template <int TR>
 __global__ void __launch_bounds__(kThreads)
 fused_tp3_kernel(const float* __restrict__ h_aug,    // (n_rows, K, Ha)
                  const float* __restrict__ coupled,  // (n_rows, K, F)
@@ -72,24 +78,28 @@ fused_tp3_kernel(const float* __restrict__ h_aug,    // (n_rows, K, Ha)
   const int f_off = tbl.f_off[c];
   const float* __restrict__ wc = weights + tbl.w_off[c];
 
-  // shared memory: h chunk (16-byte aligned rows of kHChunk floats), then
-  // P chunk, then the output accumulators
-  float* h_s = smem;                                   // [kTileRows][kKChunk][kHChunk]
-  float* p_s = h_s + kTileRows * kKChunk * kHChunk;    // [kTileRows][kHChunk][fd]
-  float* acc_s = p_s + kTileRows * kHChunk * fd_max;   // [kTileRows][wd]
+  // shared memory: h chunk (16-byte aligned rows of kHChunk floats), the
+  // P chunk, the weight phase's partial sums and the block's outputs
+  float* h_s = smem;                                // [TR][kKChunk][kHChunk]
+  float* p_s = h_s + TR * kKChunk * kHChunk;        // [TR][kHChunk][fd]
+  float* part_s = p_s + TR * kHChunk * fd_max;      // [kThreads]
+  float* acc_s = part_s + kThreads;                 // [TR * wd] <= [kThreads]
 
-  const long long r0 = static_cast<long long>(blockIdx.x) * kTileRows;
+  const long long r0 = static_cast<long long>(blockIdx.x) * TR;
   const int tid = threadIdx.x;
-
-  for (int i = tid; i < kTileRows * wd; i += kThreads) acc_s[i] = 0.f;
+  // the weight phase's outputs: n_out = TR * wd <= kThreads (checked by the
+  // launcher), each reduced over n_split slices of u
+  const int n_out = TR * wd;
+  const int n_split = kThreads / n_out;
+  if (tid < n_out) acc_s[tid] = 0.f;
 
   for (int h0 = 0; h0 < Ha; h0 += kHChunk) {
     const int hb = min(kHChunk, Ha - h0);
 
     // ---- P chunk: P[t][hh][j] = sum_k h_aug[r0+t, k, h0+hh] * coupled[r0+t, k, f_off+j]
-    for (int base = 0; base < kTileRows * fd; base += kThreads) {
+    for (int base = 0; base < TR * fd; base += kThreads) {
       const int i = base + tid;
-      const bool active = i < kTileRows * fd;
+      const bool active = i < TR * fd;
       const int t = active ? i / fd : 0;
       const int j = active ? i - t * fd : 0;
       const long long r = r0 + t;
@@ -100,8 +110,8 @@ fused_tp3_kernel(const float* __restrict__ h_aug,    // (n_rows, K, Ha)
 
       for (int k0 = 0; k0 < K; k0 += kKChunk) {
         const int kc = min(kKChunk, K - k0);
-        __syncthreads();  // previous users of h_s are done
-        for (int q = tid; q < kTileRows * kKChunk * kHChunk; q += kThreads) {
+        __syncthreads();  // earlier readers of h_s, p_s and part_s are done
+        for (int q = tid; q < TR * kKChunk * kHChunk; q += kThreads) {
           const int hh = q % kHChunk;
           const int kk = (q / kHChunk) % kKChunk;
           const int tt = q / (kHChunk * kKChunk);
@@ -133,32 +143,84 @@ fused_tp3_kernel(const float* __restrict__ h_aug,    // (n_rows, K, Ha)
         for (int hh = 0; hh < kHChunk; ++hh) p_s[(t * kHChunk + hh) * fd + j] = a[hh];
       }
     }
-    __syncthreads();
+    __syncthreads();  // the P chunk is complete
 
-    // ---- weights: acc[t][w*d3+d] += sum_hh sum_u P[t][hh][u*d3+d] * W_c[h0+hh, u, w]
-    for (int i = tid; i < kTileRows * wd; i += kThreads) {
-      const int t = i / wd;
-      const int o = i - t * wd;
-      const int w = o / d3;
-      const int d = o - w * d3;
-      float s = acc_s[i];
+    // ---- weights: out[t][w*d3+d] += sum_hh sum_u P[t][hh][u*d3+d] * W_c[h0+hh, u, w];
+    // thread tid takes output tid % n_out and the tid / n_out-th contiguous
+    // slice of u (unit stride, so the loop unrolls and its loads issue early)
+    const int my_split = tid / n_out;
+    if (my_split < n_split) {
+      const int my_out = tid - my_split * n_out;
+      const int bt = my_out / wd;
+      const int bw = (my_out - bt * wd) / d3;
+      const int bd = my_out - bt * wd - bw * d3;
+      const int u0 = my_split * fan / n_split;
+      const int u1 = (my_split + 1) * fan / n_split;
+      float sum = 0.f;
       for (int hh = 0; hh < hb; ++hh) {
-        const float* pr = p_s + (t * kHChunk + hh) * fd + d;
+        const float* pr = p_s + (bt * kHChunk + hh) * fd + bd;
         const float* __restrict__ wr =
-            wc + static_cast<long long>(h0 + hh) * fan * mul + w;
-        for (int u = 0; u < fan; ++u)
-          s = fmaf(pr[u * d3], __ldg(wr + static_cast<long long>(u) * mul), s);
+            wc + static_cast<long long>(h0 + hh) * fan * mul + bw;
+        for (int u = u0; u < u1; ++u)
+          sum = fmaf(pr[u * d3], __ldg(wr + static_cast<long long>(u) * mul), sum);
       }
-      acc_s[i] = s;
+      part_s[tid] = sum;
     }
     __syncthreads();
+    if (tid < n_out) {
+      float s = 0.f;
+      for (int q = 0; q < n_split; ++q) s += part_s[q * n_out + tid];
+      acc_s[tid] += s;
+    }
   }
 
-  for (int i = tid; i < kTileRows * wd; i += kThreads) {
-    const int t = i / wd;
+  if (tid < n_out) {
+    const int t = tid / wd;
     const long long r = r0 + t;
-    if (r < n_rows) out[r * D + tbl.out_off[c] + (i - t * wd)] = acc_s[i];
+    if (r < n_rows) out[r * D + tbl.out_off[c] + tid - t * wd] = acc_s[tid];
   }
+}
+
+size_t smem_bytes(int tile_rows, int fd_max) {
+  return sizeof(float) *
+         (static_cast<size_t>(tile_rows) * kKChunk * kHChunk +
+          static_cast<size_t>(tile_rows) * kHChunk * fd_max + 2 * kThreads);
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      n = 132;
+  }
+  return n;
+}
+
+// Rows per block for these shapes (4 or 1), or 0 if a class is too wide
+// for one block (mul*d3 > kThreads).
+int tile_rows(long long n_rows, int n_classes, int wd_max) {
+  if (wd_max > kThreads) return 0;
+  const long long blocks4 = (n_rows + 3) / 4 * n_classes;
+  return (4 * wd_max <= kThreads && blocks4 >= 4LL * sm_count()) ? 4 : 1;
+}
+
+template <int TR>
+cudaError_t launch(const float* h_aug, const float* coupled, const float* weights,
+                   float* out, const ClassTable& tbl, int n_classes, long long n_rows,
+                   int K, int Ha, int F, int D, int fd_max, cudaStream_t stream) {
+  const size_t smem = smem_bytes(TR, fd_max);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_tp3_kernel<TR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const long long n_tiles = (n_rows + TR - 1) / TR;
+  if (n_tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  dim3 grid(static_cast<unsigned>(n_tiles), static_cast<unsigned>(n_classes));
+  fused_tp3_kernel<TR><<<grid, kThreads, smem, stream>>>(
+      h_aug, coupled, weights, out, tbl, n_rows, K, Ha, F, D, fd_max);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -167,13 +229,6 @@ extern "C" {
 
 int fused_tp3_max_classes() { return kMaxClasses; }
 
-size_t fused_tp3_smem_bytes(int fd_max, int wd_max) {
-  return sizeof(float) *
-         (static_cast<size_t>(kTileRows) * kKChunk * kHChunk +
-          static_cast<size_t>(kTileRows) * kHChunk * fd_max +
-          static_cast<size_t>(kTileRows) * wd_max);
-}
-
 // class_table: host array of n_classes rows of 6 int64 values
 // (f_off, fan, d3, mul, out_off, w_off). Returns a cudaError_t.
 int fused_tp3_forward(const float* h_aug, const float* coupled,
@@ -181,7 +236,8 @@ int fused_tp3_forward(const float* h_aug, const float* coupled,
                       const long long* class_table, int n_classes,
                       long long n_rows, int K, int Ha, int F, int D,
                       void* stream) {
-  if (n_classes < 1 || n_classes > kMaxClasses) return cudaErrorInvalidValue;
+  if (n_classes < 1 || n_classes > kMaxClasses || K < 1 || Ha < 1)
+    return cudaErrorInvalidValue;
   ClassTable tbl = {};
   int fd_max = 0, wd_max = 0;
   for (int c = 0; c < n_classes; ++c) {
@@ -195,18 +251,18 @@ int fused_tp3_forward(const float* h_aug, const float* coupled,
     fd_max = std::max(fd_max, tbl.fan[c] * tbl.d3[c]);
     wd_max = std::max(wd_max, tbl.mul[c] * tbl.d3[c]);
   }
-  const size_t smem = fused_tp3_smem_bytes(fd_max, wd_max);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_tp3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
   if (n_rows == 0) return cudaSuccess;
-  const long long n_tiles = (n_rows + kTileRows - 1) / kTileRows;
-  if (n_tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
-  dim3 grid(static_cast<unsigned>(n_tiles), static_cast<unsigned>(n_classes));
-  fused_tp3_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      h_aug, coupled, weights, out, tbl, n_rows, K, Ha, F, D, fd_max);
-  return cudaGetLastError();
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (tile_rows(n_rows, n_classes, wd_max)) {
+    case 4:
+      return launch<4>(h_aug, coupled, weights, out, tbl, n_classes, n_rows, K, Ha, F, D,
+                       fd_max, s);
+    case 1:
+      return launch<1>(h_aug, coupled, weights, out, tbl, n_classes, n_rows, K, Ha, F, D,
+                       fd_max, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -42,8 +42,10 @@ def _inputs(tp, rows, K, H, dev, seed=0):
     return x, sh, h, mw, wk, wb
 
 
-@pytest.mark.parametrize("ladder,rows,K", [((3, 3), 67, 32), ((3, 3), 13, 320), ((2, 3), 40, 10),
-                                           ((0, 1), 5, 1)])
+# rows x classes decide the kernel's rows per block: 3200 rows of the
+# joint layers take four-row blocks, the smaller cases one-row blocks
+@pytest.mark.parametrize("ladder,rows,K", [((3, 3), 3200, 32), ((3, 3), 67, 32), ((3, 3), 13, 320),
+                                           ((2, 3), 40, 10), ((0, 1), 5, 1), ((3, 3), 2, 35)])
 def test_fused_tp3_kernel_matches_plain_version(ladder, rows, K):
     dev = _card()
     cfg = PRESETS["diffdock_l"]
