@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -155,9 +155,9 @@ def _get_kernel() -> _Kernel:
     return _kernel
 
 
-def class_table(classes, H1: int) -> Tuple[np.ndarray, int]:
+def class_table(classes, H1: int) -> np.ndarray:
     """(n_classes, 6) int64 rows (f_off, fan, d3, mul, out_off, w_off) for
-    the live classes, and the packed weight length."""
+    the live classes; w_off indexes the packed (H1, fan, mul) blocks."""
     rows = []
     f_off = out_off = w_off = 0
     for _k, _o, fan, d3, mul in classes:
@@ -165,7 +165,7 @@ def class_table(classes, H1: int) -> Tuple[np.ndarray, int]:
         f_off += fan * d3
         out_off += mul * d3
         w_off += H1 * fan * mul
-    return np.asarray(rows, dtype=np.int64).reshape(-1, 6), w_off
+    return np.asarray(rows, dtype=np.int64).reshape(-1, 6)
 
 
 def launch(h_aug: torch.Tensor, coupled: torch.Tensor, weights: torch.Tensor,
@@ -180,6 +180,8 @@ def launch(h_aug: torch.Tensor, coupled: torch.Tensor, weights: torch.Tensor,
             raise TypeError(f"fused_tp3: {name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"fused_tp3: {name} must be contiguous")
+        if t.device != h_aug.device:
+            raise ValueError(f"fused_tp3: {name} is on {t.device}, h_aug on {h_aug.device}")
     N, K, H1 = h_aug.shape
     if coupled.shape[:2] != (N, K):
         raise ValueError(f"fused_tp3: coupled {tuple(coupled.shape)} vs h_aug {tuple(h_aug.shape)}")
@@ -214,7 +216,7 @@ def prepare(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias):
     weights = torch.cat(
         [b.reshape(-1) for b in class_weights(tp, classes, out_kernel, out_bias)]
     )
-    table, _ = class_table(classes, H1)
+    table = class_table(classes, H1)
     return classes, h_aug, coupled.contiguous(), weights.contiguous(), table
 
 

@@ -149,9 +149,9 @@ def test_fused_tp3_launch_refuses_cpu_operands():
 def test_class_table_matches_the_packed_weights():
     tp = FullyConnectedTensorProduct(IN_IR, SH_IR, OUT_IR)
     classes = tp.live_classes()
-    table, w_len = ft.class_table(classes, 25)
+    table = ft.class_table(classes, 25)
     blocks = ft.class_weights(tp, classes, torch.zeros(24, tp.weight_numel), torch.zeros(tp.weight_numel))
-    assert w_len == sum(b.numel() for b in blocks)
+    assert [tuple(b.shape) for b in blocks] == [(25, fan, mul) for _k, _o, fan, _d, mul in classes]
     assert table[:, 5].tolist() == np.cumsum([0] + [b.numel() for b in blocks[:-1]]).tolist()
     assert int((table[:, 3] * table[:, 2]).sum()) == tp.irreps_out.dim
 
