@@ -7,23 +7,29 @@ Phases, each timed on its own line:
 
 1. device: the card's name and power limit;
 2. build: every hand-written kernel compiled from ``diffdock_tpu_torch/csrc``
-   with ``nvcc`` (plain C interface, loaded with ctypes);
+   with ``nvcc`` (plain C interface, loaded with ctypes), one ``nvcc`` per
+   source, all started together;
 3. kernel vs plain: each kernel's wrapper against its plain PyTorch version
-   on the card, at the shapes the main path gives it;
-4. dock: one score-only DiffDock-L dock (``diffdock_l`` preset at full
-   width, random weights from seed 0) of a 32-atom / 320-residue synthetic
-   complex, 10 poses, the 20-step recipe with 19 steps. Launch counters are
-   zeroed just before and read just after: every kernel of the path must
-   have launched, and no plain version may have run. A 2-step dock before
-   it pays the first-call set-up, so the dock is timed warm;
-5. the same dock through the plain versions with the same noise: the final
-   poses must agree;
+   on the card: the gen-3 kernel at the score model's and the confidence
+   model's blocks, the gen-2 and gen-1 kernels at the score model's;
+4. dock: one DiffDock-L dock (``diffdock_l`` preset at full width, random
+   weights from seed 0) of a 32-atom / 320-residue / 2560-receptor-atom
+   synthetic complex, 10 poses, the 20-step recipe with 19 steps, ranked by
+   the shipped confidence model (the old all-atom architecture at its
+   published width, random weights from seed 1). Launch counters are zeroed
+   just before and read just after: the gen-3 kernel must have launched
+   exactly as often as the two models' code says, and no plain version may
+   have run. A 2-step dock before it pays the first-call set-up, so the dock
+   is timed warm. Then the confidence forward's peak memory per pose at two
+   ligand buckets, the measurement behind the pipeline's chunk rule;
+5. the same dock through the plain versions with the same noise: poses,
+   confidences and ranking must agree;
 6. timings: each kernel, its plain version and one PyTorch library call of
    the same function, with CUDA events, beside the least time the card
    could take (bytes over 3.35 TB/s or FLOPs over 67 TFLOP/s float32);
-7. profile: ``torch.profiler`` over a warm 2-step dock — device time by
-   kernel, the hand-written kernels' share and the device's busy share
-   (information only).
+7. profile: ``torch.profiler`` over a warm 2-step dock with ranking — device
+   time by kernel, the hand-written kernels' share and the device's busy
+   share (information only).
 
 It then prints the card line (``nvidia-smi --query-gpu=name,power.limit``),
 one JSON line with the kernels' numbers, and, last, the result line
@@ -35,6 +41,7 @@ this script, it exits non-zero at once. Nothing runs on the CPU instead.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import subprocess
@@ -45,12 +52,22 @@ from pathlib import Path
 F32_PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 
-# |kernel - plain| <= KERNEL_RTOL * max|plain|: both sum in float32, in
-# different orders, over up to K*(H+1) = 46,400 terms per output
+# |kernel - plain| <= KERNEL_RTOL * max(max|plain|, 1): both sum in float32,
+# in different orders, over up to K*(H+1) = 46,400 terms per output
 KERNEL_RTOL = 1e-4
 # max |pose difference| in Angstrom after 19 steps of the kernel path vs
 # the plain path from the same noise: float32 reordering only
 POSE_ATOL = 5e-3
+# max |confidence difference| of the two docks <= CONF_RTOL * max(max|conf|,
+# 1): float32 reordering through the 5-layer confidence model, on poses
+# that differ by up to POSE_ATOL
+CONF_RTOL = 1e-3
+
+# the shipped confidence model (reference inference.py:84, old all-atom
+# architecture) at the width bench.py:660-665 gives it, as a change of the
+# diffdock_s preset
+SHIPPED_CONFIDENCE = dict(ns=24, nv=6, num_conv_layers=5, confidence_mode=True,
+                          old_architecture=True, all_atoms=True, lm_embedding_dim=1280)
 
 
 class PhaseError(RuntimeError):
@@ -86,8 +103,8 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def tp3_inputs(tp, rows: int, K: int, H: int, seed: int, device):
-    """Random operands of the fused TP contraction at one block's shape:
+def tp_inputs(tp, rows: int, K: int, H: int, seed: int, device):
+    """Random operands of a factored TP contraction at one block's shape:
     (x_nbr, edge_sh, h, mw, out_kernel, out_bias)."""
     import torch
 
@@ -105,20 +122,65 @@ def tp3_inputs(tp, rows: int, K: int, H: int, seed: int, device):
     return x_nbr, edge_sh, h, mw, out_kernel, out_bias
 
 
+def _class_sums(tp):
+    classes = tp.live_classes()
+    f_tot = sum(fan * d3 for _k, _o, fan, d3, _m in classes)
+    weight = sum(fan * mul * d3 for _k, _o, fan, d3, mul in classes)
+    w_len = sum(fan * mul for _k, _o, fan, _d, mul in classes)
+    return f_tot, weight, w_len
+
+
 def tp3_work(tp, rows: int, K: int, H: int):
-    """(FLOPs, bytes) the fused contraction must do at least: the
+    """(FLOPs, bytes) the gen-3 contraction must do at least: the
     neighbour reduction P = h_aug^T coupled over every live class, the
     weight contraction over the compact (H+1, fan, mul) blocks, each input
-    read once and the output written once (float32)."""
-    classes = tp.live_classes()
+    (h_aug, the coupled tensor built outside the kernel, the weights) read
+    once and the output written once (float32)."""
+    f_tot, weight, w_len = _class_sums(tp)
     Ha = H + 1
-    f_tot = sum(fan * d3 for _k, _o, fan, d3, _m in classes)
-    w_tot = sum(mul * d3 for _k, _o, _f, d3, mul in classes)
-    w_len = sum(Ha * fan * mul for _k, _o, fan, _d, mul in classes)
-    flops = 2.0 * rows * Ha * K * f_tot + 2.0 * rows * Ha * sum(
-        fan * mul * d3 for _k, _o, fan, d3, mul in classes
-    )
-    nbytes = 4.0 * (rows * K * Ha + rows * K * f_tot + w_len + rows * w_tot)
+    flops = 2.0 * rows * Ha * K * f_tot + 2.0 * rows * Ha * weight
+    nbytes = 4.0 * (rows * K * Ha + rows * K * f_tot + Ha * w_len + rows * tp.irreps_out.dim)
+    return flops, nbytes
+
+
+def _coupling_flops(tp) -> float:
+    """FMAs per edge of the coupled columns: d1 terms for each (u, d)."""
+    return float(sum(tp.irreps_in1[p.i].ir.dim * tp.irreps_in1[p.i].mul * ek.ir.dim
+                     for pk, ek in zip(tp.paths, tp.irreps_out) for p in pk))
+
+
+def tp2_work(tp, rows: int, K: int, H: int):
+    """(FLOPs, bytes) of the gen-2 contraction, the coupling included: the
+    CG weights ``sh @ CG`` (J x cols per edge), the coupled columns, P over
+    the H+1 live hidden rows, the weight contraction; it reads the packed
+    neighbour features, the harmonics, the H+1 live rows of ``ht``, the CG
+    matrix and the (H+1, fan, mul) weights once and writes the output."""
+    from diffdock_tpu_torch.ops.factored_tp2 import build_specs2
+
+    _specs, cg_full, xp_dim, out_dim = build_specs2(tp)
+    f_tot, weight, w_len = _class_sums(tp)
+    J, Ha = tp.irreps_in2.dim, H + 1
+    flops = (2.0 * rows * K * (J * cg_full.shape[1] + _coupling_flops(tp))
+             + 2.0 * rows * Ha * K * f_tot + 2.0 * rows * Ha * weight)
+    nbytes = 4.0 * (rows * K * (xp_dim + J + Ha) + cg_full.size + Ha * w_len + rows * out_dim)
+    return flops, nbytes
+
+
+def tp1_work(tp, rows: int, K: int, H: int):
+    """(FLOPs, bytes) of the gen-1 contraction, the coupling included: each
+    path's CG dot over its own d2 harmonics, the coupled columns, p_h and
+    p_b, the weight and bias contractions; it reads the packed neighbour
+    features, the harmonics, h, mw, the CG matrix, the weights and the bias
+    once and writes the output."""
+    from diffdock_tpu_torch.ops.factored_tp1 import build_specs
+
+    specs, cg_all, xp_dim, out_dim = build_specs(tp)
+    f_tot, weight, w_len = _class_sums(tp)
+    cg_flops = sum(p.d2 * p.d1 * s.d3 for s in specs for p in s.paths)
+    flops = (2.0 * rows * K * (cg_flops + _coupling_flops(tp))
+             + 2.0 * rows * (H + 1) * K * f_tot + 2.0 * rows * (H + 1) * weight)
+    nbytes = 4.0 * (rows * K * (xp_dim + tp.irreps_in2.dim + H + 1) + cg_all.size
+                    + (H + 1) * w_len + rows * out_dim)
     return flops, nbytes
 
 
@@ -129,11 +191,11 @@ def bound_ms(flops: float, nbytes: float):
 
 
 def expected_tp3_launches(cfg, n_steps: int, n_bonds: int) -> int:
-    """Merged TP contractions of one score-only dock: receptor embedding
-    once; per step the layer-0 rec<-rec precompute, the ligand embedding
-    (bonded + radius blocks), the joint layers (3 ligand blocks each; the
-    receptor's cross block, plus its rec<-rec block after layer 0; none in
-    the last layer), the center head and the torsion head."""
+    """Merged TP contractions of the score model in one dock: receptor
+    embedding once; per step the layer-0 rec<-rec precompute, the ligand
+    embedding (bonded + radius blocks), the joint layers (3 ligand blocks
+    each; the receptor's cross block, plus its rec<-rec block after layer
+    0; none in the last layer), the center head and the torsion head."""
     npe, nj = cfg.num_prot_emb_layers, cfg.num_conv_layers
     per_step = 1 if nj > 1 else 0
     per_step += 2 * npe if cfg.embed_also_ligand else 0
@@ -147,23 +209,41 @@ def expected_tp3_launches(cfg, n_steps: int, n_bonds: int) -> int:
     return npe + n_steps * per_step
 
 
+def _check(label, got, ref, checks):
+    import torch
+
+    err = (got - ref).abs().max().item()
+    scale = max(ref.abs().max().item(), 1.0)
+    ok = bool(torch.isfinite(got).all()) and err <= KERNEL_RTOL * scale
+    checks[label] = {"max_abs_err": err, "max_abs_ref": scale, "ok": ok}
+    return err, scale, ok
+
+
 def run(args) -> dict:
     import numpy as np
     import torch
 
-    from diffdock_tpu_torch.data.complexes import bucket_sizes, synthetic_complex
+    from diffdock_tpu_torch.data.complexes import atom_bucket, bucket_sizes, synthetic_aa_complex
     from diffdock_tpu_torch.diffusion.so3 import get_so3_tables
     from diffdock_tpu_torch.diffusion.torus import get_torus_tables
     from diffdock_tpu_torch.geometry import use_full_fp32
-    from diffdock_tpu_torch.inference.pipeline import DockingPipeline
+    from diffdock_tpu_torch.inference.pipeline import (
+        CONF_BUDGET_BYTES,
+        DockingPipeline,
+        auto_confidence_chunk,
+    )
     from diffdock_tpu_torch.inference.sampler import SamplerConfig
     from diffdock_tpu_torch.models.config import PRESETS
+    from diffdock_tpu_torch.models.old_models import confidence_launches
+    from diffdock_tpu_torch.ops import factored_tp1 as f1
+    from diffdock_tpu_torch.ops import factored_tp2 as f2
     from diffdock_tpu_torch.ops import fused_tp3 as ft
     from diffdock_tpu_torch.utils import build
 
     report: dict = {"phases": {}}
     dev = torch.device("cuda")
     use_full_fp32()
+    kernels = {"fused_tp3": ft, "factored_tp2": f2, "factored_tp1": f1}
 
     # 1. device
     t0 = time.perf_counter()
@@ -174,22 +254,28 @@ def run(args) -> dict:
     _log(f"[1 device] {name} | {card} | torch {torch.__version__} cuda {torch.version.cuda} "
          f"| {time.perf_counter() - t0:.1f} s")
 
-    # 2. build every kernel of the path
+    # 2. build every kernel, one nvcc per source, all at once
     t0 = time.perf_counter()
-    ft._get_kernel()
+    build.build_all({k: m._SOURCES for k, m in kernels.items()})
+    for m in kernels.values():
+        m._get_kernel()
     report["phases"]["build_s"] = time.perf_counter() - t0
     for lib, log in build.build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 _log(f"  ptxas {lib}: {line.strip()}")
-    _log(f"[2 build] fused_tp3 | {report['phases']['build_s']:.1f} s")
+    _log(f"[2 build] {', '.join(kernels)} | {report['phases']['build_s']:.1f} s")
 
-    # the complex and the model of the main path
+    # the complex and the models of the main path
     cfg = PRESETS["diffdock_l"]
+    ccfg = dataclasses.replace(PRESETS["diffdock_s"], **SHIPPED_CONFIDENCE)
     sampler = SamplerConfig()  # 20-step schedule, 19 steps
     rng = np.random.RandomState(0)
-    data = synthetic_complex(rng, n_lig=32, n_rec=320, n_bonds=6, lm_dim=cfg.lm_embedding_dim)
+    aa = synthetic_aa_complex(rng, n_lig=32, n_rec=320, n_bonds=6, atoms_per_res=8,
+                              lm_dim=cfg.lm_embedding_dim)
+    data = aa.base
     nl, nr, nb = bucket_sizes(data.n_lig, data.n_rec, data.n_bonds)
+    na = atom_bucket(aa.n_atoms)
     P = args.poses
     t0 = time.perf_counter()
     so3 = get_so3_tables(device=dev)
@@ -197,116 +283,202 @@ def run(args) -> dict:
     report["phases"]["tables_s"] = time.perf_counter() - t0
     _log(f"[tables] SO(3) {tuple(so3.score_norms.shape)} + torus {tuple(torus.score_table.shape)} "
          f"| {report['phases']['tables_s']:.1f} s")
-    pipe = DockingPipeline(cfg, 0, sampler, so3, torus, device=dev)
-    model = pipe.model
-    H = 3 * cfg.ns
-    k_rec = data.rec_nbr.shape[1]
+    models = dict(confidence_cfg=ccfg, confidence_weights=1)
+    pipe = DockingPipeline(cfg, 0, sampler, so3, torus, device=dev, **models)
+    model, cmodel = pipe.model, pipe.confidence_model
+    H, Hc = 3 * cfg.ns, 3 * ccfg.ns
+    k_rec, k_atom = data.rec_nbr.shape[1], aa.atom_nbr.shape[1]
+    L = ccfg.num_conv_layers
 
-    # 3. kernel vs plain at the main path's shapes
+    # 3. kernel vs plain at the main path's shapes: the score model's three
+    # blocks for every kernel, two of the confidence model's for gen 3
+    # (layer L-2, the last with atom receivers; its TP is the ladder's widest)
     t0 = time.perf_counter()
     conv_tp = model.conv_layers[0].tp
-    shapes = {
-        "rec<-lig cross (conv)": (conv_tp, P * nr, nl),
-        "lig<-rec cross (conv)": (conv_tp, P * nl, nr),
-        "rec<-rec (rec_emb_2)": (model.rec_emb_layers[-1].tp, nr, k_rec),
+    score_blocks = {
+        "rec<-lig cross (conv)": (conv_tp, P * nr, nl, H),
+        "lig<-rec cross (conv)": (conv_tp, P * nl, nr, H),
+        "rec<-rec (rec_emb_2)": (model.rec_emb_layers[-1].tp, nr, k_rec, H),
     }
-    checks = {}
-    worst = 0.0
+    conf_blocks = {
+        "atom<-lig cross (confidence)": (cmodel.conv_layers[9 * (L - 2) + 4].tp, P * na, nl, Hc),
+        "atom<-atom (confidence)": (cmodel.conv_layers[9 * (L - 2) + 3].tp, P * na, k_atom, Hc),
+    }
+    plain = {"fused_tp3": ft.fused_tp3_reference, "factored_tp2": f2.factored_tp_reference,
+             "factored_tp1": f2.factored_tp_reference}
+    wrappers = {"fused_tp3": ft.fused_tp3, "factored_tp2": f2.factored_tp2,
+                "factored_tp1": f1.factored_tp1}
+    checks = {k: {} for k in kernels}
     with torch.inference_mode():
-        for i, (label, (tp, rows, K)) in enumerate(shapes.items()):
-            inp = tp3_inputs(tp, rows, K, H, seed=i, device=dev)
-            got = ft.fused_tp3(tp, *inp)
-            ref = ft.fused_tp3_reference(tp, *inp)
-            torch.cuda.synchronize()
-            err = (got - ref).abs().max().item()
-            scale = max(ref.abs().max().item(), 1.0)
-            ok = bool(torch.isfinite(got).all()) and err <= KERNEL_RTOL * scale
-            f_tot = sum(fan * d3 for _k, _o, fan, d3, _m in tp.live_classes())
-            checks[label] = {"rows": rows, "K": K, "H": H, "F_tot": f_tot,
-                             "W_tot": tp.irreps_out.dim, "max_abs_err": err,
-                             "max_abs_ref": scale, "ok": ok}
-            worst = max(worst, err)
-            _log(f"  {label}: R={rows} K={K} H+1={H + 1} F_tot={f_tot} W_tot={tp.irreps_out.dim} "
-                 f"max_abs_err={err:.3e} (tol {KERNEL_RTOL:.0e} x {scale:.3g}) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise PhaseError(f"fused_tp3 disagrees with its plain version at {label}")
+        for kname in kernels:
+            blocks = dict(score_blocks, **(conf_blocks if kname == "fused_tp3" else {}))
+            for i, (label, (tp, rows, K, Hb)) in enumerate(blocks.items()):
+                inp = tp_inputs(tp, rows, K, Hb, seed=i, device=dev)
+                got = wrappers[kname](tp, *inp)
+                ref = plain[kname](tp, *inp)
+                torch.cuda.synchronize()
+                err, scale, ok = _check(label, got, ref, checks[kname])
+                f_tot = sum(fan * d3 for _k, _o, fan, d3, _m in tp.live_classes())
+                checks[kname][label].update(rows=rows, K=K, H=Hb, F_tot=f_tot,
+                                            W_tot=tp.irreps_out.dim)
+                _log(f"  {kname} {label}: R={rows} K={K} H+1={Hb + 1} F_tot={f_tot} "
+                     f"W_tot={tp.irreps_out.dim} max_abs_err={err:.3e} "
+                     f"(tol {KERNEL_RTOL:.0e} x {scale:.3g}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise PhaseError(f"{kname} disagrees with its plain version at {label}")
+                del inp, got, ref
     report["kernel_checks"] = checks
-    _log(f"[3 kernel vs plain] fused_tp3 | {time.perf_counter() - t0:.1f} s")
+    _log(f"[3 kernel vs plain] {', '.join(kernels)} | {time.perf_counter() - t0:.1f} s")
 
-    # warm-up: a 2-step dock pays the first-call set-up (cuBLAS/cuSOLVER
-    # handles, lazy module loading) outside the timed dock
+    # warm-up: a 2-step dock with ranking pays the first-call set-up
+    # (cuBLAS/cuSOLVER handles, lazy module loading) outside the timed dock
     t0 = time.perf_counter()
     warm = DockingPipeline(cfg, 0, SamplerConfig(inference_steps=2, actual_steps=2), so3, torus,
-                           device=dev)
-    warm.dock_complex(data, num_poses=P, seed=1)
+                           device=dev, **models)
+    warm.dock_complex(data, num_poses=P, seed=1, aa_data=aa)
     torch.cuda.synchronize()
     report["phases"]["warmup_s"] = time.perf_counter() - t0
-    _log(f"[warm-up] 2-step dock | {report['phases']['warmup_s']:.2f} s")
+    _log(f"[warm-up] 2-step dock with ranking | {report['phases']['warmup_s']:.2f} s")
 
-    # 4. dock one complex through the kernels (the main path)
+    # 4. dock one complex through the kernels and rank it (the main path)
     noise = pipe.draw_noise(P, nb, seed=0)
-    expected = expected_tp3_launches(cfg, sampler.num_steps, nb)
+    conf_input = pipe.confidence_input(data, aa)
+    chunk = pipe.confidence_chunk_for(conf_input, P)
+    n_chunks = -(-P // chunk)
+    expected = (expected_tp3_launches(cfg, sampler.num_steps, nb)
+                + n_chunks * confidence_launches(ccfg))
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    ft.counts.reset()
+    for m in kernels.values():
+        m.counts.reset()
     t0 = time.perf_counter()
-    res = pipe.dock_complex(data, num_poses=P, seed=0, noise=noise)
+    res = pipe.dock_complex(data, num_poses=P, seed=0, noise=noise, aa_data=aa)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = ft.counts.as_dict()
+    launches = {k: v for m in kernels.values() for k, v in m.counts.as_dict().items()}
     peak = torch.cuda.max_memory_allocated()
     report["dock"] = {"wall_s": wall, "poses_per_s": P / wall, "max_memory_allocated": peak,
                       "launches": launches, "expected_fused_tp3": expected,
+                      "confidence_chunk": chunk,
                       "complex": {"n_lig": data.n_lig, "n_rec": data.n_rec, "n_bonds": data.n_bonds,
-                                  "bucket": [nl, nr, nb]},
-                      "poses": P, "steps": sampler.num_steps}
-    _log(f"  launches {launches} (expected fused_tp3 = {expected}: "
-         f"{cfg.num_prot_emb_layers} + {sampler.num_steps} steps x per-step blocks)")
+                                  "n_atoms": aa.n_atoms, "bucket": [nl, nr, nb, na]},
+                      "poses": P, "steps": sampler.num_steps,
+                      "confidence": res.confidence.tolist(), "order": res.order.tolist()}
+    _log(f"  launches {launches} (expected fused_tp3 = {expected}: score "
+         f"{expected_tp3_launches(cfg, sampler.num_steps, nb)} + {n_chunks} confidence chunk(s) "
+         f"of {chunk} poses x {confidence_launches(ccfg)})")
     if res.poses.shape != (P, data.n_lig, 3) or not np.isfinite(res.poses).all():
         raise PhaseError(f"dock gave poses {res.poses.shape}, finite={np.isfinite(res.poses).all()}")
-    if launches["fused_tp3"] != expected or launches["fused_tp3_reference"] != 0:
-        raise PhaseError(f"launch counts {launches} != expected {expected} kernel / 0 plain")
-    _log(f"[4 dock] diffdock_l, {P} poses, {sampler.num_steps} steps | {wall:.2f} s | "
-         f"{P / wall:.3f} poses/s | peak {peak / 2**30:.2f} GiB | {card}")
+    if res.confidence.shape != (P,) or not np.isfinite(res.confidence).all():
+        raise PhaseError(f"dock gave confidences {res.confidence}")
+    if sorted(res.order.tolist()) != list(range(P)) or \
+            np.any(np.diff(res.confidence[res.order]) > 0):
+        raise PhaseError(f"order {res.order} does not rank confidences {res.confidence}")
+    plain_runs = {k: v for k, v in launches.items() if "reference" in k and v}
+    if launches["fused_tp3"] != expected or plain_runs:
+        raise PhaseError(f"launch counts {launches} != expected {expected} fused_tp3 / 0 plain")
+    _log(f"[4 dock] diffdock_l + shipped confidence, {P} poses, {sampler.num_steps} steps | "
+         f"{wall:.2f} s | {P / wall:.3f} poses/s | peak {peak / 2**30:.2f} GiB | {card}")
+    _log(f"  confidences {np.round(res.confidence, 4).tolist()} order {res.order.tolist()}")
+
+    # the confidence forward's peak memory per pose, all poses in one chunk,
+    # at two ligand buckets: the measurement behind auto_confidence_chunk
+    t0 = time.perf_counter()
+    final = torch.as_tensor(res.poses - np.asarray(data.original_center)[None, None],
+                            dtype=torch.float32, device=dev)
+    mem = {}
+    for nl_m in (nl, 2 * nl):
+        base = conf_input.base
+        grow = {f: _pad_rows(getattr(base, f), nl_m - nl)
+                for f in ("lig_cat", "lig_mask", "lig_pos", "lig_bond_nbr", "lig_bond_mask",
+                          "lig_bond_attr")}
+        cin = conf_input._replace(base=base._replace(**grow))
+        poses_m = _pad_rows(final.transpose(0, 1), nl_m - data.n_lig).transpose(0, 1)
+        torch.cuda.synchronize()
+        base_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            cmodel(cin, poses_m, 0.0)
+        torch.cuda.synchronize()
+        mem[nl_m] = (torch.cuda.max_memory_allocated() - base_bytes) / P
+    per_edge = (mem[2 * nl] - mem[nl]) / (nl * na)
+    per_node = (mem[nl] - per_edge * nl * na) / na
+    report["confidence_memory"] = {
+        "bytes_per_pose": {str(k): v for k, v in mem.items()}, "n_nodes": na,
+        "bytes_per_edge": per_edge, "bytes_per_node": per_node,
+        "chunk_rule": {"budget_bytes": CONF_BUDGET_BYTES,
+                       "chunk_at_main_shape": auto_confidence_chunk(nl, na, 10 ** 6)},
+    }
+    _log(f"  confidence peak per pose: {', '.join(f'nl={k}: {v / 2**20:.1f} MiB' for k, v in mem.items())}"
+         f" at {na} atoms -> {per_edge:.0f} B per ligand-atom edge + {per_node:.0f} B per atom "
+         f"| chunk rule gives {auto_confidence_chunk(nl, na, 10 ** 6)} poses at this shape "
+         f"| {time.perf_counter() - t0:.1f} s")
 
     # 5. the same dock through the plain versions, same noise
     t0 = time.perf_counter()
-    ref_pipe = DockingPipeline(cfg, 0, sampler, so3, torus, device=dev, reference_kernels=True)
-    ref_res = ref_pipe.dock_complex(data, num_poses=P, seed=0, noise=noise)
+    ref_pipe = DockingPipeline(cfg, 0, sampler, so3, torus, device=dev, reference_kernels=True,
+                               **models)
+    ref_res = ref_pipe.dock_complex(data, num_poses=P, seed=0, noise=noise, aa_data=aa)
     torch.cuda.synchronize()
     ref_wall = time.perf_counter() - t0
     pose_err = float(np.abs(res.poses - ref_res.poses).max())
-    report["dock_plain"] = {"wall_s": ref_wall, "max_abs_pose_diff": pose_err, "tol": POSE_ATOL}
-    _log(f"  max |poses(kernel) - poses(plain)| = {pose_err:.3e} A (tol {POSE_ATOL:.0e})")
+    conf_err = float(np.abs(res.confidence - ref_res.confidence).max())
+    conf_tol = CONF_RTOL * max(float(np.abs(ref_res.confidence).max()), 1.0)
+    # the ranking must agree wherever neighbouring confidences (plain path's
+    # order) differ by more than twice the tolerance
+    rank_ok = all(res.confidence[a] > res.confidence[b]
+                  for a, b in zip(ref_res.order[:-1], ref_res.order[1:])
+                  if ref_res.confidence[a] - ref_res.confidence[b] > 2 * conf_tol)
+    report["dock_plain"] = {"wall_s": ref_wall, "max_abs_pose_diff": pose_err, "pose_tol": POSE_ATOL,
+                            "max_abs_conf_diff": conf_err, "conf_tol": conf_tol,
+                            "order": ref_res.order.tolist(), "ranking_agrees": rank_ok}
+    _log(f"  max |poses(kernel) - poses(plain)| = {pose_err:.3e} A (tol {POSE_ATOL:.0e}); "
+         f"max |conf(kernel) - conf(plain)| = {conf_err:.3e} (tol {conf_tol:.3e}); "
+         f"order {res.order.tolist()} vs {ref_res.order.tolist()}")
     if not pose_err <= POSE_ATOL:
         raise PhaseError("kernel-path and plain-path poses disagree")
+    if not conf_err <= conf_tol:
+        raise PhaseError("kernel-path and plain-path confidences disagree")
+    if not rank_ok:
+        raise PhaseError("kernel-path and plain-path rankings disagree")
     _log(f"[5 dock plain] {ref_wall:.2f} s")
+    del ref_pipe
 
-    # 6. timings at the main path's largest block (receptor receivers of
-    # the cross graph), plus the other shapes
+    # 6. timings at the score model's blocks for every kernel (and the
+    # confidence blocks for gen 3)
     t0 = time.perf_counter()
-    timings = {}
+    work = {"fused_tp3": tp3_work, "factored_tp2": tp2_work, "factored_tp1": tp1_work}
+    timings = {k: {} for k in kernels}
     with torch.inference_mode():
-        for i, (label, (tp, rows, K)) in enumerate(shapes.items()):
-            inp = tp3_inputs(tp, rows, K, H, seed=i, device=dev)
+        blocks_all = dict(score_blocks, **conf_blocks)
+        for i, (label, (tp, rows, K, Hb)) in enumerate(blocks_all.items()):
+            inp = tp_inputs(tp, rows, K, Hb, seed=i, device=dev)
             classes, h_aug, coupled, weights, table = ft.prepare(tp, *inp)
             t3 = _block_diag_t3(tp, classes, inp[4], inp[5])
-            kernel_ms = cuda_ms(lambda: ft.launch(h_aug, coupled, weights, table), args.iters)
-            wrapper_ms = cuda_ms(lambda: ft.fused_tp3(tp, *inp), args.iters)
-            plain_ms = cuda_ms(lambda: ft.fused_tp3_reference(tp, *inp), args.iters)
             library_ms = cuda_ms(
                 lambda: torch.einsum("rhF,hFW->rW", torch.einsum("rkh,rkF->rhF", h_aug, coupled), t3),
                 args.iters,
             )
-            flops, nbytes = tp3_work(tp, rows, K, H)
-            b_ms, b_by = bound_ms(flops, nbytes)
-            timings[label] = {"ms": kernel_ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-                              "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
-                              "flops": flops, "bytes": nbytes}
-            _log(f"  {label}: kernel {kernel_ms:.4f} ms | wrapper {wrapper_ms:.4f} ms | plain "
-                 f"{plain_ms:.4f} ms | library einsum pair {library_ms:.4f} ms | bound {b_ms:.4f} ms "
-                 f"({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) | "
-                 f"{flops / kernel_ms / 1e9:.2f} TFLOP/s")
+            launchers = {"fused_tp3": lambda: ft.launch(h_aug, coupled, weights, table)}
+            if label in score_blocks:
+                op2, op1 = f2.prepare(tp, *inp), f1.prepare(tp, *inp)
+                launchers["factored_tp2"] = lambda: f2.launch(*op2, tp.irreps_out.dim)
+                launchers["factored_tp1"] = lambda: f1.launch(*op1, tp.irreps_out.dim)
+            for kname, launch in launchers.items():
+                kernel_ms = cuda_ms(launch, args.iters)
+                wrapper_ms = cuda_ms(lambda: wrappers[kname](tp, *inp), args.iters)
+                plain_ms = cuda_ms(lambda: plain[kname](tp, *inp), args.iters)
+                flops, nbytes = work[kname](tp, rows, K, Hb)
+                b_ms, b_by = bound_ms(flops, nbytes)
+                timings[kname][label] = {
+                    "ms": kernel_ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+                    "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "flops": flops, "bytes": nbytes}
+                _log(f"  {kname} {label}: kernel {kernel_ms:.4f} ms | wrapper {wrapper_ms:.4f} ms | "
+                     f"plain {plain_ms:.4f} ms | library einsum pair {library_ms:.4f} ms | bound "
+                     f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) | "
+                     f"{flops / kernel_ms / 1e9:.2f} TFLOP/s")
+            del inp, h_aug, coupled, weights, t3, launchers
     report["timings"] = timings
     _log(f"[6 timings] {time.perf_counter() - t0:.1f} s")
 
@@ -314,30 +486,35 @@ def run(args) -> dict:
     # profiler does not fail the run)
     t0 = time.perf_counter()
     try:
-        report["profile"] = profile_dock(warm, data, P)
+        report["profile"] = profile_dock(warm, data, aa, P)
     except Exception as exc:  # noqa: BLE001 - the run goes on without it
         report["profile"] = {"error": repr(exc)}
         _log(f"  profiler unavailable: {exc!r}")
-    _log(f"[7 profile] 2-step dock | {time.perf_counter() - t0:.1f} s")
+    _log(f"[7 profile] 2-step dock with ranking | {time.perf_counter() - t0:.1f} s")
 
-    main = timings["rec<-lig cross (conv)"]
-    report["kernels"] = [{
-        "name": "fused_tp3",
-        "route": "cuda",
-        "source": "diffdock_tpu_torch/csrc/fused_tp3.cu",
-        "replaces": "diffdock_tpu/ops/pallas_tpconv3.py:57",
-        "launches": launches["fused_tp3"],
-        "max_abs_err": worst,
-        "ms": main["ms"],
-        "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"],
-        "library_ms": main["library_ms"],
-    }]
+    sources = {"fused_tp3": "diffdock_tpu/ops/pallas_tpconv3.py:57",
+               "factored_tp2": "diffdock_tpu/ops/pallas_tpconv2.py:125",
+               "factored_tp1": "diffdock_tpu/ops/pallas_tpconv.py:118"}
+    report["kernels"] = []
+    for kname in kernels:
+        main = timings[kname]["rec<-lig cross (conv)"]
+        report["kernels"].append({
+            "name": kname,
+            "route": "cuda",
+            "source": f"diffdock_tpu_torch/csrc/{kname}.cu",
+            "replaces": sources[kname],
+            "launches": launches[kname],
+            "max_abs_err": max(c["max_abs_err"] for c in checks[kname].values()),
+            "ms": main["ms"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+        })
     return report
 
 
-def profile_dock(pipe, data, n_poses: int) -> dict:
+def profile_dock(pipe, data, aa, n_poses: int) -> dict:
     """torch.profiler over one warm dock of ``pipe``: device time by
     kernel and the share of the hand-written kernels; the device's busy
     share is taken against the same dock timed without the profiler (whose
@@ -348,11 +525,13 @@ def profile_dock(pipe, data, n_poses: int) -> dict:
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    pipe.dock_complex(data, num_poses=n_poses, seed=2)
+    pipe.dock_complex(data, num_poses=n_poses, seed=2, aa_data=aa)
     torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pipe.dock_complex(data, num_poses=n_poses, seed=2)
+    # device activity only: host-op tracing would add its own cost to
+    # every eager op and to the event processing afterwards
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pipe.dock_complex(data, num_poses=n_poses, seed=2, aa_data=aa)
         torch.cuda.synchronize()
 
     def dev_us(e):
@@ -371,7 +550,7 @@ def profile_dock(pipe, data, n_poses: int) -> dict:
            "device_busy_share": total / wall_us, "fused_tp3_ms": ours / 1e3,
            "fused_tp3_share_of_device": ours / total if total else None,
            "kernel_launches": launches,
-           "top": [{"name": k[0][:90], "ms": k[1] / 1e3, "count": k[2]} for k in kernels[:8]]}
+           "top": [{"name": k[0][:90], "ms": k[1] / 1e3, "count": k[2]} for k in kernels[:10]]}
     _log(f"  wall {wall_us / 1e3:.1f} ms (unprofiled) | device busy {total / 1e3:.1f} ms "
          f"({100 * out['device_busy_share']:.1f} %) | fused_tp3 {ours / 1e3:.1f} ms "
          f"({100 * (out['fused_tp3_share_of_device'] or 0):.1f} % of device) | {launches} kernel launches")
@@ -380,11 +559,16 @@ def profile_dock(pipe, data, n_poses: int) -> dict:
     return out
 
 
+def _pad_rows(t, n: int):
+    """``t`` with ``n`` zero (False) rows appended along its first axis."""
+    import torch
+
+    return torch.cat([t, t.new_zeros((n,) + tuple(t.shape[1:]))])
+
+
 def _block_diag_t3(tp, classes, out_kernel, out_bias):
     """The (H+1, F_tot, W_tot) block-diagonal weight tensor of the TPU
     kernel, for the library yardstick."""
-    import torch
-
     from diffdock_tpu_torch.ops import fused_tp3 as ft
 
     blocks = ft.class_weights(tp, classes, out_kernel, out_bias)

@@ -198,12 +198,25 @@ int sm_count() {
   return n;
 }
 
+// Shared memory a block may opt in to on this device (227 KB on an H100).
+size_t smem_limit() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+      n = 232448;
+  }
+  return static_cast<size_t>(n);
+}
+
 // Rows per block for these shapes (4 or 1), or 0 if a class is too wide
-// for one block (mul*d3 > kThreads).
-int tile_rows(long long n_rows, int n_classes, int wd_max) {
-  if (wd_max > kThreads) return 0;
+// for one block (mul*d3 > kThreads, or its P chunk exceeds shared memory).
+int tile_rows(long long n_rows, int n_classes, int wd_max, int fd_max) {
+  if (wd_max > kThreads || smem_bytes(1, fd_max) > smem_limit()) return 0;
   const long long blocks4 = (n_rows + 3) / 4 * n_classes;
-  return (4 * wd_max <= kThreads && blocks4 >= 4LL * sm_count()) ? 4 : 1;
+  return (4 * wd_max <= kThreads && smem_bytes(4, fd_max) <= smem_limit() &&
+          blocks4 >= 4LL * sm_count()) ? 4 : 1;
 }
 
 template <int TR>
@@ -228,6 +241,12 @@ cudaError_t launch(const float* h_aug, const float* coupled, const float* weight
 extern "C" {
 
 int fused_tp3_max_classes() { return kMaxClasses; }
+// the widest class a block takes: mul*d3 outputs, fan*d3 coupled columns
+int fused_tp3_max_outputs() { return kThreads; }
+int fused_tp3_max_columns() {
+  return static_cast<int>((smem_limit() / sizeof(float) - kKChunk * kHChunk - 2 * kThreads) /
+                          kHChunk);
+}
 
 // class_table: host array of n_classes rows of 6 int64 values
 // (f_off, fan, d3, mul, out_off, w_off). Returns a cudaError_t.
@@ -253,7 +272,7 @@ int fused_tp3_forward(const float* h_aug, const float* coupled,
   }
   if (n_rows == 0) return cudaSuccess;
   const auto s = static_cast<cudaStream_t>(stream);
-  switch (tile_rows(n_rows, n_classes, wd_max)) {
+  switch (tile_rows(n_rows, n_classes, wd_max, fd_max)) {
     case 4:
       return launch<4>(h_aug, coupled, weights, out, tbl, n_classes, n_rows, K, Ha, F, D,
                        fd_max, s);

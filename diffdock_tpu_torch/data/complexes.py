@@ -2,18 +2,20 @@
 
 One :class:`ComplexData` holds a single protein-ligand complex as
 fixed-shape arrays with validity masks: ligand and receptor nodes, dense
-receiver-major neighbour lists, rotatable bonds. It is built and padded on
-the host with numpy; :func:`to_device` turns it into torch tensors.
+receiver-major neighbour lists, rotatable bonds. :class:`AAComplexData`
+adds the receptor's heavy atoms for the all-atom confidence model. Both
+are built and padded on the host with numpy; :func:`to_device` turns
+either into torch tensors.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from diffdock_tpu_torch.data.featurize import LIG_CATEGORICAL_DIMS
+from diffdock_tpu_torch.data.featurize import LIG_CATEGORICAL_DIMS, REC_ATOM_CATEGORICAL_DIMS
 from diffdock_tpu_torch.geometry.torsion import rotatable_bond_mask
 
 
@@ -58,21 +60,43 @@ class ComplexData(NamedTuple):
         return self.rot_u.shape[0]
 
 
-def to_device(data: ComplexData, device) -> ComplexData:
-    """numpy ComplexData -> torch tensors on ``device`` (indices as int64,
-    masks as bool, coordinates and features as float32)."""
+class AAComplexData(NamedTuple):
+    """All-atom complex: the coarse-grained schema plus receptor heavy atoms
+    (the reference's third node type 'atom'); numpy arrays or torch tensors."""
 
-    def conv(a):
-        a = np.asarray(a)
-        if a.dtype == np.bool_:
-            t = torch.from_numpy(a.copy())
-        elif np.issubdtype(a.dtype, np.integer):
-            t = torch.from_numpy(a.astype(np.int64))
-        else:
-            t = torch.from_numpy(a.astype(np.float32))
-        return t.to(device)
+    base: ComplexData
+    atom_cat: object  # (NA, 4) int (aa, atomic_num, type2, type3)
+    atom_mask: object  # (NA,) bool
+    atom_pos: object  # (NA, 3) f32 (receptor-centered)
+    atom_nbr: object  # (NA, KA) int atom-atom kNN
+    atom_nbr_mask: object  # (NA, KA) bool
+    atom_res: object  # (NA,) int parent residue index
+    res_atom_idx: object  # (NR, KRA) int atoms of each residue
+    res_atom_mask: object  # (NR, KRA) bool
 
-    return ComplexData(*[conv(a) for a in data])
+    @property
+    def n_atoms(self) -> int:
+        return self.atom_cat.shape[0]
+
+
+def to_device(data, device):
+    """numpy ComplexData or AAComplexData -> torch tensors on ``device``
+    (indices as int64, masks as bool, coordinates and features as float32)."""
+    if isinstance(data, AAComplexData):
+        return AAComplexData(to_device(data.base, device),
+                             *[_tensor(a, device) for a in data[1:]])
+    return ComplexData(*[_tensor(a, device) for a in data])
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype == np.bool_:
+        t = torch.from_numpy(a.copy())
+    elif np.issubdtype(a.dtype, np.integer):
+        t = torch.from_numpy(a.astype(np.int64))
+    else:
+        t = torch.from_numpy(a.astype(np.float32))
+    return t.to(device)
 
 
 def _round_up(n: int, m: int) -> int:
@@ -102,9 +126,16 @@ def bucket_sizes(n_lig: int, n_rec: int, n_bonds: int) -> Tuple[int, int, int]:
     )
 
 
-def pad_to(data: ComplexData, nl: int, nr: int, nb: int) -> ComplexData:
+def atom_bucket(n_atoms: int) -> int:
+    """The receptor-atom bucket of the docking pipeline: multiples of 256,
+    at least 256."""
+    return max(_round_up(n_atoms, 256), 256)
+
+
+def pad_to(data: ComplexData, nl: int, nr: int, nb: int, kb: int = 4, kr: int = 0) -> ComplexData:
     """Pad a numpy ComplexData to bucket sizes; the bonded-neighbour width
-    becomes at least 4, as in the JAX package."""
+    becomes at least ``kb`` and the receptor kNN width at least ``kr``, as
+    in the JAX package."""
 
     def pad(a, target_rows, fill=0, cols=None):
         a = np.asarray(a)
@@ -116,7 +147,8 @@ def pad_to(data: ComplexData, nl: int, nr: int, nb: int) -> ComplexData:
     cur_nl, cur_nr, cur_nb = data.lig_cat.shape[0], data.rec_cat.shape[0], data.rot_u.shape[0]
     if not (nl >= cur_nl and nr >= cur_nr and nb >= cur_nb):
         raise ValueError(f"pad_to: bucket ({nl}, {nr}, {nb}) smaller than ({cur_nl}, {cur_nr}, {cur_nb})")
-    kb = max(4, data.lig_bond_nbr.shape[1])
+    kb = max(kb, data.lig_bond_nbr.shape[1])
+    kr = max(kr, data.rec_nbr.shape[1])
     mask_rotate = np.pad(
         np.asarray(data.mask_rotate), [(0, nb - cur_nb), (0, nl - cur_nl)],
         constant_values=False,
@@ -136,8 +168,8 @@ def pad_to(data: ComplexData, nl: int, nr: int, nb: int) -> ComplexData:
         rec_lm=pad(data.rec_lm, nr),
         rec_mask=pad(data.rec_mask, nr, False),
         rec_pos=pad(data.rec_pos, nr),
-        rec_nbr=pad(data.rec_nbr, nr),
-        rec_nbr_mask=pad(data.rec_nbr_mask, nr, False),
+        rec_nbr=pad(data.rec_nbr, nr, cols=kr),
+        rec_nbr_mask=pad(data.rec_nbr_mask, nr, False, cols=kr),
         original_center=np.asarray(data.original_center),
     )
 
@@ -153,6 +185,34 @@ def build_knn_neighbors(pos: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray
     idx = np.argsort(d, axis=1)[:, :k]
     mask = np.isfinite(np.take_along_axis(d, idx, axis=1))
     return idx.astype(np.int32), mask
+
+
+def pad_aa_to(data: AAComplexData, nl: int, nr: int, nb: int, na: int, kb: int = 4,
+              kr: int = 0, ka: Optional[int] = None, ar: Optional[int] = None) -> AAComplexData:
+    """Pad a numpy AAComplexData to bucket sizes. ``kb``/``kr`` normalize the
+    base tree's widths (see :func:`pad_to`); ``ka`` the atom-kNN column
+    count and ``ar`` the atoms-per-residue column count."""
+
+    def pad(a, rows, fill=0, cols=None):
+        a = np.asarray(a)
+        width = [(0, rows - a.shape[0])] + [(0, 0)] * (a.ndim - 1)
+        if cols is not None:
+            width[1] = (0, max(cols, a.shape[1]) - a.shape[1])
+        return np.pad(a, width, constant_values=fill)
+
+    if na < data.n_atoms:
+        raise ValueError(f"pad_aa_to: atom bucket {na} smaller than {data.n_atoms}")
+    return AAComplexData(
+        base=pad_to(data.base, nl, nr, nb, kb=kb, kr=kr),
+        atom_cat=pad(data.atom_cat, na),
+        atom_mask=pad(data.atom_mask, na, False),
+        atom_pos=pad(data.atom_pos, na),
+        atom_nbr=pad(data.atom_nbr, na, cols=ka),
+        atom_nbr_mask=pad(data.atom_nbr_mask, na, False, cols=ka),
+        atom_res=pad(data.atom_res, na),
+        res_atom_idx=pad(data.res_atom_idx, nr, cols=ar),
+        res_atom_mask=pad(data.res_atom_mask, nr, False, cols=ar),
+    )
 
 
 def synthetic_complex(
@@ -213,4 +273,38 @@ def synthetic_complex(
         rec_nbr=rec_nbr,
         rec_nbr_mask=rec_nbr_mask,
         original_center=np.zeros(3, np.float32),
+    )
+
+
+def synthetic_aa_complex(
+    rng: np.random.RandomState,
+    n_lig: int = 12,
+    n_rec: int = 16,
+    n_bonds: int = 3,
+    atoms_per_res: int = 4,
+    lm_dim: int = 0,
+    k_atom: int = 6,
+) -> AAComplexData:
+    """Random all-atom complex: each residue gets a few heavy atoms near its
+    C-alpha; the same draws from ``rng`` as the JAX package's
+    ``synthetic_aa_complex``."""
+    base = synthetic_complex(rng, n_lig=n_lig, n_rec=n_rec, n_bonds=n_bonds, lm_dim=lm_dim)
+    na = n_rec * atoms_per_res
+    atom_res = np.repeat(np.arange(n_rec), atoms_per_res).astype(np.int32)
+    atom_pos = np.asarray(base.rec_pos)[atom_res] + rng.randn(na, 3).astype(np.float32) * 1.5
+    atom_cat = np.stack(
+        [rng.randint(0, d, size=na) for d in REC_ATOM_CATEGORICAL_DIMS], axis=1
+    ).astype(np.int32)
+    atom_nbr, atom_nbr_mask = build_knn_neighbors(atom_pos, k_atom)
+    res_atom_idx = np.arange(na).reshape(n_rec, atoms_per_res).astype(np.int32)
+    return AAComplexData(
+        base=base,
+        atom_cat=atom_cat,
+        atom_mask=np.ones(na, bool),
+        atom_pos=atom_pos,
+        atom_nbr=atom_nbr,
+        atom_nbr_mask=atom_nbr_mask,
+        atom_res=atom_res,
+        res_atom_idx=res_atom_idx,
+        res_atom_mask=np.ones((n_rec, atoms_per_res), bool),
     )

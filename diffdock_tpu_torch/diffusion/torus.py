@@ -10,6 +10,8 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Tuple
 
 import numpy as np
@@ -32,6 +34,18 @@ class TorusConfig:
     mc_seed: int = 0
 
 
+def _wrapped_sums(x: np.ndarray, s2: np.ndarray, wrap_terms: int):
+    """(p, dp/dx) of the wrapped Gaussian for the rows ``s2`` = sigma^2."""
+    p = np.zeros((s2.shape[0], x.shape[0]))
+    grad = np.zeros_like(p)
+    for i in range(-wrap_terms, wrap_terms + 1):
+        xi = x[None, :] + 2 * np.pi * i
+        e = np.exp(-(xi**2) / 2 / s2)
+        p += e
+        grad += xi / s2 * e
+    return p, grad
+
+
 def _generate_tables(cfg: TorusConfig) -> Tuple[np.ndarray, ...]:
     x = 10 ** np.linspace(np.log10(cfg.x_min), 0, cfg.x_n + 1) * np.pi
     sigma = (
@@ -39,14 +53,17 @@ def _generate_tables(cfg: TorusConfig) -> Tuple[np.ndarray, ...]:
                           cfg.sigma_n + 1) * np.pi
     )
 
-    p = np.zeros((sigma.shape[0], x.shape[0]))
-    grad = np.zeros_like(p)
+    # the wrapped sums, elementwise over the (sigma, x) grid: computed in
+    # row blocks on the host's cores (numpy releases the GIL), each element
+    # by the same operations in the same order as in one block
     s2 = sigma[:, None] ** 2
-    for i in range(-cfg.wrap_terms, cfg.wrap_terms + 1):
-        xi = x[None, :] + 2 * np.pi * i
-        e = np.exp(-(xi**2) / 2 / s2)
-        p += e
-        grad += xi / s2 * e
+    n_workers = max(1, min(os.cpu_count() or 1, 16))
+    bounds = np.linspace(0, sigma.shape[0], n_workers + 1).astype(int)
+    with ThreadPoolExecutor(max_workers=n_workers) as pool:
+        parts = list(pool.map(lambda ab: _wrapped_sums(x, s2[ab[0] : ab[1]], cfg.wrap_terms),
+                              zip(bounds[:-1], bounds[1:])))
+    p = np.concatenate([a for a, _ in parts])
+    grad = np.concatenate([g for _, g in parts])
     eps = np.finfo(p.dtype).eps
     score = grad / (p + eps)
 

@@ -81,6 +81,45 @@ class AtomEncoder(nn.Module):
         return emb
 
 
+class OldAtomEncoder(nn.Module):
+    """The v1.0 encoder (reference ``models/layers.py:70-116``): categorical
+    embeddings and a linear map of the scalar features are SUMMED; a
+    language-model embedding, if present, is concatenated afterwards and
+    fused by ``lm_embedding_layer``.
+
+    ``x_tail`` is the whole non-categorical tail of the reference node array
+    in reference order: ``(lm_embedding, sigma_emb)`` for receptors with
+    ESM, ``(sigma_emb,)`` otherwise. The reference slices the scalars as
+    ``x_tail[:scalar_dim]`` and the LM block as ``x_tail[-lm_dim:]``; with
+    ESM the two OVERLAP (the 'scalar' block is the first ``scalar_dim`` LM
+    dims, the 'lm' block is the rest of lm plus sigma). The released
+    weights were trained with that overlap, so it is kept verbatim.
+    """
+
+    def __init__(self, emb_dim: int, categorical_dims: Sequence[int], scalar_dim: int = 0,
+                 lm_dim: int = 0):
+        super().__init__()
+        self.embeddings = nn.ModuleList(nn.Embedding(d, emb_dim) for d in categorical_dims)
+        self.scalar_dim, self.lm_dim = scalar_dim, lm_dim
+        if scalar_dim > 0:
+            self.linear = nn.Linear(scalar_dim, emb_dim)
+        if lm_dim > 0:
+            self.lm_embedding_layer = nn.Linear(emb_dim + lm_dim, emb_dim)
+
+    def forward(self, x_cat: torch.Tensor, x_tail: Optional[torch.Tensor] = None) -> torch.Tensor:
+        emb = 0.0
+        for i, table in enumerate(self.embeddings):
+            emb = emb + table(x_cat[..., i])
+        if self.scalar_dim > 0 or self.lm_dim > 0:
+            if x_tail is None or x_tail.shape[-1] != self.scalar_dim + self.lm_dim:
+                raise ValueError(f"OldAtomEncoder expects {self.scalar_dim + self.lm_dim} tail features")
+        if self.scalar_dim > 0:
+            emb = emb + self.linear(x_tail[..., : self.scalar_dim])
+        if self.lm_dim > 0:
+            emb = self.lm_embedding_layer(torch.cat([emb, x_tail[..., -self.lm_dim :]], dim=-1))
+        return emb
+
+
 class MLP2(nn.Module):
     """Dense-ReLU-Dense, the reference's edge-embedding Sequential (dropout
     is the identity at inference)."""

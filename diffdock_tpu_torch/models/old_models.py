@@ -1,0 +1,434 @@
+"""The v1.0 (ICLR'23) architecture family in confidence mode (port of
+``diffdock_tpu/models/old_models.py``).
+
+``OldCGScoreModel`` (coarse-grained) and ``OldAAScoreModel`` (all-atom, the
+architecture of the shipped default confidence model) score a batch of
+final poses: ``lig_pos`` (P, NL, 3) -> (P, num_confidence_outputs). Where
+the JAX model runs one pose and is ``vmap``ped, every block here carries a
+leading pose axis; pose-independent blocks (the receptor and atom graphs
+before the first layer has mixed in ligand messages) keep a batch of 1 and
+are computed once.
+
+Differences from the 'new' family, kept exactly as the JAX package has
+them:
+
+* no protein-embedding layers and no ``rec_sigma_embedding``: the sigma
+  embedding enters through the node encoders and every edge feature;
+* per-edge-type conv stacks with independent tensor products and batch
+  norms (``lig/rec/lig_to_rec/rec_to_lig`` in CG, a flat 9-per-layer list
+  ``conv_{9l+k}`` in AA);
+* ``OldAtomEncoder``'s additive scalar fusion with its ESM slicing overlap;
+* reversed cross edges reuse the UNFLIPPED spherical harmonics;
+* the CG lig->rec edge features are ordered (base, sender, receiver),
+  every other conv's (base, receiver, sender);
+* the old irrep ladder always ends in ``ns x0o`` (no reduce_pseudoscalars);
+* the AA ligand<-atom edges embed distances with the CROSS distance
+  expansion despite their 5 A cutoff.
+
+Only confidence mode is ported; the old family's score mode, receptor
+crops (``crop_beyond``/``rec_keep``) and the affinity column raise
+``ConfigError``. Submodule names follow the flax tree (see
+``utils/convert.py``).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from diffdock_tpu_torch.data.complexes import AAComplexData, ComplexData
+from diffdock_tpu_torch.diffusion.time_embed import get_timestep_embedding
+from diffdock_tpu_torch.models.config import ConfigError, ScoreModelConfig
+from diffdock_tpu_torch.models.encoders import GaussianSmearing, MLP2, OldAtomEncoder
+from diffdock_tpu_torch.models.score_model import CGScoreModel, ConfidenceMLP, _pairwise
+from diffdock_tpu_torch.models.tpconv import NeighborBlock, TPConvLayer, _residual_pad, gather_nodes
+from diffdock_tpu_torch.ops.irreps import Irreps, get_irrep_seq
+from diffdock_tpu_torch.ops.spherical import spherical_harmonics
+
+# reference rec_atom_feature_dims (copied from diffdock_tpu/models/aa_model.py)
+AA_ATOM_CATEGORICAL_DIMS = (38, 119, 23, 38)
+
+
+def _check_supported(cfg: ScoreModelConfig) -> None:
+    unsupported = {
+        "old_architecture=False": not cfg.old_architecture,
+        "confidence_mode=False (the old family's score mode)": not cfg.confidence_mode,
+        "odd_parity": cfg.odd_parity,
+        "use_old_atom_encoder=False": not cfg.use_old_atom_encoder,
+        "affinity_prediction": cfg.affinity_prediction,
+        "crop_beyond": cfg.crop_beyond is not None,
+        "depthwise_convolution": cfg.depthwise_convolution,
+        "factored_tp=False": not cfg.factored_tp,
+        f"compute_dtype={cfg.compute_dtype}": cfg.compute_dtype != "float32",
+    }
+    bad = [name for name, on in unsupported.items() if on]
+    if bad:
+        raise ConfigError(f"not ported yet: {', '.join(bad)}")
+
+
+class OldCGScoreModel(nn.Module):
+    """Reference ``CGOldModel`` (coarse-grained v1.0), confidence mode.
+    ``reference_kernels=True`` routes every merged TP contraction through
+    the kernel's plain version."""
+
+    # geometry and edge helpers shared with the new family: they read only
+    # cfg, lig_edge_embedding, lig_distance_expansion and _with_scalars
+    _edge_weight = CGScoreModel._edge_weight
+    _with_scalars = staticmethod(CGScoreModel._with_scalars)
+    _ligand_graph = CGScoreModel._ligand_graph
+    _lig_blocks_from_graph = CGScoreModel._lig_blocks_from_graph
+    _sigma_embedding = CGScoreModel._sigma_embedding
+    reset_parameters = CGScoreModel.reset_parameters
+
+    def __init__(self, cfg: ScoreModelConfig, reference_kernels: bool = False):
+        super().__init__()
+        _check_supported(cfg)
+        self.cfg = cfg
+        self._setup_old_base(reference_kernels)
+        sig = cfg.sigma_embed_dim
+        self.cross_edge_embedding = MLP2(sig + cfg.cross_distance_embed_dim, cfg.ns)
+        # the last layer updates only the ligand: it has no receptor-receiver
+        # convs (flax creates no parameters for them either)
+        L = cfg.num_conv_layers
+        for name, n in (("lig_conv", L), ("rec_conv", L - 1), ("lig_to_rec_conv", L - 1),
+                        ("rec_to_lig_conv", L)):
+            self.add_module(f"{name}_layers", nn.ModuleList(self._old_conv(i) for i in range(n)))
+        self._build_old_confidence_mlp()
+
+    def _ladder(self, i: int) -> str:
+        return self.irrep_seq[min(i, len(self.irrep_seq) - 1)]
+
+    def _old_conv(self, i: int) -> TPConvLayer:
+        cfg = self.cfg
+        return TPConvLayer(self._ladder(i), self.sh_irreps, self._ladder(i + 1),
+                           n_edge_features=3 * cfg.ns, residual=False, batch_norm=cfg.batch_norm,
+                           hidden_features=3 * cfg.ns, tp_weights_layers=2,
+                           reference_kernels=self.reference_kernels)
+
+    def _setup_old_base(self, reference_kernels: bool) -> None:
+        cfg = self.cfg
+        ns, sig, dist = cfg.ns, cfg.sigma_embed_dim, cfg.distance_embed_dim
+        self.reference_kernels = reference_kernels
+        # the old ladder has no reduce_pseudoscalars branch
+        self.irrep_seq = get_irrep_seq(ns, cfg.nv, cfg.use_second_order_repr, False)
+        self.sh_irreps = str(Irreps.spherical_harmonics(cfg.sh_lmax))
+        self.timestep_emb = get_timestep_embedding(cfg.embedding_type, sig, cfg.embedding_scale)
+        self.lig_node_embedding = OldAtomEncoder(ns, cfg.lig_node_categorical_dims, scalar_dim=sig)
+        self.rec_node_embedding = OldAtomEncoder(ns, cfg.rec_node_categorical_dims, scalar_dim=sig,
+                                                 lm_dim=cfg.lm_embedding_dim)
+        self.lig_edge_embedding = MLP2(cfg.in_lig_edge_features + sig + dist, ns)
+        self.rec_edge_embedding = MLP2(sig + dist, ns)
+        self.lig_distance_expansion = GaussianSmearing(0.0, cfg.lig_max_radius, dist)
+        self.rec_distance_expansion = GaussianSmearing(0.0, cfg.rec_max_radius, dist)
+        self.cross_distance_expansion = GaussianSmearing(
+            0.0, cfg.cross_max_distance, cfg.cross_distance_embed_dim
+        )
+
+    def _build_old_confidence_mlp(self) -> None:
+        # the pooled features: the first ns scalars, plus the final ns x0o
+        # block when the ladder is deep enough (old_aa_model.py:284-295)
+        cfg = self.cfg
+        in_dim = 2 * cfg.ns if cfg.num_conv_layers >= 3 else cfg.ns
+        self.confidence_predictor = ConfidenceMLP(in_dim, cfg.ns, cfg.num_confidence_outputs,
+                                                  no_batchnorm=cfg.confidence_no_batchnorm)
+
+    # ------------------------------------------------------------------
+    def _embed_nodes(self, data: ComplexData, sigma_emb: torch.Tensor):
+        """Node encoders with the sigma embedding in the scalar tail:
+        (1, NL, ns), (1, NR, ns)."""
+        nl, nr = data.lig_cat.shape[0], data.rec_cat.shape[0]
+        lig_tail = sigma_emb.expand(nl, sigma_emb.shape[-1])
+        rec_tail = sigma_emb.expand(nr, sigma_emb.shape[-1])
+        if self.cfg.lm_embedding_dim > 0:
+            rec_tail = torch.cat([data.rec_lm, rec_tail], dim=-1)
+        lig_attr = self.lig_node_embedding(data.lig_cat, lig_tail)
+        rec_attr = self.rec_node_embedding(data.rec_cat, rec_tail)
+        return lig_attr[None], rec_attr[None]
+
+    def _rec_graph(self, data: ComplexData, sigma_emb: torch.Tensor):
+        """Receptor kNN edges, edge features ordered (sigma, distance)."""
+        vec = data.rec_pos[data.rec_nbr] - data.rec_pos[:, None, :]
+        dist = torch.linalg.norm(vec, dim=-1)
+        raw = torch.cat([sigma_emb.expand(dist.shape + sigma_emb.shape[-1:]),
+                         self.rec_distance_expansion(dist)], dim=-1)
+        return (self.rec_edge_embedding(raw), spherical_harmonics(vec, self.cfg.sh_lmax),
+                self._edge_weight(dist, self.cfg.rec_max_radius))
+
+    def _cross_graph(self, other_pos, other_mask, lig_pos, sigma_emb, tr_sigma, embedding,
+                     expansion, cutoff=None):
+        """Dense ligand x other block, (P, NL, NX, ...); edge features
+        ordered (sigma, distance). The reversed direction reuses the
+        UNFLIPPED harmonics."""
+        cfg = self.cfg
+        if cutoff is None:
+            cutoff = tr_sigma * 3.0 + 20.0 if cfg.dynamic_max_cross else cfg.cross_max_distance
+        vec, dist = _pairwise(other_pos, lig_pos)  # (P, NL, NX, ...)
+        mask = (dist <= cutoff) & other_mask[None, :]
+        raw = torch.cat([sigma_emb.expand(dist.shape + sigma_emb.shape[-1:]), expansion(dist)],
+                        dim=-1)
+        sh = spherical_harmonics(vec, cfg.sh_lmax)
+        return mask, embedding(raw), sh, sh.transpose(1, 2), self._edge_weight(dist, cutoff)
+
+    @staticmethod
+    def _xattr(ns, recv_attr, send_attr, base, send_idx, swap=False):
+        """(base, receiver, sender) scalar concatenation; ``swap`` flips to
+        (base, sender, receiver), the CG lig->rec quirk. ``recv_attr``
+        (B, R, F), ``send_idx`` (B, R, K); B may be 1 and broadcasts."""
+        send = gather_nodes(send_attr[..., :ns], send_idx)  # (B, R, K, ns)
+        lead = torch.broadcast_shapes(send.shape[:-1], base.shape[:-1],
+                                      recv_attr.shape[:-1] + (1,))
+        recv = recv_attr[:, :, None, :ns].expand(lead + (ns,))
+        send = send.expand(lead + (ns,))
+        parts = [base.expand(lead + base.shape[-1:])] + ([send, recv] if swap else [recv, send])
+        return torch.cat(parts, dim=-1)
+
+    def _old_confidence_head(self, data: ComplexData, lig_attr: torch.Tensor) -> torch.Tensor:
+        """Scalar channels (the first ns, plus the final ns x0o block when
+        deep enough) mean-pooled over real ligand atoms -> (P, outputs)."""
+        ns = self.cfg.ns
+        if self.cfg.num_conv_layers >= 3:
+            scalar = torch.cat([lig_attr[..., :ns], lig_attr[..., -ns:]], dim=-1)
+        else:
+            scalar = lig_attr[..., :ns]
+        w = data.lig_mask[:, None].to(scalar.dtype)
+        pooled = (scalar * w).sum(-2) / torch.clamp(w.sum(), min=1.0)
+        return self.confidence_predictor(pooled)
+
+    def _time(self, lig_pos: torch.Tensor, t):
+        t = torch.as_tensor(t, dtype=torch.float32, device=lig_pos.device)
+        # confidence mode: every sigma is t itself
+        return t, self._sigma_embedding(t)
+
+    # ------------------------------------------------------------------
+    def forward(self, data: ComplexData, lig_pos: torch.Tensor, t=0.0) -> torch.Tensor:
+        """Confidence outputs (P, num_confidence_outputs) for the poses
+        ``lig_pos`` (P, NL, 3) at time ``t`` (the pipeline passes 0)."""
+        cfg = self.cfg
+        ns = cfg.ns
+        P, nl = lig_pos.shape[:2]
+        nr = data.rec_pos.shape[0]
+        dev = lig_pos.device
+        tr_sigma, sigma_emb = self._time(lig_pos, t)
+
+        lig_attr, rec_attr = self._embed_nodes(data, sigma_emb)
+        lig_graph = self._ligand_graph(data, lig_pos, sigma_emb)
+        rec_edge_attr, rec_edge_sh, rec_edge_w = self._rec_graph(data, sigma_emb)
+        cmask, cross_attr, cross_sh, rev_cross_sh, cross_w = self._cross_graph(
+            data.rec_pos, data.rec_mask, lig_pos, sigma_emb, tr_sigma,
+            self.cross_edge_embedding, self.cross_distance_expansion,
+        )
+        cmask = cmask & data.lig_mask[:, None]
+        rev_cross_w = None if cross_w is None else cross_w.transpose(1, 2)
+        rec_idx_all = torch.arange(nr, device=dev).expand(P, nl, nr)
+        lig_idx_all = torch.arange(nl, device=dev).expand(P, nr, nl)
+        rec_nbr = data.rec_nbr[None]
+
+        L = cfg.num_conv_layers
+        for l in range(L):
+            bond_block, radius_block = self._lig_blocks_from_graph(data, lig_graph, lig_attr)
+            lig_intra = self.lig_conv_layers[l](None, [bond_block, radius_block])
+            r2l_block = NeighborBlock(
+                sender_attr=rec_attr, nbr_idx=rec_idx_all, nbr_mask=cmask,
+                edge_attr=self._xattr(ns, lig_attr, rec_attr, cross_attr, rec_idx_all),
+                edge_sh=cross_sh, edge_weight=cross_w,
+            )
+            lig_inter = self.rec_to_lig_conv_layers[l](None, [r2l_block])
+            if l < L - 1:
+                rec_rec_block = NeighborBlock(
+                    sender_attr=rec_attr, nbr_idx=rec_nbr, nbr_mask=data.rec_nbr_mask[None],
+                    edge_attr=self._xattr(ns, rec_attr, rec_attr, rec_edge_attr[None], rec_nbr),
+                    edge_sh=rec_edge_sh[None],
+                    edge_weight=None if rec_edge_w is None else rec_edge_w[None],
+                )
+                rec_intra = self.rec_conv_layers[l](None, [rec_rec_block])
+                # lig->rec: edge features (base, SENDER lig, RECEIVER rec)
+                l2r_block = NeighborBlock(
+                    sender_attr=lig_attr, nbr_idx=lig_idx_all, nbr_mask=cmask.transpose(1, 2),
+                    edge_attr=self._xattr(ns, rec_attr, lig_attr, cross_attr.transpose(1, 2),
+                                          lig_idx_all, swap=True),
+                    edge_sh=rev_cross_sh, edge_weight=rev_cross_w,
+                )
+                rl = self.lig_to_rec_conv_layers[l](None, [l2r_block])
+            lig_attr = _residual_pad(lig_intra + lig_inter, lig_attr)
+            if l < L - 1:
+                rec_attr = _residual_pad(rec_intra + rl, rec_attr)
+        return self._old_confidence_head(data, lig_attr)
+
+
+class OldAAScoreModel(OldCGScoreModel):
+    """Reference ``AAOldModel``, the architecture of the shipped default
+    confidence model, in confidence mode. Conv layers live in one flat list
+    ``conv_layers`` indexed ``9l + k`` (flax ``conv_{9l+k}``), k in:
+
+      0 lig<-lig  1 lig<-rec  2 lig<-atom
+      3 atom<-atom  4 atom<-lig  5 atom<-rec
+      6 rec<-rec  7 rec<-lig  8 rec<-atom
+    """
+
+    def __init__(self, cfg: ScoreModelConfig, reference_kernels: bool = False):
+        nn.Module.__init__(self)
+        _check_supported(cfg)
+        if not cfg.all_atoms:
+            raise ConfigError("OldAAScoreModel needs all_atoms=True")
+        self.cfg = cfg
+        self._setup_old_base(reference_kernels)
+        ns, sig, dist = cfg.ns, cfg.sigma_embed_dim, cfg.distance_embed_dim
+        cross = cfg.cross_distance_embed_dim
+        self.atom_node_embedding = OldAtomEncoder(ns, AA_ATOM_CATEGORICAL_DIMS, scalar_dim=sig)
+        self.atom_edge_embedding = MLP2(sig + dist, ns)
+        self.lr_edge_embedding = MLP2(sig + cross, ns)
+        self.ar_edge_embedding = MLP2(sig + dist, ns)
+        self.la_edge_embedding = MLP2(sig + cross, ns)
+        # the last layer has only its ligand-receiver convs (k < 3): the
+        # list ends at 9 (L - 1) + 3, as flax's parameter tree does
+        L = cfg.num_conv_layers
+        self.conv_layers = nn.ModuleList(
+            self._old_conv(l) for l in range(L) for _k in range(9 if l < L - 1 else 3)
+        )
+        self._build_old_confidence_mlp()
+
+    def forward(self, data: AAComplexData, lig_pos: torch.Tensor, t=0.0) -> torch.Tensor:
+        """Confidence outputs (P, num_confidence_outputs) for the poses
+        ``lig_pos`` (P, NL, 3) at time ``t`` (the pipeline passes 0)."""
+        cfg = self.cfg
+        ns = cfg.ns
+        base = data.base
+        P, nl = lig_pos.shape[:2]
+        nr, na = base.rec_pos.shape[0], data.atom_pos.shape[0]
+        dev = lig_pos.device
+        tr_sigma, sigma_emb = self._time(lig_pos, t)
+
+        lig_attr, rec_attr = self._embed_nodes(base, sigma_emb)
+        atom_attr = self.atom_node_embedding(
+            data.atom_cat, sigma_emb.expand(na, sigma_emb.shape[-1]))[None]
+
+        lig_graph = self._ligand_graph(base, lig_pos, sigma_emb)
+        rec_edge_attr, rec_edge_sh, rec_edge_w = self._rec_graph(base, sigma_emb)
+        # atom-atom kNN: ligand-scale distance expansion
+        avec = data.atom_pos[data.atom_nbr] - data.atom_pos[:, None, :]
+        adist = torch.linalg.norm(avec, dim=-1)
+        atom_edge_attr = self.atom_edge_embedding(torch.cat(
+            [sigma_emb.expand(adist.shape + sigma_emb.shape[-1:]),
+             self.lig_distance_expansion(adist)], dim=-1))
+        atom_edge_sh = spherical_harmonics(avec, cfg.sh_lmax)
+        atom_edge_w = self._edge_weight(adist, cfg.lig_max_radius)
+
+        # lig <-> rec (dynamic cutoff)
+        cmask, lr_attr, lr_sh, rl_sh, lr_w = self._cross_graph(
+            base.rec_pos, base.rec_mask, lig_pos, sigma_emb, tr_sigma,
+            self.lr_edge_embedding, self.cross_distance_expansion,
+        )
+        cmask = cmask & base.lig_mask[:, None]
+        rl_w = None if lr_w is None else lr_w.transpose(1, 2)
+        # lig <-> atom: 5 A cutoff, CROSS distance expansion
+        lamask, la_attr, la_sh, al_sh, la_w = self._cross_graph(
+            data.atom_pos, data.atom_mask, lig_pos, sigma_emb, tr_sigma,
+            self.la_edge_embedding, self.cross_distance_expansion, cutoff=cfg.lig_max_radius,
+        )
+        lamask = lamask & base.lig_mask[:, None]
+        al_w = None if la_w is None else la_w.transpose(1, 2)
+
+        # atom <-> parent residue (weight 1)
+        arvec = base.rec_pos[data.atom_res][:, None, :] - data.atom_pos[:, None, :]
+        ardist = torch.linalg.norm(arvec, dim=-1)
+        ar_attr = self.ar_edge_embedding(torch.cat(
+            [sigma_emb.expand(ardist.shape + sigma_emb.shape[-1:]),
+             self.rec_distance_expansion(ardist)], dim=-1))  # (NA, 1, ns)
+        ar_sh = spherical_harmonics(arvec, cfg.sh_lmax)
+        # rec <- member atoms reuses the unflipped atom->rec direction
+        ra_sh = spherical_harmonics(
+            base.rec_pos[:, None, :] - data.atom_pos[data.res_atom_idx], cfg.sh_lmax)
+        ra_attr = ar_attr[data.res_atom_idx][..., 0, :]  # (NR, KRA, ns)
+
+        rec_idx_all = torch.arange(nr, device=dev).expand(P, nl, nr)
+        atom_idx_all = torch.arange(na, device=dev).expand(P, nl, na)
+        lig_idx_r = torch.arange(nl, device=dev).expand(P, nr, nl)
+        lig_idx_a = torch.arange(nl, device=dev).expand(P, na, nl)
+        atom_nbr, rec_nbr = data.atom_nbr[None], base.rec_nbr[None]
+        atom_res, res_atom_idx = data.atom_res[None, :, None], data.res_atom_idx[None]
+
+        L = cfg.num_conv_layers
+        for l in range(L):
+            conv = lambda k: self.conv_layers[9 * l + k]  # noqa: E731
+            bond_block, radius_block = self._lig_blocks_from_graph(base, lig_graph, lig_attr)
+            lig_update = conv(0)(None, [bond_block, radius_block])
+            lr_block = NeighborBlock(
+                sender_attr=rec_attr, nbr_idx=rec_idx_all, nbr_mask=cmask,
+                edge_attr=self._xattr(ns, lig_attr, rec_attr, lr_attr, rec_idx_all),
+                edge_sh=lr_sh, edge_weight=lr_w,
+            )
+            lr_update = conv(1)(None, [lr_block])
+            la_block = NeighborBlock(
+                sender_attr=atom_attr, nbr_idx=atom_idx_all, nbr_mask=lamask,
+                edge_attr=self._xattr(ns, lig_attr, atom_attr, la_attr, atom_idx_all),
+                edge_sh=la_sh, edge_weight=la_w,
+            )
+            la_update = conv(2)(None, [la_block])
+
+            if l < L - 1:
+                atom_block = NeighborBlock(
+                    sender_attr=atom_attr, nbr_idx=atom_nbr, nbr_mask=data.atom_nbr_mask[None],
+                    edge_attr=self._xattr(ns, atom_attr, atom_attr, atom_edge_attr[None], atom_nbr),
+                    edge_sh=atom_edge_sh[None],
+                    edge_weight=None if atom_edge_w is None else atom_edge_w[None],
+                )
+                atom_update = conv(3)(None, [atom_block])
+                al_block = NeighborBlock(
+                    sender_attr=lig_attr, nbr_idx=lig_idx_a, nbr_mask=lamask.transpose(1, 2),
+                    edge_attr=self._xattr(ns, atom_attr, lig_attr, la_attr.transpose(1, 2),
+                                          lig_idx_a),
+                    edge_sh=al_sh, edge_weight=al_w,
+                )
+                al_update = conv(4)(None, [al_block])
+                ar_block = NeighborBlock(
+                    sender_attr=rec_attr, nbr_idx=atom_res, nbr_mask=data.atom_mask[None, :, None],
+                    edge_attr=self._xattr(ns, atom_attr, rec_attr, ar_attr[None], atom_res),
+                    edge_sh=ar_sh[None],
+                )
+                ar_update = conv(5)(None, [ar_block])
+                rec_block = NeighborBlock(
+                    sender_attr=rec_attr, nbr_idx=rec_nbr, nbr_mask=base.rec_nbr_mask[None],
+                    edge_attr=self._xattr(ns, rec_attr, rec_attr, rec_edge_attr[None], rec_nbr),
+                    edge_sh=rec_edge_sh[None],
+                    edge_weight=None if rec_edge_w is None else rec_edge_w[None],
+                )
+                rec_update = conv(6)(None, [rec_block])
+                rl_block = NeighborBlock(
+                    sender_attr=lig_attr, nbr_idx=lig_idx_r, nbr_mask=cmask.transpose(1, 2),
+                    edge_attr=self._xattr(ns, rec_attr, lig_attr, lr_attr.transpose(1, 2),
+                                          lig_idx_r),
+                    edge_sh=rl_sh, edge_weight=rl_w,
+                )
+                rl_update = conv(7)(None, [rl_block])
+                ra_block = NeighborBlock(
+                    sender_attr=atom_attr, nbr_idx=res_atom_idx,
+                    nbr_mask=data.res_atom_mask[None],
+                    edge_attr=self._xattr(ns, rec_attr, atom_attr, ra_attr[None], res_atom_idx),
+                    edge_sh=ra_sh[None],
+                )
+                ra_update = conv(8)(None, [ra_block])
+
+            lig_attr = _residual_pad(lig_update + la_update + lr_update, lig_attr)
+            if l < L - 1:
+                atom_attr = _residual_pad(atom_update + al_update + ar_update, atom_attr)
+                rec_attr = _residual_pad(rec_update + ra_update + rl_update, rec_attr)
+        return self._old_confidence_head(base, lig_attr)
+
+
+def confidence_launches(cfg: ScoreModelConfig) -> int:
+    """Merged TP contractions of one confidence forward (one pose chunk):
+    per layer the ligand receivers' blocks (bonded + radius, and the cross
+    blocks), and before the last layer the receptor (and atom) receivers'
+    blocks."""
+    L = cfg.num_conv_layers
+    if cfg.all_atoms:
+        return 4 * L + 6 * (L - 1)
+    return 3 * L + 2 * (L - 1)
+
+
+def build_confidence_model(cfg: ScoreModelConfig, reference_kernels: bool = False) -> nn.Module:
+    """The confidence model a config asks for (the old family only)."""
+    if not cfg.old_architecture:
+        raise ConfigError("not ported yet: confidence models of the new architectures")
+    cls = OldAAScoreModel if cfg.all_atoms else OldCGScoreModel
+    return cls(cfg, reference_kernels=reference_kernels)

@@ -2,7 +2,9 @@
 
 ``CGScoreModel`` — a heterogeneous equivariant GNN over ligand atoms and
 receptor residues with the translation/rotation head and the torsion head.
-The confidence head and ``predict_affinity`` are not ported yet.
+Its confidence head and ``predict_affinity`` are not ported yet;
+:class:`ConfidenceMLP` serves the old family's confidence models
+(``models/old_models.py``).
 
 Where the JAX model runs one pose and is ``vmap``ped, this one takes a
 batch of poses: ``lig_pos`` is (P, NL, 3) and the outputs are (P, 3),
@@ -62,6 +64,43 @@ class ScoreOutput(NamedTuple):
     tr: torch.Tensor  # (P, 3)
     rot: torch.Tensor  # (P, 3)
     tor: torch.Tensor  # (P, B)
+
+
+class ScalarBatchNorm(nn.Module):
+    """Eval-mode batch norm over the last axis with flax ``nn.BatchNorm``'s
+    epsilon: always the running statistics (this port runs inference)."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.register_buffer("running_mean", torch.zeros(dim))
+        self.register_buffer("running_var", torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        inv = torch.rsqrt(self.running_var + self.eps)
+        return (x - self.running_mean) * inv * self.weight + self.bias
+
+
+class ConfidenceMLP(nn.Module):
+    """Dense-BN-ReLU x2 + Dense (reference ``cg_model.py:198-208``), at
+    inference: batch norm on its running statistics, dropout the identity.
+    Flax names: ``Dense_{i}`` -> ``layers.{i}``, ``BatchNorm_{i}`` ->
+    ``norms.{i}``."""
+
+    def __init__(self, in_dim: int, ns: int, out_dim: int, no_batchnorm: bool = False):
+        super().__init__()
+        self.layers = nn.ModuleList([nn.Linear(in_dim, ns), nn.Linear(ns, ns), nn.Linear(ns, out_dim)])
+        self.norms = None if no_batchnorm else nn.ModuleList([ScalarBatchNorm(ns), ScalarBatchNorm(ns)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(2):
+            x = self.layers[i](x)
+            if self.norms is not None:
+                x = self.norms[i](x)
+            x = torch.relu(x)
+        return self.layers[2](x)
 
 
 def _pairwise(sender_pos: torch.Tensor, receiver_pos: torch.Tensor):
@@ -190,7 +229,7 @@ class CGScoreModel(nn.Module):
             elif isinstance(m, FCBlock):
                 m.out_kernel.normal_(0.0, 1.0 / math.sqrt(m.out_kernel.shape[0]), generator=generator)
                 m.out_bias.zero_()
-            elif isinstance(m, IrrepsBatchNorm):
+            elif isinstance(m, (IrrepsBatchNorm, ScalarBatchNorm)):
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
                 m.weight.fill_(1.0)

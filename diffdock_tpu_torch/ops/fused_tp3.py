@@ -139,10 +139,13 @@ class _Kernel:
             ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
-        lib.fused_tp3_max_classes.argtypes = []
-        lib.fused_tp3_max_classes.restype = ctypes.c_int
+        for name in ("fused_tp3_max_classes", "fused_tp3_max_outputs", "fused_tp3_max_columns"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
         self.forward = fn
         self.max_classes = lib.fused_tp3_max_classes()
+        self.max_outputs = lib.fused_tp3_max_outputs()
+        self.max_columns = lib.fused_tp3_max_columns()
 
 
 _kernel = None
@@ -189,6 +192,13 @@ def launch(h_aug: torch.Tensor, coupled: torch.Tensor, weights: torch.Tensor,
     kern = _get_kernel()
     if not 1 <= n_classes <= kern.max_classes:
         raise ValueError(f"fused_tp3: {n_classes} classes, kernel takes 1..{kern.max_classes}")
+    fd, wd = table[:, 1] * table[:, 2], table[:, 3] * table[:, 2]
+    if wd.max() > kern.max_outputs:
+        raise ValueError(f"fused_tp3: a class has mul*d3 = {wd.max()} outputs, "
+                         f"the kernel takes at most {kern.max_outputs}")
+    if fd.max() > kern.max_columns:
+        raise ValueError(f"fused_tp3: a class has fan*d3 = {fd.max()} coupled columns, "
+                         f"the kernel takes at most {kern.max_columns} on this device")
     f_tot = int((table[:, 1] * table[:, 2]).sum())
     w_tot = int((table[:, 3] * table[:, 2]).sum())
     w_len = int((H1 * table[:, 1] * table[:, 3]).sum())

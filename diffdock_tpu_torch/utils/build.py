@@ -21,8 +21,9 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Mapping, Sequence
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -80,6 +81,14 @@ def build(name: str, sources: Sequence[str], verbose: bool = True) -> Path:
     if verbose:
         print(f"[build] {out.name}: nvcc {dt:.1f} s", flush=True)
     return out
+
+
+def build_all(libraries: Mapping[str, Sequence[str]]) -> Dict[str, Path]:
+    """Build several libraries at once, one ``nvcc`` each, all started
+    together; returns each library's path (raises the first failure)."""
+    with ThreadPoolExecutor(max_workers=max(len(libraries), 1)) as pool:
+        futures = {name: pool.submit(build, name, srcs) for name, srcs in libraries.items()}
+        return {name: f.result() for name, f in futures.items()}
 
 
 def load(name: str, sources: Sequence[str]) -> ctypes.CDLL:

@@ -7,10 +7,13 @@ The port's module tree mirrors the flax one, so conversion is a name map:
 * ``out_kernel`` / ``out_bias`` of an FCBlock and ``bn/{weight,bias}``
   keep their names and layout;
 * ``batch_stats/<path>/bn/{mean,var}`` -> ``bn.running_{mean,var}``;
+* a flax ``BatchNorm``'s ``scale`` -> ``weight``;
 * list modules: ``rec_emb_{i}`` -> ``rec_emb_layers.{i}``, ``lig_emb_{i}``
-  -> ``lig_emb_layers.{i}``, ``conv_{i}`` -> ``conv_layers.{i}``;
-  inside a module ``Dense_{i}`` -> ``layers.{i}`` and ``cat_{i}`` ->
-  ``embeddings.{i}``.
+  -> ``lig_emb_layers.{i}``, ``conv_{i}`` -> ``conv_layers.{i}``, and the
+  old family's ``lig_conv_{i}``, ``rec_conv_{i}``, ``lig_to_rec_conv_{i}``,
+  ``rec_to_lig_conv_{i}`` -> ``<name>_layers.{i}``; inside a module
+  ``Dense_{i}`` -> ``layers.{i}``, ``BatchNorm_{i}`` -> ``norms.{i}`` and
+  ``cat_{i}`` -> ``embeddings.{i}``.
 
 Loading the msgpack checkpoints of the JAX package's trainer waits for a
 later slice; this takes the tree as nested dicts of numpy arrays (what
@@ -27,7 +30,9 @@ import torch
 
 from diffdock_tpu_torch.models.config import ScoreModelConfig
 
-_LIST_MODULES = {"rec_emb": "rec_emb_layers", "lig_emb": "lig_emb_layers", "conv": "conv_layers"}
+_LIST_MODULES = ("rec_emb", "lig_emb", "conv", "lig_conv", "rec_conv", "lig_to_rec_conv",
+                 "rec_to_lig_conv")
+_INNER_LISTS = {"Dense": "layers", "BatchNorm": "norms", "cat": "embeddings"}
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -41,28 +46,23 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
 def _module_path(parts: Tuple[str, ...]) -> list:
     out = []
     for p in parts:
-        m = re.fullmatch(r"(rec_emb|lig_emb|conv)_(\d+)", p)
-        if m and not out:
-            out += [_LIST_MODULES[m.group(1)], m.group(2)]
-            continue
-        m = re.fullmatch(r"Dense_(\d+)", p)
-        if m:
-            out += ["layers", m.group(1)]
-            continue
-        m = re.fullmatch(r"cat_(\d+)", p)
-        if m:
-            out += ["embeddings", m.group(1)]
-            continue
-        out.append(p)
+        m = re.fullmatch(r"(\w+?)_(\d+)", p)
+        if m and not out and m.group(1) in _LIST_MODULES:
+            out += [f"{m.group(1)}_layers", m.group(2)]
+        elif m and out and m.group(1) in _INNER_LISTS:
+            out += [_INNER_LISTS[m.group(1)], m.group(2)]
+        else:
+            out.append(p)
     return out
 
 
 def state_dict_from_flax(variables: Mapping, cfg: ScoreModelConfig) -> Dict[str, torch.Tensor]:
-    """``variables``: {'params': ..., 'batch_stats': ...} from
-    ``CGScoreModel(cfg).init``; returns a ``state_dict`` for
-    ``diffdock_tpu_torch.models.score_model.CGScoreModel(cfg)``."""
-    if cfg.confidence_mode:
-        raise ValueError("confidence models are not ported yet")
+    """``variables``: {'params': ..., 'batch_stats': ...} from the JAX
+    model's ``init`` (``CGScoreModel``, or ``OldCGScoreModel`` /
+    ``OldAAScoreModel`` in confidence mode); returns a ``state_dict`` for
+    the port's model of the same config."""
+    if cfg.confidence_mode and not cfg.old_architecture:
+        raise ValueError("confidence models of the new architectures are not ported yet")
     sd: Dict[str, torch.Tensor] = {}
     for path, value in _flatten(variables["params"]):
         *mods, leaf = path
@@ -70,7 +70,7 @@ def state_dict_from_flax(variables: Mapping, cfg: ScoreModelConfig) -> Dict[str,
         if leaf == "kernel":
             value = value.T  # Dense (in, out) -> Linear (out, in)
             leaf = "weight"
-        elif leaf == "embedding":
+        elif leaf in ("embedding", "scale"):
             leaf = "weight"
         sd[".".join(name + [leaf])] = torch.from_numpy(np.array(value, np.float32))
     for path, value in _flatten(variables.get("batch_stats", {})):

@@ -70,3 +70,74 @@ def test_fused_tp3_zero_fills_empty_classes_on_the_card():
     torch.cuda.synchronize()
     assert torch.all(out[:, 4:19] == 0)
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=1e-5, atol=1e-5)
+
+
+# the score model's three timed blocks (chip_smoke.py phase 6): rec<-lig
+# cross (3200, 32) and lig<-rec cross (320, 320) of the joint conv layers,
+# rec<-rec of rec_emb_2 (320, 10); plus ragged row counts
+GEN21_BLOCKS = [((3, 3), 3200, 32), ((3, 3), 320, 320), ((2, 3), 320, 10),
+                ((3, 3), 37, 33), ((2, 3), 1, 7)]
+
+
+@pytest.mark.parametrize("ladder,rows,K", GEN21_BLOCKS)
+def test_factored_tp2_kernel_matches_plain_version(ladder, rows, K):
+    from diffdock_tpu_torch.ops import factored_tp2 as f2
+
+    dev = _card()
+    cfg = PRESETS["diffdock_l"]
+    seq = get_irrep_seq(cfg.ns, cfg.nv, False, cfg.reduce_pseudoscalars)
+    tp = FullyConnectedTensorProduct(seq[ladder[0]], SH, seq[ladder[1]])
+    args = _inputs(tp, rows, K, 3 * cfg.ns, dev)
+    before = f2.counts["factored_tp2"]
+    out = f2.factored_tp2(tp, *args)
+    ref = f2.factored_tp_reference(tp, *args)
+    torch.cuda.synchronize()
+    assert f2.counts["factored_tp2"] == before + 1
+    scale = max(ref.abs().max().item(), 1.0)
+    assert (out - ref).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("ladder,rows,K", GEN21_BLOCKS)
+def test_factored_tp1_kernel_matches_plain_version(ladder, rows, K):
+    from diffdock_tpu_torch.ops import factored_tp1 as f1
+    from diffdock_tpu_torch.ops.factored_tp2 import factored_tp_reference
+
+    dev = _card()
+    cfg = PRESETS["diffdock_l"]
+    seq = get_irrep_seq(cfg.ns, cfg.nv, False, cfg.reduce_pseudoscalars)
+    tp = FullyConnectedTensorProduct(seq[ladder[0]], SH, seq[ladder[1]])
+    args = _inputs(tp, rows, K, 3 * cfg.ns, dev, seed=1)
+    before = f1.counts["factored_tp1"]
+    out = f1.factored_tp1(tp, *args)
+    ref = factored_tp_reference(tp, *args)
+    torch.cuda.synchronize()
+    assert f1.counts["factored_tp1"] == before + 1
+    scale = max(ref.abs().max().item(), 1.0)
+    assert (out - ref).abs().max().item() <= 1e-4 * scale
+
+
+def test_factored_tp2_gradient_on_the_card():
+    """The backward differentiates the plain version, on the card as on the CPU."""
+    from diffdock_tpu_torch.ops import factored_tp2 as f2
+
+    dev = _card()
+    tp = FullyConnectedTensorProduct("8x0e + 4x1o + 4x1e + 4x0o", SH, "8x0e + 4x1o + 4x1e + 4x0o")
+    args = list(_inputs(tp, 19, 6, 16, dev, seed=2))
+    for i in (2, 4):
+        args[i].requires_grad_(True)
+    g = torch.autograd.grad((f2.factored_tp2(tp, *args) ** 2).sum(), [args[2], args[4]])
+    g_ref = torch.autograd.grad((f2.factored_tp_reference(tp, *args) ** 2).sum(), [args[2], args[4]])
+    for a, b in zip(g, g_ref):
+        assert (a - b).abs().max().item() <= 1e-4 * max(b.abs().max().item(), 1.0)
+
+
+def test_factored_kernels_refuse_an_empty_class_on_the_card():
+    from diffdock_tpu_torch.ops import factored_tp1 as f1
+    from diffdock_tpu_torch.ops import factored_tp2 as f2
+
+    dev = _card()
+    tp = FullyConnectedTensorProduct("4x0e", "1x0e + 1x1o + 1x2e", "4x0e + 2x1o + 2x1e")
+    args = _inputs(tp, 5, 3, 6, dev)
+    for fn in (f2.factored_tp2, f1.factored_tp1):
+        with pytest.raises(ValueError, match="output class 2 "):
+            fn(tp, *args)

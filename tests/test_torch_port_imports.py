@@ -7,6 +7,7 @@ holds every import statement of the port to that rule.
 """
 
 import ast
+import re
 from pathlib import Path
 
 import numpy as np
@@ -54,6 +55,29 @@ def test_port_imports_nothing_missing_on_the_card_machine():
         if mod in FORBIDDEN
     ]
     assert not bad, "\n".join(bad)
+
+
+@pytest.mark.parametrize("module", [
+    "ops/fused_tp3.py", "ops/factored_tp2.py", "ops/factored_tp1.py", "models/old_models.py",
+    "models/score_model.py", "inference/pipeline.py", "data/complexes.py", "utils/convert.py",
+])
+def test_port_modules_are_in_the_checked_set(module):
+    assert REPO / "diffdock_tpu_torch" / module in _port_files()
+
+
+def test_kernel_sources_include_no_jax_and_no_pytorch_headers():
+    """The CUDA sources include only the CUDA runtime and the C++ standard
+    library: nothing of JAX or the JAX package (and no PyTorch headers,
+    which would turn a seconds-long build into minutes)."""
+    sources = sorted((REPO / "diffdock_tpu_torch" / "csrc").glob("*.cu*"))
+    assert {p.name for p in sources} >= {"fused_tp3.cu", "factored_tp2.cu", "factored_tp1.cu"}
+    for path in sources:
+        includes = re.findall(r'^\s*#\s*include\s*[<"]([^>"]+)[>"]', path.read_text(), re.M)
+        assert includes, path.name
+        for inc in includes:
+            root = inc.split("/")[0].split(".")[0]
+            assert root not in FORBIDDEN | {"torch", "ATen", "c10", "pybind11"}, f"{path.name}: {inc}"
+            assert inc == "cuda_runtime.h" or "." not in inc, f"{path.name}: {inc}"
 
 
 def test_port_imports_are_checked_by_the_ast_walk():
