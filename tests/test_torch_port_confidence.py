@@ -1,12 +1,12 @@
-"""The port's old-family confidence models and the confidence-ranked dock vs
-the JAX package on the CPU.
+"""The port's old-family confidence models and the all-atom complex vs the
+JAX package on the CPU.
 
 Flax parameters from the JAX models' ``init`` (perturbed so biases and
 batch-norm statistics are off their trivial values) go through
 ``state_dict_from_flax``; the same numpy complexes go through both
 packages. Confidences pass through ~10-20 layers: float32 reordering keeps
-them within 1e-4 relative. The whole dock runs with the JAX pipeline's own
-``jax.random`` draws injected into the port.
+them within 1e-4 relative. The whole confidence-ranked dock is in
+``tests/test_torch_port_confidence_dock.py``.
 """
 
 import dataclasses
@@ -20,12 +20,9 @@ import torch
 from diffdock_tpu.data import complexes as j_complexes
 from diffdock_tpu.diffusion.so3 import SO3Config as JSO3Config, get_so3_tables as j_so3
 from diffdock_tpu.diffusion.torus import TorusConfig as JTorusConfig, get_torus_tables as j_torus
-from diffdock_tpu.inference.pipeline import DockingPipeline as JDockingPipeline
 from diffdock_tpu.inference.pipeline import _round_up as j_round_up
-from diffdock_tpu.inference.sampler import SamplerConfig as JSamplerConfig
 from diffdock_tpu.models.config import ScoreModelConfig as JScoreModelConfig
 from diffdock_tpu.models.factory import build_model as j_build_model
-from diffdock_tpu.models.score_model import CGScoreModel as JCGScoreModel
 from diffdock_tpu_torch.data.complexes import (
     atom_bucket,
     bucket_sizes,
@@ -36,7 +33,6 @@ from diffdock_tpu_torch.data.complexes import (
 from diffdock_tpu_torch.diffusion.so3 import SO3Config, get_so3_tables
 from diffdock_tpu_torch.diffusion.torus import TorusConfig, get_torus_tables
 from diffdock_tpu_torch.inference.pipeline import DockingPipeline, auto_confidence_chunk
-from diffdock_tpu_torch.inference.sampler import SamplerConfig
 from diffdock_tpu_torch.models.config import ConfigError, ScoreModelConfig
 from diffdock_tpu_torch.models.old_models import (
     OldAAScoreModel,
@@ -46,7 +42,6 @@ from diffdock_tpu_torch.models.old_models import (
 )
 from diffdock_tpu_torch.ops import fused_tp3 as ft
 from diffdock_tpu_torch.utils.convert import state_dict_from_flax
-from tests.test_torch_port_dock import _jax_draws
 
 SO3_SMALL = dict(n_eps=64, x_n=256, l_max=512)
 TORUS_SMALL = dict(x_n=256, sigma_n=128, mc_samples=2000)
@@ -175,49 +170,3 @@ def test_unported_confidence_configurations_are_refused():
                             confidence_weights=0, so3_tables=object(), torus_tables=object())
     with pytest.raises(ConfigError):
         OldAAScoreModel(ScoreModelConfig(**_conf_kw(False, 0, 2)))
-
-
-@pytest.mark.parametrize("all_atoms", [True, False])
-def test_confidence_ranked_dock_matches_jax(tables, all_atoms):
-    """Poses, confidences and order of one dock: the JAX pipeline with its
-    own random draws, the port with the same draws injected."""
-    js, jt, ps, pt = tables
-    skw = dict(ns=8, nv=2, num_conv_layers=2, num_prot_emb_layers=1)
-    ckw = _conf_kw(all_atoms, 0, 2)
-    n = dict(n_lig=10, n_rec=16, n_bonds=2, atoms_per_res=3)
-    aa = synthetic_aa_complex(np.random.RandomState(0), **n)
-    jaa = j_complexes.synthetic_aa_complex(np.random.RandomState(0), **n)
-    jscore = jax.jit(JCGScoreModel(JScoreModelConfig(**skw)).init)(
-        jax.random.PRNGKey(2), jaa.base, jnp.asarray(jaa.base.lig_pos), jnp.asarray(0.5), js, jt)
-    # the score model's weights as initialized, so the poses stay near the
-    # receptor over the steps
-    jscore = _perturbed(jscore, 2, weights=False)
-    nl, nr, nb = bucket_sizes(aa.base.n_lig, aa.base.n_rec, aa.base.n_bonds)
-    jpad = jax.tree.map(jnp.asarray, j_complexes.pad_aa_to(jaa, nl, nr, nb, atom_bucket(jaa.n_atoms)))
-    _, jconf = _init_confidence(JScoreModelConfig(**ckw), jpad if all_atoms else jpad.base, js, jt, 3)
-
-    P, seed, steps = 3, 4, (3, 3)
-    sampler = dict(inference_steps=steps[0], actual_steps=steps[1])
-    jpipe = JDockingPipeline(JScoreModelConfig(**skw), jscore, JSamplerConfig(**sampler),
-                             confidence_cfg=JScoreModelConfig(**ckw), confidence_params=jconf,
-                             so3_tables=js, torus_tables=jt)
-    ref = jpipe.dock_complex(jaa.base, num_poses=P, seed=seed, aa_data=jaa)
-
-    score_cfg, conf_cfg = ScoreModelConfig(**skw), ScoreModelConfig(**ckw)
-    pipe = DockingPipeline(score_cfg, state_dict_from_flax(jscore, score_cfg), SamplerConfig(**sampler),
-                           ps, pt, device="cpu", confidence_cfg=conf_cfg,
-                           confidence_weights=state_dict_from_flax(jconf, conf_cfg))
-    before = ft.counts["fused_tp3_reference"]
-    res = pipe.dock_complex(aa.base, num_poses=P, seed=seed, noise=_jax_draws(seed, P, nb, steps[1]),
-                            aa_data=aa)
-    # score model: 1 receptor layer + 12 per step; confidence: one chunk
-    assert ft.counts["fused_tp3_reference"] - before == 1 + 12 * steps[1] + confidence_launches(conf_cfg)
-    np.testing.assert_allclose(res.poses, ref.poses, rtol=0, atol=1e-3)
-    tol = 1e-4 * max(np.abs(ref.confidence).max(), 1.0)
-    np.testing.assert_allclose(res.confidence, ref.confidence, rtol=0, atol=tol)
-    # the ranking agrees wherever neighbouring confidences differ by more
-    # than twice the tolerance
-    for a, b in zip(ref.order[:-1], ref.order[1:]):
-        if ref.confidence[a] - ref.confidence[b] > 2 * tol:
-            assert res.confidence[a] > res.confidence[b]
-    assert sorted(res.order) == list(range(P))
