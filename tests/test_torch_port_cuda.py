@@ -141,3 +141,13 @@ def test_factored_kernels_refuse_an_empty_class_on_the_card():
     for fn in (f2.factored_tp2, f1.factored_tp1):
         with pytest.raises(ValueError, match="output class 2 "):
             fn(tp, *args)
+
+
+def test_fused_tp3_refuses_a_class_wider_than_a_block():
+    """A class with more outputs (mul*d3) than a block has threads is
+    refused with a clear error, not launched."""
+    dev = _card()
+    tp = FullyConnectedTensorProduct("4x0e", "1x0e", "300x0e")
+    args = _inputs(tp, 3, 2, 5, dev)
+    with pytest.raises(ValueError, match="mul\\*d3 = 300 outputs"):
+        ft.fused_tp3(tp, *args)
