@@ -10,8 +10,9 @@ Phases, each timed on its own line:
    with ``nvcc`` (plain C interface, loaded with ctypes), one ``nvcc`` per
    source, all started together;
 3. kernel vs plain: each kernel's wrapper against its plain PyTorch version
-   on the card: the gen-3 kernel at the score model's and the confidence
-   model's blocks, the gen-2 and gen-1 kernels at the score model's;
+   on the card: the gen-3 kernel at the score model's three blocks and the
+   confidence model's three (atom<-lig, atom<-atom, lig<-atom), the gen-2
+   and gen-1 kernels at the score model's;
 4. dock: one DiffDock-L dock (``diffdock_l`` preset at full width, random
    weights from seed 0) of a 32-atom / 320-residue / 2560-receptor-atom
    synthetic complex, 10 poses, the 20-step recipe with 19 steps, ranked by
@@ -20,13 +21,17 @@ Phases, each timed on its own line:
    just before and read just after: the gen-3 kernel must have launched
    exactly as often as the two models' code says, and no plain version may
    have run. A 2-step dock before it pays the first-call set-up, so the dock
-   is timed warm. Then the confidence forward's peak memory per pose at two
+   is timed warm. Then 5 more warm docks with ranking (median and range of
+   their walls), and the confidence forward's peak memory per pose at two
    ligand buckets, the measurement behind the pipeline's chunk rule;
 5. the same dock through the plain versions with the same noise: poses,
    confidences and ranking must agree;
 6. timings: each kernel, its plain version and one PyTorch library call of
    the same function, with CUDA events, beside the least time the card
-   could take (bytes over 3.35 TB/s or FLOPs over 67 TFLOP/s float32);
+   could take: bytes over 3.35 TB/s, or FLOPs over the peak of the unit the
+   kernel computes on (the gen-3 kernel's products run on the tensor cores
+   in 3xTF32, 495 / 3 = 165 TFLOP/s; gens 2 and 1 on the CUDA cores in
+   float32, 67 TFLOP/s); the gen-3 kernel's float32 bound is kept beside;
 7. profile: ``torch.profiler`` over a warm 2-step dock with ranking — device
    time by kernel, the hand-written kernels' share and the device's busy
    share (information only).
@@ -50,6 +55,8 @@ import time
 from pathlib import Path
 
 F32_PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+# H100 SXM dense TF32 on the tensor cores; 3xTF32 takes three products
+TF32X3_PEAK_FLOPS = 495e12 / 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 
 # |kernel - plain| <= KERNEL_RTOL * max(max|plain|, 1): both sum in float32,
@@ -184,8 +191,8 @@ def tp1_work(tp, rows: int, K: int, H: int):
     return flops, nbytes
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops = flops / F32_PEAK_FLOPS * 1e3
+def bound_ms(flops: float, nbytes: float, peak_flops: float = F32_PEAK_FLOPS):
+    t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -291,7 +298,7 @@ def run(args) -> dict:
     L = ccfg.num_conv_layers
 
     # 3. kernel vs plain at the main path's shapes: the score model's three
-    # blocks for every kernel, two of the confidence model's for gen 3
+    # blocks for every kernel, three of the confidence model's for gen 3
     # (layer L-2, the last with atom receivers; its TP is the ladder's widest)
     t0 = time.perf_counter()
     conv_tp = model.conv_layers[0].tp
@@ -303,6 +310,7 @@ def run(args) -> dict:
     conf_blocks = {
         "atom<-lig cross (confidence)": (cmodel.conv_layers[9 * (L - 2) + 4].tp, P * na, nl, Hc),
         "atom<-atom (confidence)": (cmodel.conv_layers[9 * (L - 2) + 3].tp, P * na, k_atom, Hc),
+        "lig<-atom cross (confidence)": (cmodel.conv_layers[9 * (L - 2) + 2].tp, P * nl, na, Hc),
     }
     plain = {"fused_tp3": ft.fused_tp3_reference, "factored_tp2": f2.factored_tp_reference,
              "factored_tp1": f2.factored_tp_reference}
@@ -381,6 +389,19 @@ def run(args) -> dict:
          f"{wall:.2f} s | {P / wall:.3f} poses/s | peak {peak / 2**30:.2f} GiB | {card}")
     _log(f"  confidences {np.round(res.confidence, 4).tolist()} order {res.order.tolist()}")
 
+    # 5 more warm docks with ranking: the spread of the dock's wall
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.dock_complex(data, num_poses=P, seed=0, noise=noise, aa_data=aa)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    report["dock"]["repeat_wall_s"] = walls
+    med = float(np.median(walls))
+    _log(f"  5 warm docks with ranking: median {med:.4f} s ({P / med:.3f} poses/s), "
+         f"min {min(walls):.4f} s, max {max(walls):.4f} s | {card}")
+
     # the confidence forward's peak memory per pose, all poses in one chunk,
     # at two ligand buckets: the measurement behind auto_confidence_chunk
     t0 = time.perf_counter()
@@ -448,6 +469,8 @@ def run(args) -> dict:
     # confidence blocks for gen 3)
     t0 = time.perf_counter()
     work = {"fused_tp3": tp3_work, "factored_tp2": tp2_work, "factored_tp1": tp1_work}
+    peaks = {"fused_tp3": TF32X3_PEAK_FLOPS, "factored_tp2": F32_PEAK_FLOPS,
+             "factored_tp1": F32_PEAK_FLOPS}
     timings = {k: {} for k in kernels}
     with torch.inference_mode():
         blocks_all = dict(score_blocks, **conf_blocks)
@@ -469,15 +492,17 @@ def run(args) -> dict:
                 wrapper_ms = cuda_ms(lambda: wrappers[kname](tp, *inp), args.iters)
                 plain_ms = cuda_ms(lambda: plain[kname](tp, *inp), args.iters)
                 flops, nbytes = work[kname](tp, rows, K, Hb)
-                b_ms, b_by = bound_ms(flops, nbytes)
+                b_ms, b_by = bound_ms(flops, nbytes, peaks[kname])
+                f32_ms, f32_by = bound_ms(flops, nbytes)
                 timings[kname][label] = {
                     "ms": kernel_ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
                     "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "bound_f32_ms": f32_ms, "bound_f32_by": f32_by,
                     "flops": flops, "bytes": nbytes}
                 _log(f"  {kname} {label}: kernel {kernel_ms:.4f} ms | wrapper {wrapper_ms:.4f} ms | "
                      f"plain {plain_ms:.4f} ms | library einsum pair {library_ms:.4f} ms | bound "
-                     f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) | "
-                     f"{flops / kernel_ms / 1e9:.2f} TFLOP/s")
+                     f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; "
+                     f"float32 bound {f32_ms:.4f} ms) | {flops / kernel_ms / 1e9:.2f} TFLOP/s")
             del inp, h_aug, coupled, weights, t3, launchers
     report["timings"] = timings
     _log(f"[6 timings] {time.perf_counter() - t0:.1f} s")

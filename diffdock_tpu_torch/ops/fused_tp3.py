@@ -14,7 +14,8 @@ semantics), in e3nn layout, with empty output classes zero.
 
 * :func:`fused_tp3` builds the merged coupled tensor and the per-class
   weight blocks in torch, then launches ``csrc/fused_tp3.cu`` (which
-  replaces the TPU kernel ``pallas_tpconv3.py:_kernel``). On a CPU tensor
+  replaces the TPU kernel ``pallas_tpconv3.py:_kernel``; tensor-core
+  products in 3xTF32, float32 accuracy). On a CPU tensor
   it runs :func:`fused_tp3_reference` instead; on a CUDA tensor it
   launches the kernel or raises.
 * :func:`fused_tp3_reference` is the plain version: the two einsums of the
@@ -29,7 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, List
+from typing import Dict, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -134,15 +135,20 @@ class _Kernel:
         fn = lib.fused_tp3_forward
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
+        scratch = lib.fused_tp3_scratch_floats
+        scratch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                            ctypes.c_int]
+        scratch.restype = ctypes.c_longlong
         for name in ("fused_tp3_max_classes", "fused_tp3_max_outputs", "fused_tp3_max_columns"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ctypes.c_int
         self.forward = fn
+        self.scratch_floats = scratch
         self.max_classes = lib.fused_tp3_max_classes()
         self.max_outputs = lib.fused_tp3_max_outputs()
         self.max_columns = lib.fused_tp3_max_columns()
@@ -169,6 +175,47 @@ def class_table(classes, H1: int) -> np.ndarray:
         out_off += mul * d3
         w_off += H1 * fan * mul
     return np.asarray(rows, dtype=np.int64).reshape(-1, 6)
+
+
+# the kernel's blocking (csrc/fused_tp3.cu): 16 receivers per block, P
+# column slices of at most 64 columns (whole u groups of d3, balanced, an
+# even number of them where that fits), hidden rows in groups of 32 (16
+# when H+1 <= 16)
+TILE_ROWS = 16
+SLICE_COLS = 64
+
+
+class TilePlan(NamedTuple):
+    """How the kernel cuts one call: ``hidden_rows`` per group, ``n_groups``
+    groups, per class ``us`` u per column slice and ``n_slices`` slices,
+    ``s_max`` the most slices of a class; partial outputs go to
+    ``n_groups * s_max`` scratch parts unless that is 1."""
+
+    hidden_rows: int
+    n_groups: int
+    us: Tuple[int, ...]
+    n_slices: Tuple[int, ...]
+    s_max: int
+
+    def scratch_floats(self, n_rows: int, w_tot: int) -> int:
+        parts = self.n_groups * self.s_max
+        return 0 if parts == 1 else parts * n_rows * w_tot
+
+
+def tile_plan(table: np.ndarray, H1: int) -> TilePlan:
+    """The kernel's :class:`TilePlan` for a class table (mirrors its
+    ``make_plan``)."""
+    hr = 16 if H1 <= 16 else 32
+    us, n_slices = [], []
+    for fan, d3 in table[:, 1:3].tolist():
+        # the fewest slices of at most 64 columns, balanced; an even number
+        # of u per slice where that fits
+        us_max = SLICE_COLS // d3
+        n = -(-fan // us_max)
+        u = -(-fan // n)
+        us.append(u + 1 if u % 2 and u < us_max else u)
+        n_slices.append(n)
+    return TilePlan(hr, -(-H1 // hr), tuple(us), tuple(n_slices), max(n_slices))
 
 
 def launch(h_aug: torch.Tensor, coupled: torch.Tensor, weights: torch.Tensor,
@@ -198,17 +245,25 @@ def launch(h_aug: torch.Tensor, coupled: torch.Tensor, weights: torch.Tensor,
                          f"the kernel takes at most {kern.max_outputs}")
     if fd.max() > kern.max_columns:
         raise ValueError(f"fused_tp3: a class has fan*d3 = {fd.max()} coupled columns, "
-                         f"the kernel takes at most {kern.max_columns} on this device")
+                         f"the kernel takes at most {kern.max_columns}")
     f_tot = int((table[:, 1] * table[:, 2]).sum())
     w_tot = int((table[:, 3] * table[:, 2]).sum())
     w_len = int((H1 * table[:, 1] * table[:, 3]).sum())
     if coupled.shape[2] != f_tot or weights.numel() != w_len:
         raise ValueError("fused_tp3: operand widths do not match the class table")
-    out = torch.empty(N, w_tot, device=h_aug.device, dtype=torch.float32)
     table = np.ascontiguousarray(table, dtype=np.int64)
+    n_scratch = kern.scratch_floats(table.ctypes.data, n_classes, N, H1, w_tot)
+    if n_scratch < 0:
+        raise ValueError(f"fused_tp3: the kernel refuses the class table {table.tolist()}")
+    planned = tile_plan(table, H1).scratch_floats(N, w_tot)
+    if n_scratch != planned:
+        raise RuntimeError(f"fused_tp3: the kernel asks for {n_scratch} scratch floats, "
+                           f"tile_plan for {planned}")
+    out = torch.empty(N, w_tot, device=h_aug.device, dtype=torch.float32)
+    scratch = torch.empty(max(n_scratch, 1), device=h_aug.device, dtype=torch.float32)
     err = kern.forward(
         h_aug.data_ptr(), coupled.data_ptr(), weights.data_ptr(), out.data_ptr(),
-        table.ctypes.data, n_classes, N, K, H1, f_tot, w_tot,
+        scratch.data_ptr(), table.ctypes.data, n_classes, N, K, H1, f_tot, w_tot,
         torch.cuda.current_stream(h_aug.device).cuda_stream,
     )
     if err != 0:

@@ -42,16 +42,21 @@ def _inputs(tp, rows, K, H, dev, seed=0):
     return x, sh, h, mw, wk, wb
 
 
-# rows x classes decide the kernel's rows per block: 3200 rows of the
-# joint layers take four-row blocks, the smaller cases one-row blocks
-@pytest.mark.parametrize("ladder,rows,K", [((3, 3), 3200, 32), ((3, 3), 67, 32), ((3, 3), 13, 320),
-                                           ((2, 3), 40, 10), ((0, 1), 5, 1), ((3, 3), 2, 35)])
-def test_fused_tp3_kernel_matches_plain_version(ladder, rows, K):
+# the main path's blocks (3200 rows of the joint layers; K = 320 and
+# K = 2560 at 320 rows, the lig<-rec and confidence lig<-atom blocks) and
+# ragged rows, neighbours and hidden rows (H+1 = 145, 73 and others)
+@pytest.mark.parametrize("ladder,rows,K,H1", [
+    ((3, 3), 3200, 32, 145), ((3, 3), 67, 32, 145), ((3, 3), 13, 320, 145),
+    ((2, 3), 40, 10, 145), ((0, 1), 5, 1, 145), ((3, 3), 2, 35, 145),
+    ((3, 3), 320, 2560, 73), ((3, 3), 37, 33, 73), ((2, 3), 9, 7, 17),
+    ((3, 3), 1, 1, 33), ((1, 2), 1001, 6, 16), ((3, 3), 61, 129, 100),
+])
+def test_fused_tp3_kernel_matches_plain_version(ladder, rows, K, H1):
     dev = _card()
     cfg = PRESETS["diffdock_l"]
     seq = get_irrep_seq(cfg.ns, cfg.nv, False, cfg.reduce_pseudoscalars)
     tp = FullyConnectedTensorProduct(seq[ladder[0]], SH, seq[ladder[1]])
-    args = _inputs(tp, rows, K, 3 * cfg.ns, dev)
+    args = _inputs(tp, rows, K, H1 - 1, dev)
     before = ft.counts["fused_tp3"]
     out = ft.fused_tp3(tp, *args)
     ref = ft.fused_tp3_reference(tp, *args)
@@ -59,6 +64,32 @@ def test_fused_tp3_kernel_matches_plain_version(ladder, rows, K):
     assert ft.counts["fused_tp3"] == before + 1
     scale = max(ref.abs().max().item(), 1.0)
     assert (out - ref).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("irreps_out", ["256x0e", "85x1o + 3x0e", "51x2e + 4x0e"])
+def test_fused_tp3_takes_a_class_of_256_outputs(irreps_out):
+    """mul*d3 = 256 (and 255 at d3 = 3 and 5), the widest class a block
+    takes; at d3 = 5 the weight product takes its path for many tiles."""
+    dev = _card()
+    tp = FullyConnectedTensorProduct("4x0e + 2x1o", "1x0e + 1x1o", irreps_out)
+    args = _inputs(tp, 19, 9, 40, dev, seed=3)
+    out = ft.fused_tp3(tp, *args)
+    ref = ft.fused_tp3_reference(tp, *args)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 1e-4 * max(ref.abs().max().item(), 1.0)
+
+
+def test_fused_tp3_two_launches_are_bit_identical():
+    """No sum depends on scheduling: the same inputs give the same bits."""
+    dev = _card()
+    cfg = PRESETS["diffdock_l"]
+    seq = get_irrep_seq(cfg.ns, cfg.nv, False, cfg.reduce_pseudoscalars)
+    tp = FullyConnectedTensorProduct(seq[3], SH, seq[3])
+    args = _inputs(tp, 320, 320, 3 * cfg.ns, dev, seed=4)
+    first = ft.fused_tp3(tp, *args)
+    second = ft.fused_tp3(tp, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_fused_tp3_zero_fills_empty_classes_on_the_card():
