@@ -10,9 +10,8 @@ Phases, each timed on its own line:
    with ``nvcc`` (plain C interface, loaded with ctypes), one ``nvcc`` per
    source, all started together;
 3. kernel vs plain: each kernel's wrapper against its plain PyTorch version
-   on the card: the gen-3 kernel at the score model's three blocks and the
-   confidence model's three (atom<-lig, atom<-atom, lig<-atom), the gen-2
-   and gen-1 kernels at the score model's;
+   on the card, at the score model's three blocks and the confidence
+   model's three (atom<-lig, atom<-atom, lig<-atom);
 4. dock: one DiffDock-L dock (``diffdock_l`` preset at full width, random
    weights from seed 0) of a 32-atom / 320-residue / 2560-receptor-atom
    synthetic complex, 10 poses, the 20-step recipe with 19 steps, ranked by
@@ -26,15 +25,19 @@ Phases, each timed on its own line:
    ligand buckets, the measurement behind the pipeline's chunk rule;
 5. the same dock through the plain versions with the same noise: poses,
    confidences and ranking must agree;
-6. timings: each kernel, its plain version and one PyTorch library call of
-   the same function, with CUDA events, beside the least time the card
-   could take: bytes over 3.35 TB/s, or FLOPs over the peak of the unit the
-   kernel computes on (the gen-3 kernel's products run on the tensor cores
-   in 3xTF32, 495 / 3 = 165 TFLOP/s; gens 2 and 1 on the CUDA cores in
-   float32, 67 TFLOP/s); the gen-3 kernel's float32 bound is kept beside;
+6. timings at the six blocks: each kernel, its plain version and its
+   library route, with CUDA events, beside the least time the card could
+   take: bytes over 3.35 TB/s, or FLOPs over the peak of the unit that does
+   them (the two products of every kernel run on the tensor cores in
+   3xTF32, 495 / 3 = 165 TFLOP/s; the coupling that gens 2 and 1 build
+   inside on the CUDA cores in float32, 67 TFLOP/s), the all-float32 bound
+   kept beside. The library route of gen 3 is the einsum pair on the
+   coupled operands; that of gens 2 and 1 builds the coupling in PyTorch
+   first (the gen-3 wrapper's ``merged_coupled`` and the ``h_aug`` concat),
+   with the einsum pair alone beside it;
 7. profile: ``torch.profiler`` over a warm 2-step dock with ranking — device
    time by kernel, the hand-written kernels' share and the device's busy
-   share (information only).
+   share.
 
 It then prints the card line (``nvidia-smi --query-gpu=name,power.limit``),
 one JSON line with the kernels' numbers, and, last, the result line
@@ -138,16 +141,16 @@ def _class_sums(tp):
 
 
 def tp3_work(tp, rows: int, K: int, H: int):
-    """(FLOPs, bytes) the gen-3 contraction must do at least: the
+    """(product FLOPs, 0, bytes) the gen-3 contraction must do at least: the
     neighbour reduction P = h_aug^T coupled over every live class, the
     weight contraction over the compact (H+1, fan, mul) blocks, each input
     (h_aug, the coupled tensor built outside the kernel, the weights) read
     once and the output written once (float32)."""
     f_tot, weight, w_len = _class_sums(tp)
     Ha = H + 1
-    flops = 2.0 * rows * Ha * K * f_tot + 2.0 * rows * Ha * weight
+    products = 2.0 * rows * Ha * K * f_tot + 2.0 * rows * Ha * weight
     nbytes = 4.0 * (rows * K * Ha + rows * K * f_tot + Ha * w_len + rows * tp.irreps_out.dim)
-    return flops, nbytes
+    return products, 0.0, nbytes
 
 
 def _coupling_flops(tp) -> float:
@@ -157,26 +160,32 @@ def _coupling_flops(tp) -> float:
 
 
 def tp2_work(tp, rows: int, K: int, H: int):
-    """(FLOPs, bytes) of the gen-2 contraction, the coupling included: the
-    CG weights ``sh @ CG`` (J x cols per edge), the coupled columns, P over
-    the H+1 live hidden rows, the weight contraction; it reads the packed
-    neighbour features, the harmonics, the H+1 live rows of ``ht``, the CG
-    matrix and the (H+1, fan, mul) weights once and writes the output."""
+    """(product FLOPs, coupling FLOPs, bytes) of the gen-2 contraction: P
+    over the H+1 live hidden rows and the weight contraction; the CG
+    weights (each column's dot over its nonzero rows of ``CG_full``, the
+    terms a dense ``sh @ CG`` has that are not zero) and the coupled
+    columns; it reads the packed neighbour features, the harmonics, the H+1
+    live rows of ``h_aug``, the CG matrix and the (H+1, fan, mul) weights once
+    and writes the output."""
+    import numpy as np
+
     from diffdock_tpu_torch.ops.factored_tp2 import build_specs2
 
     _specs, cg_full, xp_dim, out_dim = build_specs2(tp)
     f_tot, weight, w_len = _class_sums(tp)
     J, Ha = tp.irreps_in2.dim, H + 1
-    flops = (2.0 * rows * K * (J * cg_full.shape[1] + _coupling_flops(tp))
-             + 2.0 * rows * Ha * K * f_tot + 2.0 * rows * Ha * weight)
+    rows_nz = [np.flatnonzero(col) for col in (cg_full != 0).T]
+    cg_terms = sum(int(r[-1] - r[0]) + 1 for r in rows_nz if r.size)
+    products = 2.0 * rows * Ha * K * f_tot + 2.0 * rows * Ha * weight
+    coupling = 2.0 * rows * K * (cg_terms + _coupling_flops(tp))
     nbytes = 4.0 * (rows * K * (xp_dim + J + Ha) + cg_full.size + Ha * w_len + rows * out_dim)
-    return flops, nbytes
+    return products, coupling, nbytes
 
 
 def tp1_work(tp, rows: int, K: int, H: int):
-    """(FLOPs, bytes) of the gen-1 contraction, the coupling included: each
-    path's CG dot over its own d2 harmonics, the coupled columns, p_h and
-    p_b, the weight and bias contractions; it reads the packed neighbour
+    """(product FLOPs, coupling FLOPs, bytes) of the gen-1 contraction: p_h
+    and p_b, the weight and bias contractions; each path's CG dot over its
+    own d2 harmonics and the coupled columns; it reads the packed neighbour
     features, the harmonics, h, mw, the CG matrix, the weights and the bias
     once and writes the output."""
     from diffdock_tpu_torch.ops.factored_tp1 import build_specs
@@ -184,15 +193,20 @@ def tp1_work(tp, rows: int, K: int, H: int):
     specs, cg_all, xp_dim, out_dim = build_specs(tp)
     f_tot, weight, w_len = _class_sums(tp)
     cg_flops = sum(p.d2 * p.d1 * s.d3 for s in specs for p in s.paths)
-    flops = (2.0 * rows * K * (cg_flops + _coupling_flops(tp))
-             + 2.0 * rows * (H + 1) * K * f_tot + 2.0 * rows * (H + 1) * weight)
+    products = 2.0 * rows * (H + 1) * K * f_tot + 2.0 * rows * (H + 1) * weight
+    coupling = 2.0 * rows * K * (cg_flops + _coupling_flops(tp))
     nbytes = 4.0 * (rows * K * (xp_dim + tp.irreps_in2.dim + H + 1) + cg_all.size
                     + (H + 1) * w_len + rows * out_dim)
-    return flops, nbytes
+    return products, coupling, nbytes
 
 
-def bound_ms(flops: float, nbytes: float, peak_flops: float = F32_PEAK_FLOPS):
-    t_ops = flops / peak_flops * 1e3
+def bound_ms(products: float, coupling: float, nbytes: float, all_f32: bool = False):
+    """(ms, "operations" or "bytes"): the larger of the bytes over the HBM
+    rate and the operations over their units' peaks, the products at the
+    3xTF32 rate and the coupling at the float32 rate (both at the float32
+    rate with ``all_f32``), their times added."""
+    t_ops = (products / (F32_PEAK_FLOPS if all_f32 else TF32X3_PEAK_FLOPS)
+             + coupling / F32_PEAK_FLOPS) * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -298,8 +312,8 @@ def run(args) -> dict:
     L = ccfg.num_conv_layers
 
     # 3. kernel vs plain at the main path's shapes: the score model's three
-    # blocks for every kernel, three of the confidence model's for gen 3
-    # (layer L-2, the last with atom receivers; its TP is the ladder's widest)
+    # blocks and three of the confidence model's (layer L-2, the last with
+    # atom receivers; its TP is the ladder's widest), for every kernel
     t0 = time.perf_counter()
     conv_tp = model.conv_layers[0].tp
     score_blocks = {
@@ -317,10 +331,10 @@ def run(args) -> dict:
     wrappers = {"fused_tp3": ft.fused_tp3, "factored_tp2": f2.factored_tp2,
                 "factored_tp1": f1.factored_tp1}
     checks = {k: {} for k in kernels}
+    blocks_all = dict(score_blocks, **conf_blocks)
     with torch.inference_mode():
         for kname in kernels:
-            blocks = dict(score_blocks, **(conf_blocks if kname == "fused_tp3" else {}))
-            for i, (label, (tp, rows, K, Hb)) in enumerate(blocks.items()):
+            for i, (label, (tp, rows, K, Hb)) in enumerate(blocks_all.items()):
                 inp = tp_inputs(tp, rows, K, Hb, seed=i, device=dev)
                 got = wrappers[kname](tp, *inp)
                 ref = plain[kname](tp, *inp)
@@ -465,56 +479,60 @@ def run(args) -> dict:
     _log(f"[5 dock plain] {ref_wall:.2f} s")
     del ref_pipe
 
-    # 6. timings at the score model's blocks for every kernel (and the
-    # confidence blocks for gen 3)
+    # 6. timings at the six blocks for every kernel
     t0 = time.perf_counter()
     work = {"fused_tp3": tp3_work, "factored_tp2": tp2_work, "factored_tp1": tp1_work}
-    peaks = {"fused_tp3": TF32X3_PEAK_FLOPS, "factored_tp2": F32_PEAK_FLOPS,
-             "factored_tp1": F32_PEAK_FLOPS}
     timings = {k: {} for k in kernels}
     with torch.inference_mode():
-        blocks_all = dict(score_blocks, **conf_blocks)
         for i, (label, (tp, rows, K, Hb)) in enumerate(blocks_all.items()):
             inp = tp_inputs(tp, rows, K, Hb, seed=i, device=dev)
             classes, h_aug, coupled, weights, table = ft.prepare(tp, *inp)
             t3 = _block_diag_t3(tp, classes, inp[4], inp[5])
-            library_ms = cuda_ms(
-                lambda: torch.einsum("rhF,hFW->rW", torch.einsum("rkh,rkF->rhF", h_aug, coupled), t3),
-                args.iters,
-            )
-            launchers = {"fused_tp3": lambda: ft.launch(h_aug, coupled, weights, table)}
-            if label in score_blocks:
-                op2, op1 = f2.prepare(tp, *inp), f1.prepare(tp, *inp)
-                launchers["factored_tp2"] = lambda: f2.launch(*op2, tp.irreps_out.dim)
-                launchers["factored_tp1"] = lambda: f1.launch(*op1, tp.irreps_out.dim)
+
+            def einsum_pair(h_aug, coupled):
+                return torch.einsum("rhF,hFW->rW", torch.einsum("rkh,rkF->rhF", h_aug, coupled), t3)
+
+            def coupled_route():
+                # the library route from the raw inputs: the coupling in
+                # PyTorch, then the einsum pair
+                coupled_t = ft.merged_coupled(tp, inp[0], inp[1])[1]
+                return einsum_pair(torch.cat([inp[2], inp[3][..., None]], dim=-1), coupled_t)
+
+            pair_ms = cuda_ms(lambda: einsum_pair(h_aug, coupled), args.iters)
+            route_ms = cuda_ms(coupled_route, args.iters)
+            op2, op1 = f2.prepare(tp, *inp), f1.prepare(tp, *inp)
+            launchers = {"fused_tp3": lambda: ft.launch(h_aug, coupled, weights, table),
+                         "factored_tp2": lambda: f2.launch(*op2, tp.irreps_out.dim),
+                         "factored_tp1": lambda: f1.launch(*op1, tp.irreps_out.dim)}
             for kname, launch in launchers.items():
                 kernel_ms = cuda_ms(launch, args.iters)
                 wrapper_ms = cuda_ms(lambda: wrappers[kname](tp, *inp), args.iters)
                 plain_ms = cuda_ms(lambda: plain[kname](tp, *inp), args.iters)
-                flops, nbytes = work[kname](tp, rows, K, Hb)
-                b_ms, b_by = bound_ms(flops, nbytes, peaks[kname])
-                f32_ms, f32_by = bound_ms(flops, nbytes)
+                library_ms = pair_ms if kname == "fused_tp3" else route_ms
+                products, coupling, nbytes = work[kname](tp, rows, K, Hb)
+                b_ms, b_by = bound_ms(products, coupling, nbytes)
+                f32_ms, f32_by = bound_ms(products, coupling, nbytes, all_f32=True)
                 timings[kname][label] = {
                     "ms": kernel_ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-                    "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": library_ms, "einsum_pair_ms": pair_ms,
+                    "bound_ms": b_ms, "bound_by": b_by,
                     "bound_f32_ms": f32_ms, "bound_f32_by": f32_by,
-                    "flops": flops, "bytes": nbytes}
+                    "product_flops": products, "coupling_flops": coupling, "bytes": nbytes}
+                flops = products + coupling
+                route = ("" if kname == "fused_tp3" else
+                         f"library route (coupling + einsum pair) {route_ms:.4f} ms | ")
                 _log(f"  {kname} {label}: kernel {kernel_ms:.4f} ms | wrapper {wrapper_ms:.4f} ms | "
-                     f"plain {plain_ms:.4f} ms | library einsum pair {library_ms:.4f} ms | bound "
-                     f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; "
-                     f"float32 bound {f32_ms:.4f} ms) | {flops / kernel_ms / 1e9:.2f} TFLOP/s")
-            del inp, h_aug, coupled, weights, t3, launchers
+                     f"plain {plain_ms:.4f} ms | {route}library einsum pair {pair_ms:.4f} ms | bound "
+                     f"{b_ms:.4f} ms ({b_by}; {products / 1e9:.2f} + {coupling / 1e9:.2f} GFLOP, "
+                     f"{nbytes / 1e6:.1f} MB; float32 bound {f32_ms:.4f} ms) | "
+                     f"{flops / kernel_ms / 1e9:.2f} TFLOP/s")
+            del inp, h_aug, coupled, weights, t3, launchers, op2, op1
     report["timings"] = timings
     _log(f"[6 timings] {time.perf_counter() - t0:.1f} s")
 
-    # 7. where a dock's device time goes (information only: a missing
-    # profiler does not fail the run)
+    # 7. where a dock's device time goes
     t0 = time.perf_counter()
-    try:
-        report["profile"] = profile_dock(warm, data, aa, P)
-    except Exception as exc:  # noqa: BLE001 - the run goes on without it
-        report["profile"] = {"error": repr(exc)}
-        _log(f"  profiler unavailable: {exc!r}")
+    report["profile"] = profile_dock(warm, data, aa, P)
     _log(f"[7 profile] 2-step dock with ranking | {time.perf_counter() - t0:.1f} s")
 
     sources = {"fused_tp3": "diffdock_tpu/ops/pallas_tpconv3.py:57",
@@ -569,16 +587,18 @@ def profile_dock(pipe, data, aa, n_poses: int) -> dict:
                if getattr(e, "device_type", None) == DeviceType.CUDA and dev_us(e) > 0]
     kernels.sort(key=lambda k: -k[1])
     total = sum(k[1] for k in kernels)
+    if total <= 0:
+        raise PhaseError("the profiler saw no device time in a dock")
     ours = sum(k[1] for k in kernels if "fused_tp3" in k[0])
     launches = sum(k[2] for k in kernels)
     out = {"wall_ms_unprofiled": wall_us / 1e3, "device_ms": total / 1e3,
            "device_busy_share": total / wall_us, "fused_tp3_ms": ours / 1e3,
-           "fused_tp3_share_of_device": ours / total if total else None,
+           "fused_tp3_share_of_device": ours / total,
            "kernel_launches": launches,
            "top": [{"name": k[0][:90], "ms": k[1] / 1e3, "count": k[2]} for k in kernels[:10]]}
     _log(f"  wall {wall_us / 1e3:.1f} ms (unprofiled) | device busy {total / 1e3:.1f} ms "
          f"({100 * out['device_busy_share']:.1f} %) | fused_tp3 {ours / 1e3:.1f} ms "
-         f"({100 * (out['fused_tp3_share_of_device'] or 0):.1f} % of device) | {launches} kernel launches")
+         f"({100 * ours / total:.1f} % of device) | {launches} kernel launches")
     for k in out["top"]:
         _log(f"    {k['ms']:9.2f} ms  x{k['count']:<5d} {k['name']}")
     return out

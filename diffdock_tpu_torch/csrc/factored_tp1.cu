@@ -1,5 +1,5 @@
-// Gen-1 factored tensor-product contraction, per class and path, hand-written
-// for Hopper.
+// Gen-1 factored tensor-product contraction, per class and path, on
+// Hopper's tensor cores.
 //
 // Replaces diffdock_tpu/ops/pallas_tpconv.py:_kernel (the body of
 // factored_tp_messages_pallas). Per receiver row r and output class c it
@@ -14,232 +14,59 @@
 // with h (N, K, H) the hidden activations already scaled by mask*edge_weight
 // and mw (N, K) that mask*edge_weight, T_c (H, fan, mul) and b_c (fan, mul)
 // the class's last-layer weights and bias, all taken apart as the TPU kernel
-// takes them (gen 2 and gen 3 fold the bias into a hidden row instead). Each
-// path's CG dot reads only its own harmonic slice (d2_p rows of the packed
-// (max_d2, cols) CG matrix). The TPU kernel writes d-major; this one writes
-// the e3nn layout (w-major, d-minor) directly.
+// takes them. Each path's CG dot reads only its own harmonic slice (d2_p
+// rows of the packed (max_d2, cols) CG matrix, from row 0). The TPU kernel
+// writes d-major; this one writes the e3nn layout (w-major, d-minor)
+// directly.
 //
-// What bounds it on an H100: float32 FMAs in the neighbour reduction, as
-// for gens 2 and 3; the per-path coupling is cheap next to it. The design
-// is factored_tp1.cu's: one block per receiver and class; hidden rows in
-// chunks of 16 (row H of the walk reads mw where h ends, and the weight
-// phase reads b_c there), neighbours in chunks of 32, the CG weights and
-// coupled columns of each neighbour chunk rebuilt in shared memory (built
-// once when K <= 32), a
-// 16-row column of p_h per thread in registers, and the weight phase's
-// (h, u) reduction split over idle threads and summed in a fixed order.
-// Full float32, no tensor cores: a simple kernel that is right.
+// The kernel, its design and what bounds it are in factored_tp.cuh (shared
+// with gen 2): 3xTF32 tensor-core products, the coupling built per stage
+// of 8 neighbours by the warp that multiplies it, deterministic partial
+// sums. Gen 1's own parts: the hidden rows are read from h, with mw as
+// row H of the A operand (p_b is P's row H); the CG weights of a column
+// are its path's d2-term dot; the weight rows come from T_c, with b_c as
+// row H. Rows past H+1 are not walked.
 //
 // Plain C interface (no PyTorch headers), built with nvcc into a shared
 // library and called through ctypes; see diffdock_tpu_torch/ops/factored_tp1.py.
 
-#include <cuda_runtime.h>
-
-#include <algorithm>
+#include "factored_tp.cuh"
 
 namespace {
 
-constexpr int kMaxClasses = 16;
-constexpr int kMaxPaths = 64;
-constexpr int kHChunk = 16;
-constexpr int kKChunk = 32;
-constexpr int kThreads = 256;
-constexpr int kMaxCols = 4;  // coupled columns per thread: fan*d3 <= 1024
-
-// per class: fan, d3, mul, out_off, col0, ncols, path0, n_paths, t_off, b_off
-// per path:  u_off, mul, d1, xp_start, col (relative to the class's col0),
-//            sh_start, d2
-constexpr int kClassCols = 10;
-constexpr int kPathCols = 7;
-struct Tables {
-  int cls[kMaxClasses][kClassCols];
-  int path[kMaxPaths][kPathCols];
-};
-
-__global__ void __launch_bounds__(kThreads)
-factored_tp1_kernel(const float* __restrict__ xp,       // (n_rows, K, XP)
-                    const float* __restrict__ sh,       // (n_rows, K, J)
-                    const float* __restrict__ h,        // (n_rows, K, H)
-                    const float* __restrict__ mw,       // (n_rows, K)
-                    const float* __restrict__ cg,       // (max_d2, CG)
-                    const float* __restrict__ t_all,    // packed (H, fan, mul) per class
-                    const float* __restrict__ b_all,    // packed (fan, mul) per class
-                    float* __restrict__ out,            // (n_rows, D)
-                    Tables tb, int K, int XP, int J, int H, int CG, int D,
-                    int fd_max, int nc_max) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  __shared__ int path_s[kMaxPaths][kPathCols];
-
-  const long long r = blockIdx.x;
-  const int c = blockIdx.y;
-  const int fan = tb.cls[c][0];
-  const int d3 = tb.cls[c][1];
-  const int mul = tb.cls[c][2];
-  const int out_off = tb.cls[c][3];
-  const int col0 = tb.cls[c][4];
-  const int ncols = tb.cls[c][5];
-  const int p0 = tb.cls[c][6];
-  const int n_paths = tb.cls[c][7];
-  const float* __restrict__ tc = t_all + tb.cls[c][8];
-  const float* __restrict__ bc = b_all + tb.cls[c][9];
-  const int Ha = H + 1;  // the walk's row H is the bias: mw against b_c
-  const int fd = fan * d3;
-  const int wd = mul * d3;
-  const int tid = threadIdx.x;
-
-  // shared memory: the hidden chunk (16-byte aligned rows of kHChunk
-  // floats), the harmonics, CG weights and coupled columns of one
-  // neighbour chunk, the P chunk, the weight phase's partial sums and the
-  // block's outputs
-  float* h_s = smem;                          // [kKChunk][kHChunk]
-  float* sh_s = h_s + kKChunk * kHChunk;      // [kKChunk][J]
-  float* w_s = sh_s + kKChunk * J;            // [kKChunk][nc_max]
-  float* c_s = w_s + kKChunk * nc_max;        // [kKChunk][fd_max]
-  float* p_s = c_s + kKChunk * fd_max;        // [kHChunk][fd_max]
-  float* part_s = p_s + kHChunk * fd_max;     // [kThreads]
-  float* acc_s = part_s + kThreads;           // [wd] <= [kThreads]
-
-  for (int q = tid; q < n_paths * kPathCols; q += kThreads)
-    path_s[q / kPathCols][q % kPathCols] = tb.path[p0 + q / kPathCols][q % kPathCols];
-  if (tid < wd) acc_s[tid] = 0.f;
-  const int n_split = kThreads / wd;
-
-  const float* __restrict__ xr = xp + r * K * XP;
-  const float* __restrict__ shr = sh + r * K * J;
-  const float* __restrict__ hr = h + r * K * H;
-  const float* __restrict__ mwr = mw + r * K;
-
-  for (int h0 = 0; h0 < Ha; h0 += kHChunk) {
-    const int hb = min(kHChunk, Ha - h0);
-    float a[kMaxCols][kHChunk];
-#pragma unroll
-    for (int q = 0; q < kMaxCols; ++q)
-#pragma unroll
-      for (int hh = 0; hh < kHChunk; ++hh) a[q][hh] = 0.f;
-
-    for (int k0 = 0; k0 < K; k0 += kKChunk) {
-      const int kc = min(kKChunk, K - k0);
-      // with one neighbour chunk (K <= kKChunk) the CG weights and coupled
-      // columns built for the first hidden chunk stay valid for the others
-      const bool couple = h0 == 0 || K > kKChunk;
-      __syncthreads();  // earlier readers of every buffer are done
-      if (couple)
-        for (int q = tid; q < kc * J; q += kThreads)
-          sh_s[q] = __ldg(shr + static_cast<long long>(k0) * J + q);
-      for (int q = tid; q < kKChunk * kHChunk; q += kThreads) {
-        const int hh = q % kHChunk;  // hidden rows fastest: h rows are contiguous in h
-        const int kk = q / kHChunk;
-        const int hrow = h0 + hh;
-        float v = 0.f;
-        if (kk < kc && hh < hb)
-          v = hrow < H ? __ldg(hr + static_cast<long long>(k0 + kk) * H + hrow) : __ldg(mwr + k0 + kk);
-        h_s[q] = v;
-      }
-      __syncthreads();
-
-      if (couple) {
-        // per-path CG weights of the class's columns:
-        // W[kk][cl] = sum_{j < d2_p} sh[kk][sh_p + j] * CG[j][col0 + cl], cl in path p's columns
-        for (int q = tid; q < kc * ncols; q += kThreads) {
-          const int kk = q / ncols;
-          const int cl = q - kk * ncols;
-          int p = 0;
-          while (p < n_paths - 1 && cl >= path_s[p + 1][4]) ++p;
-          const float* shk = sh_s + kk * J + path_s[p][5];
-          const int d2 = path_s[p][6];
-          float s = 0.f;
-          for (int j = 0; j < d2; ++j)
-            s = fmaf(shk[j], __ldg(cg + static_cast<long long>(j) * CG + col0 + cl), s);
-          w_s[kk * nc_max + cl] = s;
-        }
-        __syncthreads();
-
-        // coupled columns: C[kk][u*d3+d] = sum_i x[k, path, i, u] * W[kk][col + i*d3 + d]
-        for (int q = tid; q < kc * fd; q += kThreads) {
-          const int kk = q / fd;
-          const int jj = q - kk * fd;
-          const int u = jj / d3;
-          const int d = jj - u * d3;
-          int p = 0;
-          while (p < n_paths - 1 && u >= path_s[p + 1][0]) ++p;
-          const int pm = path_s[p][1];
-          const int d1 = path_s[p][2];
-          const float* __restrict__ xk =
-              xr + static_cast<long long>(k0 + kk) * XP + path_s[p][3] + (u - path_s[p][0]);
-          const float* wk = w_s + kk * nc_max + path_s[p][4] + d;
-          float s = 0.f;
-          for (int i = 0; i < d1; ++i) s = fmaf(__ldg(xk + i * pm), wk[i * d3], s);
-          c_s[kk * fd_max + jj] = s;
-        }
-      }
-      __syncthreads();
-
-      // P chunk: thread owns columns j = tid + q*kThreads, 16 hidden rows each
-      const float4* h4 = reinterpret_cast<const float4*>(h_s);
-#pragma unroll
-      for (int q = 0; q < kMaxCols; ++q) {
-        const int j = tid + q * kThreads;
-        if (j < fd) {
-          for (int kk = 0; kk < kc; ++kk) {
-            const float cv = c_s[kk * fd_max + j];
-#pragma unroll
-            for (int q4 = 0; q4 < kHChunk / 4; ++q4) {
-              const float4 hv = h4[kk * (kHChunk / 4) + q4];
-              a[q][4 * q4 + 0] = fmaf(hv.x, cv, a[q][4 * q4 + 0]);
-              a[q][4 * q4 + 1] = fmaf(hv.y, cv, a[q][4 * q4 + 1]);
-              a[q][4 * q4 + 2] = fmaf(hv.z, cv, a[q][4 * q4 + 2]);
-              a[q][4 * q4 + 3] = fmaf(hv.w, cv, a[q][4 * q4 + 3]);
-            }
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < kMaxCols; ++q) {
-      const int j = tid + q * kThreads;
-      if (j < fd) {
-#pragma unroll
-        for (int hh = 0; hh < kHChunk; ++hh) p_s[hh * fd_max + j] = a[q][hh];
-      }
-    }
-    __syncthreads();  // the P chunk is complete
-
-    // ---- weights: out[w*d3+d] += sum_hh sum_u P[hh][u*d3+d] * T_c[h0+hh, u, w] (b_c at
-    // row H); thread
-    // tid takes output tid % wd and the tid / wd-th contiguous slice of u
-    const int my_split = tid / wd;
-    if (my_split < n_split) {
-      const int my_out = tid - my_split * wd;
-      const int bw = my_out / d3;
-      const int bd = my_out - bw * d3;
-      const int u0 = my_split * fan / n_split;
-      const int u1 = (my_split + 1) * fan / n_split;
-      float sum = 0.f;
-      for (int hh = 0; hh < hb; ++hh) {
-        const float* pr = p_s + hh * fd_max + bd;
-        const int hrow = h0 + hh;
-        const float* __restrict__ wr =
-            (hrow < H ? tc + static_cast<long long>(hrow) * fan * mul : bc) + bw;
-        for (int u = u0; u < u1; ++u)
-          sum = fmaf(pr[u * d3], __ldg(wr + static_cast<long long>(u) * mul), sum);
-      }
-      part_s[tid] = sum;
-    }
-    __syncthreads();
-    if (tid < wd) {
-      float s = 0.f;
-      for (int q = 0; q < n_split; ++q) s += part_s[q * wd + tid];
-      acc_s[tid] += s;
-    }
+// class_rows: n_classes rows of 10 int32 (fan, d3, mul, out_off, col0,
+// ncols, path0, n_paths, t_off, b_off); path_rows: n_paths rows of 7 int32
+// (u_off, mul, d1, xp_start, col, sh_start, d2)
+bool read_tables(const int* class_rows, int n_classes, const int* path_rows, int n_paths,
+                 Tables& tb) {
+  if (n_classes < 1 || n_classes > kMaxClasses || n_paths < 1 || n_paths > kMaxPaths)
+    return false;
+  tb = Tables{};
+  tb.n_classes = n_classes;
+  tb.n_paths = n_paths;
+  for (int c = 0; c < n_classes; ++c) {
+    const int* row = class_rows + 10 * c;
+    tb.fan[c] = row[0];
+    tb.d3[c] = row[1];
+    tb.mul[c] = row[2];
+    tb.out_off[c] = row[3];
+    tb.col0[c] = row[4];
+    tb.path0[c] = row[6];
+    tb.np[c] = row[7];
+    tb.w_off[c] = row[8];
+    tb.b_off[c] = row[9];
   }
-
-  if (tid < wd) out[r * D + out_off + tid] = acc_s[tid] * (1.0f / sqrtf(static_cast<float>(fan)));
-}
-
-size_t smem_bytes(int J, int nc_max, int fd_max) {
-  return sizeof(float) * (static_cast<size_t>(kKChunk) * (kHChunk + J + nc_max + fd_max) +
-                          static_cast<size_t>(kHChunk) * fd_max + 2 * kThreads);
+  for (int p = 0; p < n_paths; ++p) {
+    const int* row = path_rows + 7 * p;
+    tb.u_off[p] = row[0];
+    tb.pmul[p] = row[1];
+    tb.d1[p] = row[2];
+    tb.xp_start[p] = row[3];
+    tb.col[p] = row[4];
+    tb.sh_start[p] = row[5];
+    tb.d2[p] = row[6];
+  }
+  return true;
 }
 
 }  // namespace
@@ -248,42 +75,49 @@ extern "C" {
 
 int factored_tp1_max_classes() { return kMaxClasses; }
 int factored_tp1_max_paths() { return kMaxPaths; }
-int factored_tp1_max_columns() { return kMaxCols * kThreads; }
-int factored_tp1_max_outputs() { return kThreads; }
+// the widest class: fan*d3 coupled columns, mul*d3 outputs
+int factored_tp1_max_columns() { return kMaxColumns; }
+int factored_tp1_max_outputs() { return kMaxOutputs; }
 
-// class_rows: host array of n_classes rows of kClassCols int32, path_rows of
-// n_paths rows of kPathCols int32 (see Tables). Returns a cudaError_t.
+// The launch plan (see write_plan) into plan_out; returns the floats of
+// scratch the call needs (0 when the kernel writes `out` directly), or -1
+// if the tables are refused.
+long long factored_tp1_plan(const int* class_rows, int n_classes, const int* path_rows,
+                            int n_paths, long long n_rows, int XP, int J, int H, int CG_rows,
+                            int CG, int D, int* plan_out) {
+  Tables tb;
+  if (!read_tables(class_rows, n_classes, path_rows, n_paths, tb) || H < 1 ||
+      !tables_ok(tb, XP, J, CG_rows, CG, D, true))
+    return -1;
+  const Plan plan = make_plan(tb, H + 1, J, CG_rows);
+  if (plan.mt == 0) return -1;
+  write_plan(plan, tb, plan_out);
+  return scratch_floats(plan, n_rows, D);
+}
+
+// scratch: the floats factored_tp1_plan asks for. Returns a cudaError_t.
 int factored_tp1_forward(const float* xp, const float* sh, const float* h, const float* mw,
                          const float* cg, const float* t_all, const float* b_all, float* out,
-                         const int* class_rows, int n_classes, const int* path_rows,
-                         int n_paths, long long n_rows, int K, int XP, int J, int H, int CG,
-                         int D, void* stream) {
-  if (n_classes < 1 || n_classes > kMaxClasses || n_paths < 1 || n_paths > kMaxPaths || K < 1 ||
-      H < 1)
+                         float* scratch, const int* class_rows, int n_classes,
+                         const int* path_rows, int n_paths, long long n_rows, int K, int XP,
+                         int J, int H, int CG_rows, int CG, int D, void* stream) {
+  Tables tb;
+  if (!read_tables(class_rows, n_classes, path_rows, n_paths, tb) || K < 1 || H < 1 ||
+      !tables_ok(tb, XP, J, CG_rows, CG, D, true))
     return cudaErrorInvalidValue;
-  Tables tb = {};
-  int fd_max = 0, nc_max = 0;
-  for (int c = 0; c < n_classes; ++c) {
-    for (int q = 0; q < kClassCols; ++q) tb.cls[c][q] = class_rows[kClassCols * c + q];
-    const int fd = tb.cls[c][0] * tb.cls[c][1];
-    const int wd = tb.cls[c][2] * tb.cls[c][1];
-    if (tb.cls[c][0] < 1 || fd > kMaxCols * kThreads || wd < 1 || wd > kThreads)
-      return cudaErrorInvalidValue;
-    fd_max = std::max(fd_max, fd);
-    nc_max = std::max(nc_max, tb.cls[c][5]);
-  }
-  for (int p = 0; p < n_paths; ++p)
-    for (int q = 0; q < kPathCols; ++q) tb.path[p][q] = path_rows[kPathCols * p + q];
-  if (n_rows == 0) return cudaSuccess;
-  if (n_rows > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(J, nc_max, fd_max);
-  cudaError_t err = cudaFuncSetAttribute(
-      factored_tp1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  dim3 grid(static_cast<unsigned>(n_rows), static_cast<unsigned>(n_classes));
-  factored_tp1_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      xp, sh, h, mw, cg, t_all, b_all, out, tb, K, XP, J, H, CG, D, fd_max, nc_max);
-  return cudaGetLastError();
+  const Operands op = {xp, sh, h, mw, cg, t_all, b_all};
+  Dims dm = {};
+  dm.n_rows = n_rows;
+  dm.K = K;
+  dm.XP = XP;
+  dm.J = J;
+  dm.H = H;
+  dm.Ha = H + 1;
+  dm.He = H + 1;
+  dm.cg_rows = CG_rows;
+  dm.cg_cols = CG;
+  dm.D = D;
+  return launch<true>(op, out, scratch, tb, dm, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

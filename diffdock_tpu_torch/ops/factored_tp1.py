@@ -11,9 +11,14 @@ neighbour features in ``[path][i][u]`` order, one (max_d2, cols) CG matrix
 whose columns hold each path's (d2, d1*d3) block (:func:`build_specs`),
 and per class the last-layer weights (H, fan, mul) and bias (fan, mul)
 apart. ``csrc/factored_tp1.cu`` (which replaces the TPU kernel
-``pallas_tpconv.py:_kernel``) computes per receiver and class each path's
-CG dot against its own harmonic slice, the coupled columns, ``p_h = h^T C``
-and ``p_b = mw^T C``, and ``(sum_h p_h[h] @ T[h] + p_b @ b) / sqrt(fan)``.
+``pallas_tpconv.py:_kernel``; its body, shared with gen 2, is
+``csrc/factored_tp.cuh``) computes per receiver and class each path's CG
+dot against its own harmonic slice, the coupled columns, ``p_h = h^T C``
+and ``p_b = mw^T C`` (mw as the hidden operand's row H), and
+``(sum_h p_h[h] @ T[h] + p_b @ b) / sqrt(fan)`` (b as the weights' row H),
+the two products on the tensor cores in 3xTF32 (float32 accuracy). Its
+blocking is gen 2's (:func:`~diffdock_tpu_torch.ops.factored_tp2.tile_plan`),
+checked against the kernel's own plan before each launch.
 
 Forward only, as in the JAX package. The plain version is the same as
 gen 2's, :func:`diffdock_tpu_torch.ops.factored_tp2.factored_tp_reference`;
@@ -35,6 +40,7 @@ from diffdock_tpu_torch.ops.factored_tp2 import (
     check_no_empty_class,
     check_operands,
     check_tables,
+    checked_plan,
     factored_tp_reference,
     pack_neighbors,
 )
@@ -145,12 +151,17 @@ class _Kernel:
     def __init__(self):
         lib = build.load("factored_tp1", _SOURCES)
         fn = lib.factored_tp1_forward
-        fn.argtypes = [ctypes.c_void_p] * 8 + [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        fn.argtypes = [ctypes.c_void_p] * 10 + [
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
+        plan = lib.factored_tp1_plan
+        plan.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                         ctypes.c_longlong] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        plan.restype = ctypes.c_longlong
+        self.plan = plan
         for name in ("factored_tp1_max_classes", "factored_tp1_max_paths",
                      "factored_tp1_max_columns", "factored_tp1_max_outputs"):
             getattr(lib, name).argtypes = []
@@ -190,14 +201,17 @@ def launch(xp, sh, h, mw, cg, t_all, b_all, cls_rows, path_rows, out_dim: int) -
         raise ValueError("factored_tp1: weights do not match the class table")
     if int((path_rows[:, 5] + path_rows[:, 6]).max()) > J or int(path_rows[:, 6].max()) > cg.shape[0]:
         raise ValueError("factored_tp1: a path's harmonic slice lies outside edge_sh or the CG matrix")
-    out = torch.empty(N, out_dim, device=xp.device, dtype=torch.float32)
     cls_rows = np.ascontiguousarray(cls_rows, np.int32)
     path_rows = np.ascontiguousarray(path_rows, np.int32)
+    n_scratch = checked_plan("factored_tp1", kern.plan, cls_rows, path_rows, H + 1, J, N, out_dim,
+                             (XP, J, H, cg.shape[0], cg.shape[1], out_dim))
+    out = torch.empty(N, out_dim, device=xp.device, dtype=torch.float32)
+    scratch = torch.empty(max(n_scratch, 1), device=xp.device, dtype=torch.float32)
     err = kern.forward(
         xp.data_ptr(), sh.data_ptr(), h.data_ptr(), mw.data_ptr(), cg.data_ptr(),
-        t_all.data_ptr(), b_all.data_ptr(), out.data_ptr(),
+        t_all.data_ptr(), b_all.data_ptr(), out.data_ptr(), scratch.data_ptr(),
         cls_rows.ctypes.data, cls_rows.shape[0], path_rows.ctypes.data, path_rows.shape[0],
-        N, K, XP, J, H, cg.shape[1], out_dim,
+        N, K, XP, J, H, cg.shape[0], cg.shape[1], out_dim,
         torch.cuda.current_stream(xp.device).cuda_stream,
     )
     if err != 0:

@@ -7,9 +7,11 @@ library loaded with ``ctypes``:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
-The file name carries a hash of the sources and flags, so an edited source
-builds anew and an unchanged one loads the library already built. No
-PyTorch headers are included: a build takes seconds, not minutes.
+The file name carries a hash of the flags, the sources and the headers of
+``csrc/`` they include (``#include "name.cuh"``, followed through headers
+that include others), so an edited source or header builds anew and an
+unchanged one loads the library already built. No PyTorch headers are
+included: a build takes seconds, not minutes.
 """
 
 from __future__ import annotations
@@ -17,13 +19,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Mapping, Sequence
+from typing import Dict, List, Mapping, Sequence
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -54,9 +57,27 @@ def find_nvcc() -> str:
     return path
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def source_files(sources: Sequence[str]) -> List[str]:
+    """``sources`` and every header of ``csrc/`` they include, each once, in
+    the order first met."""
+    seen: List[str] = []
+    todo = list(sources)
+    while todo:
+        src = todo.pop(0)
+        if src in seen:
+            continue
+        seen.append(src)
+        todo.extend(m.decode() for m in _LOCAL_INCLUDE.findall((CSRC_DIR / src).read_bytes()))
+    return seen
+
+
 def library_path(name: str, sources: Sequence[str]) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in source_files(sources):
+        h.update(src.encode())
         h.update((CSRC_DIR / src).read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

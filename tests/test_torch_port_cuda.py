@@ -103,22 +103,39 @@ def test_fused_tp3_zero_fills_empty_classes_on_the_card():
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=1e-5, atol=1e-5)
 
 
-# the score model's three timed blocks (chip_smoke.py phase 6): rec<-lig
-# cross (3200, 32) and lig<-rec cross (320, 320) of the joint conv layers,
-# rec<-rec of rec_emb_2 (320, 10); plus ragged row counts
-GEN21_BLOCKS = [((3, 3), 3200, 32), ((3, 3), 320, 320), ((2, 3), 320, 10),
-                ((3, 3), 37, 33), ((2, 3), 1, 7)]
+# the six timed blocks (chip_smoke.py phase 6): the score model's rec<-lig
+# cross (3200, 32) and lig<-rec cross (320, 320) of the joint conv layers
+# and rec<-rec of rec_emb_2 (320, 10), at H+1 = 145; the confidence
+# model's (its widest TP, H+1 = 73) atom<-lig (25600, 32), atom<-atom
+# (25600, 6) and lig<-atom (320, 2560); plus ragged rows, neighbours and
+# hidden rows
+GEN21_BLOCKS = [
+    ("diffdock_l", (3, 3), 3200, 32, 145), ("diffdock_l", (3, 3), 320, 320, 145),
+    ("diffdock_l", (2, 3), 320, 10, 145), ("diffdock_l", (3, 3), 37, 33, 145),
+    ("diffdock_l", (2, 3), 1, 7, 145),
+    ("confidence", (3, 3), 25600, 32, 73), ("confidence", (3, 3), 25600, 6, 73),
+    ("confidence", (3, 3), 320, 2560, 73), ("confidence", (3, 3), 45, 129, 73),
+    ("diffdock_l", (3, 3), 19, 1, 17), ("confidence", (1, 2), 1001, 6, 16),
+    ("diffdock_l", (3, 3), 61, 35, 100),
+]
 
 
-@pytest.mark.parametrize("ladder,rows,K", GEN21_BLOCKS)
-def test_factored_tp2_kernel_matches_plain_version(ladder, rows, K):
+def _gen21_tp(model, ladder):
+    if model == "diffdock_l":
+        cfg = PRESETS["diffdock_l"]
+        seq = get_irrep_seq(cfg.ns, cfg.nv, False, cfg.reduce_pseudoscalars)
+    else:  # the shipped confidence model's width (chip_smoke.SHIPPED_CONFIDENCE)
+        seq = get_irrep_seq(24, 6, False, False)
+    return FullyConnectedTensorProduct(seq[ladder[0]], SH, seq[ladder[1]])
+
+
+@pytest.mark.parametrize("model,ladder,rows,K,H1", GEN21_BLOCKS)
+def test_factored_tp2_kernel_matches_plain_version(model, ladder, rows, K, H1):
     from diffdock_tpu_torch.ops import factored_tp2 as f2
 
     dev = _card()
-    cfg = PRESETS["diffdock_l"]
-    seq = get_irrep_seq(cfg.ns, cfg.nv, False, cfg.reduce_pseudoscalars)
-    tp = FullyConnectedTensorProduct(seq[ladder[0]], SH, seq[ladder[1]])
-    args = _inputs(tp, rows, K, 3 * cfg.ns, dev)
+    tp = _gen21_tp(model, ladder)
+    args = _inputs(tp, rows, K, H1 - 1, dev)
     before = f2.counts["factored_tp2"]
     out = f2.factored_tp2(tp, *args)
     ref = f2.factored_tp_reference(tp, *args)
@@ -128,16 +145,14 @@ def test_factored_tp2_kernel_matches_plain_version(ladder, rows, K):
     assert (out - ref).abs().max().item() <= 1e-4 * scale
 
 
-@pytest.mark.parametrize("ladder,rows,K", GEN21_BLOCKS)
-def test_factored_tp1_kernel_matches_plain_version(ladder, rows, K):
+@pytest.mark.parametrize("model,ladder,rows,K,H1", GEN21_BLOCKS)
+def test_factored_tp1_kernel_matches_plain_version(model, ladder, rows, K, H1):
     from diffdock_tpu_torch.ops import factored_tp1 as f1
     from diffdock_tpu_torch.ops.factored_tp2 import factored_tp_reference
 
     dev = _card()
-    cfg = PRESETS["diffdock_l"]
-    seq = get_irrep_seq(cfg.ns, cfg.nv, False, cfg.reduce_pseudoscalars)
-    tp = FullyConnectedTensorProduct(seq[ladder[0]], SH, seq[ladder[1]])
-    args = _inputs(tp, rows, K, 3 * cfg.ns, dev, seed=1)
+    tp = _gen21_tp(model, ladder)
+    args = _inputs(tp, rows, K, H1 - 1, dev, seed=1)
     before = f1.counts["factored_tp1"]
     out = f1.factored_tp1(tp, *args)
     ref = factored_tp_reference(tp, *args)
@@ -145,6 +160,40 @@ def test_factored_tp1_kernel_matches_plain_version(ladder, rows, K):
     assert f1.counts["factored_tp1"] == before + 1
     scale = max(ref.abs().max().item(), 1.0)
     assert (out - ref).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("gen", [2, 1])
+def test_factored_kernels_two_launches_are_bit_identical(gen):
+    """No sum depends on scheduling: the same inputs give the same bits
+    (lig<-rec: several slices and hidden groups, summed through scratch)."""
+    from diffdock_tpu_torch.ops import factored_tp1 as f1
+    from diffdock_tpu_torch.ops import factored_tp2 as f2
+
+    dev = _card()
+    tp = _gen21_tp("diffdock_l", (3, 3))
+    args = _inputs(tp, 320, 320, 144, dev, seed=4)
+    fn = f2.factored_tp2 if gen == 2 else f1.factored_tp1
+    first = fn(tp, *args)
+    second = fn(tp, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("gen", [2, 1])
+@pytest.mark.parametrize("irreps_out", ["256x0e", "85x1o + 3x0e", "51x2e + 4x0e"])
+def test_factored_kernels_take_a_class_of_256_outputs(gen, irreps_out):
+    """mul*d3 = 256 (and 255 at d3 = 3 and 5), the widest class a block
+    takes; at d3 = 5 the weight product takes its path for many tiles."""
+    from diffdock_tpu_torch.ops import factored_tp1 as f1
+    from diffdock_tpu_torch.ops import factored_tp2 as f2
+
+    dev = _card()
+    tp = FullyConnectedTensorProduct("4x0e + 2x1o", "1x0e + 1x1o", irreps_out)
+    args = _inputs(tp, 19, 9, 40, dev, seed=3)
+    out = (f2.factored_tp2 if gen == 2 else f1.factored_tp1)(tp, *args)
+    ref = f2.factored_tp_reference(tp, *args)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 1e-4 * max(ref.abs().max().item(), 1.0)
 
 
 def test_factored_tp2_gradient_on_the_card():

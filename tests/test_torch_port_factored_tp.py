@@ -155,11 +155,11 @@ def test_kernel_tables_address_the_packed_operands():
     tp, _ = _tps(LADDER_L)
     args = [torch.from_numpy(a) for a in _inputs(tp, 3, 5, h_dim=12, seed=4)]
     ref = f2.factored_tp_reference(tp, *args).numpy()
-    xp, sh, ht, Ha, cg, w, cls2, paths2 = [a.numpy() if torch.is_tensor(a) else a
-                                          for a in f2.prepare(tp, *args)]
+    xp, sh, h_aug, Ha, cg, w, cls2, paths2 = [a.numpy() if torch.is_tensor(a) else a
+                                             for a in f2.prepare(tp, *args)]
     xp1, sh1, h1, mw1, cg1, t1, b1, cls1, paths1 = [a.numpy() if torch.is_tensor(a) else a
                                                    for a in f1.prepare(tp, *args)]
-    He = ht.shape[1]
+    He = h_aug.shape[2]
     for gen in (2, 1):
         out = np.zeros_like(ref)
         cls = cls2 if gen == 2 else cls1
@@ -169,7 +169,7 @@ def test_kernel_tables_address_the_packed_operands():
                 paths = (paths2 if gen == 2 else paths1)[p0 : p0 + n_paths]
                 if gen == 2:
                     wcg = sh[r] @ cg[:, col0 : col0 + ncols]
-                    hid = ht[r, :Ha].T
+                    hid = h_aug[r, :, :Ha]
                     T = w[row[8] : row[8] + He * fan * mul].reshape(He, fan, mul)[:Ha]
                 else:
                     wcg = np.zeros((sh1.shape[1], ncols), np.float32)
