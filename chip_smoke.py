@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port (``diffdock_tpu_torch``) on one card.
 
-    python3 chip_smoke.py [--poses 10] [--json PATH]
+    python3 chip_smoke.py [--poses 10] [--json PATH] [--data DIR]
 
 Phases, each timed on its own line:
 
@@ -37,7 +37,29 @@ Phases, each timed on its own line:
    with the einsum pair alone beside it;
 7. profile: ``torch.profiler`` over a warm 2-step dock with ranking — device
    time by kernel, the hand-written kernels' share and the device's busy
-   share.
+   share;
+A. dock from files at full width: random-weight run directories of the
+   DiffDock-L score model (seed 0) and the shipped confidence model (seed 1)
+   written with the port's ``save_checkpoint`` and read back bit for bit,
+   the pipeline built from them on the card through the CLI's
+   ``load_pipeline``, ``syn000_l50r368`` (50 atoms, 368 residues) read from
+   its SDF, PDB and ESM ``.npy`` and docked by ``dock_mol_protein`` (10
+   poses, 19 steps, ``batch_size=5``: two chunks, trajectories saved).
+   Gates: 10 ranked SDFs and 10 trajectory PDBs; every SDF parses back with
+   finite coordinates in the input's atom order, its bond lengths within
+   1e-3 A of the input's and its confidence in rank order; the gen-3 kernel
+   launched exactly as often as the code says, no plain version. The wall
+   time is split into host (parse, featurize, write) and device (the dock),
+   with the peak memory;
+B. the CLI: ``diffdock_tpu_torch.cli.dock.main`` on a CSV of three
+   complexes (with the 1547-residue ``syn045_l8r1547``), run directories
+   without LM features, 10 poses and the default steps: it must return 0
+   and write every complex's ``rank1.sdf``; per-complex wall times;
+C. the score model's peak bytes per pose in one denoising step at three
+   buckets (two receptor buckets, a second ligand bucket), solved for the
+   coefficients of ``inference/pipeline.py:auto_pose_chunk``, and one step
+   of 40 poses at the 1547-residue complex's bucket beside the rule's
+   prediction.
 
 It then prints the card line (``nvidia-smi --query-gpu=name,power.limit``),
 one JSON line with the kernels' numbers, and, last, the result line
@@ -52,8 +74,10 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -534,6 +558,12 @@ def run(args) -> dict:
     t0 = time.perf_counter()
     report["profile"] = profile_dock(warm, data, aa, P)
     _log(f"[7 profile] 2-step dock with ranking | {time.perf_counter() - t0:.1f} s")
+    del warm
+
+    with tempfile.TemporaryDirectory() as tmp:
+        report["file_dock"] = file_dock(args, Path(tmp), cfg, ccfg, kernels, card)
+        report["cli"] = cli_dock(args, Path(tmp), cfg, ccfg, card)
+    report["score_memory"] = score_memory(pipe, cfg, card)
 
     sources = {"fused_tp3": "diffdock_tpu/ops/pallas_tpconv3.py:57",
                "factored_tp2": "diffdock_tpu/ops/pallas_tpconv2.py:125",
@@ -555,6 +585,249 @@ def run(args) -> dict:
             "library_ms": main["library_ms"],
         })
     return report
+
+
+FILE_DOCK_COMPLEX = "syn000_l50r368"  # 50 ligand atoms, 368 residues
+CLI_COMPLEXES = ("syn000_l50r368", "syn001_l24r104", "syn045_l8r1547")
+BOND_ATOL = 1e-3  # Angstrom: rigid moves and torsions keep bond lengths
+
+
+def _write_run_dirs(root: Path, cfg, ccfg) -> dict:
+    """Random-weight run directories (score model from seed 0, confidence
+    model from seed 1) written with the port's save_checkpoint, read back
+    with load_checkpoint and checked bit for bit."""
+    import numpy as np
+    import torch
+
+    from diffdock_tpu_torch.models.old_models import build_confidence_model
+    from diffdock_tpu_torch.models.score_model import CGScoreModel
+    from diffdock_tpu_torch.train.checkpoints import load_checkpoint, save_checkpoint
+    from diffdock_tpu_torch.utils.convert import flax_from_model
+
+    dirs = {}
+    for name, c, build, seed in (("score", cfg, CGScoreModel, 0),
+                                 ("confidence", ccfg, build_confidence_model, 1)):
+        model = build(c)
+        model.reset_parameters(torch.Generator().manual_seed(seed))
+        tree = flax_from_model(model)
+        save_checkpoint(str(root / name), tree, c)
+        back, c_back, _ = load_checkpoint(str(root / name))
+        if c_back != c:
+            raise PhaseError(f"{name} run dir: config {c_back} != {c}")
+        if not _same_tree(tree, back):
+            raise PhaseError(f"{name} run dir: parameters read back differ")
+        dirs[name] = str(root / name)
+        n = sum(np.asarray(v).size for v in _leaves(tree))
+        _log(f"  {name} run dir: {n} parameters written and read back bit for bit")
+    return dirs
+
+
+def _same_tree(a, b) -> bool:
+    """Equal keys, and arrays equal bit for bit."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and set(a) == set(b) and all(_same_tree(a[k], b[k]) for k in a)
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def file_dock(args, tmp: Path, cfg, ccfg, kernels, card: str) -> dict:
+    """Phase A: dock one e2e_synth complex from its files through run
+    directories, at full width, and check what is written."""
+    import numpy as np
+    import torch
+
+    from diffdock_tpu_torch.cli import dock as cli
+    from diffdock_tpu_torch.data import chem
+    from diffdock_tpu_torch.data.complexes import bucket_sizes
+    from diffdock_tpu_torch.data.esm import LazyNpyTable
+    from diffdock_tpu_torch.data.inference_dataset import InferenceDatasetBuilder, InferenceSpec
+    from diffdock_tpu_torch.models.old_models import confidence_launches
+    from diffdock_tpu_torch.native import have_native, load_error
+
+    t_start = time.perf_counter()
+    if not have_native():
+        raise PhaseError(f"the native kNN library did not load: {load_error}")
+    dirs = _write_run_dirs(tmp / "runs_lm", cfg, ccfg)
+    args_cli = cli.get_parser().parse_args(["--model_dir", dirs["score"], "--confidence_model_dir",
+                                            dirs["confidence"], "--device", "cuda"])
+    pipe = cli.load_pipeline(args_cli)
+    name = FILE_DOCK_COMPLEX
+    d = args.data / name
+    spec = InferenceSpec(name, str(d / f"{name}_protein_processed.pdb"),
+                         ligand_description=str(d / f"{name}_ligand.sdf"))
+    builder = InferenceDatasetBuilder(esm_table=LazyNpyTable(str(args.data / "_esm")))
+    t0 = time.perf_counter()
+    mol, protein, lm = builder.load(spec)
+    parse_s = time.perf_counter() - t0
+    if lm is None or lm.shape[1] != cfg.lm_embedding_dim:
+        raise PhaseError(f"no {cfg.lm_embedding_dim}-wide ESM embeddings for {name}")
+
+    P, batch = args.poses, 5
+    data, aa, heavy = pipe.featurize(mol, protein, lm)
+    chunk = pipe.effective_pose_chunk(data, P, batch)
+    n_chunks = -(-P // chunk)
+    conf_chunk = pipe.confidence_chunk_for(pipe.confidence_input(data, aa), chunk)
+    bucket = bucket_sizes(data.n_lig, data.n_rec, data.n_bonds)
+    nb = bucket[2]
+    expected = n_chunks * (expected_tp3_launches(cfg, pipe.sampler_cfg.num_steps, nb)
+                           + -(-chunk // conf_chunk) * confidence_launches(ccfg))
+    out = tmp / "file_dock"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for m in kernels.values():
+        m.counts.reset()
+    t0 = time.perf_counter()
+    res = pipe.dock_mol_protein(mol, protein, str(out), num_poses=P, seed=0, lm_embeddings=lm,
+                                save_trajectory=True, batch_size=batch)
+    wall = time.perf_counter() - t0
+    launches = {k: v for m in kernels.values() for k, v in m.counts.as_dict().items()}
+    peak = torch.cuda.max_memory_allocated()
+    timings = dict(pipe.last_timings, parse_s=parse_s)
+    host_s = parse_s + timings["featurize_s"] + timings["write_s"]
+
+    files = sorted(os.listdir(out))
+    sdfs = [f for f in files if f.endswith(".sdf")]
+    pdbs = [f for f in files if f.endswith("_reverseprocess.pdb")]
+    if len(sdfs) != P or len(pdbs) != P:
+        raise PhaseError(f"file dock wrote {len(sdfs)} SDFs and {len(pdbs)} trajectory PDBs, not {P} each")
+    bonds = np.array([b[:2] for b in heavy.bonds])
+
+    def bond_lengths(xyz):
+        return np.linalg.norm(xyz[bonds[:, 0]] - xyz[bonds[:, 1]], axis=1)
+
+    ref_len = bond_lengths(np.asarray(heavy.coords, np.float64))
+    confs, worst = [], 0.0
+    for rank in range(1, P + 1):
+        fname = "rank1.sdf" if rank == 1 else next(f for f in sdfs if f.startswith(f"rank{rank}_"))
+        text = (out / fname).read_text()
+        got = chem.parse_sdf(text)
+        if len(got) != 1 or got[0].elements != heavy.elements or got[0].bonds != heavy.bonds:
+            raise PhaseError(f"{fname} does not parse back to the input's atoms and bonds")
+        if not np.isfinite(got[0].coords).all():
+            raise PhaseError(f"{fname} has non-finite coordinates")
+        worst = max(worst, float(np.abs(bond_lengths(got[0].coords.astype(np.float64)) - ref_len).max()))
+        confs.append(float(text.split("> <confidence>\n", 1)[1].split("\n", 1)[0]))
+    if worst > BOND_ATOL:
+        raise PhaseError(f"bond lengths moved by {worst:.2e} A (tol {BOND_ATOL:.0e})")
+    if any(a < b for a, b in zip(confs, confs[1:])):
+        raise PhaseError(f"the ranked files' confidences are out of order: {confs}")
+    plain_runs = {k: v for k, v in launches.items() if "reference" in k and v}
+    if launches["fused_tp3"] != expected or plain_runs:
+        raise PhaseError(f"file dock launch counts {launches} != expected {expected} fused_tp3 / 0 plain")
+    report = {"complex": name, "n_lig": data.n_lig, "n_rec": data.n_rec, "n_atoms": aa.n_atoms,
+              "bucket": list(bucket), "poses": P, "batch_size": batch, "chunks": n_chunks,
+              "confidence_chunk": conf_chunk, "launches": launches, "expected_fused_tp3": expected,
+              "wall_s": wall, "host_s": host_s, "device_s": timings["dock_s"], "timings": timings,
+              "max_memory_allocated": peak, "max_bond_length_error": worst, "confidences": confs,
+              "files": files}
+    _log(f"  launches {launches} (expected fused_tp3 = {expected}: {n_chunks} chunks of {chunk} poses x "
+         f"(score {expected_tp3_launches(cfg, pipe.sampler_cfg.num_steps, nb)} + "
+         f"{-(-chunk // conf_chunk)} confidence chunk(s) x {confidence_launches(ccfg)}))")
+    _log(f"  {len(sdfs)} SDFs + {len(pdbs)} trajectory PDBs; bond lengths within {worst:.2e} A; "
+         f"confidences {[round(c, 4) for c in confs]}")
+    _log(f"[A file dock] {name} ({data.n_lig} atoms, {data.n_rec} residues, {aa.n_atoms} receptor atoms), "
+         f"{P} poses in {n_chunks} chunks, {pipe.sampler_cfg.num_steps} steps | wall {wall:.3f} s = host "
+         f"{host_s:.3f} s (parse {parse_s:.3f}, featurize {timings['featurize_s']:.3f}, write "
+         f"{timings['write_s']:.3f}) + device {timings['dock_s']:.3f} s | peak {peak / 2**30:.2f} GiB | "
+         f"{card} | phase {time.perf_counter() - t_start:.1f} s")
+    return report
+
+
+def cli_dock(args, tmp: Path, cfg, ccfg, card: str) -> dict:
+    """Phase B: the port's CLI on a CSV of e2e_synth complexes."""
+    import contextlib
+    import io
+
+    from diffdock_tpu_torch.cli import dock as cli
+
+    t_start = time.perf_counter()
+    dirs = _write_run_dirs(tmp / "runs_no_lm", dataclasses.replace(cfg, lm_embedding_dim=0),
+                           dataclasses.replace(ccfg, lm_embedding_dim=0))
+    csv = tmp / "pairs.csv"
+    rows = ["complex_name,protein_path,ligand_description"]
+    for name in CLI_COMPLEXES:
+        d = args.data / name
+        rows.append(f"{name},{d / f'{name}_protein_processed.pdb'},{d / f'{name}_ligand.sdf'}")
+    csv.write_text("\n".join(rows) + "\n")
+    out = tmp / "cli"
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--protein_ligand_csv", str(csv), "--model_dir", dirs["score"],
+                       "--confidence_model_dir", dirs["confidence"], "--out_dir", str(out),
+                       "--samples_per_complex", str(args.poses), "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        _log(f"  cli: {line}")
+    per_complex = {}
+    for line in buf.getvalue().splitlines():
+        if line.startswith("[") and " poses in " in line:
+            per_complex[line[1:line.index("]")]] = float(line.split(" poses in ")[1].split("s")[0])
+    missing = [n for n in CLI_COMPLEXES if not (out / n / "rank1.sdf").exists()]
+    if rc != 0 or missing:
+        raise PhaseError(f"the CLI returned {rc}; complexes without rank1.sdf: {missing}")
+    _log(f"[B cli] {len(CLI_COMPLEXES)} complexes, {args.poses} poses each | wall {wall:.2f} s | "
+         f"per complex {per_complex} | {card} | phase {time.perf_counter() - t_start:.1f} s")
+    return {"rc": rc, "wall_s": wall, "per_complex_s": per_complex}
+
+
+def score_memory(pipe, cfg, card: str) -> dict:
+    """Phase C: the score model's peak bytes per pose in one denoising step
+    (the step cache already built) at three buckets, solved for
+    bytes = a * nl * nr + b * nr + c * nl * nl per pose; then one step of 40
+    poses at the bucket of the 1547-residue complex (16, 1536) beside the
+    rule's prediction."""
+    import numpy as np
+    import torch
+
+    from diffdock_tpu_torch.data.complexes import pad_to, synthetic_complex, to_device
+    from diffdock_tpu_torch.inference import pipeline as pl
+
+    t_start = time.perf_counter()
+    model, dev = pipe.model, pipe.device
+
+    def peak_per_pose(nl, nr, n_poses):
+        d = synthetic_complex(np.random.RandomState(0), n_lig=nl - 4, n_rec=nr - 16, n_bonds=4,
+                              lm_dim=cfg.lm_embedding_dim)
+        padded = to_device(pad_to(d, nl, nr, 8), dev)
+        poses = padded.lig_pos.expand(n_poses, nl, 3).contiguous()
+        t = torch.tensor(0.5, device=dev)
+        with torch.inference_mode():
+            cache = model.embed_receptor(padded)
+            step = model.step_cache(padded, t, cache)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            model(padded, poses, t, pipe.so3, pipe.torus, rec_cache=cache, step_cache=step)
+            torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / n_poses
+
+    points = [(32, 320), (32, 1536), (64, 320)]
+    per_pose = {p: peak_per_pose(*p, 10) for p in points}
+    A = np.array([[nl * nr, nr, nl * nl] for nl, nr in points], np.float64)
+    coef = np.linalg.solve(A, np.array([per_pose[p] for p in points]))
+    check = (16, 1536)
+    measured40 = peak_per_pose(*check, 40)
+    predicted = pl.score_bytes_per_pose(*check)
+    out = {"bytes_per_pose": {f"{nl}x{nr}": v for (nl, nr), v in per_pose.items()},
+           "coefficients": {"per_edge": coef[0], "per_residue": coef[1], "per_lig_pair": coef[2]},
+           "in_use": {"per_edge": pl.SCORE_BYTES_PER_EDGE, "per_residue": pl.SCORE_BYTES_PER_RESIDUE,
+                      "per_lig_pair": pl.SCORE_BYTES_PER_LIG_PAIR, "budget": pl.SCORE_BUDGET_BYTES},
+           "check_16x1536": {"measured_40_poses_per_pose": measured40, "rule_per_pose": predicted,
+                             "rule_chunk": pl.auto_pose_chunk(*check)}}
+    _log(f"  score step peak per pose: {', '.join(f'{k}: {v / 2**20:.1f} MiB' for k, v in out['bytes_per_pose'].items())}"
+         f" -> {coef[0]:.0f} B per lig-rec pair + {coef[1]:.0f} B per residue + {coef[2]:.0f} B per lig pair")
+    _log(f"  40 poses at (16, 1536): {measured40 / 2**20:.1f} MiB per pose measured, rule "
+         f"{predicted / 2**20:.1f} MiB; the rule runs {pl.auto_pose_chunk(*check)} poses at once there")
+    _log(f"[C score memory] {card} | {time.perf_counter() - t_start:.1f} s")
+    return out
 
 
 def profile_dock(pipe, data, aa, n_poses: int) -> dict:
@@ -636,6 +909,8 @@ def main(argv=None) -> int:
     parser.add_argument("--poses", type=int, default=10)
     parser.add_argument("--iters", type=int, default=20, help="launches per timing")
     parser.add_argument("--json", type=Path, default=None, help="also write the full report here")
+    parser.add_argument("--data", type=Path, default=None,
+                        help="the e2e_synth complexes (default: data/e2e_synth beside this script)")
     args = parser.parse_args(argv)
 
     t_start = time.perf_counter()
@@ -652,6 +927,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; the smoke run needs one card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(repo))
+    if args.data is None:
+        args.data = repo / "data" / "e2e_synth"
 
     try:
         report = run(args)

@@ -17,6 +17,7 @@ import torch
 
 from diffdock_tpu_torch.data.featurize import LIG_CATEGORICAL_DIMS, REC_ATOM_CATEGORICAL_DIMS
 from diffdock_tpu_torch.geometry.torsion import rotatable_bond_mask
+from diffdock_tpu_torch.native import knn_graph_native
 
 
 class ComplexData(NamedTuple):
@@ -46,6 +47,12 @@ class ComplexData(NamedTuple):
 
     # --- bookkeeping ---
     original_center: object  # (3,) f32 receptor centroid in input frame
+
+    # --- optional training target ---
+    # (NR, 10) [chi/360 (NaN where undefined), N-CA, C-CA] per residue
+    # (:func:`diffdock_tpu_torch.data.chi.side_chain_vecs`); the dock never
+    # reads it and drops it before padding
+    rec_scv: object = None
 
     @property
     def n_lig(self) -> int:
@@ -85,7 +92,7 @@ def to_device(data, device):
     if isinstance(data, AAComplexData):
         return AAComplexData(to_device(data.base, device),
                              *[_tensor(a, device) for a in data[1:]])
-    return ComplexData(*[_tensor(a, device) for a in data])
+    return ComplexData(*[None if a is None else _tensor(a, device) for a in data])
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -174,16 +181,31 @@ def pad_to(data: ComplexData, nl: int, nr: int, nb: int, kb: int = 4, kr: int = 
     )
 
 
-def build_knn_neighbors(pos: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
-    """Host-side kNN neighbour lists for the receptor graph (the JAX
-    package's numpy path, without its radius cap): each node's k nearest
-    other nodes."""
+def build_knn_neighbors(
+    pos: np.ndarray, k: int, max_radius: Optional[float] = None
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-side kNN neighbour lists for the receptor graph: each node's k
+    nearest other nodes, optionally radius-capped with the nearest kept
+    (reference ``process_mols.py:184-188``). The native library
+    (:mod:`diffdock_tpu_torch.native`) first, this numpy path without it,
+    as in the JAX package; the two may order exact distance ties
+    differently."""
+    out = knn_graph_native(np.asarray(pos, np.float32), k, max_radius)
+    if out is not None:
+        return out
     n = pos.shape[0]
     k = min(k, max(n - 1, 1))
     d = np.linalg.norm(pos[:, None] - pos[None, :], axis=-1)
     np.fill_diagonal(d, np.inf)
     idx = np.argsort(d, axis=1)[:, :k]
-    mask = np.isfinite(np.take_along_axis(d, idx, axis=1))
+    dist = np.take_along_axis(d, idx, axis=1)
+    mask = np.isfinite(dist)
+    if max_radius is not None:
+        mask &= dist <= max_radius
+        # never isolate a node: keep its nearest neighbour even beyond the
+        # cutoff
+        if n > 1:
+            mask[:, 0] |= ~mask.any(axis=1)
     return idx.astype(np.int32), mask
 
 

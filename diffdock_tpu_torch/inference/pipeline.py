@@ -1,26 +1,37 @@
-"""Docking of one complex with confidence ranking (port of ``diffdock_tpu/inference/pipeline.py``).
+"""Docking from files with confidence ranking (port of ``diffdock_tpu/inference/pipeline.py``).
 
-``DockingPipeline.dock_complex`` runs the body of the JAX package's
-``_make_run``: pad the complex to its bucket, embed the receptor once,
-place the start poses, run the reverse diffusion with the pose-independent
-layer-0 receptor message computed once per step, then score the final
-poses with the confidence model at t = 0, in pose chunks, and rank them.
-The confidence models ported are the old family's (the shipped default is
-the old all-atom architecture). Not ported yet: confidence models of the
-new architectures, the confidence model's receptor crop, affinity
-prediction, trajectories, the device mesh, the bucket ladders other than
-the default, pocket crops and the anomaly guard.
+``DockingPipeline.dock_mol_protein`` featurizes a parsed ligand and
+receptor, docks them and writes the ranked poses as SDF files (and, on
+request, each pose's reverse-diffusion trajectory as a PDB) under the JAX
+package's names. ``DockingPipeline.dock_complex`` runs the body of the
+JAX package's ``_make_run`` on one featurized complex: pad it to its
+bucket, embed the receptor once, place the start poses (at the receptor
+mean or a given pocket center), run the reverse diffusion with the
+pose-independent layer-0 receptor message computed once per step, then
+score the final poses with the confidence model at t = 0, in pose chunks,
+and rank them. Poses run in chunks of at most the H100 cap
+(:func:`auto_pose_chunk`) or the caller's ``batch_size``, each chunk from
+its own seed, and are ranked jointly.
+
+Not ported yet: confidence models of the new architectures, the
+confidence model's receptor crop, affinity prediction, the host-side
+receptor pre-crop (``pre_crop_radius``), the cover and dense bucket
+ladders, the device mesh and the anomaly guard; asking for any of them
+raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple, Union
+import os
+import time
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from diffdock_tpu_torch import DEFAULT_DEVICE
+from diffdock_tpu_torch.data.chem import read_molecule_file, read_pdb_file, write_sdf
 from diffdock_tpu_torch.data.complexes import (
     AAComplexData,
     ComplexData,
@@ -40,7 +51,8 @@ from diffdock_tpu_torch.inference.sampler import (
     randomize_position,
     reverse_diffusion,
 )
-from diffdock_tpu_torch.models.config import ScoreModelConfig
+from diffdock_tpu_torch.data.featurize import build_aa_complex_data, build_complex_data
+from diffdock_tpu_torch.models.config import ConfigError, ScoreModelConfig
 from diffdock_tpu_torch.models.old_models import build_confidence_model
 from diffdock_tpu_torch.models.score_model import CGScoreModel
 
@@ -71,11 +83,46 @@ def auto_confidence_chunk(nl: int, n_nodes: int, num_poses: int) -> int:
     return max(1, min(num_poses, int(CONF_BUDGET_BYTES // max(per_pose, 1))))
 
 
+# Device bytes one pose adds to the score model's peak in one denoising
+# step, SCORE_BYTES_PER_EDGE * nl * nr + SCORE_BYTES_PER_RESIDUE * nr +
+# SCORE_BYTES_PER_LIG_PAIR * nl * nl (nl, nr: the padded ligand and
+# receptor buckets): the dense lig<-rec and rec<-lig cross blocks, the
+# receptor's per-pose node features and the ligand's radius block.
+# chip_smoke.py phase C measures the DiffDock-L step's peak over 10 poses
+# at (nl, nr) = (32, 320), (32, 1536) and (64, 320) on an NVIDIA H100 80GB
+# HBM3 at 700 W: 63.7, 301.8 and 126.7 MiB per pose, which solve to 6,155
+# bytes per ligand-residue pair, 8,390 per residue and 1,011 per ligand
+# pair; 40 poses at (16, 1536) then took 155.6 MiB per pose against the
+# 156.8 MiB these give (PERF.md, PR 8). The coefficients round those up.
+SCORE_BYTES_PER_EDGE = 6_200
+SCORE_BYTES_PER_RESIDUE = 8_400
+SCORE_BYTES_PER_LIG_PAIR = 1_100
+# the share of an 80 GB H100 the score model's per-pose temporaries may
+# take; the confidence model runs after the score model, with its own
+# CONF_BUDGET_BYTES
+SCORE_BUDGET_BYTES = 40e9
+
+
+def score_bytes_per_pose(nl: int, nr: int) -> int:
+    return (SCORE_BYTES_PER_EDGE * nl * nr + SCORE_BYTES_PER_RESIDUE * nr
+            + SCORE_BYTES_PER_LIG_PAIR * nl * nl)
+
+
+def auto_pose_chunk(nl: int, nr: int) -> int:
+    """The most poses the score model may run at once for a padded
+    (nl, nr) complex: as many as fit SCORE_BUDGET_BYTES of per-pose
+    temporaries (the H100 form of the JAX package's ``fine_hbm_poses``,
+    whose bounds are TPU numbers)."""
+    return max(1, int(SCORE_BUDGET_BYTES // max(score_bytes_per_pose(nl, nr), 1)))
+
+
 @dataclasses.dataclass
 class DockingResult:
     poses: np.ndarray  # (P, NL, 3) in the original input frame
     confidence: Optional[np.ndarray]  # (P,) higher is better, or None
     order: np.ndarray  # (P,) indices sorted by confidence (best first)
+    affinity: Optional[float] = None  # affinity prediction is not ported: always None
+    trajectory: Optional[np.ndarray] = None  # (steps+1, P, NL, 3) input frame
 
 
 def _with_weights(model: torch.nn.Module, weights: Union[dict, int], device) -> torch.nn.Module:
@@ -97,7 +144,10 @@ class DockingPipeline:
     for the confidence model of ``confidence_cfg`` (None: no ranking).
     ``confidence_chunk``: poses per confidence forward, None for
     :func:`auto_confidence_chunk`. ``reference_kernels`` runs every
-    kernel's plain version instead of the kernel.
+    kernel's plain version instead of the kernel. ``pre_crop_radius``,
+    ``pocket_capacity``, ``bucket_ladder`` other than ``"fine"``, ``mesh``
+    and ``anomaly_guard`` are options of the JAX pipeline that are not
+    ported; setting one raises.
     """
 
     def __init__(
@@ -112,7 +162,22 @@ class DockingPipeline:
         confidence_cfg: Optional[ScoreModelConfig] = None,
         confidence_weights: Union[dict, int, None] = None,
         confidence_chunk: Optional[int] = None,
+        pre_crop_radius: Optional[float] = None,
+        pocket_capacity: Optional[int] = None,
+        bucket_ladder: str = "fine",
+        mesh=None,
+        anomaly_guard: Optional[float] = None,
     ):
+        not_ported = {
+            "pre_crop_radius (needs crop_beyond, ROADMAP queue 1 item 5)": pre_crop_radius is not None,
+            "pocket_capacity (ROADMAP queue 1 item 5)": pocket_capacity is not None,
+            f"bucket_ladder={bucket_ladder!r} (ROADMAP queue 1 item 4)": bucket_ladder != "fine",
+            "a device mesh (ROADMAP queue 1 item 8)": mesh is not None,
+            "the anomaly guard (ROADMAP queue 1 item 4)": bool(anomaly_guard),
+        }
+        bad = [k for k, v in not_ported.items() if v]
+        if bad:
+            raise ConfigError(f"not ported yet: {', '.join(bad)}")
         use_full_fp32()
         self.device = torch.device(device)
         self.score_cfg = score_cfg
@@ -131,6 +196,7 @@ class DockingPipeline:
             raise ValueError(f"confidence_chunk must be >= 1 (got {confidence_chunk}); "
                              "use None for the automatic chunk")
         self.confidence_chunk = confidence_chunk
+        self.last_timings: dict = {}
         self.so3 = so3_tables if so3_tables is not None else get_so3_tables(device=self.device)
         self.torus = torus_tables if torus_tables is not None else get_torus_tables(device=self.device)
 
@@ -140,25 +206,88 @@ class DockingPipeline:
         steps = StepNoise.draw(self.sampler_cfg.num_steps, num_poses, n_bonds, gen, self.device)
         return init, steps
 
+    @staticmethod
+    def _normalize_inference_data(data: ComplexData, aa_data: Optional[AAComplexData]):
+        """Drop ``rec_scv``, a training target the dock never reads (the JAX
+        pipeline drops it at the same boundary)."""
+        if data.rec_scv is not None:
+            data = data._replace(rec_scv=None)
+            if aa_data is not None:
+                aa_data = aa_data._replace(base=data)
+        return data, aa_data
+
+    def effective_pose_chunk(self, data: ComplexData, num_poses: int,
+                             batch_size: Optional[int] = None) -> int:
+        """The poses in flight :meth:`dock_complex` runs for this complex:
+        ``batch_size`` (all poses when None), capped at
+        :func:`auto_pose_chunk` of its bucket."""
+        nl, nr, _ = bucket_sizes(data.n_lig, data.n_rec, data.n_bonds)
+        chunk = batch_size
+        cap = auto_pose_chunk(nl, nr)
+        if (chunk or num_poses) > cap:
+            chunk = min(chunk, cap) if chunk else cap
+        return min(chunk, num_poses) if chunk else num_poses
+
     @torch.inference_mode()
     def dock_complex(
         self,
         data: ComplexData,
         num_poses: int = 10,
         seed: int = 0,
-        noise: Optional[Tuple[InitNoise, StepNoise]] = None,
+        noise=None,
         aa_data: Optional[AAComplexData] = None,
+        return_trajectory: bool = False,
+        pocket_center: Optional[np.ndarray] = None,
+        batch_size: Optional[int] = None,
     ) -> DockingResult:
         """Dock one numpy :class:`ComplexData` and, with a confidence model,
-        rank the poses. ``noise``: optional (InitNoise, StepNoise) for the
-        padded bond count; drawn from ``seed`` when None. ``aa_data``: the
-        same complex with its receptor atoms, for an all-atom confidence
-        model."""
+        rank the poses.
+
+        ``noise``: optional (InitNoise, StepNoise) for the padded bond count;
+        drawn from ``seed`` when None. When the poses run in chunks (see
+        :meth:`effective_pose_chunk`), chunk ``c`` draws from seed
+        ``seed * 100003 + c`` as in the JAX pipeline, and ``noise`` is a
+        sequence of one such pair per chunk. ``aa_data``: the same complex
+        with its receptor atoms, for an all-atom confidence model.
+        ``pocket_center``: (3,) start-pose center in the complex's centered
+        frame (the frame of ``data.rec_pos``); None uses the receptor mean.
+        ``return_trajectory``: also return the poses after every step,
+        (steps+1, P, NL, 3) in the input frame."""
+        data, aa_data = self._normalize_inference_data(data, aa_data)
+        chunk = self.effective_pose_chunk(data, num_poses, batch_size)
+        if chunk < num_poses:
+            n_chunks = -(-num_poses // chunk)
+            if noise is not None and len(noise) != n_chunks:
+                raise ValueError(f"{n_chunks} chunks of {chunk} poses need {n_chunks} noise pairs, "
+                                 f"got {len(noise)}")
+            results = [
+                self._dock_program(data, chunk, seed * 100003 + c,
+                                   None if noise is None else noise[c],
+                                   aa_data, return_trajectory, pocket_center)
+                for c in range(n_chunks)
+            ]
+            poses = np.concatenate([r.poses for r in results])[:num_poses]
+            conf = (np.concatenate([r.confidence for r in results])[:num_poses]
+                    if results[0].confidence is not None else None)
+            # the trajectory is step-major (S, P, NL, 3): poses on axis 1
+            traj = (np.concatenate([r.trajectory for r in results], axis=1)[:, :num_poses]
+                    if return_trajectory else None)
+            order = np.argsort(-conf) if conf is not None else np.arange(num_poses)
+            return DockingResult(poses=poses, confidence=conf, order=order, trajectory=traj)
+        return self._dock_program(data, num_poses, seed, noise, aa_data, return_trajectory,
+                                  pocket_center)
+
+    def _dock_program(self, data: ComplexData, num_poses: int, seed: int, noise,
+                      aa_data: Optional[AAComplexData], return_trajectory: bool,
+                      pocket_center: Optional[np.ndarray]) -> DockingResult:
+        """One pose batch: the body of the JAX package's ``_make_run``."""
         scfg, sampler = self.score_cfg, self.sampler_cfg
         nl, nr, nb = bucket_sizes(data.n_lig, data.n_rec, data.n_bonds)
         padded = to_device(pad_to(data, nl, nr, nb), self.device)
         conf_data = self.confidence_input(data, aa_data, padded)
         init_noise, step_noise = noise if noise is not None else self.draw_noise(num_poses, nb, seed)
+        pocket = (None if pocket_center is None else
+                  torch.as_tensor(np.asarray(pocket_center, np.float32).reshape(3), device=self.device))
 
         rec_cache = self.model.embed_receptor(padded)
         init = randomize_position(
@@ -169,6 +298,7 @@ class DockingPipeline:
             no_random=sampler.no_random or sampler.no_random_pocket,
             no_torsion=scfg.no_torsion,
             choose_residue=sampler.choose_residue,
+            pocket_center=pocket,
         )
 
         def score_fn(poses, t):
@@ -178,14 +308,20 @@ class DockingPipeline:
 
         final = reverse_diffusion(
             score_fn, padded, init, sampler, scfg.sigma, step_noise,
-            no_torsion=scfg.no_torsion,
+            no_torsion=scfg.no_torsion, return_trajectory=return_trajectory,
         )
         center = np.asarray(data.original_center)
+        traj = None
+        if return_trajectory:
+            final, frames = final
+            traj = frames[:, :, : data.n_lig].cpu().numpy() + center[None, None, None]
         poses = final[:, : data.n_lig].cpu().numpy() + center[None, None]
         if conf_data is None:
-            return DockingResult(poses=poses, confidence=None, order=np.arange(num_poses))
+            return DockingResult(poses=poses, confidence=None, order=np.arange(num_poses),
+                                 trajectory=traj)
         conf = self.confidence(conf_data, final).cpu().numpy()
-        return DockingResult(poses=poses, confidence=conf, order=np.argsort(-conf))
+        return DockingResult(poses=poses, confidence=conf, order=np.argsort(-conf),
+                             trajectory=traj)
 
     def confidence_input(self, data: ComplexData, aa_data: Optional[AAComplexData] = None,
                          padded: Optional[ComplexData] = None):
@@ -218,3 +354,96 @@ class DockingPipeline:
         out = torch.cat([self.confidence_model(conf_data, poses[i : i + c], 0.0)
                          for i in range(0, poses.shape[0], c)])
         return torch.nan_to_num(out[..., 0], nan=-1000.0)
+
+    # ------------------------------------------------------------------
+    def featurize(self, mol, protein, lm_embeddings: Optional[np.ndarray] = None):
+        """(ComplexData, AAComplexData or None, H-stripped Molecule) of a
+        parsed ligand and receptor; the all-atom tree only for an all-atom
+        confidence model."""
+        if self.confidence_cfg is not None and self.confidence_cfg.all_atoms:
+            aa_data, heavy = build_aa_complex_data(mol, protein, lm_embeddings)
+            return aa_data.base, aa_data, heavy
+        data, heavy = build_complex_data(mol, protein, lm_embeddings)
+        return data, None, heavy
+
+    def dock_files(
+        self,
+        protein_path: str,
+        ligand_path: str,
+        out_dir: str,
+        num_poses: int = 10,
+        seed: int = 0,
+        lm_embeddings: Optional[np.ndarray] = None,
+    ) -> DockingResult:
+        """Dock a ligand file into a protein and write ranked SDFs
+        (naming scheme of reference ``inference.py:286-290``)."""
+        mol = read_molecule_file(ligand_path)
+        protein = read_pdb_file(protein_path)
+        return self.dock_mol_protein(
+            mol, protein, out_dir, num_poses=num_poses, seed=seed,
+            lm_embeddings=lm_embeddings,
+        )
+
+    def dock_mol_protein(
+        self,
+        mol,
+        protein,
+        out_dir: str,
+        num_poses: int = 10,
+        seed: int = 0,
+        lm_embeddings: Optional[np.ndarray] = None,
+        save_trajectory: bool = False,
+        batch_size: Optional[int] = None,
+        noise=None,
+    ) -> DockingResult:
+        """Dock a parsed Molecule into a ProteinStructure and write
+        ``rank1.sdf``, ``rank{r}_confidence{c:.2f}.sdf`` (with a
+        ``confidence`` property) and, with ``save_trajectory``,
+        ``rank{r}_reverseprocess.pdb`` into ``out_dir``. ``noise`` as for
+        :meth:`dock_complex`. Afterwards ``last_timings`` holds the wall
+        seconds of the host's featurization (``featurize_s``), of the dock
+        until its poses are back on the host (``dock_s``) and of writing
+        the files (``write_s``)."""
+        t0 = time.perf_counter()
+        data, aa_data, heavy_mol = self.featurize(mol, protein, lm_embeddings)
+        t1 = time.perf_counter()
+        result = self.dock_complex(
+            data, num_poses=num_poses, seed=seed, noise=noise, aa_data=aa_data,
+            return_trajectory=save_trajectory, batch_size=batch_size,
+        )
+        t2 = time.perf_counter()  # the poses are on the host: the device is done
+        write_ranked_poses(out_dir, heavy_mol, result)
+        self.last_timings = {"featurize_s": t1 - t0, "dock_s": t2 - t1,
+                             "write_s": time.perf_counter() - t2}
+        return result
+
+
+def write_ranked_poses(out_dir: str, heavy_mol, result: DockingResult) -> List[str]:
+    """The ranked SDFs (and trajectory PDBs, when ``result`` carries a
+    trajectory) of one dock, under the JAX package's names; returns the
+    files written."""
+    from diffdock_tpu_torch.utils.visualise import LigandTrajectoryWriter
+
+    os.makedirs(out_dir, exist_ok=True)
+    written = []
+    if result.trajectory is not None:
+        for rank, idx in enumerate(result.order):
+            w = LigandTrajectoryWriter(heavy_mol.elements)
+            for frame in result.trajectory[:, idx]:
+                w.add(frame)
+            path = os.path.join(out_dir, f"rank{rank + 1}_reverseprocess.pdb")
+            w.write(path)
+            written.append(path)
+    for rank, idx in enumerate(result.order):
+        conf = float(result.confidence[idx]) if result.confidence is not None else None
+        name = f"rank{rank + 1}.sdf" if rank == 0 or conf is None else (
+            f"rank{rank + 1}_confidence{conf:.2f}.sdf"
+        )
+        props = {}
+        if conf is not None:
+            props["confidence"] = f"{conf:.4f}"
+        path = os.path.join(out_dir, name)
+        with open(path, "w") as f:
+            f.write(write_sdf(heavy_mol, result.poses[idx], props))
+        written.append(path)
+    return written

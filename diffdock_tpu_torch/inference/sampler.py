@@ -114,15 +114,20 @@ def randomize_position(
     no_random: bool = False,
     no_torsion: bool = False,
     choose_residue: bool = False,
+    pocket_center: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Initial pose replicas (reference ``utils/sampling.py:16-58``):
     torsions ~ U(-pi, pi), a Haar-random orientation about the ligand
-    center, placement at the receptor center plus Gaussian translation
-    noise; (P, NL, 3)."""
+    center, placement at the receptor center (or ``pocket_center``, (3,)
+    in the complex's centered frame) plus Gaussian translation noise;
+    (P, NL, 3)."""
     pos = data.lig_pos
     w = data.lig_mask[:, None].to(pos.dtype)
-    rw = data.rec_mask[:, None].to(pos.dtype)
-    center = (data.rec_pos * rw).sum(0) / torch.clamp(rw.sum(), min=1.0)
+    if pocket_center is None:
+        rw = data.rec_mask[:, None].to(pos.dtype)
+        center = (data.rec_pos * rw).sum(0) / torch.clamp(rw.sum(), min=1.0)
+    else:
+        center = pocket_center
 
     poses = pos.expand((num_poses,) + pos.shape)
     if not no_torsion:
@@ -192,13 +197,17 @@ def reverse_diffusion(
     sigma_cfg,
     noise: StepNoise,
     no_torsion: bool = False,
-) -> torch.Tensor:
+    return_trajectory: bool = False,
+):
     """Run the reverse diffusion from ``init_poses`` (P, NL, 3).
 
     ``score_fn(poses, t)`` -> an object with ``tr`` (P, 3), ``rot`` (P, 3),
     ``tor`` (P, B); ``t`` is a 0-d float32 tensor. The last executed step
     integrates to t = 0 and is where ``no_final_step_noise`` applies, also
-    when ``actual_steps < inference_steps``. Returns final poses.
+    when ``actual_steps < inference_steps``. Returns final poses, and with
+    ``return_trajectory`` also the trajectory (steps+1, P, NL, 3): the
+    start poses, then the poses after each step (reference
+    ``utils/sampling.py:96-101,139-151``).
     """
     device = init_poses.device
     sched = sampler_cfg.schedule()
@@ -220,6 +229,7 @@ def reverse_diffusion(
     ]
     nb = data.rot_u.shape[0]
     poses = init_poses
+    frames = [init_poses]
     for s in range(n):
         t, t_nxt = t_curr[s], t_next[s]
         dt = t - t_nxt
@@ -249,4 +259,8 @@ def reverse_diffusion(
                 data.rot_u, data.rot_v, data.mask_rotate, data.rot_mask,
                 atom_mask=data.lig_mask,
             )
+        if return_trajectory:
+            frames.append(poses)
+    if return_trajectory:
+        return poses, torch.stack(frames)
     return poses

@@ -15,9 +15,12 @@ The port's module tree mirrors the flax one, so conversion is a name map:
   ``Dense_{i}`` -> ``layers.{i}``, ``BatchNorm_{i}`` -> ``norms.{i}`` and
   ``cat_{i}`` -> ``embeddings.{i}``.
 
-Loading the msgpack checkpoints of the JAX package's trainer waits for a
-later slice; this takes the tree as nested dicts of numpy arrays (what
-``CGScoreModel.init`` returns, converted with ``np.asarray``).
+:func:`state_dict_from_flax` takes the tree as nested dicts of numpy
+arrays (what ``CGScoreModel.init`` returns, or what
+:func:`diffdock_tpu_torch.train.checkpoints.load_checkpoint` reads from a
+run directory); :func:`flax_from_model` is the inverse map, from a port
+model's parameters to that tree, for writing run directories the JAX
+package reads.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from diffdock_tpu_torch.models.config import ScoreModelConfig
+from diffdock_tpu_torch.models.score_model import ScalarBatchNorm
 
 _LIST_MODULES = ("rec_emb", "lig_emb", "conv", "lig_conv", "rec_conv", "lig_to_rec_conv",
                  "rec_to_lig_conv")
@@ -80,3 +84,54 @@ def state_dict_from_flax(variables: Mapping, cfg: ScoreModelConfig) -> Dict[str,
             np.array(value, np.float32)
         )
     return sd
+
+
+_INNER_NAMES = {v: k for k, v in _INNER_LISTS.items()}
+
+
+def _flax_path(parts) -> list:
+    """The inverse of :func:`_module_path`."""
+    out, i = [], 0
+    while i < len(parts):
+        p = parts[i]
+        nxt = parts[i + 1] if i + 1 < len(parts) else None
+        if i == 0 and p.endswith("_layers") and p[:-len("_layers")] in _LIST_MODULES and nxt is not None:
+            out.append(f"{p[:-len('_layers')]}_{nxt}")
+            i += 2
+        elif i > 0 and p in _INNER_NAMES and nxt is not None and nxt.isdigit():
+            out.append(f"{_INNER_NAMES[p]}_{nxt}")
+            i += 2
+        else:
+            out.append(p)
+            i += 1
+    return out
+
+
+def flax_from_model(model: torch.nn.Module) -> Dict[str, dict]:
+    """``{'params': ..., 'batch_stats': ...}`` of a port model, as nested
+    dicts of float32 numpy arrays in the flax layout: the tree
+    :func:`state_dict_from_flax` maps back to ``model.state_dict()``."""
+    tree: Dict[str, dict] = {"params": {}, "batch_stats": {}}
+    for mod_name, module in model.named_modules():
+        parts = mod_name.split(".") if mod_name else []
+        named = list(module.named_parameters(recurse=False)) + [
+            (n, b) for n, b in module.named_buffers(recurse=False)
+            if n in module.state_dict(keep_vars=True)]
+        for name, value in named:
+            value = value.detach().cpu().numpy().astype(np.float32)
+            collection = "params"
+            if name in ("running_mean", "running_var"):
+                collection, name = "batch_stats", name[len("running_"):]
+            elif isinstance(module, torch.nn.Linear) and name == "weight":
+                name, value = "kernel", value.T
+            elif isinstance(module, torch.nn.Embedding) and name == "weight":
+                name = "embedding"
+            elif isinstance(module, ScalarBatchNorm) and name == "weight":
+                name = "scale"
+            node = tree[collection]
+            for p in _flax_path(parts):
+                node = node.setdefault(p, {})
+            node[name] = np.ascontiguousarray(value)
+    if not tree["batch_stats"]:
+        del tree["batch_stats"]
+    return tree

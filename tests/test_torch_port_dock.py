@@ -186,7 +186,7 @@ def test_randomize_position_matches_jax(choose_residue, no_torsion):
         tr=T(jax.random.normal(k_tr, (P, 1, 3))),
         res=T(jax.random.uniform(k_res, (P,))),
     )
-    ref = j_randomize(key, j_complexes.ComplexData(*[jnp.asarray(a) for a in data]), P, 19.0, 1.46,
+    ref = j_randomize(key, j_complexes.ComplexData(*[None if a is None else jnp.asarray(a) for a in data]), P, 19.0, 1.46,
                       no_torsion=no_torsion, choose_residue=choose_residue)
     ours = randomize_position(to_device(data, "cpu"), P, 19.0, noise, 1.46, no_torsion=no_torsion,
                               choose_residue=choose_residue)
@@ -224,7 +224,7 @@ def test_reverse_diffusion_matches_jax(ode, no_final_step_noise):
               no_final_step_noise=no_final_step_noise)
     key = jax.random.PRNGKey(4)
     ref = j_reverse(key, lambda p, t: JScoreOutput(*_toy_score(jnp, p, t)),
-                    j_complexes.ComplexData(*[jnp.asarray(a) for a in data]), jnp.asarray(init),
+                    j_complexes.ComplexData(*[None if a is None else jnp.asarray(a) for a in data]), jnp.asarray(init),
                     JSamplerConfig(**kw), JSigmaConfig(tr_sigma_max=19.0), None, None)
 
     # the per-step draws of the JAX scan: k, k_tr, k_rot, k_tor = split(k, 4)

@@ -60,6 +60,9 @@ def test_port_imports_nothing_missing_on_the_card_machine():
 @pytest.mark.parametrize("module", [
     "ops/fused_tp3.py", "ops/factored_tp2.py", "ops/factored_tp1.py", "models/old_models.py",
     "models/score_model.py", "inference/pipeline.py", "data/complexes.py", "utils/convert.py",
+    "data/chem.py", "data/chi.py", "native.py", "data/featurize.py", "data/esm.py",
+    "data/inference_dataset.py", "train/checkpoints.py", "utils/flax_msgpack.py",
+    "utils/simple_yaml.py", "inference/sampler.py", "utils/visualise.py", "cli/dock.py",
 ])
 def test_port_modules_are_in_the_checked_set(module):
     assert REPO / "diffdock_tpu_torch" / module in _port_files()

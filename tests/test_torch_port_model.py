@@ -78,7 +78,7 @@ def test_score_model_forward_matches_jax(tables, lm_dim, layers):
     jcfg, cfg = JScoreModelConfig(**kw), ScoreModelConfig(**kw)
     data = synthetic_complex(np.random.RandomState(0), n_lig=10, n_rec=24, n_bonds=3, lm_dim=lm_dim)
     data = pad_to(data, 16, 32, 4)  # padded atoms, residues and bond slots
-    jdata = j_complexes.ComplexData(*[jnp.asarray(a) for a in data])
+    jdata = j_complexes.ComplexData(*[None if a is None else jnp.asarray(a) for a in data])
     jmodel, params = _init_params(jcfg, jdata, js, jt, seed=lm_dim)
 
     model = CGScoreModel(cfg)
