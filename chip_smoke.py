@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port (``diffdock_tpu_torch``) on one card.
 
-    python3 chip_smoke.py [--poses 10] [--json PATH] [--data DIR]
+    python3 chip_smoke.py [--poses 10] [--json PATH]
 
 Phases, each timed on its own line:
 
@@ -587,6 +587,9 @@ def run(args) -> dict:
     return report
 
 
+# the complexes phases A and B read (.chiprunignore keeps these files, and
+# only these ESM embeddings, in copies of the tree for a card)
+E2E_SYNTH = Path(__file__).resolve().parent / "data" / "e2e_synth"
 FILE_DOCK_COMPLEX = "syn000_l50r368"  # 50 ligand atoms, 368 residues
 CLI_COMPLEXES = ("syn000_l50r368", "syn001_l24r104", "syn045_l8r1547")
 BOND_ATOL = 1e-3  # Angstrom: rigid moves and torsions keep bond lengths
@@ -659,10 +662,10 @@ def file_dock(args, tmp: Path, cfg, ccfg, kernels, card: str) -> dict:
                                             dirs["confidence"], "--device", "cuda"])
     pipe = cli.load_pipeline(args_cli)
     name = FILE_DOCK_COMPLEX
-    d = args.data / name
+    d = E2E_SYNTH / name
     spec = InferenceSpec(name, str(d / f"{name}_protein_processed.pdb"),
                          ligand_description=str(d / f"{name}_ligand.sdf"))
-    builder = InferenceDatasetBuilder(esm_table=LazyNpyTable(str(args.data / "_esm")))
+    builder = InferenceDatasetBuilder(esm_table=LazyNpyTable(str(E2E_SYNTH / "_esm")))
     t0 = time.perf_counter()
     mol, protein, lm = builder.load(spec)
     parse_s = time.perf_counter() - t0
@@ -753,7 +756,7 @@ def cli_dock(args, tmp: Path, cfg, ccfg, card: str) -> dict:
     csv = tmp / "pairs.csv"
     rows = ["complex_name,protein_path,ligand_description"]
     for name in CLI_COMPLEXES:
-        d = args.data / name
+        d = E2E_SYNTH / name
         rows.append(f"{name},{d / f'{name}_protein_processed.pdb'},{d / f'{name}_ligand.sdf'}")
     csv.write_text("\n".join(rows) + "\n")
     out = tmp / "cli"
@@ -909,8 +912,6 @@ def main(argv=None) -> int:
     parser.add_argument("--poses", type=int, default=10)
     parser.add_argument("--iters", type=int, default=20, help="launches per timing")
     parser.add_argument("--json", type=Path, default=None, help="also write the full report here")
-    parser.add_argument("--data", type=Path, default=None,
-                        help="the e2e_synth complexes (default: data/e2e_synth beside this script)")
     args = parser.parse_args(argv)
 
     t_start = time.perf_counter()
@@ -927,8 +928,6 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; the smoke run needs one card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(repo))
-    if args.data is None:
-        args.data = repo / "data" / "e2e_synth"
 
     try:
         report = run(args)
