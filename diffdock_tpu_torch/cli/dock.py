@@ -172,30 +172,19 @@ def _native_run_dir(model_dir: str) -> str:
     return model_dir
 
 
-def _check_ported(args) -> None:
-    bad = []
-    if args.compute_dtype != "float32":
-        bad.append(f"--compute_dtype {args.compute_dtype} (ROADMAP queue 1 item 5)")
-    if args.crop_beyond is not None:
-        bad.append("--crop_beyond (ROADMAP queue 1 item 5)")
-    if args.pocket_capacity is not None:
-        bad.append("--pocket_capacity (ROADMAP queue 1 item 5)")
-    if args.bucket_ladder != "fine":
-        bad.append(f"--bucket_ladder {args.bucket_ladder} (ROADMAP queue 1 item 4)")
-    if args.pose_devices != 1:
-        bad.append(f"--pose_devices {args.pose_devices} (ROADMAP queue 1 item 8)")
-    if bad:
-        raise ConfigError(f"not ported yet: {', '.join(bad)}")
-
-
 def load_pipeline(args):
-    """The DockingPipeline the parsed ``args`` ask for, on ``args.device``."""
+    """The DockingPipeline the parsed ``args`` ask for, on ``args.device``.
+    The options that are not ported are refused where they land, as in the
+    JAX CLI: ``--compute_dtype`` and ``--crop_beyond`` by the score model's
+    config, ``--pocket_capacity`` and ``--bucket_ladder`` by the pipeline;
+    ``--pose_devices`` above 1 here, where the JAX CLI builds its mesh."""
     from diffdock_tpu_torch.inference.pipeline import DockingPipeline
     from diffdock_tpu_torch.models.config import PRESETS
     from diffdock_tpu_torch.train.checkpoints import load_checkpoint
     from diffdock_tpu_torch.utils.convert import state_dict_from_flax
 
-    _check_ported(args)
+    if args.pose_devices != 1:
+        raise ConfigError(f"not ported yet: --pose_devices {args.pose_devices} (ROADMAP queue 1 item 8)")
     sampler_cfg = sampler_config_from_args(args)
     if args.model_dir:
         params, cfg, _ = load_checkpoint(_native_run_dir(args.model_dir), args.ckpt)
@@ -212,6 +201,8 @@ def load_pipeline(args):
         weights = 0
     if args.compute_dtype != cfg.compute_dtype:
         cfg = dataclasses.replace(cfg, compute_dtype=args.compute_dtype)
+    if args.crop_beyond is not None:
+        cfg = dataclasses.replace(cfg, crop_beyond=args.crop_beyond)
 
     conf_cfg = conf_weights = None
     if args.confidence_model_dir:
@@ -226,6 +217,8 @@ def load_pipeline(args):
         device=args.device,
         confidence_cfg=conf_cfg,
         confidence_weights=conf_weights,
+        pocket_capacity=args.pocket_capacity,
+        bucket_ladder=args.bucket_ladder,
     )
 
 

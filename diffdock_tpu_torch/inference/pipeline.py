@@ -92,8 +92,9 @@ def auto_confidence_chunk(nl: int, n_nodes: int, num_poses: int) -> int:
 # at (nl, nr) = (32, 320), (32, 1536) and (64, 320) on an NVIDIA H100 80GB
 # HBM3 at 700 W: 63.7, 301.8 and 126.7 MiB per pose, which solve to 6,155
 # bytes per ligand-residue pair, 8,390 per residue and 1,011 per ligand
-# pair; 40 poses at (16, 1536) then took 155.6 MiB per pose against the
-# 156.8 MiB these give (PERF.md, PR 8). The coefficients round those up.
+# pair, rounded up below. 40 poses at (16, 2304), the bucket of a
+# 1547-residue receptor with an 8-atom ligand, then took 233.1 MiB per
+# pose against the 236.7 MiB the rounded coefficients give (PERF.md, PR 8).
 SCORE_BYTES_PER_EDGE = 6_200
 SCORE_BYTES_PER_RESIDUE = 8_400
 SCORE_BYTES_PER_LIG_PAIR = 1_100
@@ -243,28 +244,25 @@ class DockingPipeline:
         """Dock one numpy :class:`ComplexData` and, with a confidence model,
         rank the poses.
 
-        ``noise``: optional (InitNoise, StepNoise) for the padded bond count;
-        drawn from ``seed`` when None. When the poses run in chunks (see
-        :meth:`effective_pose_chunk`), chunk ``c`` draws from seed
-        ``seed * 100003 + c`` as in the JAX pipeline, and ``noise`` is a
-        sequence of one such pair per chunk. ``aa_data``: the same complex
-        with its receptor atoms, for an all-atom confidence model.
+        ``noise``: optional function ``(num_poses, n_bonds, seed) ->
+        (InitNoise, StepNoise)`` for the padded bond count, called once per
+        pose batch; :meth:`draw_noise` when None. The poses run in one batch
+        from ``seed`` or, in chunks (see :meth:`effective_pose_chunk`), chunk
+        ``c`` from seed ``seed * 100003 + c`` as in the JAX pipeline.
+        ``aa_data``: the same complex with its receptor atoms, for an
+        all-atom confidence model.
         ``pocket_center``: (3,) start-pose center in the complex's centered
         frame (the frame of ``data.rec_pos``); None uses the receptor mean.
         ``return_trajectory``: also return the poses after every step,
         (steps+1, P, NL, 3) in the input frame."""
         data, aa_data = self._normalize_inference_data(data, aa_data)
+        noise = noise if noise is not None else self.draw_noise
         chunk = self.effective_pose_chunk(data, num_poses, batch_size)
         if chunk < num_poses:
-            n_chunks = -(-num_poses // chunk)
-            if noise is not None and len(noise) != n_chunks:
-                raise ValueError(f"{n_chunks} chunks of {chunk} poses need {n_chunks} noise pairs, "
-                                 f"got {len(noise)}")
             results = [
-                self._dock_program(data, chunk, seed * 100003 + c,
-                                   None if noise is None else noise[c],
-                                   aa_data, return_trajectory, pocket_center)
-                for c in range(n_chunks)
+                self._dock_program(data, chunk, seed * 100003 + c, noise, aa_data,
+                                   return_trajectory, pocket_center)
+                for c in range(-(-num_poses // chunk))
             ]
             poses = np.concatenate([r.poses for r in results])[:num_poses]
             conf = (np.concatenate([r.confidence for r in results])[:num_poses]
@@ -285,7 +283,7 @@ class DockingPipeline:
         nl, nr, nb = bucket_sizes(data.n_lig, data.n_rec, data.n_bonds)
         padded = to_device(pad_to(data, nl, nr, nb), self.device)
         conf_data = self.confidence_input(data, aa_data, padded)
-        init_noise, step_noise = noise if noise is not None else self.draw_noise(num_poses, nb, seed)
+        init_noise, step_noise = noise(num_poses, nb, seed)
         pocket = (None if pocket_center is None else
                   torch.as_tensor(np.asarray(pocket_center, np.float32).reshape(3), device=self.device))
 

@@ -116,9 +116,9 @@ def _check_supported(cfg: ScoreModelConfig) -> None:
         "all_atoms": cfg.all_atoms,
         "depthwise_convolution": cfg.depthwise_convolution,
         "sidechain_pred": cfg.sidechain_pred,
-        "crop_beyond": cfg.crop_beyond is not None,
+        "crop_beyond (ROADMAP queue 1 item 5)": cfg.crop_beyond is not None,
         "factored_tp=False": not cfg.factored_tp,
-        f"compute_dtype={cfg.compute_dtype}": cfg.compute_dtype != "float32",
+        f"compute_dtype={cfg.compute_dtype} (ROADMAP queue 1 item 5)": cfg.compute_dtype != "float32",
     }
     bad = [name for name, on in unsupported.items() if on]
     if bad:

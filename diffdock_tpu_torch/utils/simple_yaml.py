@@ -2,29 +2,30 @@
 
 The subset is what ``yaml.safe_dump(..., sort_keys=True)`` writes for a
 run directory's ``model_parameters.yml`` (``{"model": asdict(cfg),
-**extra}``) and what hand-written inference configs use:
+**extra}``), which also covers the reference's flat
+``default_inference_args.yaml``:
 
 * block mappings and block sequences, nested by indentation, including
   the sequence written at its key's indentation (``key:`` then ``- item``)
   and compact items (``- key: value``, ``- - x``);
-* flow collections on one line (``[]``, ``{}``, ``[a, 1.5]``,
-  ``{a: 1}``);
-* scalars resolved as PyYAML's ``SafeLoader`` resolves them (YAML 1.1):
-  ``null``/``~``/empty, ``true``/``false``/``yes``/``no``/``on``/``off``,
-  decimal, ``0x``, ``0b`` and octal ints, floats that have a dot (so
-  ``1.0e-05`` is a float and ``1e-05`` a string) and ``.inf``/``.nan``,
-  single- and double-quoted strings on one line, plain strings;
-* ``#`` comments, ``---`` and ``...``.
+* the empty collections ``[]`` and ``{}``;
+* scalars: ``null``/``~``/empty, ``true``/``false``, decimal ints, floats
+  with a dot (``1.0e-05``; ``1e-05`` is a string, as in YAML 1.1),
+  ``.inf``/``-.inf``/``.nan``, single-quoted strings on one line and
+  plain strings (``safe_dump`` writes a string with characters outside
+  ASCII double-quoted with escapes, which raises);
+* ``#`` comments.
 
-Anything else (anchors, aliases, tags, block scalars, multi-line scalars,
-merge keys, timestamps, sexagesimal numbers, tabs in indentation) raises
-:class:`YAMLError` with the line number. :func:`dump` writes the subset in
-``safe_dump``'s block style with sorted keys; ``yaml.safe_load`` reads it.
+Anything else raises :class:`YAMLError` with the line number, among it
+every plain scalar that ``yaml.safe_load`` would read as another type in
+a form ``safe_dump`` never writes (``yes``/``no``/``on``/``off``, ``0x``,
+octal or sexagesimal numbers, timestamps), so no input is read otherwise
+than PyYAML reads it. :func:`dump` writes the subset in ``safe_dump``'s
+block style with sorted keys; ``yaml.safe_load`` reads it.
 """
 
 from __future__ import annotations
 
-import json
 import math
 import re
 from typing import Any, List, Tuple
@@ -34,118 +35,56 @@ class YAMLError(ValueError):
     """Input outside the supported subset, with its line number."""
 
 
-_NULL = re.compile(r"^(?:~|null|Null|NULL|)$")
-_BOOL_TRUE = re.compile(r"^(?:yes|Yes|YES|true|True|TRUE|on|On|ON)$")
-_BOOL_FALSE = re.compile(r"^(?:no|No|NO|false|False|FALSE|off|Off|OFF)$")
-_INT = re.compile(r"^(?:[-+]?0b[0-1_]+|[-+]?0[0-7_]+|[-+]?(?:0|[1-9][0-9_]*)|[-+]?0x[0-9a-fA-F_]+)$")
-_FLOAT = re.compile(r"^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?"
-                    r"|\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?"
-                    r"|[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN))$")
-_SEXAGESIMAL = re.compile(r"^[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+(?:\.[0-9_]*)?$")
-_TIMESTAMP = re.compile(r"^[0-9][0-9][0-9][0-9]-[0-9][0-9]?-[0-9][0-9]?")
+_INT = re.compile(r"^[-+]?(?:0|[1-9][0-9]*)$")
+_FLOAT = re.compile(r"^[-+]?[0-9]+\.[0-9]*(?:[eE][-+][0-9]+)?$")
+_SPECIAL_FLOATS = {".inf": math.inf, "+.inf": math.inf, "-.inf": -math.inf, ".nan": math.nan}
+# what PyYAML's SafeLoader resolves to a bool, null, int, float, timestamp
+# or merge key in forms outside the subset
+_OTHER_IMPLICIT = re.compile(
+    r"^(?:yes|Yes|YES|no|No|NO|True|TRUE|False|FALSE|on|On|ON|off|Off|OFF|Null|NULL|<<|="
+    r"|[-+]?0b[0-1_]+|[-+]?0[0-7_]+|[-+]?0x[0-9a-fA-F_]+|[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+(?:\.[0-9_]*)?"
+    r"|[-+]?[0-9][0-9_]*_[0-9_]*|[-+]?[0-9][0-9_]*\.[0-9_]*(?:[eE][-+][0-9]+)?|\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?"
+    r"|[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN)|[0-9]{4}-[0-9]{1,2}-[0-9]{1,2}.*)$")
 _PLAIN_SAFE = re.compile(r"^[A-Za-z_][A-Za-z0-9_./-]*$")
 
 
 def _resolve(text: str, line: int) -> Any:
-    """A plain scalar's value, as the YAML 1.1 resolver gives it."""
-    if _NULL.match(text):
+    """A plain scalar's value, as ``yaml.safe_load`` gives it."""
+    if text in ("", "~", "null"):
         return None
-    if _BOOL_TRUE.match(text):
-        return True
-    if _BOOL_FALSE.match(text):
-        return False
-    if _SEXAGESIMAL.match(text) or _TIMESTAMP.match(text) or text in ("<<", "="):
-        raise YAMLError(f"line {line}: {text!r} is outside the supported YAML subset")
+    if text in ("true", "false"):
+        return text == "true"
     if _INT.match(text):
-        v = text.replace("_", "")
-        sign = -1 if v[0] == "-" else 1
-        v = v.lstrip("+-")
-        if v == "0":
-            return 0
-        if v.startswith("0b"):
-            return sign * int(v[2:], 2)
-        if v.startswith("0x"):
-            return sign * int(v[2:], 16)
-        if v.startswith("0"):
-            return sign * int(v, 8)
-        return sign * int(v)
+        return int(text)
     if _FLOAT.match(text):
-        v = text.replace("_", "").lower()
-        if v.endswith(".inf"):
-            return -math.inf if v.startswith("-") else math.inf
-        if v == ".nan":
-            return math.nan
-        return float(v)
-    if text[0] in "&*!|>%@`" or text.startswith(("- ", "? ", ": ")) or text in ("-", "?"):
+        return float(text)
+    if text in _SPECIAL_FLOATS:
+        return _SPECIAL_FLOATS[text]
+    if _OTHER_IMPLICIT.match(text) or text[0] in "&*!|>%@`[]{}\"" or text.startswith(("- ", "? ")):
         raise YAMLError(f"line {line}: {text!r} is outside the supported YAML subset")
     return text
 
 
-_ESCAPES = {"0": "\0", "a": "\a", "b": "\b", "t": "\t", "\t": "\t", "n": "\n", "v": "\v",
-            "f": "\f", "r": "\r", "e": "\x1b", " ": " ", '"': '"', "/": "/", "\\": "\\",
-            "N": "\x85", "_": "\xa0", "L": "\u2028", "P": "\u2029"}
-_HEX_ESCAPES = {"x": 2, "u": 4, "U": 8}
-
-
-def _double_quoted(body: str, line: int) -> str:
-    out, i = [], 0
-    while i < len(body):
-        c = body[i]
-        if c != "\\":
-            out.append(c)
-            i += 1
-            continue
-        e = body[i + 1:i + 2]
-        if e in _ESCAPES:
-            out.append(_ESCAPES[e])
-            i += 2
-        elif e in _HEX_ESCAPES:
-            n = _HEX_ESCAPES[e]
-            digits = body[i + 2:i + 2 + n]
-            if len(digits) != n or not re.fullmatch(r"[0-9a-fA-F]+", digits):
-                raise YAMLError(f"line {line}: bad escape in double-quoted string {body!r}")
-            out.append(chr(int(digits, 16)))
-            i += 2 + n
-        else:
-            raise YAMLError(f"line {line}: unsupported escape in double-quoted string {body!r}")
-    return "".join(out)
-
-
-def _scan_quoted(text: str, i: int, line: int) -> Tuple[str, int]:
-    """The quoted scalar starting at ``text[i]`` and the index after it."""
-    q = text[i]
-    j = i + 1
+def _single_quoted_end(text: str, line: int) -> int:
+    """The index of the quote closing the single-quoted scalar at ``text[0]``."""
+    j = 1
     while j < len(text):
-        if q == "'" and text[j] == "'":
-            if j + 1 < len(text) and text[j + 1] == "'":
-                j += 2
-                continue
-            return text[i + 1:j].replace("''", "'"), j + 1
-        if q == '"' and text[j] == "\\":
-            j += 2
-            continue
-        if q == '"' and text[j] == '"':
-            return _double_quoted(text[i + 1:j], line), j + 1
+        if text[j] == "'":
+            if text[j + 1:j + 2] != "'":
+                return j
+            j += 1
         j += 1
     raise YAMLError(f"line {line}: unterminated or multi-line quoted string")
 
 
-def _strip_comment(text: str) -> str:
-    """``text`` without a trailing ``# comment`` (outside quotes)."""
-    i, quote = 0, None
+def _strip_comment(text: str, line: int) -> str:
+    """``text`` without a trailing ``# comment`` (outside single quotes)."""
+    i = 0
     while i < len(text):
-        c = text[i]
-        if quote:
-            if c == quote:
-                if quote == "'" and text[i + 1:i + 2] == "'":
-                    i += 1
-                else:
-                    quote = None
-            elif quote == '"' and c == "\\":
-                i += 1
-        elif c in "'\"" and (i == 0 or text[i - 1] in " \t[{,:-"):
-            quote = c
-        elif c == "#" and (i == 0 or text[i - 1] in " \t"):
+        if text[i] == "'" and (i == 0 or text[i - 1] in " -:"):
+            i += _single_quoted_end(text[i:], line) + 1
+            continue
+        if text[i] == "#" and (i == 0 or text[i - 1] == " "):
             return text[:i].rstrip()
         i += 1
     return text.rstrip()
@@ -153,96 +92,45 @@ def _strip_comment(text: str) -> str:
 
 def _scalar(text: str, line: int) -> Any:
     text = text.strip()
-    if text[:1] in ("'", '"'):
-        value, end = _scan_quoted(text, 0, line)
-        if text[end:].strip():
+    if text.startswith("'"):
+        end = _single_quoted_end(text, line)
+        if text[end + 1:].strip():
             raise YAMLError(f"line {line}: text after a quoted scalar: {text!r}")
-        return value
-    if text[:1] in ("[", "{"):
-        value, end = _flow(text, 0, line)
-        if text[end:].strip():
-            raise YAMLError(f"line {line}: text after a flow collection: {text!r}")
-        return value
+        return text[1:end].replace("''", "'")
+    if text in ("[]", "{}"):
+        return [] if text == "[]" else {}
     return _resolve(text, line)
-
-
-def _flow(text: str, i: int, line: int) -> Tuple[Any, int]:
-    """A one-line flow sequence or mapping starting at ``text[i]``."""
-    opener = text[i]
-    closer = "]" if opener == "[" else "}"
-    items: list = []
-    mapping: dict = {}
-    i += 1
-    while True:
-        while i < len(text) and text[i] == " ":
-            i += 1
-        if i >= len(text):
-            raise YAMLError(f"line {line}: unterminated flow collection")
-        if text[i] == closer:
-            return (items if opener == "[" else mapping), i + 1
-        if text[i] in "[{":
-            value, i = _flow(text, i, line)
-        elif text[i] in "'\"":
-            value, i = _scan_quoted(text, i, line)
-        else:
-            j = i
-            while j < len(text) and text[j] not in ",]}" and not (
-                    opener == "{" and text[j] == ":" and text[j + 1:j + 2] in (" ", "")):
-                j += 1
-            value, i = _resolve(text[i:j].strip(), line), j
-        while i < len(text) and text[i] == " ":
-            i += 1
-        if opener == "{":
-            if i >= len(text) or text[i] != ":":
-                raise YAMLError(f"line {line}: flow mapping entry without ':'")
-            i += 1
-            while i < len(text) and text[i] == " ":
-                i += 1
-            if text[i:i + 1] in ("[", "{"):
-                val, i = _flow(text, i, line)
-            elif text[i:i + 1] in ("'", '"'):
-                val, i = _scan_quoted(text, i, line)
-            else:
-                j = i
-                while j < len(text) and text[j] not in ",}":
-                    j += 1
-                val, i = _resolve(text[i:j].strip(), line), j
-            mapping[value] = val
-        else:
-            items.append(value)
-        while i < len(text) and text[i] == " ":
-            i += 1
-        if i < len(text) and text[i] == ",":
-            i += 1
 
 
 def _split_key(text: str, line: int):
     """(key, rest) of a ``key: rest`` or ``key:`` line, or None."""
-    if text[:1] in ("'", '"'):
-        key, end = _scan_quoted(text, 0, line)
-        rest = text[end:].lstrip(" ")
+    if text.startswith("'"):
+        end = _single_quoted_end(text, line)
+        rest = text[end + 1:].lstrip(" ")
         if rest == ":" or rest.startswith(": "):
-            return key, rest[1:].strip()
+            return text[1:end].replace("''", "'"), rest[1:].strip()
         return None
     m = re.search(r":(?: |$)", text)
-    if m is None or text[:1] in "[{":
+    if m is None:
         return None
-    key = text[:m.start()].strip()
-    if key.startswith("? "):
-        raise YAMLError(f"line {line}: complex keys are outside the supported YAML subset")
-    return _resolve(key, line), text[m.end():].strip()
+    return _resolve(text[:m.start()].strip(), line), text[m.end():].strip()
+
+
+def _is_item(content: str) -> bool:
+    return content == "-" or content.startswith("- ")
 
 
 class _Parser:
     def __init__(self, text: str):
         self.lines: List[Tuple[int, str, int]] = []  # (indent, content, line number)
         for no, raw in enumerate(text.splitlines(), start=1):
-            stripped = _strip_comment(raw)
-            if not stripped.strip() or stripped.strip() in ("---", "..."):
-                continue
+            stripped = _strip_comment(raw, no)
             body = stripped.lstrip(" ")
-            if body.startswith("\t") or stripped.startswith("%"):
-                raise YAMLError(f"line {no}: tabs and directives are outside the supported YAML subset")
+            if not body:
+                continue
+            if body.startswith(("\t", "%", "---", "...")):
+                raise YAMLError(f"line {no}: tabs, directives and document markers are outside "
+                                "the supported YAML subset")
             self.lines.append((len(stripped) - len(body), body, no))
         self.i = 0
 
@@ -254,31 +142,32 @@ class _Parser:
             raise YAMLError(f"line {self.lines[self.i][2]}: unexpected indentation")
         return value
 
+    def _no_continuation(self, indent: int) -> None:
+        if self.i < len(self.lines) and self.lines[self.i][0] > indent:
+            raise YAMLError(f"line {self.lines[self.i][2]}: multi-line scalars are outside "
+                            "the supported YAML subset")
+
     def block(self, indent: int):
-        ind, content, no = self.lines[self.i]
-        if content == "-" or content.startswith("- "):
+        _, content, no = self.lines[self.i]
+        if _is_item(content):
             return self.sequence(indent)
         if _split_key(content, no) is not None:
             return self.mapping(indent)
         self.i += 1
-        if self.i < len(self.lines) and self.lines[self.i][0] > indent:
-            raise YAMLError(f"line {self.lines[self.i][2]}: multi-line scalars are outside the supported YAML subset")
+        self._no_continuation(indent)
         return _scalar(content, no)
 
-    def _value_after(self, rest: str, indent: int, no: int, seq_at_indent: bool):
+    def _value_after(self, rest: str, indent: int, seq_at_indent: bool, no: int):
         """The value of a ``key:`` or ``-`` whose inline text is ``rest``."""
         if rest:
-            if rest[:1] in "|>&*!":
-                raise YAMLError(f"line {no}: {rest!r} is outside the supported YAML subset")
             value = _scalar(rest, no)
-            if self.i < len(self.lines) and self.lines[self.i][0] > indent:
-                raise YAMLError(f"line {self.lines[self.i][2]}: multi-line scalars are outside the supported YAML subset")
+            self._no_continuation(indent)
             return value
         if self.i < len(self.lines):
             ind, content, _ = self.lines[self.i]
             if ind > indent:
                 return self.block(ind)
-            if seq_at_indent and ind == indent and (content == "-" or content.startswith("- ")):
+            if seq_at_indent and ind == indent and _is_item(content):
                 return self.sequence(indent)
         return None
 
@@ -297,19 +186,19 @@ class _Parser:
             self.i += 1
             if key in out:
                 raise YAMLError(f"line {no}: duplicate key {key!r}")
-            out[key] = self._value_after(rest, indent, no, seq_at_indent=True)
+            out[key] = self._value_after(rest, indent, True, no)
         return out
 
     def sequence(self, indent: int) -> list:
         out: list = []
         while self.i < len(self.lines):
             ind, content, no = self.lines[self.i]
-            if ind != indent or not (content == "-" or content.startswith("- ")):
+            if ind != indent or not _is_item(content):
                 if ind > indent:
                     raise YAMLError(f"line {no}: unexpected indentation")
                 break
             rest = content[1:].lstrip(" ")
-            if rest and (rest == "-" or rest.startswith("- ") or _split_key(rest, no) is not None):
+            if rest and (_is_item(rest) or _split_key(rest, no) is not None):
                 # a compact nested block: the item's text becomes a line of
                 # its own at its column
                 col = ind + len(content) - len(rest)
@@ -317,7 +206,7 @@ class _Parser:
                 out.append(self.block(col))
             else:
                 self.i += 1
-                out.append(self._value_after(rest, indent, no, seq_at_indent=False))
+                out.append(self._value_after(rest, indent, False, no))
         return out
 
 
@@ -346,16 +235,11 @@ def _scalar_text(v: Any) -> str:
             text = text.replace("e", ".0e", 1)
         return text
     if isinstance(v, str):
-        if _PLAIN_SAFE.match(v):
-            try:
-                plain_ok = _resolve(v, 0) == v
-            except YAMLError:
-                plain_ok = False
-            if plain_ok:
-                return v
-        if all(c.isprintable() for c in v):
+        if _PLAIN_SAFE.match(v) and not _OTHER_IMPLICIT.match(v) and _resolve(v, 0) == v:
+            return v
+        if v.isprintable():
             return "'" + v.replace("'", "''") + "'"
-        return json.dumps(v)
+        raise YAMLError(f"cannot write {v!r}: unprintable characters are outside the subset")
     raise TypeError(f"cannot write {type(v).__name__} as YAML")
 
 

@@ -166,12 +166,16 @@ def test_yaml_reader_refuses_what_it_does_not_support():
     text = "a: 1\nb: &anchor 2\n"
     with pytest.raises(simple_yaml.YAMLError, match="line 2"):
         simple_yaml.load(text)
+    # forms safe_dump never writes, among them those safe_load reads as
+    # another type than a plain string
     for bad in ("a: |\n  text\n", "a: 2001-12-14\n", "a:\n\tb: 1\n", "a: 1:20\n", "a: b\n  c\n",
-                "a: 'open\n", "a: !!str x\n", "- a\nb: 1\n"):
+                "a: 'open\n", "a: !!str x\n", "- a\nb: 1\n", "a: [1, 2]\n", "a: {b: 1}\n", "a: 0x1f\n",
+                "a: 010\n", "a: Yes\n", "a: off\n", "a: 1_000\n", "a: .5\n", "a: \"w\"\n", "---\na: 1\n"):
         with pytest.raises(simple_yaml.YAMLError):
             simple_yaml.load(bad)
-    ok = "# comment\n---\na: [1, 2.5, x, 'q', \"w\\x41\"]  # trailing\nb: {c: 1, d: [2]}\nc: 0x1f\n" \
-         "e: 010\nf: 1e-05\ng: ~\nh:\n  - - 1\n    - 2\n  - k: v\n    z: 3\ni: Yes\nj: -.inf\n"
+    ok = "# comment\na: 'q ''x'' # not a comment'  # trailing\nb: {}\nc: []\nf: 1e-05\ng: ~\n" \
+         "h:\n  - - 1\n    - 2\n  - k: v\n    z: 3\ni: true\nj: -.inf\nk: 1.0e-05\nl: -12\nm: run 1\n" \
+         "n:\n- 1.5\n- null\n"
     assert simple_yaml.load(ok) == yaml.safe_load(ok)
 
 

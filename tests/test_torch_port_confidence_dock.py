@@ -27,7 +27,7 @@ from diffdock_tpu_torch.models.old_models import confidence_launches
 from diffdock_tpu_torch.ops import fused_tp3 as ft
 from diffdock_tpu_torch.utils.convert import state_dict_from_flax
 from tests.test_torch_port_confidence import _conf_kw, _init_confidence, _perturbed, tables  # noqa: F401
-from tests.test_torch_port_dock import _jax_draws
+from tests.test_torch_port_dock import _jax_noise
 
 
 @pytest.fixture(autouse=True)
@@ -69,7 +69,7 @@ def test_confidence_ranked_dock_matches_jax(tables, all_atoms):
                            ps, pt, device="cpu", confidence_cfg=conf_cfg,
                            confidence_weights=state_dict_from_flax(jconf, conf_cfg))
     before = ft.counts["fused_tp3_reference"]
-    res = pipe.dock_complex(aa.base, num_poses=P, seed=seed, noise=_jax_draws(seed, P, nb, steps[1]),
+    res = pipe.dock_complex(aa.base, num_poses=P, seed=seed, noise=_jax_noise(steps[1]),
                             aa_data=aa)
     # score model: 1 receptor layer + 12 per step; confidence: one chunk
     assert ft.counts["fused_tp3_reference"] - before == 1 + 12 * steps[1] + confidence_launches(conf_cfg)

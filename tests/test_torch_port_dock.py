@@ -87,6 +87,12 @@ def _jax_draws(seed, P, nb, n_steps):
     return init, steps
 
 
+def _jax_noise(n_steps):
+    """A pipeline's ``noise`` function giving the JAX pipeline's draws for
+    each pose batch's seed."""
+    return lambda num_poses, n_bonds, seed: _jax_draws(seed, num_poses, n_bonds, n_steps)
+
+
 @pytest.mark.parametrize("steps", [(3, 3), (4, 3)])
 def test_dock_complex_matches_jax_with_injected_noise(setup, steps):
     js, jt, ps, pt, jcfg, cfg, params = setup
@@ -100,7 +106,7 @@ def test_dock_complex_matches_jax_with_injected_noise(setup, steps):
     ref = jpipe.dock_complex(jdata, num_poses=P, seed=seed)
 
     nb = bucket_sizes(data.n_lig, data.n_rec, data.n_bonds)[2]
-    noise = _jax_draws(seed, P, nb, actual_steps)
+    noise = _jax_noise(actual_steps)
     pipe = DockingPipeline(cfg, state_dict_from_flax(params, cfg),
                            SamplerConfig(inference_steps=inference_steps, actual_steps=actual_steps),
                            ps, pt, device="cpu")
@@ -143,7 +149,7 @@ def test_dock_gap_is_float32_rounding_against_float64_jax(setup, monkeypatch):
     ref32 = [np.asarray(jax32.dock_complex(jdata, num_poses=P, seed=s).poses, np.float64)
              for s in seeds]
     port = [np.asarray(pipe.dock_complex(data, num_poses=P, seed=s,
-                                         noise=_jax_draws(s, P, nb, 3)).poses, np.float64)
+                                         noise=_jax_noise(3)).poses, np.float64)
             for s in seeds]
     normal, uniform = jax.random.normal, jax.random.uniform
     with jax.enable_x64(True):

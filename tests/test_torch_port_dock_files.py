@@ -52,7 +52,7 @@ from diffdock_tpu_torch.ops import fused_tp3 as ft
 from diffdock_tpu_torch.train.checkpoints import save_checkpoint
 from diffdock_tpu_torch.utils.convert import state_dict_from_flax
 from tests.test_torch_port_confidence import _conf_kw, _init_confidence, _perturbed, tables  # noqa: F401
-from tests.test_torch_port_dock import _jax_draws, _to_f64
+from tests.test_torch_port_dock import _jax_draws, _jax_noise, _to_f64
 
 REPO = Path(__file__).resolve().parent.parent
 SYNTH = REPO / "data" / "e2e_synth"
@@ -152,7 +152,7 @@ def test_dock_mol_protein_matches_jax(setup, tmp_path):
     pipe, ref, ref64 = setup["pipe"], setup["ref"], setup["ref64"]
     before = ft.counts.as_dict()
     res = pipe.dock_mol_protein(mol, prot, str(tmp_path), num_poses=P, seed=SEED, save_trajectory=True,
-                                noise=_jax_draws(SEED, P, setup["nb"], STEPS))
+                                noise=_jax_noise(STEPS))
     after = ft.counts.as_dict()
     assert after["fused_tp3"] == before["fused_tp3"]  # the plain version on the CPU
     _assert_steps_match(res, ref)
@@ -207,7 +207,7 @@ def test_pocket_center_matches_jax(setup):
     pipe = setup["pipe"]
     data, aa, _ = pipe.featurize(chem.read_molecule_file(lig), chem.read_pdb_file(pdb))
     pocket = np.asarray(data.rec_pos)[7] + np.array([1.0, -2.0, 0.5], np.float32)
-    noise = _jax_draws(SEED + 1, P, setup["nb"], STEPS)
+    noise = _jax_noise(STEPS)
     ref = setup["jpipe"].dock_complex(jaa.base, num_poses=P, seed=SEED + 1, aa_data=jaa,
                                       return_trajectory=True, pocket_center=pocket)
     res = pipe.dock_complex(data, num_poses=P, seed=SEED + 1, aa_data=aa, return_trajectory=True,
@@ -233,10 +233,16 @@ def test_pose_chunks_match_jax(setup):
     assert pipe.effective_pose_chunk(data, n, b) == 2
     ref = setup["jpipe"].dock_complex(jaa.base, num_poses=n, seed=seed, aa_data=jaa,
                                       return_trajectory=True, batch_size=b)
-    noise = [_jax_draws(seed * 100003 + c, b, setup["nb"], STEPS) for c in range(3)]
+    calls = []
+
+    def noise(num_poses, n_bonds, s):
+        calls.append((num_poses, n_bonds, s))
+        return _jax_draws(s, num_poses, n_bonds, STEPS)
+
     before = ft.counts["fused_tp3_reference"]
     res = pipe.dock_complex(data, num_poses=n, seed=seed, aa_data=aa, return_trajectory=True,
                             batch_size=b, noise=noise)
+    assert calls == [(b, setup["nb"], seed * 100003 + c) for c in range(3)]
     # three chunks, each one score dock (1 receptor layer + 12 per step) and
     # one confidence forward
     assert ft.counts["fused_tp3_reference"] - before == 3 * (1 + 12 * STEPS + confidence_launches(
@@ -244,13 +250,11 @@ def test_pose_chunks_match_jax(setup):
     assert res.poses.shape == ref.poses.shape == (n, data.n_lig, 3)
     _assert_steps_match(res, ref)
     # the chunks are the port's own docks of 2 poses from each chunk's draws
-    parts = [pipe.dock_complex(data, num_poses=b, seed=0, aa_data=aa, return_trajectory=True,
-                               noise=noise[c]) for c in range(3)]
+    parts = [pipe.dock_complex(data, num_poses=b, seed=seed * 100003 + c, aa_data=aa,
+                               return_trajectory=True, noise=noise) for c in range(3)]
     np.testing.assert_array_equal(res.poses, np.concatenate([r.poses for r in parts])[:n])
     np.testing.assert_array_equal(res.confidence, np.concatenate([r.confidence for r in parts])[:n])
     np.testing.assert_array_equal(res.trajectory, np.concatenate([r.trajectory for r in parts], 1)[:, :n])
-    with pytest.raises(ValueError, match="3 noise pairs"):
-        pipe.dock_complex(data, num_poses=n, seed=seed, aa_data=aa, batch_size=b, noise=noise[:2])
 
 
 def test_score_pose_cap_chunks_a_large_request(monkeypatch, setup):
@@ -305,7 +309,7 @@ def test_cli_docks_a_csv_like_the_jax_pipeline(setup, tables, monkeypatch, tmp_p
     lig, pdb = _files(NAME)
     setup["pipe"].dock_mol_protein(chem.read_molecule_file(lig), chem.read_pdb_file(pdb),
                                    str(tmp_path / "pipeline"), num_poses=P, seed=SEED, save_trajectory=True,
-                                   noise=_jax_draws(SEED, P, setup["nb"], STEPS))
+                                   noise=_jax_noise(STEPS))
     names = sorted(os.listdir(tmp_path / "pipeline"))
     assert sorted(os.listdir(out / NAME)) == names and len(names) == 2 * P
     for n in names:
@@ -350,7 +354,7 @@ def test_cli_config_overrides_and_refusals(setup, tmp_path, capsys):
     assert "unknown config key 'bogus'" in capsys.readouterr().err
     score_dir, conf_dir = _write_run_dirs(setup, tmp_path)
     base = ["--model_dir", str(score_dir), "--device", "cpu"]
-    for extra, match in ((["--compute_dtype", "bfloat16"], "item 5"), (["--crop_beyond", "5"], "crop_beyond"),
+    for extra, match in ((["--compute_dtype", "bfloat16"], "item 5"), (["--crop_beyond", "5"], "crop_beyond.*item 5"),
                          (["--pocket_capacity", "10"], "pocket_capacity"),
                          (["--bucket_ladder", "cover"], "item 4"), (["--pose_devices", "2"], "item 8")):
         with pytest.raises(ConfigError, match=match):
