@@ -70,7 +70,21 @@ C. the score model's peak bytes per pose in one denoising step at three
    buckets (two receptor buckets, a second ligand bucket), solved for the
    coefficients of ``inference/pipeline.py:auto_pose_chunk``, and one step
    of 40 poses at the 1547-residue complex's bucket beside the rule's
-   prediction.
+   prediction;
+D. an evaluation sweep: ``diffdock_tpu_torch.cli.evaluate.main`` on a
+   PDBBind-layout set of six e2e_synth complexes in six cover entries (the
+   largest 1547 residues), with their ESM embeddings and phase A's run
+   directories, 10 poses each, the 20-step recipe with 19 steps, the cover
+   ladder and the anomaly guard's default (5.0 on a card). Gates: rc 0, no
+   failure, the six names, (6, 10) finite RMSDs without a penalty value,
+   ``metrics.json``'s keys, the gen-3 kernel launched exactly as often as
+   the code says for the six docks and no plain version, no cover entry
+   quarantined. Then each complex docked once more, warm, beside the
+   ladder's cost model (``inference/ladder.py``), the cost model fitted
+   again from those times, and one complex through the plain versions with
+   the same draws: its per-pose RMSDs within 5e-3 A, or twice phase A's
+   nudged spread, of the kernel dock's. The sweep's wall is split into the
+   host's layers (dataset preprocess, RMSD, metric tables) and the docks.
 
 It then prints the card line (``nvidia-smi --query-gpu=name,power.limit``),
 one JSON line with the kernels' numbers, and, last, the result line
@@ -365,13 +379,13 @@ def docks_agree(res, ref_res, pose_tol: float = POSE_ATOL) -> dict:
 
 def dock_launches(pipe, cfg, ccfg, data, aa, poses: int, batch_size=None) -> int:
     """fused_tp3 launches of one ``dock_complex`` of ``poses`` poses: per
-    pose chunk one score dock and its confidence forwards."""
-    from diffdock_tpu_torch.data.complexes import bucket_sizes
+    pose chunk one score dock and its confidence forwards, in the bucket the
+    pipeline's ladder gives the complex."""
     from diffdock_tpu_torch.models.old_models import confidence_launches
 
     chunk = pipe.effective_pose_chunk(data, poses, batch_size)
     conf_chunk = pipe.confidence_chunk_for(pipe.confidence_input(data, aa), chunk)
-    nb = bucket_sizes(data.n_lig, data.n_rec, data.n_bonds)[2]
+    nb = pipe.dock_bucket(data)[0][2]
     return -(-poses // chunk) * (expected_tp3_launches(cfg, pipe.sampler_cfg.num_steps, nb)
                                  + -(-chunk // conf_chunk) * confidence_launches(ccfg))
 
@@ -624,7 +638,10 @@ def run(args) -> dict:
         report["file_dock"], file_pipe = file_dock(args, Path(tmp), cfg, ccfg, kernels, card)
         report["cli"] = cli_dock(args, Path(tmp), cfg, ccfg, kernels, file_pipe, card)
         del file_pipe
-    report["score_memory"] = score_memory(pipe, cfg, card)
+        report["score_memory"] = score_memory(pipe, cfg, card)
+        del pipe
+        nudge = report["file_dock"]["plain"]["nudge_gap"][-1]
+        report["eval_sweep"] = eval_sweep(args, Path(tmp), cfg, ccfg, kernels, nudge, card)
 
     sources = {"fused_tp3": "diffdock_tpu/ops/pallas_tpconv3.py:57",
                "factored_tp2": "diffdock_tpu/ops/pallas_tpconv2.py:125",
@@ -982,6 +999,177 @@ def score_memory(pipe, cfg, card: str) -> dict:
          f"{predicted / 2**20:.1f} MiB; the rule runs {pl.auto_pose_chunk(*check)} poses at once there")
     _log(f"[C score memory] {card} | {time.perf_counter() - t_start:.1f} s")
     return out
+
+
+# phase D: six e2e_synth complexes in six cover entries, from (32, 192) to
+# (40, 1792) (.chiprunignore keeps their ESM embeddings in copies of the
+# tree for a card), and the one evaluated again through the plain versions
+# (phase A's complex, whose nudged spread sets the tolerance)
+EVAL_COMPLEXES = ("syn044_l9r90", "syn030_l21r261", "syn000_l50r368", "syn136_l31r507",
+                  "syn023_l54r711", "syn045_l8r1547")
+EVAL_TWIN = "syn000_l50r368"
+# the keys of metrics.json that the JAX package's evaluate CLI writes for
+# 10 poses per complex, without gnina and without a no-overlap split
+# (tests/test_torch_port_evaluate.py holds this list to the JAX CLI's)
+EVAL_METRIC_KEYS = (
+    "rmsds_below_2", "rmsds_below_5", "rmsds_median",
+    "top5_rmsds_below_2", "top5_rmsds_below_5", "top5_rmsds_median",
+    "top10_rmsds_below_2", "top10_rmsds_below_5", "top10_rmsds_median",
+    "min_rmsds_below_2", "min_rmsds_below_5", "mean_rmsd",
+    "rmsds_percentile_25", "rmsds_percentile_50", "rmsds_percentile_75",
+    "centroid_below_2", "centroid_below_5", "centroid_median",
+    "run_times_mean", "run_times_std", "steric_clash_fraction", "failures",
+)
+PENALTY_RMSD = 10000.0  # the evaluate CLI's row for a failed complex
+
+
+def eval_sweep(args, tmp: Path, cfg, ccfg, kernels, nudge: float, card: str) -> dict:
+    """Phase D: the port's evaluate CLI over EVAL_COMPLEXES with phase A's
+    run directories, its launches counted; each complex docked again warm
+    beside the ladder's cost model, which is fitted anew from those docks;
+    EVAL_TWIN through the plain versions with the same draws."""
+    import contextlib
+    import io
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from diffdock_tpu_torch.cli import evaluate
+    from diffdock_tpu_torch.data.chem import read_molecule_file
+    from diffdock_tpu_torch.data.datasets import ComplexDataset, DatasetConfig, pdbbind_specs
+    from diffdock_tpu_torch.eval.rmsd import molecular_automorphisms, symmetry_rmsd
+    from diffdock_tpu_torch.inference import ladder
+    from diffdock_tpu_torch.inference.pipeline import DockingPipeline
+
+    t_start = time.perf_counter()
+    split = tmp / "eval_split.txt"
+    split.write_text("\n".join(EVAL_COMPLEXES) + "\n")
+    score_dir, conf_dir = tmp / "runs_lm" / "score", tmp / "runs_lm" / "confidence"
+    out, cache = tmp / "eval", tmp / "eval_cache"
+    argv = ["--data_dir", str(E2E_SYNTH), "--split", str(split), "--esm_embeddings_path",
+            str(E2E_SYNTH / "_esm"), "--model_dir", str(score_dir), "--confidence_model_dir",
+            str(conf_dir), "--out_dir", str(out), "--cache_path", str(cache), "--samples_per_complex",
+            str(args.poses), "--device", "cuda"]
+    eargs = evaluate.get_parser().parse_args(argv)
+    if eargs.bucket_ladder != "cover" or eargs.inference_steps != 20 or eargs.actual_steps != 19:
+        raise PhaseError(f"the evaluate CLI's defaults moved: {eargs}")
+
+    buf = io.StringIO()
+    for m in kernels.values():
+        m.counts.reset()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught, contextlib.redirect_stdout(buf):
+        warnings.simplefilter("always")
+        rc = evaluate.main(argv)
+    wall = time.perf_counter() - t0
+    launches = {k: v for m in kernels.values() for k, v in m.counts.as_dict().items()}
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        if line.startswith("[") or "failures" in line or line.startswith("timings:"):
+            _log(f"  evaluate: {line}")
+    quarantined = [str(w.message) for w in caught if "quarantined" in str(w.message)]
+    timings = json.loads(next(ln for ln in lines if ln.startswith("timings:")).split(":", 1)[1])
+    metrics = json.loads((out / "metrics.json").read_text())
+    names = np.load(out / "names.npy").tolist()
+    rmsds = np.load(out / "rmsds.npy")
+    if rc != 0 or metrics["failures"] != 0:
+        raise PhaseError(f"evaluate returned {rc} with {metrics['failures']} failures")
+    if names != list(EVAL_COMPLEXES):
+        raise PhaseError(f"names.npy {names} != {list(EVAL_COMPLEXES)}")
+    if rmsds.shape != (len(EVAL_COMPLEXES), args.poses) or not np.isfinite(rmsds).all() \
+            or (rmsds >= PENALTY_RMSD).any():
+        raise PhaseError(f"rmsds.npy {rmsds.shape}: finite {np.isfinite(rmsds).all()}, "
+                         f"max {rmsds.max():.4g}")
+    if sorted(metrics) != sorted(EVAL_METRIC_KEYS):
+        raise PhaseError(f"metrics.json keys {sorted(metrics)} != {sorted(EVAL_METRIC_KEYS)}")
+    if quarantined:
+        raise PhaseError(f"the anomaly guard quarantined: {quarantined}")
+
+    # the CLI's pipeline once more (the same run directories and flags), for
+    # the expected counts, the warm docks and the plain twin
+    pipe = evaluate.build_pipeline(eargs)
+    if pipe.bucket_ladder != "cover" or pipe.anomaly_guard != 5.0:
+        raise PhaseError(f"ladder {pipe.bucket_ladder}, guard {pipe.anomaly_guard} (expected cover, 5.0)")
+    specs = pdbbind_specs(str(E2E_SYNTH), str(split), esm_embeddings_dir=str(E2E_SYNTH / "_esm"))
+    ds = ComplexDataset(specs, DatasetConfig(cache_dir=str(cache), all_atoms=True))
+    ds.preprocess(verbose=False)
+    if ds.names != list(EVAL_COMPLEXES) or len(os.listdir(ds.cache)) < len(EVAL_COMPLEXES):
+        raise PhaseError(f"the sweep's cache {ds.cache} does not hold the six complexes")
+    featurized = {n: ds.get(n) for n in EVAL_COMPLEXES}
+    expected = sum(dock_launches(pipe, cfg, ccfg, aa.base, aa, args.poses) for aa in featurized.values())
+    plain_runs = {k: v for k, v in launches.items() if "reference" in k and v}
+    _log(f"  launches {launches} (expected fused_tp3 = {expected} over {len(EVAL_COMPLEXES)} docks)")
+    if launches["fused_tp3"] != expected or plain_runs:
+        raise PhaseError(f"evaluate launch counts {launches} != expected {expected} fused_tp3 / 0 plain")
+    entries = {n: pipe.dock_bucket(aa.base)[1] for n, aa in featurized.items()}
+    if None in entries.values() or len(set(entries.values())) != len(EVAL_COMPLEXES):
+        raise PhaseError(f"the six complexes do not land in six cover entries: {entries}")
+
+    # each complex docked again, warm, beside the cost model
+    per_complex, warm = {}, {}
+    for n, aa in featurized.items():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        warm[n] = pipe.dock_complex(aa.base, num_poses=args.poses, seed=eargs.seed, aa_data=aa)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        entry, chunk = entries[n], pipe.effective_pose_chunk(aa.base, args.poses)
+        model_s = sum(ladder.modeled_batch_seconds(entry[0], entry[1], min(chunk, args.poses - c))
+                      for c in range(0, args.poses, chunk))
+        per_complex[n] = {"entry": list(entry), "P": chunk, "n_lig": aa.base.n_lig, "n_rec": aa.base.n_rec,
+                          "n_atoms": aa.n_atoms, "warm_s": dt, "modeled_s": model_s, "ratio": dt / model_s,
+                          "sweep_s": float(np.load(out / "run_times.npy")[names.index(n)])}
+        _log(f"  {n}: cover entry {entry[:3]} P={entry[3]} -> {chunk} in flight | warm dock {dt:.4f} s "
+             f"| modeled {model_s:.4f} s | ratio {dt / model_s:.3f} | in the sweep "
+             f"{per_complex[n]['sweep_s']:.4f} s")
+    if pipe._quarantined:
+        raise PhaseError(f"the warm docks quarantined {pipe._quarantined}")
+    area = np.array([v["entry"][0] * v["entry"][1] for v in per_complex.values()], np.float64)
+    t_pose = np.array([v["warm_s"] / args.poses for v in per_complex.values()])
+    slope, base = np.polyfit(area, t_pose, 1)
+    _log(f"  cost model fitted on these warm docks: {slope:.4g} s per pose per lig-rec pair + "
+         f"{base:.4g} s per pose (committed: {ladder.COST_PER_AREA_S:.4g} + {ladder.COST_BASE_S:.4g}) | {card}")
+
+    # the twin through the plain versions, the same weights and draws
+    t1 = time.perf_counter()
+    ref_pipe = DockingPipeline(pipe.score_cfg, pipe.model.state_dict(), pipe.sampler_cfg, pipe.so3, pipe.torus,
+                               device=pipe.device, reference_kernels=True, confidence_cfg=pipe.confidence_cfg,
+                               confidence_weights=pipe.confidence_model.state_dict(), bucket_ladder="cover",
+                               anomaly_guard=0.0)
+    aa = featurized[EVAL_TWIN]
+    ref_res = ref_pipe.dock_complex(aa.base, num_poses=args.poses, seed=eargs.seed, aa_data=aa)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t1
+    mol = read_molecule_file(str(E2E_SYNTH / EVAL_TWIN / f"{EVAL_TWIN}_ligand.sdf")).remove_hs()
+    bonds = [(i, j) for i, j, _ in mol.bonds]
+    perms = molecular_automorphisms(mol.elements, bonds)
+    crystal = np.asarray(aa.base.lig_pos) + np.asarray(aa.base.original_center)
+    row = symmetry_rmsd(crystal, warm[EVAL_TWIN].poses, mol.elements, bonds, perms=perms)
+    row_plain = symmetry_rmsd(crystal, ref_res.poses, mol.elements, bonds, perms=perms)
+    twin_tol = max(POSE_ATOL, 2 * nudge)
+    twin_gap = float(np.abs(row - row_plain).max())
+    sweep_row = rmsds[names.index(EVAL_TWIN)]
+    _log(f"  {EVAL_TWIN} plain twin: per-pose RMSD kernel {np.round(row, 4).tolist()} vs plain "
+         f"{np.round(row_plain, 4).tolist()} | max gap {twin_gap:.3e} A (tol {twin_tol:.3e}) | ranked row of "
+         f"the sweep {np.round(sweep_row, 4).tolist()} vs the warm dock "
+         f"{np.round(row[warm[EVAL_TWIN].order], 4).tolist()} | plain dock {plain_wall:.2f} s")
+    if not twin_gap <= twin_tol:
+        raise PhaseError(f"the plain twin's RMSDs part from the kernel dock's by {twin_gap:.3e} A")
+    del ref_pipe, pipe
+
+    host_s = timings["preprocess_s"] + timings["rmsd_s"] + timings["tables_s"]
+    _log(f"[D eval sweep] {len(EVAL_COMPLEXES)} complexes x {args.poses} poses, cover ladder, guard 5.0 | "
+         f"wall {wall:.3f} s: docks {timings['dock_s']:.3f} s + host {host_s:.3f} s (preprocess "
+         f"{timings['preprocess_s']:.3f}, rmsd {timings['rmsd_s']:.3f}, tables {timings['tables_s']:.3f}); host "
+         f"share {100 * host_s / wall:.1f} % | top-1 RMSD < 2 A {metrics['rmsds_below_2']:.1f} % (random "
+         f"weights) | {card} | phase {time.perf_counter() - t_start:.1f} s")
+    return {"rc": rc, "wall_s": wall, "timings": timings, "host_s": host_s, "launches": launches,
+            "expected_fused_tp3": expected, "per_complex": per_complex, "metrics": metrics,
+            "rmsds": rmsds.tolist(), "cost_fit": {"per_area_s": slope, "base_s": base},
+            "cost_committed": {"per_area_s": ladder.COST_PER_AREA_S, "base_s": ladder.COST_BASE_S},
+            "twin": {"name": EVAL_TWIN, "rmsd_kernel": row.tolist(), "rmsd_plain": row_plain.tolist(),
+                     "max_gap": twin_gap, "tol": twin_tol, "plain_wall_s": plain_wall}}
 
 
 def profile_dock(pipe, data, aa, n_poses: int) -> dict:

@@ -16,8 +16,8 @@ The flags and defaults are the JAX CLI's, with two exceptions:
 to ``float32`` (``bfloat16`` is not ported and raises). ``--model_dir``
 and ``--confidence_model_dir`` read native run directories
 (``model_parameters.yml`` plus msgpack weights); reference ``.pt``
-directories, downloads, ``--pose_devices`` above 1, ``--bucket_ladder``
-other than ``fine``, ``--crop_beyond`` and ``--pocket_capacity`` raise.
+directories, downloads, ``--pose_devices`` above 1, ``--crop_beyond`` and
+``--pocket_capacity`` raise.
 """
 
 from __future__ import annotations
@@ -104,8 +104,9 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--bucket_ladder",
                    choices=("fine", "fine_dense", "cover"),
                    default="fine",
-                   help="'fine' = minimal-padding geometric buckets; the "
-                        "others are not ported (raise)")
+                   help="'fine' = minimal-padding geometric buckets; "
+                        "'fine_dense' = ~1.2x-spaced rungs; 'cover' = the "
+                        "evaluation sweeps' cover ladder (inference/ladder.py)")
     p.add_argument("--pose_devices", type=int, default=1,
                    help="cards to shard each complex's poses over; only 1 "
                         "is ported")
@@ -176,7 +177,7 @@ def load_pipeline(args):
     """The DockingPipeline the parsed ``args`` ask for, on ``args.device``.
     The options that are not ported are refused where they land, as in the
     JAX CLI: ``--compute_dtype`` and ``--crop_beyond`` by the score model's
-    config, ``--pocket_capacity`` and ``--bucket_ladder`` by the pipeline;
+    config, ``--pocket_capacity`` by the pipeline;
     ``--pose_devices`` above 1 here, where the JAX CLI builds its mesh."""
     from diffdock_tpu_torch.inference.pipeline import DockingPipeline
     from diffdock_tpu_torch.models.config import PRESETS
@@ -195,9 +196,11 @@ def load_pipeline(args):
             f"({args.model_preset}) — poses will not be meaningful.",
             file=sys.stderr,
         )
-        # without a run directory there are no ESM embeddings either: the
-        # preset runs without its LM feature block, as in the JAX CLI
-        cfg = dataclasses.replace(PRESETS[args.model_preset], lm_embedding_dim=0)
+        # the preset runs without its LM feature block unless embeddings are
+        # given (the evaluate CLI's --esm_embeddings_path), as in the JAX CLI
+        cfg = PRESETS[args.model_preset]
+        if not getattr(args, "esm_embeddings_path", None):
+            cfg = dataclasses.replace(cfg, lm_embedding_dim=0)
         weights = 0
     if args.compute_dtype != cfg.compute_dtype:
         cfg = dataclasses.replace(cfg, compute_dtype=args.compute_dtype)

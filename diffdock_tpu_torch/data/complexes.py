@@ -115,6 +115,12 @@ LIG_BUCKETS = (16, 24, 32, 48, 64, 96, 128, 192, 256)
 REC_BUCKETS = (64, 128, 192, 320, 448, 704, 1024, 1536, 2304, 3072)
 BOND_BUCKETS = (8, 16, 32, 64, 128)
 
+# dense (~1.2x-spaced) rungs, for ``bucket_ladder="fine_dense"`` and
+# ``inference/ladder.py:fine_plan(dense=True)``: less padding, more shapes
+DENSE_LIG_BUCKETS = (16, 20, 24, 28, 32, 40, 48, 56, 64, 80, 96, 128, 192, 256)
+DENSE_REC_BUCKETS = (64, 128, 192, 256, 320, 384, 448, 512, 576, 640, 704, 832, 1024, 1152,
+                     1280, 1536, 1792, 2048, 2304, 2688, 3072)
+
 
 def _ladder(n: int, rungs: Tuple[int, ...], quantum: int) -> int:
     for r in rungs:
@@ -123,12 +129,13 @@ def _ladder(n: int, rungs: Tuple[int, ...], quantum: int) -> int:
     return max(_round_up(n, quantum), rungs[-1] + quantum)
 
 
-def bucket_sizes(n_lig: int, n_rec: int, n_bonds: int) -> Tuple[int, int, int]:
-    """Round sizes up the geometric bucket ladders; past the last rung,
-    up to multiples of 16 atoms, 64 residues and 8 bonds."""
+def bucket_sizes(n_lig: int, n_rec: int, n_bonds: int, dense: bool = False) -> Tuple[int, int, int]:
+    """Round sizes up the geometric bucket ladders (the dense rungs with
+    ``dense``); past the last rung, up to multiples of 16 atoms, 64 residues
+    and 8 bonds."""
     return (
-        _ladder(n_lig, LIG_BUCKETS, 16),
-        _ladder(n_rec, REC_BUCKETS, 64),
+        _ladder(n_lig, DENSE_LIG_BUCKETS if dense else LIG_BUCKETS, 16),
+        _ladder(n_rec, DENSE_REC_BUCKETS if dense else REC_BUCKETS, 64),
         _ladder(max(n_bonds, 1), BOND_BUCKETS, 8),
     )
 

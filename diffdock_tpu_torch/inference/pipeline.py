@@ -13,11 +13,18 @@ and rank them. Poses run in chunks of at most the H100 cap
 (:func:`auto_pose_chunk`) or the caller's ``batch_size``, each chunk from
 its own seed, and are ranked jointly.
 
+The bucket ladders are the JAX package's: ``"fine"`` (geometric rungs),
+``"fine_dense"`` (~1.2x-spaced rungs) and ``"cover"`` (the first fitting
+entry of ``inference/ladder.py:COVER_LADDER``, whose pose count is the
+default chunk; oversize complexes fall back to the fine ladder). With the
+cover ladder an anomaly guard times each pose chunk against the ladder's
+H100 cost model and quarantines an entry that runs far slower than it.
+``dock_batch`` docks several complexes one after the other.
+
 Not ported yet: confidence models of the new architectures, the
 confidence model's receptor crop, affinity prediction, the host-side
-receptor pre-crop (``pre_crop_radius``), the cover and dense bucket
-ladders, the device mesh and the anomaly guard; asking for any of them
-raises.
+receptor pre-crop (``pre_crop_radius``) and the device mesh; asking for
+any of them raises.
 """
 
 from __future__ import annotations
@@ -25,7 +32,8 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import List, Optional, Tuple, Union
+import warnings
+from typing import List, Optional, Set, Tuple, Union
 
 import numpy as np
 import torch
@@ -44,6 +52,7 @@ from diffdock_tpu_torch.data.complexes import (
 from diffdock_tpu_torch.diffusion.so3 import SO3Tables, get_so3_tables
 from diffdock_tpu_torch.diffusion.torus import TorusTables, get_torus_tables
 from diffdock_tpu_torch.geometry import use_full_fp32
+from diffdock_tpu_torch.inference import ladder
 from diffdock_tpu_torch.inference.sampler import (
     InitNoise,
     SamplerConfig,
@@ -117,6 +126,20 @@ def auto_pose_chunk(nl: int, nr: int) -> int:
     return max(1, int(SCORE_BUDGET_BYTES // max(score_bytes_per_pose(nl, nr), 1)))
 
 
+def resolve_anomaly_guard(anomaly_guard: Optional[float], bucket_ladder: str, device) -> float:
+    """The anomaly guard's factor: ``anomaly_guard`` when given, else the
+    ``DIFFDOCK_TPU_ANOMALY_FACTOR`` environment variable, else 5.0 with the
+    cover ladder on a CUDA device and 0 (off) otherwise: the cost model is
+    the card's."""
+    if anomaly_guard is None:
+        env_guard = os.environ.get("DIFFDOCK_TPU_ANOMALY_FACTOR")
+        if env_guard is not None:
+            anomaly_guard = float(env_guard)
+        else:
+            anomaly_guard = 5.0 if bucket_ladder == "cover" and torch.device(device).type == "cuda" else 0.0
+    return float(anomaly_guard)
+
+
 @dataclasses.dataclass
 class DockingResult:
     poses: np.ndarray  # (P, NL, 3) in the original input frame
@@ -145,10 +168,22 @@ class DockingPipeline:
     for the confidence model of ``confidence_cfg`` (None: no ranking).
     ``confidence_chunk``: poses per confidence forward, None for
     :func:`auto_confidence_chunk`. ``reference_kernels`` runs every
-    kernel's plain version instead of the kernel. ``pre_crop_radius``,
-    ``pocket_capacity``, ``bucket_ladder`` other than ``"fine"``, ``mesh``
-    and ``anomaly_guard`` are options of the JAX pipeline that are not
-    ported; setting one raises.
+    kernel's plain version instead of the kernel.
+
+    ``bucket_ladder``: ``"fine"``, ``"fine_dense"`` or ``"cover"``, as in
+    the JAX pipeline (see the module docstring).
+
+    ``anomaly_guard``: with the cover ladder, each pose chunk is timed
+    between two device synchronizations; a chunk slower than
+    ``anomaly_guard`` x ``ladder.modeled_batch_seconds`` quarantines its
+    cover entry, and later docks go to the next entry that fits (the slow
+    chunk's poses are kept). None resolves as in the JAX pipeline: the
+    ``DIFFDOCK_TPU_ANOMALY_FACTOR`` environment variable, else 5.0 with the
+    cover ladder on a CUDA device (where the JAX package says a TPU
+    backend) and 0 (off) otherwise.
+
+    ``pre_crop_radius``, ``pocket_capacity`` and ``mesh`` are options of
+    the JAX pipeline that are not ported; setting one raises.
     """
 
     def __init__(
@@ -172,15 +207,18 @@ class DockingPipeline:
         not_ported = {
             "pre_crop_radius (needs crop_beyond, ROADMAP queue 1 item 5)": pre_crop_radius is not None,
             "pocket_capacity (ROADMAP queue 1 item 5)": pocket_capacity is not None,
-            f"bucket_ladder={bucket_ladder!r} (ROADMAP queue 1 item 4)": bucket_ladder != "fine",
             "a device mesh (ROADMAP queue 1 item 8)": mesh is not None,
-            "the anomaly guard (ROADMAP queue 1 item 4)": bool(anomaly_guard),
         }
         bad = [k for k, v in not_ported.items() if v]
         if bad:
             raise ConfigError(f"not ported yet: {', '.join(bad)}")
+        if bucket_ladder not in ("fine", "fine_dense", "cover"):
+            raise ValueError(f"unknown bucket_ladder {bucket_ladder!r}")
         use_full_fp32()
         self.device = torch.device(device)
+        self.bucket_ladder = bucket_ladder
+        self.anomaly_guard = resolve_anomaly_guard(anomaly_guard, bucket_ladder, self.device)
+        self._quarantined: Set[Tuple[int, int, int, int]] = set()
         self.score_cfg = score_cfg
         self.sampler_cfg = sampler_cfg
         self.model = _with_weights(CGScoreModel(score_cfg, reference_kernels=reference_kernels),
@@ -217,15 +255,32 @@ class DockingPipeline:
                 aa_data = aa_data._replace(base=data)
         return data, aa_data
 
+    def dock_bucket(self, data: ComplexData):
+        """((nl, nr, nb), cover entry or None): the padded bucket this
+        pipeline docks the complex in. With the cover ladder, the first
+        entry that fits and is not quarantined; otherwise, and for a complex
+        no entry fits, the fine (or dense) ladder's bucket."""
+        if self.bucket_ladder == "cover":
+            cov = ladder.cover_bucket(data.n_lig, data.n_rec, data.n_bonds, exclude=self._quarantined)
+            if cov is not None:
+                return cov[:3], cov
+        return bucket_sizes(data.n_lig, data.n_rec, data.n_bonds,
+                            dense=self.bucket_ladder == "fine_dense"), None
+
     def effective_pose_chunk(self, data: ComplexData, num_poses: int,
                              batch_size: Optional[int] = None) -> int:
-        """The poses in flight :meth:`dock_complex` runs for this complex:
-        ``batch_size`` (all poses when None), capped at
-        :func:`auto_pose_chunk` of its bucket."""
-        nl, nr, _ = bucket_sizes(data.n_lig, data.n_rec, data.n_bonds)
+        """The poses in flight :meth:`dock_complex` runs for this complex.
+        In a cover entry: its pose count, capped at :func:`auto_pose_chunk`
+        of its bucket, and an explicit ``batch_size`` capped there.
+        Otherwise ``batch_size`` (all poses when None), capped at
+        :func:`auto_pose_chunk` of the bucket."""
+        (nl, nr, _), cov = self.dock_bucket(data)
         chunk = batch_size
         cap = auto_pose_chunk(nl, nr)
-        if (chunk or num_poses) > cap:
+        if cov is not None:
+            cap = min(cov[3], cap)
+            chunk = min(chunk, cap) if chunk else cap
+        elif (chunk or num_poses) > cap:
             chunk = min(chunk, cap) if chunk else cap
         return min(chunk, num_poses) if chunk else num_poses
 
@@ -254,14 +309,18 @@ class DockingPipeline:
         ``pocket_center``: (3,) start-pose center in the complex's centered
         frame (the frame of ``data.rec_pos``); None uses the receptor mean.
         ``return_trajectory``: also return the poses after every step,
-        (steps+1, P, NL, 3) in the input frame."""
+        (steps+1, P, NL, 3) in the input frame.
+        Each chunk resolves its bucket anew, as in the JAX pipeline, so a
+        chunk after one that tripped the anomaly guard runs in the next
+        cover entry."""
         data, aa_data = self._normalize_inference_data(data, aa_data)
         noise = noise if noise is not None else self.draw_noise
         chunk = self.effective_pose_chunk(data, num_poses, batch_size)
         if chunk < num_poses:
             results = [
-                self._dock_program(data, chunk, seed * 100003 + c, noise, aa_data,
-                                   return_trajectory, pocket_center)
+                self.dock_complex(data, num_poses=chunk, seed=seed * 100003 + c, noise=noise,
+                                  aa_data=aa_data, return_trajectory=return_trajectory,
+                                  pocket_center=pocket_center)
                 for c in range(-(-num_poses // chunk))
             ]
             poses = np.concatenate([r.poses for r in results])[:num_poses]
@@ -272,17 +331,56 @@ class DockingPipeline:
                     if return_trajectory else None)
             order = np.argsort(-conf) if conf is not None else np.arange(num_poses)
             return DockingResult(poses=poses, confidence=conf, order=order, trajectory=traj)
-        return self._dock_program(data, num_poses, seed, noise, aa_data, return_trajectory,
-                                  pocket_center)
+        bucket, cov = self.dock_bucket(data)
+        guard = self.anomaly_guard if cov is not None else 0.0
+        if not guard:
+            return self._dock_program(data, bucket, num_poses, seed, noise, aa_data,
+                                      return_trajectory, pocket_center)
+        self._sync()
+        t0 = time.perf_counter()
+        result = self._dock_program(data, bucket, num_poses, seed, noise, aa_data,
+                                    return_trajectory, pocket_center)
+        self._sync()
+        dt = time.perf_counter() - t0
+        model_s = ladder.modeled_batch_seconds(bucket[0], bucket[1], num_poses)
+        if dt > guard * model_s:
+            self._quarantined.add(cov)
+            warnings.warn(
+                f"cover bucket {cov[:3]} ran {dt:.1f}s/batch, {dt / model_s:.0f}x its cost model "
+                f"({model_s:.2f}s) — quarantined; subsequent complexes re-route to the next covering "
+                f"entry (results of this batch are kept: slow, not wrong)",
+                RuntimeWarning,
+            )
+        return result
 
-    def _dock_program(self, data: ComplexData, num_poses: int, seed: int, noise,
-                      aa_data: Optional[AAComplexData], return_trajectory: bool,
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def dock_batch(self, datas, num_poses: int = 10, seed: int = 0, aa_datas=None,
+                   pocket_centers=None, batch_size: Optional[int] = None) -> List[DockingResult]:
+        """Dock several complexes on this pipeline's one device: a
+        :meth:`dock_complex` loop with complex ``i`` from seed ``seed + i``,
+        as the JAX pipeline does without a mesh (its complex-sharded mesh
+        path waits for ROADMAP queue 1 item 8)."""
+        n = len(datas)
+        aa_list = aa_datas if aa_datas is not None else [None] * n
+        pk_list = pocket_centers if pocket_centers is not None else [None] * n
+        if len(aa_list) != n or len(pk_list) != n:
+            raise ValueError(f"{n} complexes, {len(aa_list)} all-atom trees, {len(pk_list)} pocket centers")
+        return [self.dock_complex(d, num_poses=num_poses, seed=seed + i, aa_data=aa,
+                                  pocket_center=pk, batch_size=batch_size)
+                for i, (d, aa, pk) in enumerate(zip(datas, aa_list, pk_list))]
+
+    def _dock_program(self, data: ComplexData, bucket: Tuple[int, int, int], num_poses: int, seed: int,
+                      noise, aa_data: Optional[AAComplexData], return_trajectory: bool,
                       pocket_center: Optional[np.ndarray]) -> DockingResult:
-        """One pose batch: the body of the JAX package's ``_make_run``."""
+        """One pose batch at the padded ``bucket``: the body of the JAX
+        package's ``_make_run``."""
         scfg, sampler = self.score_cfg, self.sampler_cfg
-        nl, nr, nb = bucket_sizes(data.n_lig, data.n_rec, data.n_bonds)
+        nl, nr, nb = bucket
         padded = to_device(pad_to(data, nl, nr, nb), self.device)
-        conf_data = self.confidence_input(data, aa_data, padded)
+        conf_data = self.confidence_input(data, aa_data, padded, bucket)
         init_noise, step_noise = noise(num_poses, nb, seed)
         pocket = (None if pocket_center is None else
                   torch.as_tensor(np.asarray(pocket_center, np.float32).reshape(3), device=self.device))
@@ -322,13 +420,14 @@ class DockingPipeline:
                              trajectory=traj)
 
     def confidence_input(self, data: ComplexData, aa_data: Optional[AAComplexData] = None,
-                         padded: Optional[ComplexData] = None):
+                         padded: Optional[ComplexData] = None, bucket=None):
         """The confidence model's padded input on the device (None without a
-        confidence model): the all-atom tree padded to the complex's buckets
-        and its atom bucket, or the padded coarse-grained complex."""
+        confidence model): the all-atom tree padded to the complex's bucket
+        (``bucket``, or :meth:`dock_bucket`'s) and its atom bucket, or the
+        padded coarse-grained complex."""
         if self.confidence_model is None:
             return None
-        nl, nr, nb = bucket_sizes(data.n_lig, data.n_rec, data.n_bonds)
+        nl, nr, nb = bucket if bucket is not None else self.dock_bucket(data)[0]
         if not self.confidence_cfg.all_atoms:
             return padded if padded is not None else to_device(pad_to(data, nl, nr, nb), self.device)
         if aa_data is None:

@@ -343,7 +343,7 @@ def test_cli_parser_has_every_jax_flag_with_its_default():
         assert getattr(cfg, f) == getattr(jcfg, f), f
 
 
-def test_cli_config_overrides_and_refusals(setup, tmp_path, capsys):
+def test_cli_config_overrides_and_refusals(setup, tables, monkeypatch, tmp_path, capsys):
     args = dock.get_parser().parse_args([])
     cfg = tmp_path / "c.yml"
     cfg.write_text("samples_per_complex: 4\nligand_description: x.sdf\nold_score_model: true\nbogus: 1\n")
@@ -355,10 +355,15 @@ def test_cli_config_overrides_and_refusals(setup, tmp_path, capsys):
     score_dir, conf_dir = _write_run_dirs(setup, tmp_path)
     base = ["--model_dir", str(score_dir), "--device", "cpu"]
     for extra, match in ((["--compute_dtype", "bfloat16"], "item 5"), (["--crop_beyond", "5"], "crop_beyond.*item 5"),
-                         (["--pocket_capacity", "10"], "pocket_capacity"),
-                         (["--bucket_ladder", "cover"], "item 4"), (["--pose_devices", "2"], "item 8")):
+                         (["--pocket_capacity", "10"], "pocket_capacity"), (["--pose_devices", "2"], "item 8")):
         with pytest.raises(ConfigError, match=match):
             dock.load_pipeline(dock.get_parser().parse_args(base + extra))
+    # the bucket ladders are ported: the guard stays off on the CPU
+    monkeypatch.setattr(pipeline_mod, "get_so3_tables", lambda device=None: tables[2])
+    monkeypatch.setattr(pipeline_mod, "get_torus_tables", lambda device=None: tables[3])
+    for ladder in ("fine_dense", "cover"):
+        pipe = dock.load_pipeline(dock.get_parser().parse_args(base + ["--bucket_ladder", ladder]))
+        assert pipe.bucket_ladder == ladder and pipe.anomaly_guard == 0.0
     ref_dir = tmp_path / "reference"
     ref_dir.mkdir()
     (ref_dir / "best_ema_inference_epoch_model.pt").write_bytes(b"")
@@ -367,8 +372,7 @@ def test_cli_config_overrides_and_refusals(setup, tmp_path, capsys):
         dock.load_pipeline(dock.get_parser().parse_args(["--model_dir", str(ref_dir), "--device", "cpu"]))
     with pytest.raises(FileNotFoundError):
         dock.load_pipeline(dock.get_parser().parse_args(["--model_dir", str(tmp_path / "nope")]))
-    for kw in (dict(pre_crop_radius=10.0), dict(pocket_capacity=5), dict(bucket_ladder="cover"),
-               dict(mesh=object()), dict(anomaly_guard=5.0)):
+    for kw in (dict(pre_crop_radius=10.0), dict(pocket_capacity=5), dict(mesh=object())):
         with pytest.raises(ConfigError, match="not ported"):
             DockingPipeline(ScoreModelConfig(**SKW), 0, device="cpu", **kw)
     assert dock.main(["--device", "cpu"]) == 2
