@@ -79,12 +79,18 @@ D. an evaluation sweep: ``diffdock_tpu_torch.cli.evaluate.main`` on a
    failure, the six names, (6, 10) finite RMSDs without a penalty value,
    ``metrics.json``'s keys, the gen-3 kernel launched exactly as often as
    the code says for the six docks and no plain version, no cover entry
-   quarantined. Then each complex docked once more, warm, beside the
-   ladder's cost model (``inference/ladder.py``), the cost model fitted
-   again from those times, and one complex through the plain versions with
-   the same draws: its per-pose RMSDs within 5e-3 A, or twice phase A's
-   nudged spread, of the kernel dock's. The sweep's wall is split into the
-   host's layers (dataset preprocess, RMSD, metric tables) and the docks.
+   quarantined. On the sweep's own pipeline: one-pose docks at three of
+   the entries (each entry's second chunk, so the guard judges them; no
+   quarantine), and the ladder's cost model (``inference/ladder.py``: per
+   chunk, per pose and per pose and padded area) fitted again from the
+   sweep's ten-pose docks and those; the gen-3 kernel against its plain
+   version at the six blocks of every complex's cover shapes; and one
+   complex through the plain versions with the same draws, held to the
+   sweep's own dock: poses within 5e-3 A or twice phase A's nudged spread,
+   confidences and ranking as in phase 5, and its per-pose RMSDs within
+   the same bound; the sweep's ranked RMSD row must be that dock's. The
+   sweep's wall is split into the host's layers (dataset preprocess, RMSD,
+   metric tables) and the docks.
 
 It then prints the card line (``nvidia-smi --query-gpu=name,power.limit``),
 one JSON line with the kernels' numbers, and, last, the result line
@@ -289,14 +295,15 @@ def _check(label, got, ref, checks):
     return err, scale, ok
 
 
-def tp_blocks(model, cmodel, cfg, ccfg, data, aa, poses: int, conf_poses: int) -> dict:
-    """The merged contractions at a complex's padded shapes: the score
-    model's three blocks for ``poses`` poses in flight and three of the
-    confidence model's (layer L-2, the last with atom receivers; its TP is
-    the ladder's widest) for ``conf_poses``: label -> (tp, rows, K, H)."""
+def tp_blocks(model, cmodel, cfg, ccfg, data, aa, poses: int, conf_poses: int, bucket=None) -> dict:
+    """The merged contractions at a complex's padded shapes (``bucket``'s
+    (nl, nr), else the fine ladder's): the score model's three blocks for
+    ``poses`` poses in flight and three of the confidence model's (layer
+    L-2, the last with atom receivers; its TP is the ladder's widest) for
+    ``conf_poses``: label -> (tp, rows, K, H)."""
     from diffdock_tpu_torch.data.complexes import atom_bucket, bucket_sizes
 
-    nl, nr, _ = bucket_sizes(data.n_lig, data.n_rec, data.n_bonds)
+    nl, nr, _ = bucket if bucket is not None else bucket_sizes(data.n_lig, data.n_rec, data.n_bonds)
     na = atom_bucket(aa.n_atoms)
     H, Hc, L = 3 * cfg.ns, 3 * ccfg.ns, ccfg.num_conv_layers
     conv_tp = model.conv_layers[0].tp
@@ -1008,6 +1015,10 @@ def score_memory(pipe, cfg, card: str) -> dict:
 EVAL_COMPLEXES = ("syn044_l9r90", "syn030_l21r261", "syn000_l50r368", "syn136_l31r507",
                   "syn023_l54r711", "syn045_l8r1547")
 EVAL_TWIN = "syn000_l50r368"
+# the entries whose one-pose docks, with the sweep's ten-pose docks, fit the
+# cost model's per-chunk and per-pose parts: the smallest, a middle one and
+# the largest
+EVAL_ONE_POSE = ("syn044_l9r90", "syn000_l50r368", "syn045_l8r1547")
 # the keys of metrics.json that the JAX package's evaluate CLI writes for
 # 10 poses per complex, without gnina and without a no-overlap split
 # (tests/test_torch_port_evaluate.py holds this list to the JAX CLI's)
@@ -1025,9 +1036,11 @@ PENALTY_RMSD = 10000.0  # the evaluate CLI's row for a failed complex
 
 def eval_sweep(args, tmp: Path, cfg, ccfg, kernels, nudge: float, card: str) -> dict:
     """Phase D: the port's evaluate CLI over EVAL_COMPLEXES with phase A's
-    run directories, its launches counted; each complex docked again warm
-    beside the ladder's cost model, which is fitted anew from those docks;
-    EVAL_TWIN through the plain versions with the same draws."""
+    run directories, its launches counted and its pipeline and docks kept;
+    on that pipeline, one-pose docks at EVAL_ONE_POSE for the ladder's cost
+    model, fitted anew with the sweep's docks; the gen-3 kernel at every
+    complex's cover shapes; EVAL_TWIN through the plain versions with the
+    same draws, held to the sweep's own dock."""
     import contextlib
     import io
     import warnings
@@ -1037,7 +1050,6 @@ def eval_sweep(args, tmp: Path, cfg, ccfg, kernels, nudge: float, card: str) -> 
 
     from diffdock_tpu_torch.cli import evaluate
     from diffdock_tpu_torch.data.chem import read_molecule_file
-    from diffdock_tpu_torch.data.datasets import ComplexDataset, DatasetConfig, pdbbind_specs
     from diffdock_tpu_torch.eval.rmsd import molecular_automorphisms, symmetry_rmsd
     from diffdock_tpu_torch.inference import ladder
     from diffdock_tpu_torch.inference.pipeline import DockingPipeline
@@ -1055,13 +1067,31 @@ def eval_sweep(args, tmp: Path, cfg, ccfg, kernels, nudge: float, card: str) -> 
     if eargs.bucket_ladder != "cover" or eargs.inference_steps != 20 or eargs.actual_steps != 19:
         raise PhaseError(f"the evaluate CLI's defaults moved: {eargs}")
 
+    # the sweep's pipeline and each complex's (data, all-atom tree, result),
+    # kept as the CLI runs
+    pipes, docked = [], []
+    real_build, real_dock = evaluate.build_pipeline, evaluate.dock_with_retry
+
+    def build_pipeline(a):
+        pipes.append(real_build(a))
+        return pipes[-1]
+
+    def dock_with_retry(pipeline, data, *a, **kw):
+        res = real_dock(pipeline, data, *a, **kw)
+        docked.append((data, kw.get("aa_data"), res))
+        return res
+
     buf = io.StringIO()
     for m in kernels.values():
         m.counts.reset()
     t0 = time.perf_counter()
-    with warnings.catch_warnings(record=True) as caught, contextlib.redirect_stdout(buf):
-        warnings.simplefilter("always")
-        rc = evaluate.main(argv)
+    evaluate.build_pipeline, evaluate.dock_with_retry = build_pipeline, dock_with_retry
+    try:
+        with warnings.catch_warnings(record=True) as caught, contextlib.redirect_stdout(buf):
+            warnings.simplefilter("always")
+            rc = evaluate.main(argv)
+    finally:
+        evaluate.build_pipeline, evaluate.dock_with_retry = real_build, real_dock
     wall = time.perf_counter() - t0
     launches = {k: v for m in kernels.values() for k, v in m.counts.as_dict().items()}
     lines = buf.getvalue().splitlines()
@@ -1073,10 +1103,11 @@ def eval_sweep(args, tmp: Path, cfg, ccfg, kernels, nudge: float, card: str) -> 
     metrics = json.loads((out / "metrics.json").read_text())
     names = np.load(out / "names.npy").tolist()
     rmsds = np.load(out / "rmsds.npy")
+    run_times = np.load(out / "run_times.npy")
     if rc != 0 or metrics["failures"] != 0:
         raise PhaseError(f"evaluate returned {rc} with {metrics['failures']} failures")
-    if names != list(EVAL_COMPLEXES):
-        raise PhaseError(f"names.npy {names} != {list(EVAL_COMPLEXES)}")
+    if names != list(EVAL_COMPLEXES) or len(docked) != len(names) or len(pipes) != 1:
+        raise PhaseError(f"names.npy {names} != {list(EVAL_COMPLEXES)} ({len(docked)} docks kept)")
     if rmsds.shape != (len(EVAL_COMPLEXES), args.poses) or not np.isfinite(rmsds).all() \
             or (rmsds >= PENALTY_RMSD).any():
         raise PhaseError(f"rmsds.npy {rmsds.shape}: finite {np.isfinite(rmsds).all()}, "
@@ -1086,90 +1117,119 @@ def eval_sweep(args, tmp: Path, cfg, ccfg, kernels, nudge: float, card: str) -> 
     if quarantined:
         raise PhaseError(f"the anomaly guard quarantined: {quarantined}")
 
-    # the CLI's pipeline once more (the same run directories and flags), for
-    # the expected counts, the warm docks and the plain twin
-    pipe = evaluate.build_pipeline(eargs)
+    pipe = pipes[0]
     if pipe.bucket_ladder != "cover" or pipe.anomaly_guard != 5.0:
         raise PhaseError(f"ladder {pipe.bucket_ladder}, guard {pipe.anomaly_guard} (expected cover, 5.0)")
-    specs = pdbbind_specs(str(E2E_SYNTH), str(split), esm_embeddings_dir=str(E2E_SYNTH / "_esm"))
-    ds = ComplexDataset(specs, DatasetConfig(cache_dir=str(cache), all_atoms=True))
-    ds.preprocess(verbose=False)
-    if ds.names != list(EVAL_COMPLEXES) or len(os.listdir(ds.cache)) < len(EVAL_COMPLEXES):
-        raise PhaseError(f"the sweep's cache {ds.cache} does not hold the six complexes")
-    featurized = {n: ds.get(n) for n in EVAL_COMPLEXES}
-    expected = sum(dock_launches(pipe, cfg, ccfg, aa.base, aa, args.poses) for aa in featurized.values())
+    swept = {n: d for n, d in zip(names, docked)}
+    expected = sum(dock_launches(pipe, cfg, ccfg, data, aa, args.poses) for data, aa, _ in docked)
     plain_runs = {k: v for k, v in launches.items() if "reference" in k and v}
     _log(f"  launches {launches} (expected fused_tp3 = {expected} over {len(EVAL_COMPLEXES)} docks)")
     if launches["fused_tp3"] != expected or plain_runs:
         raise PhaseError(f"evaluate launch counts {launches} != expected {expected} fused_tp3 / 0 plain")
-    entries = {n: pipe.dock_bucket(aa.base)[1] for n, aa in featurized.items()}
+    entries = {n: pipe.dock_bucket(data)[1] for n, (data, _, _) in swept.items()}
     if None in entries.values() or len(set(entries.values())) != len(EVAL_COMPLEXES):
         raise PhaseError(f"the six complexes do not land in six cover entries: {entries}")
 
-    # each complex docked again, warm, beside the cost model
-    per_complex, warm = {}, {}
-    for n, aa in featurized.items():
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        warm[n] = pipe.dock_complex(aa.base, num_poses=args.poses, seed=eargs.seed, aa_data=aa)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t1
-        entry, chunk = entries[n], pipe.effective_pose_chunk(aa.base, args.poses)
-        model_s = sum(ladder.modeled_batch_seconds(entry[0], entry[1], min(chunk, args.poses - c))
-                      for c in range(0, args.poses, chunk))
-        per_complex[n] = {"entry": list(entry), "P": chunk, "n_lig": aa.base.n_lig, "n_rec": aa.base.n_rec,
-                          "n_atoms": aa.n_atoms, "warm_s": dt, "modeled_s": model_s, "ratio": dt / model_s,
-                          "sweep_s": float(np.load(out / "run_times.npy")[names.index(n)])}
-        _log(f"  {n}: cover entry {entry[:3]} P={entry[3]} -> {chunk} in flight | warm dock {dt:.4f} s "
-             f"| modeled {model_s:.4f} s | ratio {dt / model_s:.3f} | in the sweep "
-             f"{per_complex[n]['sweep_s']:.4f} s")
-    if pipe._quarantined:
-        raise PhaseError(f"the warm docks quarantined {pipe._quarantined}")
-    area = np.array([v["entry"][0] * v["entry"][1] for v in per_complex.values()], np.float64)
-    t_pose = np.array([v["warm_s"] / args.poses for v in per_complex.values()])
-    slope, base = np.polyfit(area, t_pose, 1)
-    _log(f"  cost model fitted on these warm docks: {slope:.4g} s per pose per lig-rec pair + "
-         f"{base:.4g} s per pose (committed: {ladder.COST_PER_AREA_S:.4g} + {ladder.COST_BASE_S:.4g}) | {card}")
+    # one-pose docks on the sweep's pipeline: each entry's second chunk, which
+    # the guard judges against the committed cost model
+    one_pose = {}
+    with warnings.catch_warnings(record=True) as caught, contextlib.redirect_stdout(io.StringIO()):
+        warnings.simplefilter("always")
+        for n in EVAL_ONE_POSE:
+            data, aa, _ = swept[n]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            pipe.dock_complex(data, num_poses=1, seed=eargs.seed, aa_data=aa)
+            torch.cuda.synchronize()
+            one_pose[n] = time.perf_counter() - t1
+    if pipe._quarantined or any("quarantined" in str(w.message) for w in caught):
+        raise PhaseError(f"the one-pose docks quarantined {pipe._quarantined}")
 
-    # the twin through the plain versions, the same weights and draws
+    # the cost model: chunk time = a + P (b + c nl nr), fitted on the sweep's
+    # ten-pose docks (each its entry's first chunk) and the one-pose docks
+    per_complex, rows, times = {}, [], []
+    for n, (data, aa, _) in swept.items():
+        entry, chunk = entries[n], pipe.effective_pose_chunk(data, args.poses)
+        sizes = [min(chunk, args.poses - c) for c in range(0, args.poses, chunk)]
+        area = entry[0] * entry[1]
+        model_s = sum(ladder.modeled_batch_seconds(entry[0], entry[1], p) for p in sizes)
+        rows.append([len(sizes), args.poses, args.poses * area])
+        times.append(float(run_times[names.index(n)]))
+        per_complex[n] = {"entry": list(entry), "P": chunk, "n_lig": data.n_lig, "n_rec": data.n_rec,
+                          "n_atoms": aa.n_atoms, "sweep_s": times[-1], "modeled_s": model_s,
+                          "ratio": times[-1] / model_s}
+        if n in one_pose:
+            m1 = ladder.modeled_batch_seconds(entry[0], entry[1], 1)
+            rows.append([1, 1, area])
+            times.append(one_pose[n])
+            per_complex[n].update(one_pose_s=one_pose[n], one_pose_modeled_s=m1)
+        _log(f"  {n}: cover entry {entry[:3]} P={entry[3]} -> {chunk} in flight | dock in the sweep "
+             f"{per_complex[n]['sweep_s']:.4f} s | modeled {model_s:.4f} s | ratio "
+             f"{per_complex[n]['ratio']:.3f}" + (f" | one pose {one_pose[n]:.4f} s, modeled {m1:.4f} s, "
+                                                 f"ratio {one_pose[n] / m1:.3f}" if n in one_pose else ""))
+    (fit_chunk, fit_base, fit_area), *_ = np.linalg.lstsq(np.array(rows, np.float64), np.array(times), rcond=None)
+    _log(f"  cost model fitted here: {fit_chunk:.4g} s per chunk + {fit_base:.4g} s per pose + {fit_area:.4g} s "
+         f"per pose per lig-rec pair (committed: {ladder.COST_CHUNK_S:.4g} + {ladder.COST_BASE_S:.4g} + "
+         f"{ladder.COST_PER_AREA_S:.4g}) | {card}")
+
+    # the gen-3 kernel at each complex's cover shapes: the score blocks at the
+    # poses in flight, the confidence blocks at the confidence chunk
+    t1 = time.perf_counter()
+    block_checks = {}
+    for n, (data, aa, _) in swept.items():
+        chunk = pipe.effective_pose_chunk(data, args.poses)
+        conf_chunk = pipe.confidence_chunk_for(pipe.confidence_input(data, aa), chunk)
+        blocks = tp_blocks(pipe.model, pipe.confidence_model, cfg, ccfg, data, aa, chunk, conf_chunk,
+                           bucket=entries[n][:3])
+        block_checks[n] = check_blocks(["fused_tp3"], blocks, pipe.device, tag=f" [{n} {entries[n][:3]}]")
+    blocks_s = time.perf_counter() - t1
+
+    # the twin through the plain versions, the same weights and draws, held
+    # to the sweep's own dock
     t1 = time.perf_counter()
     ref_pipe = DockingPipeline(pipe.score_cfg, pipe.model.state_dict(), pipe.sampler_cfg, pipe.so3, pipe.torus,
                                device=pipe.device, reference_kernels=True, confidence_cfg=pipe.confidence_cfg,
                                confidence_weights=pipe.confidence_model.state_dict(), bucket_ladder="cover",
                                anomaly_guard=0.0)
-    aa = featurized[EVAL_TWIN]
-    ref_res = ref_pipe.dock_complex(aa.base, num_poses=args.poses, seed=eargs.seed, aa_data=aa)
+    data, aa, res = swept[EVAL_TWIN]
+    ref_res = ref_pipe.dock_complex(data, num_poses=args.poses, seed=eargs.seed, aa_data=aa)
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t1
+    twin_tol = max(POSE_ATOL, 2 * nudge)
+    agree = docks_agree(res, ref_res, pose_tol=twin_tol)
     mol = read_molecule_file(str(E2E_SYNTH / EVAL_TWIN / f"{EVAL_TWIN}_ligand.sdf")).remove_hs()
     bonds = [(i, j) for i, j, _ in mol.bonds]
     perms = molecular_automorphisms(mol.elements, bonds)
-    crystal = np.asarray(aa.base.lig_pos) + np.asarray(aa.base.original_center)
-    row = symmetry_rmsd(crystal, warm[EVAL_TWIN].poses, mol.elements, bonds, perms=perms)
+    crystal = np.asarray(data.lig_pos) + np.asarray(data.original_center)
+    row = symmetry_rmsd(crystal, res.poses, mol.elements, bonds, perms=perms)
     row_plain = symmetry_rmsd(crystal, ref_res.poses, mol.elements, bonds, perms=perms)
-    twin_tol = max(POSE_ATOL, 2 * nudge)
     twin_gap = float(np.abs(row - row_plain).max())
     sweep_row = rmsds[names.index(EVAL_TWIN)]
-    _log(f"  {EVAL_TWIN} plain twin: per-pose RMSD kernel {np.round(row, 4).tolist()} vs plain "
-         f"{np.round(row_plain, 4).tolist()} | max gap {twin_gap:.3e} A (tol {twin_tol:.3e}) | ranked row of "
-         f"the sweep {np.round(sweep_row, 4).tolist()} vs the warm dock "
-         f"{np.round(row[warm[EVAL_TWIN].order], 4).tolist()} | plain dock {plain_wall:.2f} s")
+    row_gap = float(np.abs(sweep_row - row[res.order]).max())
+    _log(f"  {EVAL_TWIN} plain twin: per-pose RMSD of the sweep's dock {np.round(row, 4).tolist()} vs plain "
+         f"{np.round(row_plain, 4).tolist()} | max gap {twin_gap:.3e} A (tol {twin_tol:.3e}) | the sweep's "
+         f"ranked row vs its dock's RMSDs in rank order: max gap {row_gap:.3e} A | plain dock {plain_wall:.2f} s")
     if not twin_gap <= twin_tol:
-        raise PhaseError(f"the plain twin's RMSDs part from the kernel dock's by {twin_gap:.3e} A")
-    del ref_pipe, pipe
+        raise PhaseError(f"the plain twin's RMSDs part from the sweep's by {twin_gap:.3e} A")
+    if not row_gap <= 1e-6:
+        raise PhaseError(f"the sweep's ranked RMSD row is not its dock's ({row_gap:.3e} A apart)")
+    del ref_pipe, pipe, pipes, docked, swept
 
     host_s = timings["preprocess_s"] + timings["rmsd_s"] + timings["tables_s"]
     _log(f"[D eval sweep] {len(EVAL_COMPLEXES)} complexes x {args.poses} poses, cover ladder, guard 5.0 | "
          f"wall {wall:.3f} s: docks {timings['dock_s']:.3f} s + host {host_s:.3f} s (preprocess "
          f"{timings['preprocess_s']:.3f}, rmsd {timings['rmsd_s']:.3f}, tables {timings['tables_s']:.3f}); host "
          f"share {100 * host_s / wall:.1f} % | top-1 RMSD < 2 A {metrics['rmsds_below_2']:.1f} % (random "
-         f"weights) | {card} | phase {time.perf_counter() - t_start:.1f} s")
+         f"weights) | block checks {blocks_s:.2f} s | {card} | phase {time.perf_counter() - t_start:.1f} s")
     return {"rc": rc, "wall_s": wall, "timings": timings, "host_s": host_s, "launches": launches,
             "expected_fused_tp3": expected, "per_complex": per_complex, "metrics": metrics,
-            "rmsds": rmsds.tolist(), "cost_fit": {"per_area_s": slope, "base_s": base},
-            "cost_committed": {"per_area_s": ladder.COST_PER_AREA_S, "base_s": ladder.COST_BASE_S},
+            "rmsds": rmsds.tolist(), "block_checks": block_checks, "blocks_s": blocks_s,
+            "cost_fit": {"chunk_s": fit_chunk, "base_s": fit_base, "per_area_s": fit_area},
+            "cost_committed": {"chunk_s": ladder.COST_CHUNK_S, "base_s": ladder.COST_BASE_S,
+                               "per_area_s": ladder.COST_PER_AREA_S},
             "twin": {"name": EVAL_TWIN, "rmsd_kernel": row.tolist(), "rmsd_plain": row_plain.tolist(),
-                     "max_gap": twin_gap, "tol": twin_tol, "plain_wall_s": plain_wall}}
+                     "max_gap": twin_gap, "tol": twin_tol, "plain_wall_s": plain_wall, **agree,
+                     "sweep_row_gap": row_gap}}
 
 
 def profile_dock(pipe, data, aa, n_poses: int) -> dict:

@@ -37,23 +37,26 @@ COVER_LADDER: Tuple[Tuple[int, int, int, int], ...] = (
     (96, 2304, 32, 8),
 )
 
-# Warm wall seconds per pose of one pose chunk (the score model's 19 steps
-# and the shipped all-atom confidence model's ranking), affine in the padded
-# ligand x receptor area: COST_PER_AREA_S * nl * nr + COST_BASE_S. Fitted by
-# least squares on the warm docks of chip_smoke.py phase D: six e2e_synth
-# complexes (10 poses each, DiffDock-L at full width with ESM features) in
-# six cover entries from (32, 192) to (40, 1792), on an NVIDIA H100 80GB
-# HBM3 at 700.00 W (1.59-3.16 s per dock; PERF.md, PR 9). The base
-# dominates: the eager dock is bound by the host's launches, and the host's
-# speed moves it (PERF.md section 5).
-COST_PER_AREA_S = 2.384e-6
-COST_BASE_S = 0.1332
+# Wall seconds of one pose chunk (the score model's 19 steps and the shipped
+# all-atom confidence model's ranking): COST_CHUNK_S per chunk, whatever its
+# pose count (the eager dock is bound by the host's launches, the same for
+# any pose count), plus per pose COST_BASE_S and COST_PER_AREA_S times the
+# padded ligand x receptor area. Fitted by least squares in chip_smoke.py
+# phase D on the sweep's docks (six e2e_synth complexes of 10 poses each,
+# DiffDock-L at full width with ESM features, in six cover entries from
+# (32, 192) to (40, 1792)) and on one-pose docks at three of those entries
+# (1.41-1.43 s each, against 1.92-3.40 s for ten poses), on an NVIDIA H100
+# 80GB HBM3 at 700.00 W (PERF.md section 6). The host's speed moves the
+# per-chunk part (PERF.md section 5).
+COST_CHUNK_S = 1.314
+COST_PER_AREA_S = 2.035e-6
+COST_BASE_S = 0.03858
 
 
 def modeled_batch_seconds(nl: int, nr: int, poses: int) -> float:
     """Modeled warm wall time of one pose chunk of ``poses`` poses at the
     padded bucket (nl, nr)."""
-    return poses * (COST_PER_AREA_S * nl * nr + COST_BASE_S)
+    return COST_CHUNK_S + poses * (COST_PER_AREA_S * nl * nr + COST_BASE_S)
 
 
 def pdbbind_like_sizes(n: int = 150, seed: int = 7):

@@ -18,7 +18,9 @@ The bucket ladders are the JAX package's: ``"fine"`` (geometric rungs),
 entry of ``inference/ladder.py:COVER_LADDER``, whose pose count is the
 default chunk; oversize complexes fall back to the fine ladder). With the
 cover ladder an anomaly guard times each pose chunk against the ladder's
-H100 cost model and quarantines an entry that runs far slower than it.
+H100 cost model and quarantines an entry that runs far slower than it;
+each entry's first chunk, which pays the one-time costs (the kernels'
+build, the allocator's growth to the entry's shapes), is not judged.
 ``dock_batch`` docks several complexes one after the other.
 
 Not ported yet: confidence models of the new architectures, the
@@ -173,11 +175,13 @@ class DockingPipeline:
     ``bucket_ladder``: ``"fine"``, ``"fine_dense"`` or ``"cover"``, as in
     the JAX pipeline (see the module docstring).
 
-    ``anomaly_guard``: with the cover ladder, each pose chunk is timed
-    between two device synchronizations; a chunk slower than
-    ``anomaly_guard`` x ``ladder.modeled_batch_seconds`` quarantines its
-    cover entry, and later docks go to the next entry that fits (the slow
-    chunk's poses are kept). None resolves as in the JAX pipeline: the
+    ``anomaly_guard``: with the cover ladder, each pose chunk after an
+    entry's first is timed between two device synchronizations; a chunk
+    slower than ``anomaly_guard`` x ``ladder.modeled_batch_seconds``
+    quarantines its cover entry, and later docks go to the next entry that
+    fits (the slow chunk's poses are kept). The first chunk of each entry
+    runs untimed: eager PyTorch has no compilation to split off, and that
+    chunk pays the one-time costs. None resolves as in the JAX pipeline: the
     ``DIFFDOCK_TPU_ANOMALY_FACTOR`` environment variable, else 5.0 with the
     cover ladder on a CUDA device (where the JAX package says a TPU
     backend) and 0 (off) otherwise.
@@ -219,6 +223,7 @@ class DockingPipeline:
         self.bucket_ladder = bucket_ladder
         self.anomaly_guard = resolve_anomaly_guard(anomaly_guard, bucket_ladder, self.device)
         self._quarantined: Set[Tuple[int, int, int, int]] = set()
+        self._warm_entries: Set[Tuple[int, int, int, int]] = set()
         self.score_cfg = score_cfg
         self.sampler_cfg = sampler_cfg
         self.model = _with_weights(CGScoreModel(score_cfg, reference_kernels=reference_kernels),
@@ -333,6 +338,9 @@ class DockingPipeline:
             return DockingResult(poses=poses, confidence=conf, order=order, trajectory=traj)
         bucket, cov = self.dock_bucket(data)
         guard = self.anomaly_guard if cov is not None else 0.0
+        if guard and cov not in self._warm_entries:
+            self._warm_entries.add(cov)
+            guard = 0.0
         if not guard:
             return self._dock_program(data, bucket, num_poses, seed, noise, aa_data,
                                       return_trajectory, pocket_center)

@@ -101,7 +101,9 @@ def test_fine_plan_equals_jax_but_for_the_cards_pose_count(dense):
 
 
 def test_cost_model_is_the_cards():
-    assert ladder.modeled_batch_seconds(32, 320, 40) == 40 * (ladder.COST_PER_AREA_S * 32 * 320 + ladder.COST_BASE_S)
+    assert ladder.modeled_batch_seconds(32, 320, 40) == \
+        ladder.COST_CHUNK_S + 40 * (ladder.COST_PER_AREA_S * 32 * 320 + ladder.COST_BASE_S)
+    assert ladder.COST_CHUNK_S > 0 and ladder.COST_BASE_S > 0 and ladder.COST_PER_AREA_S > 0
     assert (ladder.COST_PER_AREA_S, ladder.COST_BASE_S) != (jladder.COST_PER_AREA_S, jladder.COST_BASE_S)
     assert not hasattr(ladder, "HBM_AREA_BOUND") and not hasattr(ladder, "fine_hbm_poses")
 
@@ -141,9 +143,11 @@ def test_guard_default_resolution(monkeypatch, tables):
 
 def test_guard_quarantines_and_reroutes(monkeypatch, tables, data):
     monkeypatch.setattr(ladder, "COVER_LADDER", TINY_LADDER)
-    pipe = _pipeline(tables, guard=1e-9)  # any real chunk trips it
+    pipe = _pipeline(tables, guard=1e-9)  # any real chunk after an entry's first trips it
     with warnings.catch_warnings(record=True) as w:
         warnings.simplefilter("always")
+        pipe.dock_complex(data, num_poses=2, seed=0)  # entry 0's first chunk: not judged
+        assert not pipe._quarantined and not w
         res = pipe.dock_complex(data, num_poses=2, seed=0)
     # the tripping chunk's poses are kept (slow, not wrong)
     assert res.poses.shape == (2, data.n_lig, 3) and np.isfinite(res.poses).all()
@@ -154,6 +158,8 @@ def test_guard_quarantines_and_reroutes(monkeypatch, tables, data):
     with warnings.catch_warnings(record=True):
         warnings.simplefilter("always")
         res2 = pipe.dock_complex(data, num_poses=2, seed=1)
+        assert TINY_LADDER[1] not in pipe._quarantined
+        pipe.dock_complex(data, num_poses=2, seed=1)
     assert res2.poses.shape == (2, data.n_lig, 3)
     assert TINY_LADDER[1] in pipe._quarantined
     # both quarantined: the fine ladder, unguarded
@@ -177,10 +183,10 @@ class _Clock:
 
 
 def test_guard_judges_the_chunk_time_against_the_cost_model(monkeypatch, tables, data):
-    """With the default factor 5.0 and a monkeypatched clock: a chunk that
-    takes 4x its modeled time passes, one that takes 6x quarantines its
-    entry (the warning names the ratio); with the guard off nothing is
-    timed."""
+    """With the default factor 5.0 and a monkeypatched clock: an entry's
+    first chunk runs untimed; a later chunk that takes 4x its modeled time
+    passes, one that takes 6x quarantines its entry (the warning names the
+    ratio); with the guard off nothing is timed."""
     monkeypatch.setattr(ladder, "COVER_LADDER", TINY_LADDER)
     model_s = ladder.modeled_batch_seconds(8, 16, 2)
     for factor, tripped in ((4.0, False), (6.0, True)):
@@ -190,6 +196,8 @@ def test_guard_judges_the_chunk_time_against_the_cost_model(monkeypatch, tables,
         with warnings.catch_warnings(record=True) as w:
             warnings.simplefilter("always")
             pipe.dock_complex(data, num_poses=2, seed=0)
+            assert clock.t == 0.0 and not pipe._quarantined
+            pipe.dock_complex(data, num_poses=2, seed=0)
         assert clock.t == pytest.approx(2 * factor * model_s)  # two readings: one chunk timed
         assert (TINY_LADDER[0] in pipe._quarantined) == tripped
         assert [str(x.message).split(" its cost model")[0].split(", ")[-1] for x in w] == (["6x"] if tripped else [])
@@ -197,7 +205,46 @@ def test_guard_judges_the_chunk_time_against_the_cost_model(monkeypatch, tables,
     clock = _Clock(1.0)
     monkeypatch.setattr(pipeline_mod, "time", clock)
     off.dock_complex(data, num_poses=2, seed=0)
+    off.dock_complex(data, num_poses=2, seed=0)
     assert clock.t == 0.0 and not off._quarantined
+
+
+class _ChunkClock:
+    """A stand-in for the pipeline's ``time`` whose perf_counter advances by
+    the next of ``chunk_s`` at each chunk's first reading."""
+
+    def __init__(self, chunk_s):
+        self.t, self.chunk_s, self.readings = 0.0, list(chunk_s), 0
+
+    def perf_counter(self):
+        if self.readings % 2 == 1:
+            self.t += self.chunk_s.pop(0)
+        self.readings += 1
+        return self.t
+
+
+def test_guard_spares_one_pose_chunks_and_each_entrys_first_chunk(monkeypatch, tables, data):
+    """The eager dock is bound by the host's launches, so a one-pose chunk
+    takes about as long as a full one: under the default factor a one-pose
+    chunk that takes what the cost model gives the entry's ten-pose chunk
+    is not quarantined. The first chunk of an entry, which pays the
+    kernels' build, runs untimed, however long it takes; the entry a
+    chunk falls back to after a quarantine starts untimed too."""
+    monkeypatch.setattr(ladder, "COVER_LADDER", ((8, 16, 4, 10), (16, 32, 4, 10)))
+    pipe = _pipeline(tables, guard=5.0)
+    host_bound = ladder.modeled_batch_seconds(8, 16, 10)
+    clock = _ChunkClock([host_bound] * 3 + [6 * ladder.modeled_batch_seconds(8, 16, 1)])
+    monkeypatch.setattr(pipeline_mod, "time", clock)
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        pipe.dock_complex(data, num_poses=3, seed=0, batch_size=1)  # 3 chunks of 1: the first untimed
+        assert clock.readings == 4 and not pipe._quarantined and not w
+        pipe.dock_complex(data, num_poses=1, seed=1)
+        assert clock.readings == 6 and not pipe._quarantined
+        pipe.dock_complex(data, num_poses=1, seed=2)  # 6x: quarantined
+    assert pipe._quarantined == {ladder.COVER_LADDER[0]} and len(w) == 1
+    pipe.dock_complex(data, num_poses=1, seed=3)  # entry 1's first chunk
+    assert clock.readings == 8 and pipe._quarantined == {ladder.COVER_LADDER[0]}
 
 
 def test_cover_chunks_and_the_cards_cap(monkeypatch, tables, data):
