@@ -91,6 +91,28 @@ D. an evaluation sweep: ``diffdock_tpu_torch.cli.evaluate.main`` on a
    the same bound; the sweep's ranked RMSD row must be that dock's. The
    sweep's wall is split into the host's layers (dataset preprocess, RMSD,
    metric tables) and the docks.
+E. training: E1 fused_tp3 as an autograd Function (the kernel forward,
+   the plain version's VJP backward) against autograd of
+   the plain version at the score model's three blocks of phase 3, forward
+   and all six input gradients; E2 ``diffdock_tpu_torch.cli.train.main`` at
+   DiffDock-L width with ESM features on twelve e2e_synth complexes (eight
+   of the (48, 320) bucket, four of (48, 704), all of bond bucket 16) and
+   two for validation, batch 4, 2 epochs, one validation-docking round:
+   gates on rc, finite train and validation losses in ``metrics.jsonl``,
+   every file of the JAX CLI's run directory, fused_tp3 launched in each
+   step exactly as the code says with one VJP per forward launch and no
+   plain version, and the run's total; then a score-only dock of a
+   validation complex from ``last_ema_model`` read by the port's
+   ``load_checkpoint``; E3 one step from the saved train state through the
+   kernels and one through the plain versions, with the same batch and
+   draws, at both buckets and two draws each: loss and metrics, all
+   gradient leaves together and each leaf (in norm), the params and the
+   batch stats within their stated tolerances, the ReLU units switched
+   between the two counted, and a stand-in forward at 1xTF32 must fail
+   those limits; E4 the warm step's wall (median
+   and range of 5 after 2 untimed) at both buckets, complexes per second,
+   peak memory per step, and ``torch.profiler`` over one warm step (device
+   time in fused_tp3's forward, in its VJP and elsewhere; the busy share).
 
 It then prints the card line (``nvidia-smi --query-gpu=name,power.limit``),
 one JSON line with the kernels' numbers, and, last, the result line
@@ -649,6 +671,8 @@ def run(args) -> dict:
         del pipe
         nudge = report["file_dock"]["plain"]["nudge_gap"][-1]
         report["eval_sweep"] = eval_sweep(args, Path(tmp), cfg, ccfg, kernels, nudge, card)
+        score_blocks = dict(list(blocks_all.items())[:3])
+        report["train"] = train_phase(args, Path(tmp), cfg, kernels, score_blocks, card, dev)
 
     sources = {"fused_tp3": "diffdock_tpu/ops/pallas_tpconv3.py:57",
                "factored_tp2": "diffdock_tpu/ops/pallas_tpconv2.py:125",
@@ -1230,6 +1254,542 @@ def eval_sweep(args, tmp: Path, cfg, ccfg, kernels, nudge: float, card: str) -> 
             "twin": {"name": EVAL_TWIN, "rmsd_kernel": row.tolist(), "rmsd_plain": row_plain.tolist(),
                      "max_gap": twin_gap, "tol": twin_tol, "plain_wall_s": plain_wall, **agree,
                      "sweep_row_gap": row_gap}}
+
+
+# phase E: training on the card. Eight e2e_synth complexes of the (48, 320)
+# ligand/receptor bucket and four of (48, 704), all of bond bucket 16, so
+# that every batch of TRAIN_BATCH stacks four complexes; two others for
+# validation (.chiprunignore keeps their ESM embeddings)
+TRAIN_COMPLEXES = ("syn016_l36r224", "syn073_l47r311", "syn077_l38r217", "syn081_l40r253",
+                   "syn087_l45r286", "syn088_l48r252", "syn097_l40r241", "syn106_l47r263",
+                   "syn031_l42r478", "syn037_l47r608", "syn057_l36r643", "syn113_l36r475")
+VAL_COMPLEXES = ("syn122_l37r517", "syn125_l39r702")
+TRAIN_BATCH = 4
+TRAIN_EPOCHS = 2
+# the run directory the JAX CLI writes with validation docking and a
+# secondary metric (diffdock_tpu/cli/train.py:419-473)
+RUN_FILES = ("model_parameters.yml", "train_state.msgpack", "metrics.jsonl", "history.json",
+             "last_model.msgpack", "last_ema_model.msgpack", "best_ema_model.msgpack",
+             "best_model.msgpack", "best_ema_inference_epoch_model.msgpack",
+             "best_inference_epoch_model.msgpack", "best_ema_secondary_epoch_model.msgpack")
+# E1: fused_tp3's gradients against autograd of its plain version, each
+# within VJP_RTOL of its largest element: both run the plain version's VJP
+# on the same saved inputs and cotangent, so they differ only where cuBLAS
+# orders its sums differently
+VJP_RTOL = 1e-5
+# E3, the twin steps (kernels vs plain versions from the same state, batch
+# and draws; each bucket, each of TWIN_SEEDS). Each limit lies between what
+# the kernel and what a 1xTF32 stand-in read on an NVIDIA H100 80GB HBM3 at
+# 700 W (kernel's worst / stand-in's best of the four cases):
+# - the loss and metrics within TWIN_LOSS_RTOL (5.3e-6 / 3.2e-4);
+# - all gradient leaves together within TWIN_GRAD_ALL_RTOL in norm,
+#   ||g_kernel - g_plain|| / ||g_plain|| (2.8e-4 / 7.4e-3);
+# - each leaf within TWIN_GRAD_RTOL in norm (1.8e-3 / 2.1e-2): the same VJP
+#   at activations that differ by float32 reordering, where a ReLU unit
+#   whose input lies within rounding of zero switches on one side only (in
+#   every case one did in the worst element's unit, its input under 7e-7
+#   of its layer's largest) and moves single elements of a leaf
+#   by their own size, so the leaf's norm is held, not its worst element
+#   (reported, with the switched units);
+# - the batch stats within TWIN_STAT_RTOL of their scale (7.6e-6 / 4.2e-4);
+# - the params within 1e-6 + TWIN_PARAM_SOLID lr where the plain |g| is over
+#   5 TWIN_GRAD_RTOL of its leaf's largest (4.3e-3 lr / 5.6e-2 lr), within
+#   2 lr elsewhere (one Adam step moves a weight by about lr, in the
+#   direction of a gradient that may be near zero).
+# The stand-in (fused_tp3's plain version with cuBLAS's TF32 products, the
+# f32 VJP kept) takes the same steps and must fail these limits each time.
+TWIN_LOSS_RTOL = 5e-5
+TWIN_GRAD_ALL_RTOL = 3e-3
+TWIN_GRAD_RTOL = 2e-2
+TWIN_STAT_RTOL = 1e-4
+TWIN_PARAM_SOLID = 1e-2
+TWIN_SEEDS = (7, 8)
+TIMED_STEPS = 5
+
+
+def train_forward_launches(cfg, n_bonds: int) -> int:
+    """Merged contractions of one training forward: the receptor embedding,
+    the layer-0 rec<-rec message inline and one step's worth of the rest —
+    the count of one dock step with its step cache, plus the embedding."""
+    return expected_tp3_launches(cfg, 1, n_bonds)
+
+
+def tp3_gradients(blocks: dict, dev) -> dict:
+    """E1: fused_tp3 as an autograd Function (kernel forward, the plain
+    version's VJP backward) against autograd of the plain version, forward
+    and all six input gradients, at ``blocks``."""
+    import torch
+
+    from diffdock_tpu_torch.ops import fused_tp3 as ft
+
+    out = {}
+    names = ("x_nbr", "edge_sh", "h", "mw", "out_kernel", "out_bias")
+    for i, (label, (tp, rows, K, Hb)) in enumerate(blocks.items()):
+        inp = tp_inputs(tp, rows, K, Hb, seed=100 + i, device=dev)
+        leaves = [t.clone().requires_grad_(True) for t in inp]
+        ref_leaves = [t.clone().requires_grad_(True) for t in inp]
+        ft.counts.reset()
+        got = ft.fused_tp3(tp, *leaves)
+        g = torch.randn(got.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(i))
+        grads = torch.autograd.grad(got, leaves, g)
+        counts = ft.counts.as_dict()
+        ref = ft.fused_tp3_reference(tp, *ref_leaves)
+        ref_grads = torch.autograd.grad(ref, ref_leaves, g)
+        torch.cuda.synchronize()
+        checks = {}
+        err, scale, ok = _check("forward", got.detach(), ref.detach(), checks)
+        worst = 0.0
+        for name, a, b in zip(names, grads, ref_grads):
+            gerr = (a - b).abs().max().item()
+            gscale = max(b.abs().max().item(), 1.0)
+            worst = max(worst, gerr / gscale)
+            checks[name] = {"max_abs_err": gerr, "max_abs_ref": gscale,
+                            "ok": bool(torch.isfinite(a).all()) and gerr <= VJP_RTOL * gscale}
+        out[label] = {"rows": rows, "K": K, "H": Hb, "counts": counts, **checks}
+        _log(f"  E1 fused_tp3 gradient {label}: R={rows} K={K} H+1={Hb + 1} forward err {err:.3e} "
+             f"(tol {KERNEL_RTOL:.0e} x {scale:.3g}) | worst input gradient {worst:.3e} of its "
+             f"scale (tol {VJP_RTOL:.0e}) | launches {counts}")
+        if not all(c["ok"] for c in checks.values()):
+            raise PhaseError(f"fused_tp3's gradient disagrees with the plain version's at {label}: "
+                             f"{ {k: v for k, v in checks.items() if not v['ok']} }")
+        if counts != {"fused_tp3": 1, "fused_tp3_reference": 0, "fused_tp3_vjp": 1}:
+            raise PhaseError(f"fused_tp3 under autograd counted {counts}, not one launch and one VJP")
+        del inp, leaves, ref_leaves, got, grads, ref, ref_grads
+    return out
+
+
+def _flat_leaves(model, named) -> dict:
+    """Tensors by parameter name -> {flax path: numpy array}."""
+    from diffdock_tpu_torch.utils.convert import flax_from_model
+
+    def walk(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from walk(v, f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", v
+
+    return dict(walk(flax_from_model(model, params=named)["params"]))
+
+
+def pre_relu_linears(model) -> dict:
+    """{module name: Linear} of every Linear whose output a ReLU takes: the
+    hidden layers of each FCBlock, the first layer of each MLP2 and
+    FinalNormLayer."""
+    from diffdock_tpu_torch.models.encoders import FCBlock, FinalNormLayer, MLP2
+
+    out = {}
+    for name, m in model.named_modules():
+        if isinstance(m, FCBlock):
+            out.update({f"{name}.layers.{i}": layer for i, layer in enumerate(m.layers)})
+        elif isinstance(m, (MLP2, FinalNormLayer)):
+            out[f"{name}.layers.0"] = m.layers[0]
+    return out
+
+
+def twin_step(model, route: str, tc, log_dir: Path, batch, seed: int, so3, torus, dev) -> dict:
+    """One train step of ``model`` from the train state saved in
+    ``log_dir``, with the draws of ``seed``. ``route`` 'kernel' or 'plain'
+    names the model's own route; 'tf32' runs the kernel model with
+    fused_tp3's forward replaced by its plain version in 1xTF32 (cuBLAS TF32
+    products), a stand-in for a lower-precision kernel. Returns the metrics,
+    the gradients, params and batch stats by flax path (numpy), the launch
+    counts and the output of every pre-ReLU Linear on each call."""
+    import torch
+
+    from diffdock_tpu_torch.ops import fused_tp3 as ft
+    from diffdock_tpu_torch.train import checkpoints as ckpt
+    from diffdock_tpu_torch.train import trainer
+    from diffdock_tpu_torch.train.noise import draw_noise
+
+    state = trainer.create_train_state(model, tc)
+    ckpt.load_train_state(str(log_dir), model, state)
+    draws = draw_noise(torch.Generator(device=dev).manual_seed(seed), batch.rot_u.shape[0],
+                       batch.rot_u.shape[1], device=dev)
+    acts: dict = {}
+    hooks = [m.register_forward_hook(lambda _m, _i, out, n=n: acts.setdefault(n, []).append(out.detach()))
+             for n, m in pre_relu_linears(model).items()]
+    kernel_forward = ft._forward_kernel
+
+    def tf32_forward(tp, *inputs):
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return ft._plain(tp, *inputs)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    if route == "tf32":
+        ft._forward_kernel = tf32_forward
+    ft.counts.reset()
+    try:
+        state, metrics = trainer.make_train_step(model, tc, so3, torus)(state, batch, draws)
+        torch.cuda.synchronize()
+    finally:
+        ft._forward_kernel = kernel_forward
+        for h in hooks:
+            h.remove()
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": _flat_leaves(model, state.grads), "params": _flat_leaves(model, state.params),
+            "stats": {k: v.detach().cpu().numpy() for k, v in state.batch_stats.items()},
+            "counts": ft.counts.as_dict(), "acts": acts}
+
+
+def relu_switches(model, leaf: str, unit: int, a: dict, b: dict) -> dict:
+    """ReLU units on one side only: pre-activations whose sign differs
+    between the outputs ``a`` and ``b`` of every pre-ReLU Linear, in all,
+    and in the Linear owning the flax leaf ``leaf`` at output ``unit``
+    (None when that leaf feeds no ReLU), with the largest |pre-activation|
+    among them as a share of its Linear's largest."""
+    import torch
+
+    from diffdock_tpu_torch.utils.convert import flax_path
+
+    owner = None
+    for name, _p in model.named_parameters():
+        if "/".join(flax_path(name)[:-1]) == leaf.rsplit("/", 1)[0]:
+            owner = name.rsplit(".", 1)[0]
+    total, near, in_unit = 0, 0.0, None
+    for name in a:
+        x = torch.cat([t.reshape(-1, t.shape[-1]) for t in a[name]])
+        y = torch.cat([t.reshape(-1, t.shape[-1]) for t in b[name]])
+        switched = (x > 0) != (y > 0)
+        total += int(switched.sum())
+        if switched.any():
+            near = max(near, float(y[switched].abs().max() / y.abs().max().clamp(min=1e-30)))
+        if name == owner:
+            in_unit = int(switched[:, unit].sum())
+    return {"owner": owner, "in_unit": in_unit, "total": total, "largest_share": near}
+
+
+def compare_twins(model, plain: dict, other: dict, lr: float) -> dict:
+    """``other``'s step against the plain one: the worst metric (relative),
+    the worst gradient leaf in norm and over all leaves, the worst element
+    of any leaf as a share of its leaf's largest, the params (where the
+    plain |g| is over 5 TWIN_GRAD_RTOL of its leaf's largest, and anywhere,
+    in units of lr) and the batch stats; ``ok`` under the E3 limits."""
+    import numpy as np
+
+    km, pm = other["metrics"], plain["metrics"]
+    metric_err = max(abs(km[k] - pm[k]) / max(abs(pm[k]), 1e-12) for k in pm)
+    kg, pg = other["grads"], plain["grads"]
+    norm = {k: float(np.linalg.norm(kg[k] - pg[k])) / max(float(np.linalg.norm(pg[k])), 1e-30) for k in pg}
+    elem = {k: float(np.abs(kg[k] - pg[k]).max(initial=0.0)) / max(float(np.abs(pg[k]).max(initial=0.0)), 1e-30)
+            for k in pg}
+    worst_leaf = max(norm, key=norm.get)
+    elem_leaf = max(elem, key=elem.get)
+    total = math.sqrt(sum(float(np.sum((kg[k] - pg[k]) ** 2)) for k in pg)) / \
+        max(math.sqrt(sum(float(np.sum(pg[k] ** 2)) for k in pg)), 1e-30)
+    solid_err = param_err = 0.0
+    for k in pg:
+        g = np.abs(pg[k])
+        solid = g > 5 * TWIN_GRAD_RTOL * max(g.max(initial=0.0), 1e-30)
+        err = np.abs(other["params"][k] - plain["params"][k])
+        param_err = max(param_err, float(err.max(initial=0.0)))
+        solid_err = max(solid_err, float(err[solid].max(initial=0.0)))
+    ks, ps = other["stats"], plain["stats"]
+    stat_err = max(float(np.abs(ks[k] - ps[k]).max(initial=0.0)) / max(float(np.abs(ps[k]).max(initial=0.0)), 1.0)
+                   for k in ps)
+    unit = int(np.unravel_index(np.argmax(np.abs(kg[elem_leaf] - pg[elem_leaf])), pg[elem_leaf].shape)[-1])
+    out = {"loss": km["loss"], "metric_rel_err": metric_err, "grad_norm_rel_err": norm[worst_leaf],
+           "grad_worst_leaf": worst_leaf, "grad_all_rel_err": total, "grad_elem_rel_err": elem[elem_leaf],
+           "grad_elem_leaf": elem_leaf, "grad_elem_unit": unit,
+           "param_solid_err_lr": solid_err / lr, "param_err_lr": param_err / lr, "batch_stat_rel_err": stat_err,
+           "relu_switched": relu_switches(model, elem_leaf, unit, other["acts"], plain["acts"])}
+    within = {"metric": metric_err <= TWIN_LOSS_RTOL, "grad_all": total <= TWIN_GRAD_ALL_RTOL,
+              "grad_leaf": norm[worst_leaf] <= TWIN_GRAD_RTOL, "batch_stat": stat_err <= TWIN_STAT_RTOL,
+              "param_solid": solid_err <= 1e-6 + TWIN_PARAM_SOLID * lr, "param": param_err <= 2 * lr + 1e-6}
+    out["outside"] = [k for k, v in within.items() if not v]
+    out["ok"] = not out["outside"]
+    return out
+
+
+def train_phase(args, tmp: Path, cfg, kernels, score_blocks: dict, card: str, dev) -> dict:
+    """Phase E: E1 fused_tp3's gradient at full width; E2 the port's train
+    CLI at DiffDock-L width with ESM features (2 epochs of 3 steps of 4
+    complexes, the validation loss, one validation-docking round), its
+    launches counted per step, then a score-only dock from its
+    ``last_ema_model``; E3 one step from the saved train state through the
+    kernels, through the plain versions and through a 1xTF32 stand-in, at
+    both buckets and two draws each; E4 the warm step's wall at both
+    buckets, its peak memory and a profile of one step."""
+    import numpy as np
+    import torch
+
+    from diffdock_tpu_torch.cli import train as train_cli
+    from diffdock_tpu_torch.data.complexes import to_device
+    from diffdock_tpu_torch.data.datasets import ComplexDataset, DatasetConfig, pdbbind_specs
+    from diffdock_tpu_torch.diffusion.so3 import get_so3_tables
+    from diffdock_tpu_torch.diffusion.torus import get_torus_tables
+    from diffdock_tpu_torch.inference.pipeline import DockingPipeline
+    from diffdock_tpu_torch.inference.sampler import SamplerConfig
+    from diffdock_tpu_torch.models.score_model import CGScoreModel
+    from diffdock_tpu_torch.ops import fused_tp3 as ft
+    from diffdock_tpu_torch.train import checkpoints as ckpt
+    from diffdock_tpu_torch.train import trainer, validation
+    from diffdock_tpu_torch.train.noise import draw_noise
+    from diffdock_tpu_torch.utils.convert import state_dict_from_flax
+
+    t_start = time.perf_counter()
+    report: dict = {}
+
+    # E1
+    t0 = time.perf_counter()
+    report["gradients"] = tp3_gradients(score_blocks, dev)
+    _log(f"[E1 fused_tp3 gradient] {len(score_blocks)} blocks | {time.perf_counter() - t0:.1f} s")
+
+    # E2: the train CLI, each step's launches counted
+    t0 = time.perf_counter()
+    root = tmp / "train"
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "train.txt").write_text("\n".join(TRAIN_COMPLEXES) + "\n")
+    (root / "val.txt").write_text("\n".join(VAL_COMPLEXES) + "\n")
+    log_dir, cache = root / "run", root / "cache"
+    steps, docks = [], []
+    make_step, dock_epoch = trainer.make_train_step, validation.inference_epoch
+
+    def counted_make_step(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def counted(state, batch, draws):
+            before = ft.counts.as_dict()
+            out = step(state, batch, draws)
+            after = ft.counts.as_dict()
+            steps.append({"shape": list(batch.lig_cat.shape[:2]) + [batch.rec_cat.shape[1],
+                                                                      batch.rot_u.shape[1]],
+                          **{k: after[k] - before[k] for k in after}})
+            return out
+        return counted
+
+    def counted_inference_epoch(pipeline, datas, num_complexes, samples, seed=0):
+        before = ft.counts["fused_tp3"]
+        out = dock_epoch(pipeline, datas, num_complexes, samples, seed=seed)
+        want = sum(expected_tp3_launches(cfg, pipeline.sampler_cfg.num_steps,
+                                         pipeline.dock_bucket(d)[0][2])
+                   * -(-samples // pipeline.effective_pose_chunk(d, samples))
+                   for d in list(datas.values())[:num_complexes])
+        docks.append({"launches": ft.counts["fused_tp3"] - before, "expected": want})
+        return out
+
+    argv = ["--model_preset", "diffdock_l", "--ns", str(cfg.ns), "--nv", str(cfg.nv),
+            "--num_conv_layers", str(cfg.num_conv_layers),
+            "--num_prot_emb_layers", str(cfg.num_prot_emb_layers), "--data_dir", str(E2E_SYNTH),
+            "--split_train", str(root / "train.txt"), "--split_val", str(root / "val.txt"),
+            "--esm_embeddings_dir", str(E2E_SYNTH / "_esm"), "--cache_path", str(cache),
+            "--log_dir", str(log_dir), "--batch_size", str(TRAIN_BATCH),
+            "--n_epochs", str(TRAIN_EPOCHS), "--seed", "0", "--num_workers", "0",
+            "--val_inference_freq", str(TRAIN_EPOCHS), "--num_inference_complexes", "2",
+            "--inference_samples", "2", "--inference_steps", "4",
+            "--inference_secondary_metric", "valinf_rmsds_lt5", "--device", str(dev)]
+    for m in kernels.values():
+        m.counts.reset()
+    trainer.make_train_step, validation.inference_epoch = counted_make_step, counted_inference_epoch
+    try:
+        rc = train_cli.main(argv)
+    finally:
+        trainer.make_train_step, validation.inference_epoch = make_step, dock_epoch
+    torch.cuda.synchronize()
+    cli_wall = time.perf_counter() - t0
+    launches = {k: v for m in kernels.values() for k, v in m.counts.as_dict().items()}
+    if rc != 0:
+        raise PhaseError(f"the train CLI returned {rc}")
+    records = [json.loads(line) for line in (log_dir / "metrics.jsonl").read_text().splitlines()]
+    by_phase = {ph: [r for r in records if r["phase"] == ph] for ph in ("train", "val", "val_inference")}
+    missing = [f for f in RUN_FILES if not (log_dir / f).is_file()]
+    bad_loss = [r for r in by_phase["train"] + by_phase["val"] if not np.isfinite(r["loss"])]
+    _log(f"  metrics: {[{k: v for k, v in r.items()} for r in records]}")
+    if missing or bad_loss or len(by_phase["train"]) != TRAIN_EPOCHS or \
+            len(by_phase["val"]) != TRAIN_EPOCHS or len(by_phase["val_inference"]) != 1:
+        raise PhaseError(f"train run: missing files {missing}, non-finite losses {bad_loss}, "
+                         f"records {[r['phase'] for r in records]}")
+    n_steps = TRAIN_EPOCHS * (len(TRAIN_COMPLEXES) // TRAIN_BATCH)
+    step_bad = [s for s in steps
+                if not (s["fused_tp3"] == s["fused_tp3_vjp"] == train_forward_launches(cfg, s["shape"][3])
+                        and s["fused_tp3_reference"] == 0 and s["shape"][0] == TRAIN_BATCH)]
+    val_ds = ComplexDataset(pdbbind_specs(str(E2E_SYNTH), str(root / "val.txt"),
+                                          esm_embeddings_dir=str(E2E_SYNTH / "_esm")),
+                            DatasetConfig(cache_dir=str(cache)))
+    val_ds.preprocess(verbose=False)  # served from the CLI's cache
+    val_forwards = [b.rot_u.shape[1] for _, b in val_ds.bucketed_batches(TRAIN_BATCH)] * TRAIN_EPOCHS
+    expected = (sum(s["fused_tp3"] for s in steps)
+                + sum(train_forward_launches(cfg, nb) for nb in val_forwards)
+                + sum(d["expected"] for d in docks))
+    _log(f"  {len(steps)} steps {[s['shape'] for s in steps]}: per step fused_tp3 "
+         f"{[s['fused_tp3'] for s in steps]}, VJP {[s['fused_tp3_vjp'] for s in steps]} "
+         f"(expected {train_forward_launches(cfg, 16)} each); validation forwards {len(val_forwards)}; "
+         f"validation docks {docks}; run total {launches}, expected fused_tp3 {expected}")
+    if len(steps) != n_steps or step_bad or launches["fused_tp3"] != expected or \
+            launches["fused_tp3_vjp"] != sum(s["fused_tp3"] for s in steps) or \
+            launches["fused_tp3_reference"] or any(d["launches"] != d["expected"] for d in docks):
+        raise PhaseError(f"train launch counts: steps {steps}, docks {docks}, run {launches}, "
+                         f"expected {expected}")
+    report["cli"] = {"rc": rc, "wall_s": cli_wall, "metrics": records, "steps": steps,
+                     "validation_docks": docks, "launches": launches, "expected_fused_tp3": expected}
+    _log(f"[E2 train CLI] diffdock_l, {len(TRAIN_COMPLEXES)} complexes x {TRAIN_EPOCHS} epochs, "
+         f"{len(steps)} steps | wall {cli_wall:.2f} s | {card}")
+
+    # the port's load_checkpoint and one score-only dock of a validation complex
+    t0 = time.perf_counter()
+    so3, torus = get_so3_tables(device=dev), get_torus_tables(device=dev)
+    params, run_cfg, _ = ckpt.load_checkpoint(str(log_dir), "last_ema_model.msgpack")
+    pipe = DockingPipeline(run_cfg, state_dict_from_flax(params, run_cfg), SamplerConfig(), so3,
+                           torus, device=dev)
+    val = val_ds.get(VAL_COMPLEXES[0])
+    ft.counts.reset()
+    res = pipe.dock_complex(val, num_poses=args.poses, seed=0)
+    torch.cuda.synchronize()
+    dock_want = expected_tp3_launches(run_cfg, pipe.sampler_cfg.num_steps, pipe.dock_bucket(val)[0][2]) \
+        * -(-args.poses // pipe.effective_pose_chunk(val, args.poses))
+    if res.poses.shape != (args.poses, val.n_lig, 3) or not np.isfinite(res.poses).all() or \
+            ft.counts["fused_tp3"] != dock_want or ft.counts["fused_tp3_reference"]:
+        raise PhaseError(f"the dock from last_ema_model gave poses {res.poses.shape}, "
+                         f"launches {ft.counts.as_dict()} (expected {dock_want})")
+    report["dock_from_run"] = {"name": VAL_COMPLEXES[0], "wall_s": time.perf_counter() - t0,
+                               "launches": ft.counts.as_dict(), "expected_fused_tp3": dock_want}
+    _log(f"  dock of {VAL_COMPLEXES[0]} from last_ema_model: {args.poses} poses, "
+         f"{ft.counts['fused_tp3']} launches (expected {dock_want}) | {time.perf_counter() - t0:.2f} s")
+    del pipe
+
+    # E3: twin steps from the saved train state, at both buckets, TWIN_SEEDS draws each
+    t0 = time.perf_counter()
+    tc = trainer.TrainConfig()  # the CLI's defaults
+    train_ds = ComplexDataset(pdbbind_specs(str(E2E_SYNTH), str(root / "train.txt"),
+                                            esm_embeddings_dir=str(E2E_SYNTH / "_esm")),
+                              DatasetConfig(cache_dir=str(cache)))
+    train_ds.preprocess(verbose=False)
+    batches = {}
+    for names, b in train_ds.bucketed_batches(TRAIN_BATCH, shuffle_seed=0):
+        batches.setdefault(tuple(b.lig_cat.shape[1:2]) + (b.rec_cat.shape[1],), (names, b))
+    km = CGScoreModel(run_cfg).to(dev)
+    pm = CGScoreModel(run_cfg, reference_kernels=True).to(dev)
+    cases = []
+    for shape, (names, b) in batches.items():
+        tb = to_device(b, dev)
+        n_fwd = train_forward_launches(run_cfg, tb.rot_u.shape[1])
+        for seed in TWIN_SEEDS:
+            plain = twin_step(pm, "plain", tc, log_dir, tb, seed, so3, torus, dev)
+            kern = twin_step(km, "kernel", tc, log_dir, tb, seed, so3, torus, dev)
+            kcounts, pcounts = kern["counts"], plain["counts"]
+            if kcounts != {"fused_tp3": n_fwd, "fused_tp3_reference": 0, "fused_tp3_vjp": n_fwd} or \
+                    pcounts != {"fused_tp3": 0, "fused_tp3_reference": n_fwd, "fused_tp3_vjp": 0}:
+                raise PhaseError(f"twin step counts: kernel {kcounts}, plain {pcounts}")
+            case = {"names": names, "shape": [TRAIN_BATCH, shape[0], shape[1]], "seed": seed,
+                    "loss_plain": plain["metrics"]["loss"],
+                    "kernel": compare_twins(km, plain, kern, tc.lr)}
+            del kern
+            case["tf32"] = compare_twins(km, plain, twin_step(km, "tf32", tc, log_dir, tb, seed, so3,
+                                                              torus, dev), tc.lr)
+            del plain
+            cases.append(case)
+            for route in ("kernel", "tf32"):
+                c = case[route]
+                sw = c["relu_switched"]
+                _log(f"  E3 {route} twin at {case['shape']} seed {seed}: loss {c['loss']:.6f} vs "
+                     f"{case['loss_plain']:.6f} (worst metric {c['metric_rel_err']:.3e}, tol "
+                     f"{TWIN_LOSS_RTOL:.0e}) | worst gradient leaf {c['grad_worst_leaf']} "
+                     f"{c['grad_norm_rel_err']:.3e} in norm (tol {TWIN_GRAD_RTOL:.0e}), all leaves "
+                     f"{c['grad_all_rel_err']:.3e} (tol {TWIN_GRAD_ALL_RTOL:.0e}), worst element {c['grad_elem_rel_err']:.3e} of "
+                     f"{c['grad_elem_leaf']}'s largest at unit {c['grad_elem_unit']} (ReLU units "
+                     f"switched: {sw['in_unit']} there, {sw['total']} in all, the largest "
+                     f"{sw['largest_share']:.2e} of its layer's) | params {c['param_solid_err_lr']:.3e} lr "
+                     f"where |g| is solid (tol {TWIN_PARAM_SOLID:.0e} lr), {c['param_err_lr']:.3e} lr "
+                     f"anywhere (tol 2 lr) | batch stats {c['batch_stat_rel_err']:.3e} (tol "
+                     f"{TWIN_STAT_RTOL:.0e}) | outside the limits of: {', '.join(c['outside']) or 'none'}")
+    report["twin"] = {"cases": cases, "limits": {
+        "metric": TWIN_LOSS_RTOL, "grad_all": TWIN_GRAD_ALL_RTOL, "grad_leaf": TWIN_GRAD_RTOL,
+        "batch_stat": TWIN_STAT_RTOL,
+        "param_solid_lr": TWIN_PARAM_SOLID, "param_lr": 2.0}}
+    bad = [(c["shape"], c["seed"]) for c in cases if not c["kernel"]["ok"]]
+    if bad:
+        raise PhaseError(f"the kernel train step disagrees with the plain one at {bad}")
+    loose = [(c["shape"], c["seed"]) for c in cases if c["tf32"]["ok"]]
+    if loose:
+        raise PhaseError(f"the 1xTF32 stand-in passes the twin limits at {loose}: they cannot "
+                         "tell a lower-precision forward")
+    del pm
+    _log(f"[E3 twin step] {time.perf_counter() - t0:.1f} s")
+
+    # E4: warm step walls at both buckets, peak memory, one profiled step
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    ks = ckpt.load_train_state(str(log_dir), km, trainer.create_train_state(km, tc))
+    step = trainer.make_train_step(km, tc, so3, torus)
+    timing = {}
+    for shape, (names, b) in batches.items():
+        tb = to_device(b, dev)
+
+        def one():
+            nonlocal ks
+            d = draw_noise(gen, TRAIN_BATCH, tb.rot_u.shape[1], device=dev)
+            ks, _m = step(ks, tb, d)
+
+        for _ in range(2):
+            one()
+        walls = []
+        for _ in range(TIMED_STEPS):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            s0 = time.perf_counter()
+            one()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - s0)
+        peak = torch.cuda.max_memory_allocated()
+        med = float(np.median(walls))
+        timing[f"{shape[0]}x{shape[1]}"] = {"names": names, "walls_s": walls, "median_s": med,
+                                             "complexes_per_s": TRAIN_BATCH / med, "peak_bytes": peak}
+        _log(f"  E4 warm step at ({shape[0]}, {shape[1]}) x {TRAIN_BATCH}: median {med:.4f} s "
+             f"(min {min(walls):.4f}, max {max(walls):.4f}) | {TRAIN_BATCH / med:.2f} complexes/s | "
+             f"peak {peak / 2**30:.2f} GiB | {card}")
+    report["step_timing"] = timing
+    report["step_profile"] = dict(profile_step(one, med), shape=[shape[0], shape[1], TRAIN_BATCH])
+    _log(f"[E4 train numbers] {time.perf_counter() - t0:.1f} s")
+    _log(f"[E train] {card} | phase {time.perf_counter() - t_start:.1f} s")
+    return report
+
+
+def profile_step(one_step, wall_s: float) -> dict:
+    """torch.profiler over one warm train step: device time in fused_tp3's
+    forward kernel, in its VJP (the ``fused_tp3_vjp`` ranges of the
+    backward) and elsewhere, and the busy share against ``wall_s``, the
+    step's unprofiled wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        one_step()
+        torch.cuda.synchronize()
+
+    def dev_us(e, total=False):
+        for name in (("device_time_total", "cuda_time_total") if total
+                     else ("self_device_time_total", "self_cuda_time_total")):
+            if hasattr(e, name):
+                return float(getattr(e, name))
+        return 0.0
+
+    # the device timeline also carries the VJP's range as a span of its own
+    # (idle gaps included): kernels only here
+    kernels = [(e.key, dev_us(e), e.count) for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA and dev_us(e) > 0
+               and e.key != "fused_tp3_vjp"]
+    total = sum(k[1] for k in kernels)
+    if total <= 0:
+        raise PhaseError("the profiler saw no device time in a train step")
+    fwd = sum(k[1] for k in kernels if "fused_tp3" in k[0])
+    # the VJP: the kernels launched under its host-side ranges
+    vjp = sum(dev_us(e, total=True) for e in prof.events()
+              if e.name == "fused_tp3_vjp" and getattr(e, "device_type", None) == DeviceType.CPU)
+    out = {"device_ms": total / 1e3, "busy_share": total / (wall_s * 1e6),
+           "fused_tp3_forward_ms": fwd / 1e3, "fused_tp3_vjp_ms": vjp / 1e3 if vjp > 0 else None,
+           "elsewhere_ms": (total - fwd - vjp) / 1e3, "kernel_launches": sum(k[2] for k in kernels),
+           "top": [{"name": k[0][:90], "ms": k[1] / 1e3, "count": k[2]}
+                   for k in sorted(kernels, key=lambda k: -k[1])[:8]]}
+    vjp_txt = f"{vjp / 1e3:.1f} ms" if vjp > 0 else "not measured (no device time under its range)"
+    _log(f"  E4 profiled step: device {total / 1e3:.1f} ms of {wall_s * 1e3:.1f} ms wall "
+         f"(busy {100 * out['busy_share']:.1f} %) | fused_tp3 forward {fwd / 1e3:.1f} ms | VJP "
+         f"{vjp_txt} | elsewhere {(total - fwd - vjp) / 1e3:.1f} ms | {out['kernel_launches']} launches")
+    for k in out["top"]:
+        _log(f"    {k['ms']:9.2f} ms  x{k['count']:<5d} {k['name']}")
+    return out
 
 
 def profile_dock(pipe, data, aa, n_poses: int) -> dict:

@@ -51,7 +51,7 @@ class ComplexData(NamedTuple):
     # --- optional training target ---
     # (NR, 10) [chi/360 (NaN where undefined), N-CA, C-CA] per residue
     # (:func:`diffdock_tpu_torch.data.chi.side_chain_vecs`); the dock never
-    # reads it and drops it before padding
+    # reads it and drops it before padding; training batches carry it
     rec_scv: object = None
 
     @property
@@ -185,6 +185,7 @@ def pad_to(data: ComplexData, nl: int, nr: int, nb: int, kb: int = 4, kr: int = 
         rec_nbr=pad(data.rec_nbr, nr, cols=kr),
         rec_nbr_mask=pad(data.rec_nbr_mask, nr, False, cols=kr),
         original_center=np.asarray(data.original_center),
+        rec_scv=None if data.rec_scv is None else pad(data.rec_scv, nr),
     )
 
 

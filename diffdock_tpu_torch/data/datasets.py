@@ -6,8 +6,8 @@ per complex under a directory keyed by the dataset's parameters (the
 reference's resumable cache, ``datasets/pdbbind.py:157-257``). The cache is
 the JAX package's: ``DatasetConfig`` has the same name, fields and defaults,
 so ``cache_key`` is the same, and a shard written by either package loads
-in the other with equal arrays. ``bucketed_batches``, the training
-sampler, is not ported yet (ROADMAP queue 1 item 7).
+in the other with equal arrays. ``bucketed_batches`` is the training
+sampler: same-bucket stacked batches in the JAX package's order.
 """
 
 from __future__ import annotations
@@ -16,12 +16,12 @@ import dataclasses
 import hashlib
 import os
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from diffdock_tpu_torch.data.chem import read_molecule_file, read_pdb_file
-from diffdock_tpu_torch.data.complexes import AAComplexData, ComplexData
+from diffdock_tpu_torch.data.complexes import AAComplexData, ComplexData, bucket_sizes
 from diffdock_tpu_torch.data.featurize import build_aa_complex_data, build_complex_data
 
 _FIELDS = ComplexData._fields
@@ -187,6 +187,26 @@ class ComplexDataset:
 
     def get(self, name: str) -> ComplexData:
         return load_complex_npz(str(self._path(self._by_name[name])))
+
+    def bucketed_batches(self, batch_size: int, shuffle_seed: Optional[int] = None
+                         ) -> Iterator[Tuple[List[str], ComplexData]]:
+        """Yield (names, stacked numpy ComplexData) with every member padded
+        to the batch's common bucket: the names shuffled by
+        ``RandomState(shuffle_seed)``, grouped by bucket in first-seen
+        order, cut into chunks of ``batch_size``."""
+        from diffdock_tpu_torch.data.loaders import stack_batch
+
+        names = list(self.names)
+        if shuffle_seed is not None:
+            np.random.RandomState(shuffle_seed).shuffle(names)
+        buckets: Dict[Tuple[int, int, int], List[str]] = {}
+        for name in names:
+            d = self.get(name)
+            buckets.setdefault(bucket_sizes(d.n_lig, d.n_rec, d.n_bonds), []).append(name)
+        for bucket, members in buckets.items():
+            for i in range(0, len(members), batch_size):
+                chunk = members[i : i + batch_size]
+                yield stack_batch([(n, self.get(n)) for n in chunk], bucket)
 
     def print_statistics(self) -> dict:
         """Dataset geometry statistics at load time (reference

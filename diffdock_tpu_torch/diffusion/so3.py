@@ -3,7 +3,8 @@
 Port of ``diffdock_tpu/diffusion/so3.py``. The tables are generated with
 the same numpy code (two (N_EPS, L) @ (L, X_N) matmuls in float64), so they
 are bit-identical to the JAX package's; lookups replicate its
-nearest-log-grid rounding in float32.
+nearest-log-grid rounding in float32. The training draws
+(:meth:`SO3Tables.sample_vec`) take their random numbers as arguments.
 """
 
 from __future__ import annotations
@@ -55,9 +56,16 @@ def _generate_tables(cfg: SO3Config) -> Tuple[np.ndarray, ...]:
     dsigma = coeff @ dterm
     score_norms = dsigma / exp_vals
 
-    with np.errstate(invalid="ignore"):
+    # E[score^2] over the pdf; where the series' density vanishes the score
+    # is 0/0 or x/0 (two columns of 185 rows with eps in 0.07-0.35 at the
+    # default grid), and those terms, of weight ~0, are left out: the JAX
+    # package's table is NaN or inf in those rows (ROADMAP, facts of the
+    # reference), so a training draw there gave a NaN loss. Rows without
+    # such a term are bit-identical to the JAX package's.
+    with np.errstate(invalid="ignore", over="ignore"):
+        terms = score_norms**2 * pdf_vals
         exp_score_norms = np.sqrt(
-            np.sum(score_norms**2 * pdf_vals, axis=1)
+            np.sum(np.where(np.isfinite(terms), terms, 0.0), axis=1)
             / np.sum(pdf_vals, axis=1)
             / np.pi
         )
@@ -95,9 +103,49 @@ class SO3Tables:
         )
         return torch.clamp(torch.round(idx), 0, c.n_eps - 1).long()
 
+    def sample_vec(self, eps: torch.Tensor, u: torch.Tensor, direction: torch.Tensor) -> torch.Tensor:
+        """IGSO3 rotations as axis-angle vectors (reference
+        ``utils/so3.py:67-78``): the angle by inverse cdf of the uniform
+        ``u`` (eps's shape), the axis the normal ``direction`` (eps's shape
+        + (3,)) normalized. Returns (..., 3)."""
+        rows = self.cdf_vals[self._eps_idx(eps)]  # (..., X)
+        omega = interp(u.reshape(-1), rows.reshape(-1, rows.shape[-1]), self.omegas)
+        direction = direction / torch.linalg.norm(direction, dim=-1, keepdim=True)
+        return direction * omega.reshape(eps.shape)[..., None]
+
+    def score_vec(self, eps: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
+        """Score of IGSO3 at the rotation ``vec`` (axis-angle), (..., 3) ->
+        (..., 3) (reference ``utils/so3.py:81-86``)."""
+        om = torch.linalg.norm(vec, dim=-1)
+        rows = self.score_norms[self._eps_idx(eps)]
+        score = interp(om.reshape(-1), self.omegas, rows.reshape(-1, rows.shape[-1]))
+        return score.reshape(om.shape)[..., None] * vec / torch.clamp(om[..., None], min=1e-12)
+
     def score_norm(self, eps: torch.Tensor) -> torch.Tensor:
         """E[||score||^2]^{1/2} lookup (reference ``utils/so3.py:89-93``)."""
         return self.exp_score_norms[self._eps_idx(eps)]
+
+
+def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
+    """``jnp.interp`` row by row: x (M,), xp and fp (M, X) or (X,) with xp
+    ascending. Between knots the linear interpolant of the segment that
+    ``searchsorted(side='right')`` finds (so on a flat run of xp, the value
+    at its last knot); below xp[0] fp[0], above xp[-1] fp[-1], as in JAX."""
+    M, X = x.shape[0], max(xp.shape[-1], fp.shape[-1])
+    xp, fp = xp.expand(M, X), fp.expand(M, X)
+    i = torch.clamp(torch.searchsorted(xp.contiguous(), x[:, None].contiguous(), right=True),
+                    1, X - 1)
+    xp0, xp1 = torch.gather(xp, 1, i - 1)[:, 0], torch.gather(xp, 1, i)[:, 0]
+    fp0, fp1 = torch.gather(fp, 1, i - 1)[:, 0], torch.gather(fp, 1, i)[:, 0]
+    dx = xp1 - xp0
+    dx0 = torch.abs(dx) <= _INTERP_EPS
+    f = torch.where(dx0, fp0, fp0 + ((x - xp0) / torch.where(dx0, torch.ones_like(dx), dx)) * (fp1 - fp0))
+    f = torch.where(x < xp[:, 0], fp[:, 0], f)
+    return torch.where(x > xp[:, -1], fp[:, -1], f)
+
+
+# jnp.interp's flat-segment threshold for float32 knots
+_INTERP_EPS = float(np.spacing(np.finfo(np.float32).eps))
 
 
 def _so3_arrays(cfg: SO3Config):
@@ -105,13 +153,17 @@ def _so3_arrays(cfg: SO3Config):
         omegas, cdf, sn, esn = _generate_tables(cfg)
         return dict(omegas=omegas, cdf_vals=cdf, score_norms=sn, exp_score_norms=esn)
 
-    return cached_tables("so3", cfg, generate)
+    # "so3_v2": the E[score^2] rows without the JAX package's NaNs
+    return cached_tables("so3_v2", cfg, generate)
 
 
 @functools.lru_cache(maxsize=4)
 def get_so3_tables(cfg: SO3Config = SO3Config(), device="cuda") -> SO3Tables:
     """Build (or load cached) tables and put them on ``device`` as float32."""
     a = _so3_arrays(cfg)
+    # normal tensors even when first asked for inside torch.inference_mode
+    # (a dock), so that a training forward can save what it derives from them
     f32 = lambda x: torch.as_tensor(x, dtype=torch.float32).to(device)
-    return SO3Tables(cfg, f32(a["omegas"]), f32(a["cdf_vals"]),
-                     f32(a["score_norms"]), f32(a["exp_score_norms"]))
+    with torch.inference_mode(False):
+        return SO3Tables(cfg, f32(a["omegas"]), f32(a["cdf_vals"]),
+                         f32(a["score_norms"]), f32(a["exp_score_norms"]))

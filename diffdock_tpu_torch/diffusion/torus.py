@@ -2,7 +2,8 @@
 
 Port of ``diffdock_tpu/diffusion/torus.py``. The tables come from the same
 numpy code, so they are bit-identical to the JAX package's; lookups
-replicate the reference's nearest-index rounding in float32.
+replicate the reference's nearest-index rounding in float32. The
+training draw (:meth:`TorusTables.sample`) takes its normal as an argument.
 """
 
 from __future__ import annotations
@@ -97,9 +98,32 @@ class TorusTables:
         ) * c.sigma_n
         return torch.round(torch.clamp(si, 0, c.sigma_n)).long()
 
+    def _x_idx(self, x: torch.Tensor):
+        c = self.cfg
+        x = torch.remainder(x + math.pi, 2 * math.pi) - math.pi
+        sign = torch.sign(x)
+        xi = torch.log(torch.abs(x) / math.pi)
+        xi = (xi - float(np.log(c.x_min))) / float(0 - np.log(c.x_min)) * c.x_n
+        return sign, torch.round(torch.clamp(xi, 0, c.x_n)).long()
+
+    def score(self, x: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+        """d/dx log p(x; sigma) (reference ``utils/torus.py:43-54``)."""
+        sign, xi = self._x_idx(x)
+        return -sign * self.score_table[self._sigma_idx(sigma), xi]
+
+    def p(self, x: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+        _, xi = self._x_idx(x)
+        return self.p_table[self._sigma_idx(sigma), xi]
+
     def score_norm(self, sigma: torch.Tensor) -> torch.Tensor:
         """MC estimate of E[score^2] (reference ``utils/torus.py:79-83``)."""
         return self.score_norm_table[self._sigma_idx(sigma)]
+
+    @staticmethod
+    def sample(sigma: torch.Tensor, normal: torch.Tensor) -> torch.Tensor:
+        """Wrapped Gaussian sample from the standard normal ``normal``
+        (reference ``utils/torus.py:66-69``)."""
+        return torch.remainder(sigma * normal + math.pi, 2 * math.pi) - math.pi
 
 
 def _torus_arrays(cfg: TorusConfig):
@@ -113,5 +137,8 @@ def _torus_arrays(cfg: TorusConfig):
 @functools.lru_cache(maxsize=4)
 def get_torus_tables(cfg: TorusConfig = TorusConfig(), device="cuda") -> TorusTables:
     a = _torus_arrays(cfg)
+    # normal tensors even when first asked for inside torch.inference_mode
+    # (a dock), so that a training forward can save what it derives from them
     f32 = lambda x: torch.as_tensor(x, dtype=torch.float32).to(device)
-    return TorusTables(cfg, f32(a["p"]), f32(a["score"]), f32(a["score_norm"]))
+    with torch.inference_mode(False):
+        return TorusTables(cfg, f32(a["p"]), f32(a["score"]), f32(a["score_norm"]))

@@ -14,6 +14,27 @@ import torch
 from torch import nn
 
 
+class Dropout(nn.Module):
+    """Inverted dropout in training mode (flax ``nn.Dropout``: keep with
+    probability 1 - p, scale kept values by 1 / (1 - p)); the identity in
+    evaluation mode or at p = 0. Its mask comes from ``generator`` (set by
+    the trainer, :meth:`CGScoreModel.set_generator`), or the default
+    generator when none is set. It starts in evaluation mode, as the batch
+    norms do."""
+
+    def __init__(self, p: float = 0.0):
+        super().__init__()
+        self.p = p
+        self.generator: Optional[torch.Generator] = None
+        self.train(False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
+
+
 class FCBlock(nn.Module):
     """MLP emitting tensor-product weights (reference ``models/layers.py:10``).
 
@@ -21,10 +42,11 @@ class FCBlock(nn.Module):
     (hidden, out), ``out_bias`` (out,)), not a Linear submodule, so the
     factored tensor-product path contracts them AFTER the neighbour
     reduction — see ``models/tpconv.py``. Activation: ReLU (the
-    score model's).
+    score model's), each hidden layer followed by dropout.
     """
 
-    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int, layers: int = 2):
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int, layers: int = 2,
+                 dropout: float = 0.0):
         super().__init__()
         if layers < 2:
             raise ValueError("FCBlock needs at least 2 layers")
@@ -32,6 +54,7 @@ class FCBlock(nn.Module):
         self.layers = nn.ModuleList(
             nn.Linear(dims[i], dims[i + 1]) for i in range(layers - 1)
         )
+        self.drop = Dropout(dropout)
         self.out_kernel = nn.Parameter(torch.zeros(hidden_dim, out_dim))
         self.out_bias = nn.Parameter(torch.zeros(out_dim))
 
@@ -39,7 +62,7 @@ class FCBlock(nn.Module):
         """The hidden activations; the weights are ``hidden(x) @ out_kernel
         + out_bias``, contracted only after the neighbour reduction."""
         for layer in self.layers:
-            x = torch.relu(layer(x))
+            x = self.drop(torch.relu(layer(x)))
         return x
 
 
@@ -121,23 +144,25 @@ class OldAtomEncoder(nn.Module):
 
 
 class MLP2(nn.Module):
-    """Dense-ReLU-Dense, the reference's edge-embedding Sequential (dropout
-    is the identity at inference)."""
+    """Dense-ReLU-Dropout-Dense, the reference's edge-embedding Sequential."""
 
-    def __init__(self, in_dim: int, out_dim: int):
+    def __init__(self, in_dim: int, out_dim: int, dropout: float = 0.0):
         super().__init__()
         self.layers = nn.ModuleList([nn.Linear(in_dim, out_dim), nn.Linear(out_dim, out_dim)])
+        self.drop = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.layers[1](torch.relu(self.layers[0](x)))
+        return self.layers[1](self.drop(torch.relu(self.layers[0](x))))
 
 
 class FinalNormLayer(nn.Module):
-    """Norm-conditioned rescaling head (reference ``cg_model.py:229-230``)."""
+    """Norm-conditioned rescaling head (reference ``cg_model.py:229-230``):
+    Dense-Dropout-ReLU-Dense."""
 
-    def __init__(self, in_dim: int, ns: int):
+    def __init__(self, in_dim: int, ns: int, dropout: float = 0.0):
         super().__init__()
         self.layers = nn.ModuleList([nn.Linear(in_dim, ns), nn.Linear(ns, 1)])
+        self.drop = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.layers[1](torch.relu(self.layers[0](x)))
+        return self.layers[1](torch.relu(self.drop(self.layers[0](x))))

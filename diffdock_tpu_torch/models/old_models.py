@@ -40,7 +40,7 @@ from diffdock_tpu_torch.data.complexes import AAComplexData, ComplexData
 from diffdock_tpu_torch.diffusion.time_embed import get_timestep_embedding
 from diffdock_tpu_torch.models.config import ConfigError, ScoreModelConfig
 from diffdock_tpu_torch.models.encoders import GaussianSmearing, MLP2, OldAtomEncoder
-from diffdock_tpu_torch.models.score_model import CGScoreModel, ConfidenceMLP, _pairwise
+from diffdock_tpu_torch.models.score_model import CGScoreModel, ConfidenceMLP, _batched, _pairwise
 from diffdock_tpu_torch.models.tpconv import NeighborBlock, TPConvLayer, _residual_pad, gather_nodes
 from diffdock_tpu_torch.ops.irreps import Irreps, get_irrep_seq
 from diffdock_tpu_torch.ops.spherical import spherical_harmonics
@@ -75,10 +75,18 @@ class OldCGScoreModel(nn.Module):
     # cfg, lig_edge_embedding, lig_distance_expansion and _with_scalars
     _edge_weight = CGScoreModel._edge_weight
     _with_scalars = staticmethod(CGScoreModel._with_scalars)
-    _ligand_graph = CGScoreModel._ligand_graph
-    _lig_blocks_from_graph = CGScoreModel._lig_blocks_from_graph
-    _sigma_embedding = CGScoreModel._sigma_embedding
     reset_parameters = CGScoreModel.reset_parameters
+
+    # the score model's helpers take a stacked batch and (B,) times; these
+    # models take one complex and a 0-d time
+    def _ligand_graph(self, data, lig_pos, sigma_emb):
+        return CGScoreModel._ligand_graph(self, _batched(data), lig_pos, sigma_emb[None])
+
+    def _lig_blocks_from_graph(self, data, graph, node_attr):
+        return CGScoreModel._lig_blocks_from_graph(self, _batched(data), graph, node_attr)
+
+    def _sigma_embedding(self, t: torch.Tensor) -> torch.Tensor:
+        return self.timestep_emb(t.reshape(1).to(torch.float32))[0]
 
     def __init__(self, cfg: ScoreModelConfig, reference_kernels: bool = False):
         super().__init__()

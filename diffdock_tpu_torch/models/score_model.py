@@ -11,7 +11,11 @@ batch of poses: ``lig_pos`` is (P, NL, 3) and the outputs are (P, 3),
 (P, 3), (P, n_bonds). The time-independent receptor embedding
 (:meth:`CGScoreModel.embed_receptor`) and the pose-independent layer-0
 receptor message (:meth:`CGScoreModel.step_cache`) are computed once and
-shared by every pose, as in the JAX package.
+shared by every pose, as in the JAX package. For training the same forward
+takes a stacked batch of complexes, one pose each (the JAX trainer's
+``vmap`` over complexes): in training mode its batch norms take their
+statistics over the whole batch and its dropouts draw from the generator
+given to :meth:`CGScoreModel.set_generator`.
 
 Submodule names follow the flax module tree (``rec_emb_{i}`` ->
 ``rec_emb_layers.{i}``, ``lig_emb_{i}`` -> ``lig_emb_layers.{i}``,
@@ -34,6 +38,7 @@ from diffdock_tpu_torch.diffusion.torus import TorusTables
 from diffdock_tpu_torch.models.config import ConfigError, ScoreModelConfig
 from diffdock_tpu_torch.models.encoders import (
     AtomEncoder,
+    Dropout,
     FCBlock,
     FinalNormLayer,
     GaussianSmearing,
@@ -63,7 +68,7 @@ class RecCache(NamedTuple):
 class ScoreOutput(NamedTuple):
     tr: torch.Tensor  # (P, 3)
     rot: torch.Tensor  # (P, 3)
-    tor: torch.Tensor  # (P, B)
+    tor: torch.Tensor  # (P, n_bonds)
 
 
 class ScalarBatchNorm(nn.Module):
@@ -143,11 +148,12 @@ class CGScoreModel(nn.Module):
         sig, dist = cfg.sigma_embed_dim, cfg.distance_embed_dim
 
         self.lig_node_embedding = AtomEncoder(ns, cfg.lig_node_categorical_dims, sig)
-        self.lig_edge_embedding = MLP2(cfg.in_lig_edge_features + sig + dist, ns)
+        drop = cfg.dropout
+        self.lig_edge_embedding = MLP2(cfg.in_lig_edge_features + sig + dist, ns, drop)
         self.rec_node_embedding = AtomEncoder(ns, cfg.rec_node_categorical_dims, cfg.lm_embedding_dim)
-        self.rec_edge_embedding = MLP2(dist, ns)
-        self.rec_sigma_embedding = MLP2(sig, ns)
-        self.cross_edge_embedding = MLP2(sig + cfg.cross_distance_embed_dim, ns)
+        self.rec_edge_embedding = MLP2(dist, ns, drop)
+        self.rec_sigma_embedding = MLP2(sig, ns, drop)
+        self.cross_edge_embedding = MLP2(sig + cfg.cross_distance_embed_dim, ns, drop)
 
         self.lig_distance_expansion = GaussianSmearing(0.0, cfg.lig_max_radius, dist)
         self.rec_distance_expansion = GaussianSmearing(0.0, cfg.rec_max_radius, dist)
@@ -158,6 +164,7 @@ class CGScoreModel(nn.Module):
         conv = dict(
             n_edge_features=3 * ns, hidden_features=3 * ns, batch_norm=cfg.batch_norm,
             tp_weights_layers=cfg.tp_weights_layers, reference_kernels=reference_kernels,
+            dropout=drop,
         )
         npe, n_joint = cfg.num_prot_emb_layers, cfg.num_conv_layers
         if cfg.embed_also_ligand:
@@ -182,25 +189,28 @@ class CGScoreModel(nn.Module):
 
         # score heads
         self.center_distance_expansion = GaussianSmearing(0.0, cfg.center_max_distance, dist)
-        self.center_edge_embedding = MLP2(dist + sig, ns)
+        self.center_edge_embedding = MLP2(dist + sig, ns, drop)
         self.final_conv = TPConvLayer(
             final_ladder, sh, "1x1o + 1x1e" if cfg.odd_parity else "2x1o + 2x1e",
             n_edge_features=2 * ns, residual=False, batch_norm=cfg.batch_norm,
             tp_weights_layers=cfg.tp_weights_layers, reference_kernels=reference_kernels,
+            dropout=drop,
         )
-        self.tr_final_layer = FinalNormLayer(1 + sig, ns)
-        self.rot_final_layer = FinalNormLayer(1 + sig, ns)
+        self.tr_final_layer = FinalNormLayer(1 + sig, ns, drop)
+        self.rot_final_layer = FinalNormLayer(1 + sig, ns, drop)
         if not cfg.no_torsion:
-            self.final_edge_embedding = MLP2(dist, ns)
+            self.final_edge_embedding = MLP2(dist, ns, drop)
             self.final_tp_tor = FullTensorProduct(sh, "2e")
             tor_out = f"{ns}x0o" if cfg.odd_parity else f"{ns}x0o + {ns}x0e"
             self.tor_bond_conv = TPConvLayer(
                 final_ladder, str(self.final_tp_tor.irreps_out), tor_out,
                 n_edge_features=3 * ns, residual=False, batch_norm=cfg.batch_norm,
                 tp_weights_layers=cfg.tp_weights_layers, reference_kernels=reference_kernels,
+                dropout=drop,
             )
             self.tor_final_dense1 = nn.Linear(Irreps(tor_out).dim, ns, bias=False)
             self.tor_final_dense2 = nn.Linear(ns, 1, bias=False)
+            self.tor_dropout = Dropout(drop)
 
     def _ladder(self, i: int) -> str:
         return self.irrep_seq[min(i, len(self.irrep_seq) - 1)]
@@ -235,32 +245,43 @@ class CGScoreModel(nn.Module):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
 
+    def set_generator(self, generator: Optional[torch.Generator]) -> None:
+        """The generator every dropout mask of this model draws from."""
+        for m in self.modules():
+            if isinstance(m, Dropout):
+                m.generator = generator
+
     # ------------------------------------------------------------------
     # receptor embedding (time-independent; compute once per complex)
     # ------------------------------------------------------------------
     def embed_receptor(self, data: ComplexData) -> RecCache:
+        """The receptor embedding of one complex (fields (NR, ...)) or of a
+        stacked batch (fields (B, NR, ...))."""
+        if _is_batched(data):
+            return self._embed_receptor(data)
+        return RecCache(*[None if a is None else a[0] for a in self._embed_receptor(_batched(data))])
+
+    def _embed_receptor(self, db: ComplexData) -> RecCache:
         cfg = self.cfg
         ns = cfg.ns
-        rec_scalar = data.rec_lm if cfg.lm_embedding_dim > 0 else None
-        node_attr = self.rec_node_embedding(data.rec_cat, rec_scalar)[None]  # (1, NR, F)
+        rec_scalar = db.rec_lm if cfg.lm_embedding_dim > 0 else None
+        node_attr = self.rec_node_embedding(db.rec_cat, rec_scalar)  # (B, NR, F)
 
-        vec = data.rec_pos[data.rec_nbr] - data.rec_pos[:, None, :]
+        vec = gather_nodes(db.rec_pos, db.rec_nbr) - db.rec_pos[:, :, None, :]
         dist = torch.linalg.norm(vec, dim=-1)
         edge_attr = self.rec_edge_embedding(self.rec_distance_expansion(dist))
         edge_sh = spherical_harmonics(vec, cfg.sh_lmax)
         edge_weight = self._edge_weight(dist, cfg.rec_max_radius)
 
-        nbr = data.rec_nbr[None]
         for layer in self.rec_emb_layers:
             block = NeighborBlock(
-                sender_attr=node_attr, nbr_idx=nbr, nbr_mask=data.rec_nbr_mask[None],
-                edge_attr=self._with_scalars(ns, node_attr, edge_attr[None], nbr),
-                edge_sh=edge_sh[None],
-                edge_weight=None if edge_weight is None else edge_weight[None],
+                sender_attr=node_attr, nbr_idx=db.rec_nbr, nbr_mask=db.rec_nbr_mask,
+                edge_attr=self._with_scalars(ns, node_attr, edge_attr, db.rec_nbr),
+                edge_sh=edge_sh, edge_weight=edge_weight,
             )
-            node_attr = layer(node_attr, [block])
-        return RecCache(node_attr=node_attr[0], edge_attr=edge_attr,
-                        edge_sh=edge_sh, edge_weight=edge_weight)
+            node_attr = layer(node_attr, [block], db.rec_mask)
+        return RecCache(node_attr=node_attr, edge_attr=edge_attr, edge_sh=edge_sh,
+                        edge_weight=edge_weight)
 
     @staticmethod
     def _with_scalars(ns, node_attr, base_attr, nbr_idx):
@@ -270,26 +291,26 @@ class CGScoreModel(nn.Module):
         return torch.cat([base_attr.expand(send.shape[:-1] + base_attr.shape[-1:]), recv, send],
                          dim=-1)
 
-    def _rec_rec_block(self, data, rec_node_attr, rec_edge_attr_base, rec_cache) -> NeighborBlock:
-        nbr = data.rec_nbr[None]
+    def _rec_rec_block(self, db, rec_node_attr, rec_edge_attr_base, rec_cache) -> NeighborBlock:
         return NeighborBlock(
-            sender_attr=rec_node_attr, nbr_idx=nbr, nbr_mask=data.rec_nbr_mask[None],
-            edge_attr=self._with_scalars(self.cfg.ns, rec_node_attr, rec_edge_attr_base[None], nbr),
-            edge_sh=rec_cache.edge_sh[None],
-            edge_weight=None if rec_cache.edge_weight is None else rec_cache.edge_weight[None],
+            sender_attr=rec_node_attr, nbr_idx=db.rec_nbr, nbr_mask=db.rec_nbr_mask,
+            edge_attr=self._with_scalars(self.cfg.ns, rec_node_attr, rec_edge_attr_base, db.rec_nbr),
+            edge_sh=rec_cache.edge_sh, edge_weight=rec_cache.edge_weight,
         )
 
     def _sigma_embedding(self, t: torch.Tensor) -> torch.Tensor:
-        return self.timestep_emb(t.reshape(1).to(torch.float32))[0]
+        """(B,) times -> (B, sigma_embed_dim)."""
+        return self.timestep_emb(t.to(torch.float32))
 
     def _rec_step_attr(self, rec_cache: RecCache, sigma_emb: torch.Tensor):
         """Receptor node features and edge base for one step (the cached
-        embedding plus the sigma conditioning, reference cg_model.py:297-301)."""
+        embedding plus the sigma conditioning, reference cg_model.py:297-301);
+        ``rec_cache`` batched, ``sigma_emb`` (B, sig)."""
         ns = self.cfg.ns
-        rec_sigma = self.rec_sigma_embedding(sigma_emb[None])[0]
-        node = rec_cache.node_attr.clone()
-        node[:, :ns] += rec_sigma
-        return node[None], rec_cache.edge_attr + rec_sigma
+        rec_sigma = self.rec_sigma_embedding(sigma_emb)[:, None]  # (B, 1, ns)
+        node = rec_cache.node_attr
+        node = torch.cat([node[..., :ns] + rec_sigma, node[..., ns:]], dim=-1)
+        return node, rec_cache.edge_attr + rec_sigma[:, :, None]
 
     def step_cache(self, data: ComplexData, t: torch.Tensor, rec_cache: RecCache):
         """Pose-independent per-(complex, step) precompute: the joint layer-0
@@ -297,27 +318,29 @@ class CGScoreModel(nn.Module):
         when there is no non-last joint layer."""
         if self.cfg.num_conv_layers <= 1:
             return None
-        rec_node_attr, rec_edge_attr_base = self._rec_step_attr(rec_cache, self._sigma_embedding(t))
-        block = self._rec_rec_block(data, rec_node_attr, rec_edge_attr_base, rec_cache)
+        db, cache = _batched(data), _batched(rec_cache)
+        t = torch.as_tensor(t, dtype=torch.float32, device=db.rec_pos.device).reshape(1)
+        rec_node_attr, rec_edge_attr_base = self._rec_step_attr(cache, self._sigma_embedding(t))
+        block = self._rec_rec_block(db, rec_node_attr, rec_edge_attr_base, cache)
         (part,) = self.conv_layers[0].rec_messages([block], (2,))
         return part
 
     # ------------------------------------------------------------------
     # ligand embedding (per step: positions and sigma change)
     # ------------------------------------------------------------------
-    def _ligand_graph(self, data, lig_pos, sigma_emb):
+    def _ligand_graph(self, db, lig_pos, sigma_emb):
         """Geometry-dependent ligand edge structure, computed once per
         forward; layers only refresh node scalars."""
         cfg = self.cfg
         P, nl = lig_pos.shape[:2]
 
         # bonded block (static topology, dynamic geometry)
-        bvec = lig_pos[:, data.lig_bond_nbr] - lig_pos[:, :, None, :]  # (P, NL, KB, 3)
+        bvec = gather_nodes(lig_pos, db.lig_bond_nbr) - lig_pos[:, :, None, :]  # (P, NL, KB, 3)
         bdist = torch.linalg.norm(bvec, dim=-1)
         bond_raw = torch.cat(
             [
-                data.lig_bond_attr.expand(bdist.shape + data.lig_bond_attr.shape[-1:]),
-                sigma_emb.expand(bdist.shape + sigma_emb.shape[-1:]),
+                db.lig_bond_attr.expand(bdist.shape + db.lig_bond_attr.shape[-1:]),
+                _per_edge(sigma_emb, bdist.shape),
                 self.lig_distance_expansion(bdist),
             ],
             dim=-1,
@@ -331,33 +354,33 @@ class CGScoreModel(nn.Module):
         rmask = (
             (rdist <= cfg.lig_max_radius)
             & ~eye
-            & data.lig_mask[:, None]
-            & data.lig_mask[None, :]
+            & db.lig_mask[:, :, None]
+            & db.lig_mask[:, None, :]
         )
         radius_raw = torch.cat(
             [
                 rdist.new_zeros(rdist.shape + (cfg.in_lig_edge_features,)),
-                sigma_emb.expand(rdist.shape + sigma_emb.shape[-1:]),
+                _per_edge(sigma_emb, rdist.shape),
                 self.lig_distance_expansion(rdist),
             ],
             dim=-1,
         )
         radius_attr = self.lig_edge_embedding(radius_raw)
         radius_sh = spherical_harmonics(rvec, cfg.sh_lmax)
-        bond_idx = data.lig_bond_nbr.expand((P,) + data.lig_bond_nbr.shape)
+        bond_idx = db.lig_bond_nbr.expand((P,) + db.lig_bond_nbr.shape[1:])
         all_idx = torch.arange(nl, device=lig_pos.device).expand(P, nl, nl)
         bond_w = self._edge_weight(bdist, cfg.lig_max_radius)
         radius_w = self._edge_weight(rdist, cfg.lig_max_radius)
         return (bond_attr, bond_sh, bond_idx, radius_attr, radius_sh, rmask, all_idx,
                 bond_w, radius_w)
 
-    def _lig_blocks_from_graph(self, data, graph, node_attr):
+    def _lig_blocks_from_graph(self, db, graph, node_attr):
         ns = self.cfg.ns
         (bond_attr, bond_sh, bond_idx, radius_attr, radius_sh, rmask, all_idx,
          bond_w, radius_w) = graph
         bond_block = NeighborBlock(
             sender_attr=node_attr, nbr_idx=bond_idx,
-            nbr_mask=data.lig_bond_mask.expand(bond_idx.shape),
+            nbr_mask=db.lig_bond_mask.expand(bond_idx.shape),
             edge_attr=self._with_scalars(ns, node_attr, bond_attr, bond_idx),
             edge_sh=bond_sh, edge_weight=bond_w,
         )
@@ -368,15 +391,15 @@ class CGScoreModel(nn.Module):
         )
         return bond_block, radius_block
 
-    def _embed_ligand(self, data, lig_graph, sigma_emb, n_poses):
-        nl = data.lig_cat.shape[0]
-        node_scalar = sigma_emb.expand(nl, sigma_emb.shape[-1])
-        node_attr = self.lig_node_embedding(data.lig_cat, node_scalar)
-        node_attr = node_attr.expand((n_poses,) + node_attr.shape)
+    def _embed_ligand(self, db, lig_graph, sigma_emb, n_poses):
+        nl = db.lig_cat.shape[1]
+        node_scalar = sigma_emb[:, None, :].expand(sigma_emb.shape[0], nl, sigma_emb.shape[-1])
+        node_attr = self.lig_node_embedding(db.lig_cat, node_scalar)
+        node_attr = node_attr.expand((n_poses,) + node_attr.shape[1:])
         if self.cfg.embed_also_ligand:
             for layer in self.lig_emb_layers:
-                bond_block, radius_block = self._lig_blocks_from_graph(data, lig_graph, node_attr)
-                node_attr = layer(node_attr, [bond_block, radius_block])
+                bond_block, radius_block = self._lig_blocks_from_graph(db, lig_graph, node_attr)
+                node_attr = layer(node_attr, [bond_block, radius_block], db.lig_mask)
         return node_attr
 
     # ------------------------------------------------------------------
@@ -392,32 +415,40 @@ class CGScoreModel(nn.Module):
         rec_cache: Optional[RecCache] = None,
         step_cache=None,
     ) -> ScoreOutput:
-        """Scores for a batch of poses ``lig_pos`` (P, NL, 3) at time ``t``
-        (0-d float32). ``step_cache``: optional precomputed layer-0 rec<-rec
-        message from :meth:`step_cache`."""
+        """Scores for a batch of poses ``lig_pos`` (P, NL, 3).
+
+        Docking: ``data`` is one complex (fields (NL, ...), (NR, ...)), the
+        P poses are poses of it and ``t`` is 0-d; ``rec_cache`` and
+        ``step_cache`` (:meth:`embed_receptor`, :meth:`step_cache`) may be
+        precomputed. Training: ``data`` is a stacked batch of P complexes
+        (fields (P, ...)), pose p belongs to complex p and ``t`` is (P,); the
+        receptor embedding and the layer-0 rec<-rec message are computed
+        inline, under autograd (the JAX trainer's ``vmap`` over complexes)."""
         cfg = self.cfg
-        ns = cfg.ns
         P, nl = lig_pos.shape[:2]
-        nr = data.rec_pos.shape[0]
-        t = torch.as_tensor(t, dtype=torch.float32, device=lig_pos.device)
+        batched = _is_batched(data)
+        db = data if batched else _batched(data)
+        nr = db.rec_pos.shape[1]
+        t = torch.as_tensor(t, dtype=torch.float32, device=lig_pos.device).reshape(-1)
         tr_sigma, rot_sigma, tor_sigma = t_to_sigma(t, t, t, cfg.sigma)
-        sigma_emb = self._sigma_embedding(t)
+        sigma_emb = self._sigma_embedding(t)  # (B, sig)
 
         if rec_cache is None:
-            rec_cache = self.embed_receptor(data)
+            rec_cache = self._embed_receptor(db)
+        elif not batched:
+            rec_cache = _batched(rec_cache)
         rec_node_attr, rec_edge_attr_base = self._rec_step_attr(rec_cache, sigma_emb)
 
-        lig_graph = self._ligand_graph(data, lig_pos, sigma_emb)
-        lig_node_attr = self._embed_ligand(data, lig_graph, sigma_emb, P)
+        lig_graph = self._ligand_graph(db, lig_pos, sigma_emb)
+        lig_node_attr = self._embed_ligand(db, lig_graph, sigma_emb, P)
 
         # cross graph (dynamic cutoff, reference cg_model.py:321-324)
-        cross_cutoff = tr_sigma * 3.0 + 20.0 if cfg.dynamic_max_cross else cfg.cross_max_distance
-        cvec, cdist = _pairwise(data.rec_pos, lig_pos)  # (P, NL, NR, ...)
-        cmask = (cdist <= cross_cutoff) & data.lig_mask[:, None] & data.rec_mask[None, :]
+        cross_cutoff = ((tr_sigma * 3.0 + 20.0)[:, None, None] if cfg.dynamic_max_cross
+                        else cfg.cross_max_distance)
+        cvec, cdist = _pairwise(db.rec_pos, lig_pos)  # (P, NL, NR, ...)
+        cmask = (cdist <= cross_cutoff) & db.lig_mask[:, :, None] & db.rec_mask[:, None, :]
         cross_raw = torch.cat(
-            [sigma_emb.expand(cdist.shape + sigma_emb.shape[-1:]),
-             self.cross_distance_expansion(cdist)],
-            dim=-1,
+            [_per_edge(sigma_emb, cdist.shape), self.cross_distance_expansion(cdist)], dim=-1
         )
         cross_attr = self.cross_edge_embedding(cross_raw)
         cross_sh = spherical_harmonics(cvec, cfg.sh_lmax)
@@ -428,7 +459,7 @@ class CGScoreModel(nn.Module):
         lig_idx_all = torch.arange(nl, device=lig_pos.device).expand(P, nr, nl)
 
         for li, layer in enumerate(self.conv_layers):
-            bond_block, radius_block = self._lig_blocks_from_graph(data, lig_graph, lig_node_attr)
+            bond_block, radius_block = self._lig_blocks_from_graph(db, lig_graph, lig_node_attr)
             lig_cross_block = NeighborBlock(
                 sender_attr=rec_node_attr, nbr_idx=rec_idx_all, nbr_mask=cmask,
                 edge_attr=self._cross_attr(lig_node_attr, rec_node_attr, cross_attr, rec_idx_all),
@@ -450,7 +481,7 @@ class CGScoreModel(nn.Module):
                     rec_blocks, rec_groups, rec_extra = [rec_cross_block], (3,), step_cache
                 else:
                     rec_rec_block = self._rec_rec_block(
-                        data, rec_node_attr, rec_edge_attr_base, rec_cache
+                        db, rec_node_attr, rec_edge_attr_base, rec_cache
                     )
                     rec_blocks, rec_groups = [rec_rec_block, rec_cross_block], (2, 3)
             else:
@@ -459,16 +490,17 @@ class CGScoreModel(nn.Module):
             lig_node_attr, rec_node_attr = layer(
                 lig_node_attr, rec_node_attr, lig_blocks, lig_groups,
                 rec_blocks, rec_groups, rec_extra=rec_extra,
+                lig_mask=db.lig_mask, rec_mask=db.rec_mask,
             )
 
         tr_pred, rot_pred = self._center_head(
-            data, lig_pos, lig_node_attr, sigma_emb, tr_sigma, rot_sigma, so3_tables
+            db, lig_pos, lig_node_attr, sigma_emb, tr_sigma, rot_sigma, so3_tables
         )
-        nb = data.rot_u.shape[0]
+        nb = db.rot_u.shape[1]
         if cfg.no_torsion or nb == 0:
             tor_pred = lig_pos.new_zeros(P, nb)
         else:
-            tor_pred = self._torsion_head(data, lig_pos, lig_node_attr, tor_sigma, torus_tables)
+            tor_pred = self._torsion_head(db, lig_pos, lig_node_attr, tor_sigma, torus_tables)
         return ScoreOutput(tr=tr_pred, rot=rot_pred, tor=tor_pred)
 
     def _cross_attr(self, recv_attr, send_attr, base, send_idx):
@@ -478,20 +510,18 @@ class CGScoreModel(nn.Module):
         return torch.cat([base, recv, send], dim=-1)
 
     # ------------------------------------------------------------------
-    def _center_head(self, data, lig_pos, lig_node_attr, sigma_emb, tr_sigma, rot_sigma,
+    def _center_head(self, db, lig_pos, lig_node_attr, sigma_emb, tr_sigma, rot_sigma,
                      so3_tables):
         cfg = self.cfg
         ns = cfg.ns
         P, nl = lig_pos.shape[:2]
-        w = data.lig_mask[:, None].to(lig_pos.dtype)
-        center = (lig_pos * w).sum(1) / torch.clamp(w.sum(), min=1.0)  # (P, 3)
+        w = db.lig_mask[:, :, None].to(lig_pos.dtype)
+        center = (lig_pos * w).sum(1) / torch.clamp(w.sum(1), min=1.0)  # (P, 3)
 
         evec = lig_pos - center[:, None]  # sender (atom) - receiver (center)
         dist = torch.linalg.norm(evec, dim=-1)  # (P, NL)
         edge_attr = torch.cat(
-            [self.center_distance_expansion(dist),
-             sigma_emb.expand(dist.shape + sigma_emb.shape[-1:])],
-            dim=-1,
+            [self.center_distance_expansion(dist), _per_edge(sigma_emb, dist.shape)], dim=-1
         )
         edge_attr = self.center_edge_embedding(edge_attr)
         if cfg.fixed_center_conv:
@@ -504,7 +534,7 @@ class CGScoreModel(nn.Module):
         block = NeighborBlock(
             sender_attr=lig_node_attr,
             nbr_idx=torch.arange(nl, device=lig_pos.device).expand(P, 1, nl),
-            nbr_mask=data.lig_mask.expand(P, 1, nl),
+            nbr_mask=db.lig_mask[:, None, :].expand(P, 1, nl),
             edge_attr=edge_attr[:, None],
             edge_sh=spherical_harmonics(evec, cfg.sh_lmax)[:, None],
         )
@@ -527,32 +557,32 @@ class CGScoreModel(nn.Module):
             torch.cat([rot_norm, sig], dim=-1)
         )
         if cfg.scale_by_sigma:
-            tr_pred = tr_pred / tr_sigma
-            rot_pred = rot_pred * so3_tables.score_norm(rot_sigma)
+            tr_pred = tr_pred / tr_sigma[:, None]
+            rot_pred = rot_pred * so3_tables.score_norm(rot_sigma)[:, None]
         return tr_pred, rot_pred
 
     # ------------------------------------------------------------------
-    def _torsion_head(self, data, lig_pos, lig_node_attr, tor_sigma, torus_tables):
+    def _torsion_head(self, db, lig_pos, lig_node_attr, tor_sigma, torus_tables):
         cfg = self.cfg
         ns = cfg.ns
         P, nl = lig_pos.shape[:2]
-        nb = data.rot_u.shape[0]
+        nb = db.rot_u.shape[1]
 
-        bond_pos = 0.5 * (lig_pos[:, data.rot_u] + lig_pos[:, data.rot_v])  # (P, B, 3)
+        pos_u, pos_v = _take(lig_pos, db.rot_u), _take(lig_pos, db.rot_v)  # (P, B, 3)
+        bond_pos = 0.5 * (pos_u + pos_v)
         evec, dist = _pairwise(lig_pos, bond_pos)  # (P, B, NL, ...)
         mask = (
             (dist <= cfg.lig_max_radius)
-            & data.lig_mask[None, :]
-            & data.rot_mask[:, None]
+            & db.lig_mask[:, None, :]
+            & db.rot_mask[:, :, None]
         )
         edge_attr = self.final_edge_embedding(self.lig_distance_expansion(dist))
 
-        bond_vec = lig_pos[:, data.rot_v] - lig_pos[:, data.rot_u]
-        bond_sh2e = spherical_harmonics(bond_vec, 2)[..., 4:9]  # (P, B, 5)
+        bond_sh2e = spherical_harmonics(pos_v - pos_u, 2)[..., 4:9]  # (P, B, 5)
         edge_sh = spherical_harmonics(evec, cfg.sh_lmax)
         tor_edge_sh = self.final_tp_tor(edge_sh, bond_sh2e[:, :, None, :])
 
-        bond_attr = lig_node_attr[:, data.rot_u] + lig_node_attr[:, data.rot_v]  # (P, B, F)
+        bond_attr = _take(lig_node_attr, db.rot_u) + _take(lig_node_attr, db.rot_v)  # (P, B, F)
         send = lig_node_attr[:, None, :, :ns].expand(P, nb, nl, ns)
         recv = bond_attr[:, :, None, :ns].expand(P, nb, nl, ns)
         full_edge_attr = torch.cat([edge_attr, send, recv], dim=-1)
@@ -565,9 +595,29 @@ class CGScoreModel(nn.Module):
             edge_sh=tor_edge_sh,
             edge_weight=self._edge_weight(dist, cfg.lig_max_radius),
         )
-        out = self.tor_bond_conv(None, [block])  # (P, B, D)
-        out = torch.tanh(self.tor_final_dense1(out))
+        out = self.tor_bond_conv(None, [block], db.rot_mask)  # (P, B, D)
+        out = self.tor_dropout(torch.tanh(self.tor_final_dense1(out)))
         tor_pred = self.tor_final_dense2(out)[..., 0]
         if cfg.scale_by_sigma:
-            tor_pred = tor_pred * torch.sqrt(torus_tables.score_norm(tor_sigma))
-        return tor_pred * data.rot_mask
+            tor_pred = tor_pred * torch.sqrt(torus_tables.score_norm(tor_sigma))[:, None]
+        return tor_pred * db.rot_mask
+
+
+def _is_batched(data: ComplexData) -> bool:
+    return data.lig_cat.dim() == 3
+
+
+def _batched(x):
+    """A one-complex ComplexData or RecCache with a leading axis of 1."""
+    return type(x)(*[None if a is None else a[None] for a in x])
+
+
+def _per_edge(sigma_emb: torch.Tensor, shape) -> torch.Tensor:
+    """(B, sig) -> ``shape`` + (sig,), the first axis broadcast from B."""
+    view = sigma_emb.reshape((sigma_emb.shape[0],) + (1,) * (len(shape) - 1) + sigma_emb.shape[-1:])
+    return view.expand(tuple(shape) + sigma_emb.shape[-1:])
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (B, N, F), idx (B, M) -> (B, M, F), each row's own indices."""
+    return gather_nodes(x, idx[..., None])[:, :, 0]

@@ -1,13 +1,16 @@
 """Tensor-product graph convolutions over dense neighbour blocks.
 
-Port of ``diffdock_tpu/models/tpconv.py`` (inference, factored path). Each
-receiver set consumes dense neighbour blocks: gather senders -> per-edge
-hidden activations -> factored tensor-product message summed over the
-neighbours -> mean over all blocks -> batch norm -> residual.
+Port of ``diffdock_tpu/models/tpconv.py`` (factored path). Each receiver
+set consumes dense neighbour blocks: gather senders -> per-edge hidden
+activations -> factored tensor-product message summed over the neighbours
+-> mean over all blocks -> batch norm -> residual.
 
-Where the JAX package ``vmap``s over poses, every tensor here carries a
-leading batch axis B (poses, or 1 for pose-independent receptor work):
-a :class:`NeighborBlock` holds (B, R, K, ...) edge tensors.
+Where the JAX package ``vmap``s over poses or complexes, every tensor here
+carries a leading batch axis B (poses, complexes, or 1 for
+pose-independent receptor work): a :class:`NeighborBlock` holds
+(B, R, K, ...) edge tensors. In training mode (``module.training``) the
+batch norm takes the receivers' validity mask and normalizes over every
+valid row of the batch, and the edge MLPs apply dropout.
 
 The merged contraction (``_tp_message_reduced``, ``merged=True``) goes
 through the gen-3 Hopper kernel (:func:`diffdock_tpu_torch.ops.fused_tp3.fused_tp3`)
@@ -129,7 +132,8 @@ def _residual_pad(out: torch.Tensor, attr: torch.Tensor) -> torch.Tensor:
 class _ConvBase(nn.Module):
     def __init__(self, in_irreps, sh_irreps, out_irreps, n_edge_features: int,
                  hidden_features: Optional[int], tp_weights_layers: int,
-                 batch_norm: bool, residual: bool, reference_kernels: bool):
+                 batch_norm: bool, residual: bool, reference_kernels: bool,
+                 dropout: float = 0.0):
         super().__init__()
         self.tp = FullyConnectedTensorProduct(in_irreps, sh_irreps, out_irreps)
         self.out_irreps = Irreps(out_irreps)
@@ -138,6 +142,7 @@ class _ConvBase(nn.Module):
             hidden_dim=hidden_features or n_edge_features,
             out_dim=self.tp.weight_numel,
             layers=tp_weights_layers,
+            dropout=dropout,
         )
         self.residual = residual
         self.bn = IrrepsBatchNorm(out_irreps) if batch_norm else None
@@ -149,9 +154,10 @@ class _ConvBase(nn.Module):
     def _message(self, fc: FCBlock, blk: NeighborBlock):
         return _tp_message_reduced(self.tp, fc, blk, contraction=self.contraction)
 
-    def _finish(self, out: torch.Tensor, receiver_attr: Optional[torch.Tensor]) -> torch.Tensor:
+    def _finish(self, out: torch.Tensor, receiver_attr: Optional[torch.Tensor],
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.bn is not None:
-            out = self.bn(out)
+            out = self.bn(out, mask)
         if self.residual:
             if receiver_attr is None:
                 raise ValueError("a residual conv needs the receiver features")
@@ -165,16 +171,17 @@ class TPConvLayer(_ConvBase):
     def __init__(self, in_irreps, sh_irreps, out_irreps, n_edge_features: int,
                  residual: bool = True, batch_norm: bool = True,
                  hidden_features: Optional[int] = None, tp_weights_layers: int = 2,
-                 reference_kernels: bool = False):
+                 reference_kernels: bool = False, dropout: float = 0.0):
         super().__init__(in_irreps, sh_irreps, out_irreps, n_edge_features,
                          hidden_features, tp_weights_layers, batch_norm, residual,
-                         reference_kernels)
+                         reference_kernels, dropout)
         self.fc = self._make_fc()
 
-    def forward(self, receiver_attr: Optional[torch.Tensor],
-                blocks: Sequence[NeighborBlock]) -> torch.Tensor:
+    def forward(self, receiver_attr: Optional[torch.Tensor], blocks: Sequence[NeighborBlock],
+                receiver_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``receiver_mask`` (B, R): the rows the training batch norm counts."""
         out = _combine_reduced([self._message(self.fc, blk) for blk in blocks])
-        return self._finish(out, receiver_attr)
+        return self._finish(out, receiver_attr, receiver_mask)
 
 
 class JointTPConvLayer(_ConvBase):
@@ -188,10 +195,10 @@ class JointTPConvLayer(_ConvBase):
                  last_layer: bool = False, differentiate_convolutions: bool = True,
                  residual: bool = True, batch_norm: bool = True,
                  hidden_features: Optional[int] = None, tp_weights_layers: int = 2,
-                 reference_kernels: bool = False):
+                 reference_kernels: bool = False, dropout: float = 0.0):
         super().__init__(in_irreps, sh_irreps, out_irreps, n_edge_features,
                          hidden_features, tp_weights_layers, batch_norm, residual,
-                         reference_kernels)
+                         reference_kernels, dropout)
         self.last_layer = last_layer
         self.differentiate_convolutions = differentiate_convolutions
         if differentiate_convolutions:
@@ -210,11 +217,14 @@ class JointTPConvLayer(_ConvBase):
     def forward(self, lig_attr: torch.Tensor, rec_attr: torch.Tensor,
                 lig_blocks: Sequence[NeighborBlock], lig_groups: Sequence[int],
                 rec_blocks: Sequence[NeighborBlock], rec_groups: Sequence[int],
-                rec_extra: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                rec_extra: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                lig_mask: Optional[torch.Tensor] = None, rec_mask: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """lig_attr (B, NL, F), rec_attr (B or 1, NR, F). ``rec_extra``: a
         precomputed (summed_messages, counts) receptor part folded into the
-        receptor mean (the pose-independent layer-0 rec<-rec messages)."""
+        receptor mean (the pose-independent layer-0 rec<-rec messages).
+        ``lig_mask`` (B or 1, NL) and ``rec_mask`` (B or 1, NR): the rows the
+        training batch norm counts, ligand and receptor together."""
         lig_out = _combine_reduced(
             [self._message(self.get_fc(g), blk) for g, blk in zip(lig_groups, lig_blocks)]
         )
@@ -232,5 +242,8 @@ class JointTPConvLayer(_ConvBase):
         nl = lig_attr.shape[1]
         out = torch.cat([lig_out, rec_out], dim=1)
         attr = torch.cat([lig_attr, rec_attr.expand((B,) + rec_attr.shape[1:])], dim=1)
-        out = self._finish(out, attr)
+        mask = None
+        if lig_mask is not None:
+            mask = torch.cat([lig_mask.expand(B, nl), rec_mask.expand(B, rec_out.shape[1])], dim=1)
+        out = self._finish(out, attr, mask)
         return out[:, :nl], out[:, nl:]

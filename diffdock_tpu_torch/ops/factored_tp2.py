@@ -49,7 +49,7 @@ from typing import Dict, List, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
-from diffdock_tpu_torch.ops.fused_tp3 import LaunchCounts
+from diffdock_tpu_torch.ops.fused_tp3 import LaunchCounts, PlainVJP
 from diffdock_tpu_torch.utils import build
 
 _SOURCES = ("factored_tp2.cu",)
@@ -476,31 +476,11 @@ def _forward_kernel(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias):
     return launch(*prepare(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias), tp.irreps_out.dim)
 
 
-class _Gen2(torch.autograd.Function):
-    """Forward through the kernel (or, on the CPU, the plain version);
-    backward differentiates the plain version."""
-
-    @staticmethod
-    def forward(ctx, tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias):
-        ctx.tp = tp
-        ctx.save_for_backward(x_nbr, edge_sh, h, mw, out_kernel, out_bias)
-        fwd = _forward_kernel if x_nbr.is_cuda else factored_tp_reference
-        return fwd(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias)
-
-    @staticmethod
-    def backward(ctx, grad):
-        saved = ctx.saved_tensors
-        needs = ctx.needs_input_grad[1:]
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
-            out = factored_tp_reference(ctx.tp, *leaves)
-            wanted = [t for t, n in zip(leaves, needs) if n]
-            grads = iter(torch.autograd.grad(out, wanted, grad)) if wanted else iter(())
-        return (None,) + tuple(next(grads) if n else None for n in needs)
-
-
 def factored_tp2(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias):
     """Summed TP messages (N, dim_out) f32 through the gen-2 Hopper kernel,
     differentiable; on CPU tensors through :func:`factored_tp_reference`."""
     check_no_empty_class(tp, "factored_tp2")
-    return _Gen2.apply(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias)
+    fwd = _forward_kernel if x_nbr.is_cuda else factored_tp_reference
+    # the backward differentiates the plain version (counted as such)
+    return PlainVJP.apply(tp, fwd, factored_tp_reference, "factored_tp2_vjp",
+                          x_nbr, edge_sh, h, mw, out_kernel, out_bias)

@@ -17,13 +17,17 @@ semantics), in e3nn layout, with empty output classes zero.
   replaces the TPU kernel ``pallas_tpconv3.py:_kernel``; tensor-core
   products in 3xTF32, float32 accuracy). On a CPU tensor
   it runs :func:`fused_tp3_reference` instead; on a CUDA tensor it
-  launches the kernel or raises.
+  launches the kernel or raises. When a gradient is wanted it runs as a
+  ``torch.autograd.Function`` (:class:`PlainVJP`) whose backward is the VJP of
+  the plain version, as the TPU kernel's ``custom_vjp`` backward is the VJP
+  of its einsum path (``pallas_tpconv3.py:make_fused_tp_messages``).
 * :func:`fused_tp3_reference` is the plain version: the two einsums of the
   JAX package's merged branch (``models/tpconv.py:_tp_message_reduced``,
   ``merged=True``) against the block-diagonal (H+1, F_tot, W_tot) weight
   tensor. The CPU tests and the card check use it.
 
-Each keeps a count of its launches in :data:`counts`.
+Each keeps a count of its launches in :data:`counts`; the backward counts
+its calls as ``fused_tp3_vjp``.
 """
 
 from __future__ import annotations
@@ -60,7 +64,7 @@ class LaunchCounts:
         return dict(self._n)
 
 
-counts = LaunchCounts("fused_tp3", "fused_tp3_reference")
+counts = LaunchCounts("fused_tp3", "fused_tp3_reference", "fused_tp3_vjp")
 
 
 def merged_coupled(tp, x_nbr: torch.Tensor, edge_sh: torch.Tensor):
@@ -104,6 +108,10 @@ def fused_tp3_reference(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias):
     """Plain PyTorch version: ``P = h_aug @ coupled``, then
     ``out = sum_h P[:, h] @ T3[h]`` with T3 block-diagonal (H+1, F_tot, W_tot)."""
     counts.add("fused_tp3_reference")
+    return _plain(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias)
+
+
+def _plain(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias):
     N = x_nbr.shape[0]
     if not tp.live_classes():
         return x_nbr.new_zeros(N, tp.irreps_out.dim)
@@ -285,11 +293,7 @@ def prepare(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias):
     return classes, h_aug, coupled.contiguous(), weights.contiguous(), table
 
 
-def fused_tp3(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias):
-    """Summed TP messages (N, dim_out) f32 through the Hopper kernel; on a
-    CPU tensor through :func:`fused_tp3_reference`."""
-    if not x_nbr.is_cuda:
-        return fused_tp3_reference(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias)
+def _forward_kernel(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias):
     if not tp.live_classes():
         return x_nbr.new_zeros(x_nbr.shape[0], tp.irreps_out.dim)
     classes, h_aug, coupled, weights, table = prepare(
@@ -297,3 +301,47 @@ def fused_tp3(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias):
     )
     out = launch(h_aug, coupled, weights, table)
     return _scatter_classes(tp, classes, out)
+
+
+class PlainVJP(torch.autograd.Function):
+    """A TP kernel under autograd. ``forward``: the given forward (the
+    kernel, or on the CPU the plain version) on the six inputs, which it
+    saves; ``backward``: the VJP of ``plain`` at them (the transposed
+    einsums of the plain version, by autograd), inside a profiler range
+    named ``vjp_name``. Gens 2 and 3 share it."""
+
+    @staticmethod
+    def forward(ctx, tp, forward, plain, vjp_name, x_nbr, edge_sh, h, mw, out_kernel, out_bias):
+        ctx.tp, ctx.plain, ctx.vjp_name = tp, plain, vjp_name
+        ctx.save_for_backward(x_nbr, edge_sh, h, mw, out_kernel, out_bias)
+        return forward(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias)
+
+    @staticmethod
+    def backward(ctx, grad):
+        needs = ctx.needs_input_grad[4:]
+        # the range lets a profiler attribute the VJP's device time
+        with torch.profiler.record_function(ctx.vjp_name), torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, needs)]
+            out = ctx.plain(ctx.tp, *leaves)
+            wanted = [t for t, n in zip(leaves, needs) if n]
+            grads = iter(torch.autograd.grad(out, wanted, grad, allow_unused=True))
+        return (None,) * 4 + tuple(next(grads) if n else None for n in needs)
+
+
+def _vjp_plain(tp, *inputs):
+    """The plain version as gen 3's backward runs it, counted as ``fused_tp3_vjp``."""
+    counts.add("fused_tp3_vjp")
+    return _plain(tp, *inputs)
+
+
+def fused_tp3(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias):
+    """Summed TP messages (N, dim_out) f32 through the Hopper kernel; on a
+    CPU tensor through :func:`fused_tp3_reference`. Differentiable: when
+    autograd records and an input requires a gradient, the call goes
+    through :class:`PlainVJP`, which saves the six inputs; otherwise nothing
+    is saved."""
+    inputs = (x_nbr, edge_sh, h, mw, out_kernel, out_bias)
+    forward = _forward_kernel if x_nbr.is_cuda else fused_tp3_reference
+    if tp.live_classes() and torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return PlainVJP.apply(tp, forward, _vjp_plain, "fused_tp3_vjp", *inputs)
+    return forward(tp, *inputs)

@@ -38,7 +38,9 @@ def _reshape_entry(x: torch.Tensor, irreps: Irreps, idx: int, sl: slice) -> torc
 
 
 class _ConstCache:
-    """Per-(name, device, dtype) tensor copies of numpy constants."""
+    """Per-(name, device, dtype) tensor copies of numpy constants. They are
+    made as normal tensors even inside ``torch.inference_mode`` (a dock), so
+    that a later forward under autograd (training) can save them."""
 
     def __init__(self):
         self._cache: Dict[Tuple[str, torch.device, torch.dtype], torch.Tensor] = {}
@@ -47,7 +49,8 @@ class _ConstCache:
         key = (name, like.device, like.dtype)
         t = self._cache.get(key)
         if t is None:
-            t = torch.as_tensor(array, dtype=like.dtype).to(like.device)
+            with torch.inference_mode(False):
+                t = torch.as_tensor(array, dtype=like.dtype).to(like.device)
             self._cache[key] = t
         return t
 

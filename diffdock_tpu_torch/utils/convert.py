@@ -20,13 +20,16 @@ arrays (what ``CGScoreModel.init`` returns, or what
 :func:`diffdock_tpu_torch.train.checkpoints.load_checkpoint` reads from a
 run directory); :func:`flax_from_model` is the inverse map, from a port
 model's parameters to that tree, for writing run directories the JAX
-package reads.
+package reads. The same maps carry the training state: gradients, Adam
+moments and EMA weights are dicts by parameter name here and trees shaped
+like ``params`` there (``flax_from_model(model, params=...)`` one way,
+``state_dict_from_flax({"params": tree}, cfg)`` the other).
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -107,14 +110,28 @@ def _flax_path(parts) -> list:
     return out
 
 
-def flax_from_model(model: torch.nn.Module) -> Dict[str, dict]:
+def flax_path(param_name: str) -> list:
+    """The flax module path of a port parameter or buffer name, with the
+    port's leaf name last (``conv_layers.0.fc_1.layers.0.weight`` ->
+    ``['conv_0', 'fc_1', 'Dense_0', 'weight']``)."""
+    *mods, leaf = param_name.split(".")
+    return _flax_path(mods) + [leaf]
+
+
+def flax_from_model(model: torch.nn.Module,
+                    params: Optional[Mapping[str, torch.Tensor]] = None) -> Dict[str, dict]:
     """``{'params': ..., 'batch_stats': ...}`` of a port model, as nested
     dicts of float32 numpy arrays in the flax layout: the tree
-    :func:`state_dict_from_flax` maps back to ``model.state_dict()``."""
+    :func:`state_dict_from_flax` maps back to ``model.state_dict()``.
+    ``params``: tensors by parameter name (gradients, Adam moments, EMA
+    weights) written in place of the model's own parameters."""
     tree: Dict[str, dict] = {"params": {}, "batch_stats": {}}
     for mod_name, module in model.named_modules():
         parts = mod_name.split(".") if mod_name else []
-        named = list(module.named_parameters(recurse=False)) + [
+        own = list(module.named_parameters(recurse=False))
+        if params is not None:
+            own = [(n, params[f"{mod_name}.{n}" if mod_name else n]) for n, _ in own]
+        named = own + [
             (n, b) for n, b in module.named_buffers(recurse=False)
             if n in module.state_dict(keep_vars=True)]
         for name, value in named:

@@ -64,7 +64,9 @@ def test_port_imports_nothing_missing_on_the_card_machine():
     "data/inference_dataset.py", "train/checkpoints.py", "utils/flax_msgpack.py",
     "utils/simple_yaml.py", "inference/sampler.py", "utils/visualise.py", "cli/dock.py",
     "inference/ladder.py", "data/datasets.py", "data/moad.py", "eval/rmsd.py", "eval/metrics.py",
-    "eval/gnina.py", "cli/evaluate.py",
+    "eval/gnina.py", "cli/evaluate.py", "train/noise.py", "train/losses.py", "train/trainer.py",
+    "train/schedulers.py", "train/validation.py", "data/loaders.py", "utils/logging.py",
+    "cli/train.py",
 ])
 def test_port_modules_are_in_the_checked_set(module):
     assert REPO / "diffdock_tpu_torch" / module in _port_files()
