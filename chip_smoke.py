@@ -113,6 +113,24 @@ E. training: E1 fused_tp3 as an autograd Function (the kernel forward,
    and range of 5 after 2 untimed) at both buckets, complexes per second,
    peak memory per step, and ``torch.profiler`` over one warm step (device
    time in fused_tp3's forward, in its VJP and elsewhere; the busy share).
+F. reference run directories: the DiffDock-L score model (seed 0) and the
+   shipped confidence model (seed 1) written as the reference releases them
+   (``torch.save`` of a state dict under the reference's key names, made by
+   this script's inverse of ``utils/torch_import.py``'s key maps, and a flat
+   args dump as ``model_parameters.yml`` written with ``simple_yaml``, from
+   which the importer must derive the same configs), converted by
+   ``utils/download.py:prepare_model_dir`` (every converted leaf equal to
+   the written weights bit for bit; the conversion's wall); the 1547-residue
+   ``syn045_l8r1547`` with ESM features docked through the CLI's
+   ``load_pipeline`` from those directories and from native ones holding
+   the same weights, same seed: identical poses and confidences, exact
+   launch counts. Then the same complex with ``--crop_beyond 20``, by mask
+   and with ``--pocket_capacity 128``: exact launch counts (the receptor
+   embedded at every step), each held to its plain-version twin from the
+   same draws (poses within 5e-3 A or twice the spread of a nudged start,
+   confidences and ranking as in phase 5), each dock's wall and device-busy
+   share, and fused_tp3 against its plain version and timed beside its
+   bound at the pocket's row count.
 
 It then prints the card line (``nvidia-smi --query-gpu=name,power.limit``),
 one JSON line with the kernels' numbers, and, last, the result line
@@ -293,7 +311,10 @@ def expected_tp3_launches(cfg, n_steps: int, n_bonds: int) -> int:
     embedding once; per step the layer-0 rec<-rec precompute, the ligand
     embedding (bonded + radius blocks), the joint layers (3 ligand blocks
     each; the receptor's cross block, plus its rec<-rec block after layer
-    0; none in the last layer), the center head and the torsion head."""
+    0; none in the last layer), the center head and the torsion head.
+    Under ``crop_beyond`` the receptor embedding runs at every step and
+    the layer-0 rec<-rec block inside the forward, not once and in the
+    step cache."""
     npe, nj = cfg.num_prot_emb_layers, cfg.num_conv_layers
     per_step = 1 if nj > 1 else 0
     per_step += 2 * npe if cfg.embed_also_ligand else 0
@@ -304,6 +325,8 @@ def expected_tp3_launches(cfg, n_steps: int, n_bonds: int) -> int:
     per_step += 1  # final_conv
     if not cfg.no_torsion and n_bonds > 0:
         per_step += 1  # tor_bond_conv
+    if cfg.crop_beyond is not None:
+        return n_steps * (npe + per_step)
     return npe + n_steps * per_step
 
 
@@ -673,6 +696,7 @@ def run(args) -> dict:
         report["eval_sweep"] = eval_sweep(args, Path(tmp), cfg, ccfg, kernels, nudge, card)
         score_blocks = dict(list(blocks_all.items())[:3])
         report["train"] = train_phase(args, Path(tmp), cfg, kernels, score_blocks, card, dev)
+        report["reference_dirs"] = reference_dirs(args, Path(tmp), cfg, ccfg, kernels, card)
 
     sources = {"fused_tp3": "diffdock_tpu/ops/pallas_tpconv3.py:57",
                "factored_tp2": "diffdock_tpu/ops/pallas_tpconv2.py:125",
@@ -1864,6 +1888,341 @@ def _block_diag_t3(tp, classes, out_kernel, out_bias):
         f_off += fan * d3
         w_off += mul * d3
     return t3
+
+
+REFERENCE_COMPLEX = "syn045_l8r1547"  # 8 ligand atoms, 1547 residues: phase B's largest
+CROP_BEYOND = 20.0
+# residues the pocket dock keeps per step. The host pre-crop (3 x 19 x
+# 1.46 + 20 + 10 = 113 A around the input ligand) leaves 370 of the 1547
+# residues of this sparse synthetic receptor (bucket 448); around the input
+# pose 10 lie within 20 A and 78 within 40 A (3 tr_sigma + 20 A at
+# tr_sigma = 6.7 A). 128 keeps every residue of the late steps' crop there
+# and the 128 nearest in the early steps, whose pose cloud is wide: the
+# receptor blocks shrink from 448 rows to 128
+POCKET_CAPACITY = 128
+# training-run arguments a reference args dump carries beside the model's
+# (reference utils/parsing.py); the importer reads none of them
+REFERENCE_RUN_ARGS = dict(lr=0.001, w_decay=0.0, batch_size=16, n_epochs=850, scheduler="plateau",
+                          scheduler_patience=30, ema_rate=0.999, restart_lr=None, cudnn_benchmark=True,
+                          num_dataloader_workers=1, pdbbind_dir="data/PDBBind_processed/",
+                          split_train="data/splits/timesplit_no_lig_overlap_train",
+                          cache_path="data/cache", log_dir="workdir/run", limit_complexes=0,
+                          receptor_radius=15.0, c_alpha_max_neighbors=24, remove_hs=True,
+                          test_sigma_intervals=True, val_inference_freq=5, inference_steps=20,
+                          tr_weight=0.33, rot_weight=0.33, tor_weight=0.33, sampling_alpha=1,
+                          sampling_beta=1, num_workers=1, max_lig_size=1.0e9)
+
+
+def reference_args(c) -> dict:
+    """A flat reference-args dump (``model_parameters.yml``) from which
+    ``utils/torch_import.py:config_from_reference_args`` derives ``c``."""
+    s = c.sigma
+    return dict(
+        REFERENCE_RUN_ARGS,
+        ns=c.ns, nv=c.nv, num_conv_layers=c.num_conv_layers, num_prot_emb_layers=c.num_prot_emb_layers,
+        sh_lmax=c.sh_lmax, use_second_order_repr=c.use_second_order_repr,
+        reduce_pseudoscalars=c.reduce_pseudoscalars, embed_also_ligand=c.embed_also_ligand,
+        max_radius=c.lig_max_radius, cross_max_distance=c.cross_max_distance, crop_beyond=c.crop_beyond,
+        dynamic_max_cross=c.dynamic_max_cross, sigma_embed_dim=c.sigma_embed_dim,
+        distance_embed_dim=c.distance_embed_dim, cross_distance_embed_dim=c.cross_distance_embed_dim,
+        embedding_type=c.embedding_type, embedding_scale=c.embedding_scale,
+        esm_embeddings_path="data/esm2_3billion_embeddings.pt" if c.lm_embedding_dim else None,
+        no_batch_norm=not c.batch_norm, dropout=c.dropout, tp_weights_layers=c.tp_weights_layers,
+        smooth_edges=c.smooth_edges, odd_parity=c.odd_parity, no_torsion=c.no_torsion,
+        scale_by_sigma=c.scale_by_sigma, not_fixed_center_conv=not c.fixed_center_conv,
+        confidence_dropout=c.confidence_dropout, confidence_no_batchnorm=c.confidence_no_batchnorm,
+        rmsd_classification_cutoff=2.0, affinity_prediction=c.affinity_prediction,
+        atom_confidence_loss_weight=0.0, sidechain_loss_weight=0.0, backbone_loss_weight=0.0,
+        no_differentiate_convolutions=not c.differentiate_convolutions,
+        use_old_atom_encoder=c.use_old_atom_encoder, all_atoms=c.all_atoms,
+        tr_sigma_min=s.tr_sigma_min, tr_sigma_max=s.tr_sigma_max, rot_sigma_min=s.rot_sigma_min,
+        rot_sigma_max=s.rot_sigma_max, tor_sigma_min=s.tor_sigma_min, tor_sigma_max=s.tor_sigma_max,
+    )
+
+
+_SEQUENTIALS = ("edge_embedding", "sigma_embedding", "tr_final_layer", "rot_final_layer")
+_CONV_LISTS = ("rec_emb", "lig_emb", "conv", "lig_conv", "rec_conv", "lig_to_rec_conv", "rec_to_lig_conv")
+
+
+def reference_state_dict(model) -> dict:
+    """The reference's state dict (torch key names and layouts) of a port
+    model: the inverse of ``utils/torch_import.py``'s key maps. Linears
+    transpose back, each TP's weight-generating MLP takes the reference's
+    flat weight order (the inverse of ``tp_weight_permutation``), batch
+    norms take ``running_*`` names, and the old all-atom family's six
+    last-layer convs that the reference builds but never calls are written
+    as copies of a called sibling, as a released checkpoint carries them."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from diffdock_tpu_torch.utils.convert import flax_from_model, flax_path
+    from diffdock_tpu_torch.utils.torch_import import tp_weight_permutation
+
+    cfg = model.cfg
+    if cfg.sh_lmax == 1 and not cfg.use_second_order_repr:
+        raise PhaseError("the faster-TP layout is not written here")
+    tree = flax_from_model(model)
+    params, stats = tree["params"], tree.get("batch_stats", {})
+    tps = {}  # each conv layer's TP, by its flax name
+    for n, m in model.named_modules():
+        path = flax_path(n + ".x")[:-1] if n else []
+        if len(path) == 1 and hasattr(m, "tp"):
+            tps[path[0]] = m.tp
+    sd = {}
+
+    def linear(ref, p, bias=True):
+        sd[f"{ref}.weight"] = p["kernel"].T
+        if bias:
+            sd[f"{ref}.bias"] = p["bias"]
+
+    def conv(ref, name, p):
+        inv = np.argsort(tp_weight_permutation(tps[name]))
+        for fc_name, fc in p.items():
+            if not fc_name.startswith("fc"):
+                continue
+            prefix = f"{ref}.fc" if fc_name in ("fc", "fc_shared") else f"{ref}.fc.{fc_name[3:]}"
+            n_dense = sum(k.startswith("Dense_") for k in fc)
+            for i in range(n_dense):
+                linear(f"{prefix}.{3 * i}", fc[f"Dense_{i}"])
+            sd[f"{prefix}.{3 * n_dense}.weight"] = fc["out_kernel"][:, inv].T
+            sd[f"{prefix}.{3 * n_dense}.bias"] = fc["out_bias"][inv]
+        if "bn" in p:
+            sd[f"{ref}.batch_norm.weight"], sd[f"{ref}.batch_norm.bias"] = p["bn"]["weight"], p["bn"]["bias"]
+            sd[f"{ref}.batch_norm.running_mean"] = stats[name]["bn"]["mean"]
+            sd[f"{ref}.batch_norm.running_var"] = stats[name]["bn"]["var"]
+
+    for name, p in params.items():
+        m = re.fullmatch(r"(\w+?)_(\d+)", name)
+        if name.endswith("_node_embedding"):
+            for key, sub in p.items():
+                if key.startswith("cat_"):
+                    sd[f"{name}.atom_embedding_list.{key[4:]}.weight"] = sub["embedding"]
+                else:
+                    linear(f"{name}.{'additional_features_embedder' if key == 'fuse' else key}", sub)
+        elif name.endswith(_SEQUENTIALS):
+            for i in range(2):
+                linear(f"{name}.{3 * i}", p[f"Dense_{i}"])
+        elif name in ("tor_final_dense1", "tor_final_dense2"):
+            linear(f"tor_final_layer.{0 if name.endswith('1') else 3}", p, bias=False)
+        elif name == "confidence_predictor":
+            for i in range(3):
+                linear(f"{name}.{4 * i}", p[f"Dense_{i}"])
+                if f"BatchNorm_{i}" in p:
+                    bn, st = p[f"BatchNorm_{i}"], stats[name][f"BatchNorm_{i}"]
+                    sd[f"{name}.{4 * i + 1}.weight"], sd[f"{name}.{4 * i + 1}.bias"] = bn["scale"], bn["bias"]
+                    sd[f"{name}.{4 * i + 1}.running_mean"] = st["mean"]
+                    sd[f"{name}.{4 * i + 1}.running_var"] = st["var"]
+        elif m and m.group(1) in _CONV_LISTS:
+            conv(f"{m.group(1)}_layers.{m.group(2)}", name, p)
+        elif name in ("final_conv", "tor_bond_conv"):
+            conv(name, name, p)
+        else:
+            raise PhaseError(f"no reference name for {name}")
+    if cfg.old_architecture and cfg.all_atoms:
+        last = 9 * (cfg.num_conv_layers - 1)
+        called = {k: v for k, v in sd.items() if k.startswith(f"conv_layers.{last}.")}
+        for k in range(3, 9):
+            for key, v in called.items():
+                sd[key.replace(f"conv_layers.{last}.", f"conv_layers.{last + k}.", 1)] = v
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+def time_tp3_blocks(blocks: dict, dev, iters: int) -> dict:
+    """fused_tp3's kernel, its plain version and the einsum pair at each
+    block, with CUDA events, beside the block's bound."""
+    import torch
+
+    from diffdock_tpu_torch.ops import fused_tp3 as ft
+
+    out = {}
+    with torch.inference_mode():
+        for i, (label, (tp, rows, K, Hb)) in enumerate(blocks.items()):
+            inp = tp_inputs(tp, rows, K, Hb, seed=i, device=dev)
+            classes, h_aug, coupled, weights, table = ft.prepare(tp, *inp)
+            t3 = _block_diag_t3(tp, classes, inp[4], inp[5])
+            kernel_ms = cuda_ms(lambda: ft.launch(h_aug, coupled, weights, table), iters)
+            plain_ms = cuda_ms(lambda: ft.fused_tp3_reference(tp, *inp), iters)
+            pair_ms = cuda_ms(lambda: torch.einsum(
+                "rhF,hFW->rW", torch.einsum("rkh,rkF->rhF", h_aug, coupled), t3), iters)
+            products, coupling, nbytes = tp3_work(tp, rows, K, Hb)
+            b_ms, b_by = bound_ms(products, coupling, nbytes)
+            out[label] = {"rows": rows, "K": K, "ms": kernel_ms, "plain_ms": plain_ms,
+                          "library_ms": pair_ms, "bound_ms": b_ms, "bound_by": b_by}
+            _log(f"  fused_tp3 {label} at R={rows} K={K}: kernel {kernel_ms:.4f} ms | plain "
+                 f"{plain_ms:.4f} ms | einsum pair {pair_ms:.4f} ms | bound {b_ms:.4f} ms ({b_by})")
+            del inp, h_aug, coupled, weights, t3
+    return out
+
+
+def reference_dirs(args, tmp: Path, cfg, ccfg, kernels, card: str) -> dict:
+    """Phase F: reference run directories (``.pt`` weights and a flat args
+    dump) of the DiffDock-L score model and the shipped confidence model,
+    converted by ``prepare_model_dir`` and held to the weights they were
+    made from; a dock from them against the same dock from native run
+    directories; and the receptor crop of ``crop_beyond`` by mask and by
+    pocket compaction, each held to its plain-version twin."""
+    import numpy as np
+    import torch
+
+    from diffdock_tpu_torch.cli import dock as cli
+    from diffdock_tpu_torch.data.esm import LazyNpyTable
+    from diffdock_tpu_torch.data.inference_dataset import InferenceDatasetBuilder, InferenceSpec
+    from diffdock_tpu_torch.inference.pipeline import DockingPipeline
+    from diffdock_tpu_torch.models.old_models import build_confidence_model
+    from diffdock_tpu_torch.models.score_model import CGScoreModel
+    from diffdock_tpu_torch.train.checkpoints import load_checkpoint
+    from diffdock_tpu_torch.utils import simple_yaml
+    from diffdock_tpu_torch.utils.convert import state_dict_from_flax
+    from diffdock_tpu_torch.utils.download import DEFAULT_CKPT, prepare_model_dir
+    from diffdock_tpu_torch.utils.torch_import import config_from_reference_args
+
+    t_start = time.perf_counter()
+    report: dict = {}
+    # F1: the reference directories, from the port's random weights
+    ref_dirs, made = {}, {}
+    for name, c, build, seed, kw in (("score", cfg, CGScoreModel, 0, {}),
+                                     ("confidence", ccfg, build_confidence_model, 1,
+                                      dict(confidence_mode=True, old=True))):
+        model = build(c)
+        model.reset_parameters(torch.Generator().manual_seed(seed))
+        made[name] = model.state_dict()
+        d = tmp / "reference" / name
+        d.mkdir(parents=True)
+        torch.save(reference_state_dict(model), d / DEFAULT_CKPT)
+        args_dump = reference_args(c)
+        (d / "model_parameters.yml").write_text(simple_yaml.dump(args_dump))
+        derived = config_from_reference_args(simple_yaml.load((d / "model_parameters.yml").read_text()), **kw)
+        # the old family reads no embed_also_ligand; its derived value is False
+        differ = [f.name for f in dataclasses.fields(c)
+                  if getattr(derived, f.name) != getattr(c, f.name) and f.name != "embed_also_ligand"]
+        if differ:
+            raise PhaseError(f"{name}: the args dump derives another config ({differ})")
+        ref_dirs[name] = (str(d), kw)
+        _log(f"  {name}: {len(made[name])} tensors -> {(d / DEFAULT_CKPT).stat().st_size / 2**20:.1f} MiB "
+             f"reference checkpoint + {len(args_dump)} args")
+    # F2: converted once by prepare_model_dir, every leaf bit for bit
+    t0 = time.perf_counter()
+    converted = {name: prepare_model_dir(d, **kw) for name, (d, kw) in ref_dirs.items()}
+    report["conversion_s"] = time.perf_counter() - t0
+    for name, out in converted.items():
+        tree, c, _ = load_checkpoint(out)
+        got = state_dict_from_flax(tree, c)
+        bad = [k for k, v in made[name].items()
+               if k not in got or got[k].dtype != v.dtype or not torch.equal(got[k], v)]
+        if bad or set(got) != set(made[name]):
+            raise PhaseError(f"{name}: converted weights differ from the ones written: {bad[:5]}")
+    _log(f"  converted by prepare_model_dir in {report['conversion_s']:.2f} s; every leaf equal bit for bit")
+
+    # F3: the dock from the reference directories against the dock from
+    # native directories with the same weights
+    native = _write_run_dirs(tmp / "runs_native_f", cfg, ccfg)
+    name = REFERENCE_COMPLEX
+    d = E2E_SYNTH / name
+    builder = InferenceDatasetBuilder(esm_table=LazyNpyTable(str(E2E_SYNTH / "_esm")))
+    mol, protein, lm = builder.load(InferenceSpec(name, str(d / f"{name}_protein_processed.pdb"),
+                                                  ligand_description=str(d / f"{name}_ligand.sdf")))
+    P = args.poses
+
+    def pipeline(dirs, *extra):
+        return cli.load_pipeline(cli.get_parser().parse_args(
+            ["--model_dir", dirs["score"], "--confidence_model_dir", dirs["confidence"], "--device", "cuda",
+             *extra]))
+
+    docks = {}
+    for label, dirs in (("reference", {k: v[0] for k, v in ref_dirs.items()}), ("native", native)):
+        pipe = pipeline(dirs)
+        data, aa, _ = pipe.featurize(mol, protein, lm)
+        expected = dock_launches(pipe, cfg, ccfg, data, aa, P)
+        for m in kernels.values():
+            m.counts.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = pipe.dock_complex(data, num_poses=P, seed=0, aa_data=aa)
+        wall = time.perf_counter() - t0
+        launches = {k: v for m in kernels.values() for k, v in m.counts.as_dict().items()}
+        if launches["fused_tp3"] != expected or any(v for k, v in launches.items() if "reference" in k):
+            raise PhaseError(f"{label} dock launch counts {launches} != expected {expected} fused_tp3 / 0 plain")
+        docks[label] = res
+        report[f"{label}_dock"] = {"wall_s": wall, "launches": launches}
+        _log(f"  dock from {label} run dirs: {P} poses in {wall:.2f} s, {launches['fused_tp3']} fused_tp3 "
+             f"launches (expected {expected})")
+        del pipe
+    pose_diff = float(np.abs(docks["reference"].poses - docks["native"].poses).max())
+    conf_diff = float(np.abs(docks["reference"].confidence - docks["native"].confidence).max())
+    _log(f"  reference vs native dock: max |poses| diff {pose_diff:.1e} A, max |confidence| diff {conf_diff:.1e}")
+    if pose_diff != 0.0 or conf_diff != 0.0 or not np.array_equal(docks["reference"].order, docks["native"].order):
+        raise PhaseError("the docks from reference and native run directories differ")
+    report["reference_vs_native"] = {"max_abs_pose_diff": pose_diff, "max_abs_conf_diff": conf_diff}
+
+    # F4: the receptor crop, by mask and by pocket compaction, each against
+    # its plain-version twin from the same draws
+    ref_args = {k: v[0] for k, v in ref_dirs.items()}
+    for label, extra in (("mask", []), ("pocket", ["--pocket_capacity", str(POCKET_CAPACITY)])):
+        pipe = pipeline(ref_args, "--crop_beyond", str(CROP_BEYOND), *extra)
+        ccrop = pipe.score_cfg
+        data, aa, _ = pipe.featurize(mol, protein, lm)
+        bucket = pipe.dock_bucket(data)[0]
+        expected = dock_launches(pipe, ccrop, ccfg, data, aa, P)
+        drawn = {}
+
+        def noise(num_poses, n_bonds, seed):
+            drawn[seed] = pipe.draw_noise(num_poses, n_bonds, seed)
+            return drawn[seed]
+
+        for m in kernels.values():
+            m.counts.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = pipe.dock_complex(data, num_poses=P, seed=0, aa_data=aa, noise=noise)
+        wall = time.perf_counter() - t0
+        launches = {k: v for m in kernels.values() for k, v in m.counts.as_dict().items()}
+        if launches["fused_tp3"] != expected or any(v for k, v in launches.items() if "reference" in k):
+            raise PhaseError(f"crop dock ({label}) launch counts {launches} != expected {expected} "
+                             "fused_tp3 / 0 plain")
+        if not (np.isfinite(res.poses).all() and np.isfinite(res.confidence).all()):
+            raise PhaseError(f"crop dock ({label}) gave non-finite poses or confidences")
+        ref_pipe = DockingPipeline(ccrop, pipe.model.state_dict(), pipe.sampler_cfg, pipe.so3, pipe.torus,
+                                   device=pipe.device, reference_kernels=True,
+                                   confidence_cfg=pipe.confidence_cfg,
+                                   confidence_weights=pipe.confidence_model.state_dict(),
+                                   pocket_capacity=pipe.pocket_capacity)
+        ref_res = ref_pipe.dock_complex(data, num_poses=P, seed=0, aa_data=aa,
+                                        noise=lambda num_poses, n_bonds, seed: drawn[seed])
+        del ref_pipe
+
+        def nudged(num_poses, n_bonds, seed):
+            init, steps = drawn[seed]
+            g = torch.Generator(device=pipe.device).manual_seed(seed + 1)
+            e = torch.randn(init.tr.shape, generator=g, device=pipe.device)
+            return init._replace(tr=init.tr * (1 + NUDGE * e)), steps
+
+        nudge_gap = float(np.abs(pipe.dock_complex(data, num_poses=P, seed=0, aa_data=aa,
+                                                   noise=nudged).poses - res.poses).max())
+        agree = docks_agree(res, ref_res, pose_tol=max(POSE_ATOL, 2 * nudge_gap))
+        prof = profile_dock(pipe, data, aa, P)
+        entry = {"bucket": list(bucket), "pre_crop_radius": pipe.pre_crop_radius,
+                 "pocket_capacity": pipe.pocket_capacity, "wall_s": wall, "launches": launches,
+                 "expected_fused_tp3": expected, "nudge_gap": nudge_gap, "plain": agree,
+                 "device_busy_share": prof["device_busy_share"], "profile": prof}
+        if label == "pocket":
+            # the score model's three blocks with the receptor at the
+            # pocket's rows: the shapes fused_tp3 runs at under compaction
+            blocks = dict(list(tp_blocks(pipe.model, pipe.confidence_model, ccrop, ccfg, data, aa, P, P,
+                                         bucket=(bucket[0], POCKET_CAPACITY, 0)).items())[:3])
+            entry["kernel_checks"] = check_blocks(["fused_tp3"], blocks, pipe.device,
+                                                  tag=f" [pocket {POCKET_CAPACITY}]")["fused_tp3"]
+            entry["timings"] = time_tp3_blocks(blocks, pipe.device, args.iters)
+        report[f"crop_{label}"] = entry
+        _log(f"  crop dock ({label}{', capacity ' + str(POCKET_CAPACITY) if extra else ''}): bucket "
+             f"{tuple(bucket)}, {P} poses in {wall:.2f} s, {launches['fused_tp3']} fused_tp3 launches "
+             f"(expected {expected}), device busy {100 * prof['device_busy_share']:.1f} % | {card}")
+        del pipe
+    _log(f"[F reference run dirs] {name} | conversion {report['conversion_s']:.2f} s | "
+         f"crop docks {report['crop_mask']['wall_s']:.2f} / {report['crop_pocket']['wall_s']:.2f} s | "
+         f"{card} | phase {time.perf_counter() - t_start:.1f} s")
+    return report
 
 
 def main(argv=None) -> int:

@@ -15,9 +15,11 @@ The flags and defaults are the JAX CLI's, with two exceptions:
 ``--device`` (default ``cuda``) is added, and ``--compute_dtype`` defaults
 to ``float32`` (``bfloat16`` is not ported and raises). ``--model_dir``
 and ``--confidence_model_dir`` read native run directories
-(``model_parameters.yml`` plus msgpack weights); reference ``.pt``
-directories, downloads, ``--pose_devices`` above 1, ``--crop_beyond`` and
-``--pocket_capacity`` raise.
+(``model_parameters.yml`` plus msgpack weights) and the reference's own
+(``.pt`` weights plus its args dump), which are converted once into a
+``tpu_native*`` subdirectory; a missing directory is downloaded first.
+``--crop_beyond`` crops the receptor per step and ``--pocket_capacity``
+compacts it to that many residues. ``--pose_devices`` above 1 raises.
 """
 
 from __future__ import annotations
@@ -45,7 +47,8 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--complex_name", default=None)
     p.add_argument("--out_dir", default="results/user_predictions")
     p.add_argument("--model_dir", default=None,
-                   help="run dir with model_parameters.yml + model.msgpack")
+                   help="run dir with model_parameters.yml + model.msgpack, "
+                        "or a reference run dir with .pt weights")
     p.add_argument("--ckpt", default=None,
                    help="weights file inside --model_dir; reference .pt "
                         "names map to the converted .msgpack flavors")
@@ -81,12 +84,13 @@ def get_parser() -> argparse.ArgumentParser:
         p.add_argument(f"--temp_psi_{comp}", type=float, default=None)
         p.add_argument(f"--temp_sigma_data_{comp}", type=float, default=None)
     p.add_argument("--old_score_model", action="store_true", default=False,
-                   help="accepted for reference CLI compatibility; the "
-                        "architecture is read from the checkpoint config")
+                   help="a reference .pt score model of the v1.0 "
+                        "architecture; a native run dir carries its own")
     p.add_argument("--old_confidence_model", action=argparse.BooleanOptionalAction,
                    default=True,
-                   help="accepted for reference CLI compatibility; the "
-                        "architecture is read from the checkpoint config")
+                   help="a reference .pt confidence model of the v1.0 "
+                        "architecture (the shipped default); a native run "
+                        "dir carries its own")
     p.add_argument("--loglevel", "-l", "--log", dest="loglevel",
                    default="WARNING")
     p.add_argument("--seed", type=int, default=0)
@@ -99,8 +103,8 @@ def get_parser() -> argparse.ArgumentParser:
                    help="conv-layer compute dtype; bfloat16 is not ported "
                         "(ROADMAP queue 1 item 5) and raises")
     p.add_argument("--crop_beyond", type=float, default=None,
-                   help="sigma-dependent receptor crop radius per step; "
-                        "not ported (raises)")
+                   help="sigma-dependent receptor crop: each step keeps the "
+                        "residues within 3*tr_sigma + crop_beyond of a pose")
     p.add_argument("--bucket_ladder",
                    choices=("fine", "fine_dense", "cover"),
                    default="fine",
@@ -111,7 +115,8 @@ def get_parser() -> argparse.ArgumentParser:
                    help="cards to shard each complex's poses over; only 1 "
                         "is ported")
     p.add_argument("--pocket_capacity", type=int, default=None,
-                   help="per-step pocket compaction; not ported (raises)")
+                   help="with --crop_beyond: compact the receptor to this "
+                        "many nearest residues per step instead of masking")
     p.add_argument("--device", default="cuda",
                    help="torch device to dock on ('cuda' or 'cpu')")
     return p
@@ -146,38 +151,25 @@ def sampler_config_from_args(args):
     )
 
 
-def _native_run_dir(model_dir: str) -> str:
-    """``model_dir`` when it is a run directory of this package; raises for
-    a missing directory (downloads are not ported) and for a reference
-    ``.pt`` directory (its importer is not ported)."""
-    if not os.path.isdir(model_dir):
-        raise FileNotFoundError(
-            f"{model_dir} does not exist; downloading released weights is not "
-            "ported (ROADMAP queue 1 item 9)")
-    has_pt = any(f.endswith(".pt") for f in os.listdir(model_dir))
-    yml = os.path.join(model_dir, "model_parameters.yml")
-    native = False
-    if os.path.exists(yml):
-        from diffdock_tpu_torch.utils import simple_yaml
+def _run_dir(model_dir: str, ckpt, confidence_mode: bool, old: bool):
+    """(run directory, weights file) to load for ``--model_dir`` or
+    ``--confidence_model_dir``: a missing directory is downloaded first
+    (reference ``inference.py:123-143``), a reference ``.pt`` directory is
+    converted once into a native subdirectory (``utils/download.py``), as
+    in the JAX CLI."""
+    from diffdock_tpu_torch.utils.download import ensure_downloaded, prepare_model_dir
 
-        with open(yml) as f:
-            try:
-                meta = simple_yaml.load(f.read()) or {}
-            except simple_yaml.YAMLError:
-                meta = {}
-        native = isinstance(meta, dict) and "model" in meta
-    if has_pt and not native:
-        raise NotImplementedError(
-            f"{model_dir} holds reference .pt weights; loading them is not ported "
-            "(ROADMAP queue 1 item 3: the utils/torch_import.py key maps)")
-    return model_dir
+    files = ensure_downloaded(model_dir)
+    if files:
+        print(f"downloaded {len(files)} files for {model_dir}", file=sys.stderr)
+    run_dir = prepare_model_dir(model_dir, ckpt, confidence_mode=confidence_mode, old=old)
+    return run_dir, (ckpt if run_dir == model_dir else None)
 
 
 def load_pipeline(args):
     """The DockingPipeline the parsed ``args`` ask for, on ``args.device``.
     The options that are not ported are refused where they land, as in the
-    JAX CLI: ``--compute_dtype`` and ``--crop_beyond`` by the score model's
-    config, ``--pocket_capacity`` by the pipeline;
+    JAX CLI: ``--compute_dtype`` by the score model's config and
     ``--pose_devices`` above 1 here, where the JAX CLI builds its mesh."""
     from diffdock_tpu_torch.inference.pipeline import DockingPipeline
     from diffdock_tpu_torch.models.config import PRESETS
@@ -188,7 +180,8 @@ def load_pipeline(args):
         raise ConfigError(f"not ported yet: --pose_devices {args.pose_devices} (ROADMAP queue 1 item 8)")
     sampler_cfg = sampler_config_from_args(args)
     if args.model_dir:
-        params, cfg, _ = load_checkpoint(_native_run_dir(args.model_dir), args.ckpt)
+        params, cfg, _ = load_checkpoint(*_run_dir(
+            args.model_dir, args.ckpt, False, getattr(args, "old_score_model", False)))
         weights = state_dict_from_flax(params, cfg)
     else:
         print(
@@ -209,8 +202,11 @@ def load_pipeline(args):
 
     conf_cfg = conf_weights = None
     if args.confidence_model_dir:
-        conf_params, conf_cfg, _ = load_checkpoint(
-            _native_run_dir(args.confidence_model_dir), args.confidence_ckpt)
+        # the shipped default confidence model is the v1.0 ("old")
+        # architecture (reference inference.py:84)
+        conf_params, conf_cfg, _ = load_checkpoint(*_run_dir(
+            args.confidence_model_dir, args.confidence_ckpt, True,
+            getattr(args, "old_confidence_model", True)))
         conf_weights = state_dict_from_flax(conf_params, conf_cfg)
 
     return DockingPipeline(

@@ -24,7 +24,9 @@ The flags and defaults are the JAX CLI's, with two exceptions, as in
 ``cli/dock.py``: ``--device`` (default ``cuda``) is added, and
 ``--compute_dtype`` defaults to ``float32`` (``bfloat16`` raises, ROADMAP
 queue 1 item 5). ``--complex_devices`` and ``--pose_devices`` other than 1
-raise (item 8), as do ``--crop_beyond`` and ``--pocket_capacity`` (item 5).
+raise (item 8). ``--crop_beyond`` and ``--pocket_capacity`` crop the
+receptor as in the dock CLI, and ``--model_dir`` and
+``--confidence_model_dir`` may be reference ``.pt`` run directories.
 
 One deliberate deviation from the JAX CLI: with an all-atom confidence
 model (the shipped default), the dataset is featurized with the receptor's
@@ -126,10 +128,11 @@ def get_parser():
     p.add_argument("--gnina_autobox_add", type=float, default=4.0)
     p.add_argument("--gnina_poses_to_optimize", type=int, default=1)
     p.add_argument("--crop_beyond", type=float, default=None,
-                   help="sigma-dependent receptor crop radius per step; "
-                        "not ported (raises)")
+                   help="sigma-dependent receptor crop: each step keeps the "
+                        "residues within 3*tr_sigma + crop_beyond of a pose")
     p.add_argument("--pocket_capacity", type=int, default=None,
-                   help="per-step pocket compaction; not ported (raises)")
+                   help="with --crop_beyond: compact the receptor to this "
+                        "many nearest residues per step instead of masking")
     p.add_argument("--bucket_ladder",
                    choices=("fine", "fine_dense", "cover"),
                    default="cover",

@@ -5,7 +5,11 @@ fixed-shape arrays with validity masks: ligand and receptor nodes, dense
 receiver-major neighbour lists, rotatable bonds. :class:`AAComplexData`
 adds the receptor's heavy atoms for the all-atom confidence model. Both
 are built and padded on the host with numpy; :func:`to_device` turns
-either into torch tensors.
+either into torch tensors. The receptor crops of the reference's
+``crop_beyond`` are here too: the mask crop (:func:`apply_rec_keep`), the
+pocket compaction on the device (:func:`pocket_indices`,
+:func:`compact_receptor`) and the host crop before padding
+(:func:`crop_complex`).
 """
 
 from __future__ import annotations
@@ -186,6 +190,144 @@ def pad_to(data: ComplexData, nl: int, nr: int, nb: int, kb: int = 4, kr: int = 
         rec_nbr_mask=pad(data.rec_nbr_mask, nr, False, cols=kr),
         original_center=np.asarray(data.original_center),
         rec_scv=None if data.rec_scv is None else pad(data.rec_scv, nr),
+    )
+
+
+# ----------------------------------------------------------------------
+# receptor crop (reference crop_beyond, utils/utils.py:388-413)
+# ----------------------------------------------------------------------
+def apply_rec_keep(data: ComplexData, keep) -> ComplexData:
+    """Mask crop: the reference filters the precomputed receptor edges (PyG
+    ``subgraph``) instead of rebuilding them, so dropping residues is
+    zeroing their validity masks. numpy arrays or torch tensors; ``keep``
+    (NR,) bool."""
+    return data._replace(
+        rec_mask=data.rec_mask & keep,
+        rec_nbr_mask=data.rec_nbr_mask & keep[:, None] & keep[data.rec_nbr],
+    )
+
+
+def apply_rec_keep_aa(aa: AAComplexData, keep) -> AAComplexData:
+    """All-atom mask crop: atoms follow their parent residue (reference
+    ``crop_beyond``'s all-atom branch, ``utils/utils.py:394-400``)."""
+    atom_keep = aa.atom_mask & keep[aa.atom_res]
+    return aa._replace(
+        base=apply_rec_keep(aa.base, keep),
+        atom_mask=atom_keep,
+        atom_nbr_mask=aa.atom_nbr_mask & atom_keep[:, None] & atom_keep[aa.atom_nbr],
+        res_atom_mask=aa.res_atom_mask & keep[:, None],
+    )
+
+
+def _min_lig_d2(rec_pos, poses, lig_mask):
+    """(P*NL, NR) squared distances of every pose's atoms to every residue,
+    and the ligand mask broadcast to the pose batch; numpy or torch."""
+    flat = poses.reshape(-1, poses.shape[-1])
+    if isinstance(rec_pos, np.ndarray):
+        lmask = np.broadcast_to(lig_mask, poses.shape[:-1]).reshape(-1)
+    else:
+        lmask = lig_mask.expand(poses.shape[:-1]).reshape(-1)
+    d2 = ((flat[:, None, :] - rec_pos[None, :, :]) ** 2).sum(-1)
+    return d2, lmask
+
+
+def rec_keep_mask(rec_pos, rec_mask, poses, lig_mask, cutoff):
+    """keep[r] = some ligand atom of some pose lies within ``cutoff`` of
+    residue r, and r is real (the reference's crop predicate,
+    ``utils/utils.py:391``). ``poses`` (..., NL, 3); numpy or torch."""
+    d2, lmask = _min_lig_d2(rec_pos, poses, lig_mask)
+    within = (d2 < cutoff ** 2) & lmask[:, None]
+    if isinstance(within, np.ndarray):
+        return within.any(axis=0) & rec_mask
+    return within.any(dim=0) & rec_mask
+
+
+def pocket_indices(rec_pos: torch.Tensor, rec_mask: torch.Tensor, poses: torch.Tensor,
+                   lig_mask: torch.Tensor, cutoff, capacity: int):
+    """The ``capacity`` residues nearest to any ligand atom of any pose, in
+    order of that distance, and which of them are real and within
+    ``cutoff``. As ``jax.lax.top_k`` in the JAX package, ties go to the
+    lower index: a stable ascending sort of each residue's least squared
+    distance, padding residues at infinity."""
+    d2, lmask = _min_lig_d2(rec_pos, poses, lig_mask)
+    d2 = torch.where(lmask[:, None], d2, torch.full_like(d2, float("inf")))
+    mind2 = torch.where(rec_mask, d2.min(dim=0).values, torch.full_like(d2[0], float("inf")))
+    vals, idx = torch.sort(mind2, stable=True)
+    return idx[:capacity], vals[:capacity] < cutoff ** 2
+
+
+def compact_receptor(data: ComplexData, idx: torch.Tensor, valid: torch.Tensor) -> ComplexData:
+    """Gather crop to a fixed pocket capacity (``idx``, ``valid`` from
+    :func:`pocket_indices`): the receptor's dense blocks shrink to
+    ``len(idx)`` rows, where :func:`apply_rec_keep` keeps their padded
+    extent. Neighbour lists are remapped to the pocket's indices and edges
+    to dropped residues masked, the semantics of the reference's
+    ``subgraph`` filter."""
+    nr, cap = data.rec_mask.shape[0], idx.shape[0]
+    inv = torch.full((nr,), -1, dtype=idx.dtype, device=idx.device)
+    inv[idx] = torch.arange(cap, dtype=idx.dtype, device=idx.device)
+    nbr_local = inv[data.rec_nbr[idx]]
+    nbr_mask = data.rec_nbr_mask[idx] & (nbr_local >= 0) & valid[:, None]
+    # dropped neighbours map to -1: point them at 0 (masked anyway)
+    nbr_local = torch.clamp(nbr_local, min=0)
+    nbr_mask = nbr_mask & valid[nbr_local]
+    return data._replace(
+        rec_cat=data.rec_cat[idx],
+        rec_lm=data.rec_lm[idx],
+        rec_mask=data.rec_mask[idx] & valid,
+        rec_pos=data.rec_pos[idx],
+        rec_nbr=nbr_local,
+        rec_nbr_mask=nbr_mask,
+        rec_scv=None if data.rec_scv is None else data.rec_scv[idx],
+    )
+
+
+def crop_complex(data: ComplexData, keep: np.ndarray) -> ComplexData:
+    """Host crop of a numpy complex before padding: the rows of dropped
+    residues go, so a large receptor lands in a small bucket. Neighbour
+    lists are filtered and remapped, as the reference's ``subgraph``."""
+    keep = np.asarray(keep, bool)
+    remap = np.cumsum(keep) - 1  # old index -> new index, where kept
+    nbr = np.asarray(data.rec_nbr)
+    nbr_mask = np.asarray(data.rec_nbr_mask) & keep[nbr]
+    new_nbr = remap[nbr]
+    new_nbr[~nbr_mask] = 0
+    return data._replace(
+        rec_cat=np.asarray(data.rec_cat)[keep],
+        rec_lm=np.asarray(data.rec_lm)[keep],
+        rec_mask=np.asarray(data.rec_mask)[keep],
+        rec_pos=np.asarray(data.rec_pos)[keep],
+        rec_nbr=new_nbr[keep].astype(np.int32),
+        rec_nbr_mask=nbr_mask[keep],
+        rec_scv=None if data.rec_scv is None else np.asarray(data.rec_scv)[keep],
+    )
+
+
+def crop_aa_complex(aa: AAComplexData, keep: np.ndarray) -> AAComplexData:
+    """:func:`crop_complex` of an all-atom complex: the atoms of dropped
+    residues go too, and atom indices are remapped."""
+    keep = np.asarray(keep, bool)
+    remap = np.cumsum(keep) - 1
+    atom_keep = np.asarray(aa.atom_mask) & keep[np.asarray(aa.atom_res)]
+    atom_remap = np.cumsum(atom_keep) - 1
+    anbr = np.asarray(aa.atom_nbr)
+    anbr_mask = np.asarray(aa.atom_nbr_mask) & atom_keep[anbr]
+    new_anbr = atom_remap[anbr]
+    new_anbr[~anbr_mask] = 0
+    res_atom_idx = np.asarray(aa.res_atom_idx)
+    res_atom_mask = np.asarray(aa.res_atom_mask) & atom_keep[res_atom_idx]
+    new_rai = atom_remap[res_atom_idx]
+    new_rai[~res_atom_mask] = 0
+    return aa._replace(
+        base=crop_complex(aa.base, keep),
+        atom_cat=np.asarray(aa.atom_cat)[atom_keep],
+        atom_mask=np.asarray(aa.atom_mask)[atom_keep],
+        atom_pos=np.asarray(aa.atom_pos)[atom_keep],
+        atom_nbr=new_anbr[atom_keep].astype(np.int32),
+        atom_nbr_mask=anbr_mask[atom_keep],
+        atom_res=remap[np.asarray(aa.atom_res)[atom_keep]].astype(np.int32),
+        res_atom_idx=new_rai[keep].astype(np.int32),
+        res_atom_mask=res_atom_mask[keep],
     )
 
 

@@ -5,13 +5,14 @@ element-preserving automorphisms of the molecule's bond graph (the
 reference's spyrmsd), with at most 10,000 automorphisms and 10 s of
 search. The JAX package enumerates them with networkx's VF2
 ``GraphMatcher``; networkx is not on the card's machine, so
-:func:`molecular_automorphisms` is a backtracking search of its own. It
-finds the same set of permutations, in another order: where a cap cuts the
-search short, the two packages keep different subsets.
+:func:`molecular_automorphisms` replays that matcher in plain Python and
+yields the same permutations in the same order: where the 10,000 cap cuts
+the search short, the two packages keep the same ones.
 """
 
 from __future__ import annotations
 
+import sys
 import time
 from typing import List, Optional, Sequence, Tuple
 
@@ -26,44 +27,84 @@ class _Stop(Exception):
     pass
 
 
-def _refined_colors(elements: Sequence[str], adj: List[set], loops: set) -> List[int]:
-    """Colour refinement of the bond graph: start from (element, degree,
-    self-loop) and split by the multiset of neighbour colours until stable.
-    The colours depend on the graph only, not on the atom numbering, so
-    every automorphism maps an atom to one of its own colour."""
-    sig = [(el, len(adj[v]), v in loops) for v, el in enumerate(elements)]
-    n_classes = -1
-    while True:
-        labels = {s: i for i, s in enumerate(sorted(set(sig)))}
-        col = [labels[s] for s in sig]
-        if len(labels) == n_classes:
-            return col
-        n_classes = len(labels)
-        sig = [(col[v], tuple(sorted(col[u] for u in adj[v]))) for v in range(len(col))]
+class _VF2:
+    """A replay of networkx's VF2 ``GraphMatcher`` (``isomorphvf2.py``) for
+    the automorphisms of one graph with categorical node labels, as
+    ``GraphMatcher(g, g, node_match=categorical_node_match("element",
+    None)).isomorphisms_iter()`` runs it. The state is networkx's own:
+    the insertion-ordered ``core`` and ``inout`` dicts, the terminal-set
+    updates through a ``set`` built in the same order (so it iterates in the
+    same order), the candidate pairs ``T1 x {min T2}`` (or every unmapped
+    node against the least unmapped one) in node order, and the same
+    feasibility rules. So the mappings come in networkx's order."""
 
+    def __init__(self, labels: Sequence, adj: List[dict], loops: List[int]):
+        self.labels, self.adj, self.loops = labels, adj, loops
+        self.n = len(adj)
+        self.core_1: dict = {}
+        self.core_2: dict = {}
+        self.inout_1: dict = {}
+        self.inout_2: dict = {}
 
-def _search_order(adj: List[set], col: List[int]) -> List[int]:
-    """Atoms in breadth-first order, each component from an atom of its
-    rarest colour, so that every atom but a component's first has a
-    neighbour placed before it."""
-    n = len(adj)
-    size = {}
-    for c in col:
-        size[c] = size.get(c, 0) + 1
-    seen, order = [False] * n, []
-    for start in sorted(range(n), key=lambda v: (size[col[v]], v)):
-        if seen[start]:
-            continue
-        seen[start] = True
-        queue = [start]
-        while queue:
-            v = queue.pop(0)
-            order.append(v)
-            for u in sorted(adj[v]):
-                if not seen[u]:
-                    seen[u] = True
-                    queue.append(u)
-    return order
+    def _candidates(self):
+        core_1, core_2 = self.core_1, self.core_2
+        t1 = [v for v in self.inout_1 if v not in core_1]
+        t2 = [v for v in self.inout_2 if v not in core_2]
+        if t1 and t2:
+            other = min(t2)
+            return [(v, other) for v in t1]
+        other = min(v for v in range(self.n) if v not in core_2)
+        return [(v, other) for v in range(self.n) if v not in core_1]
+
+    def _feasible(self, n1: int, n2: int) -> bool:
+        if self.loops[n1] != self.loops[n2]:
+            return False
+        core_1, core_2 = self.core_1, self.core_2
+        a1, a2 = self.adj[n1], self.adj[n2]
+        for u in a1:
+            if u in core_1 and core_1[u] not in a2:
+                return False
+        for u in a2:
+            if u in core_2 and core_2[u] not in a1:
+                return False
+        in1, in2 = self.inout_1, self.inout_2
+        if (sum(1 for u in a1 if u in in1 and u not in core_1)
+                != sum(1 for u in a2 if u in in2 and u not in core_2)):
+            return False
+        if sum(1 for u in a1 if u not in in1) != sum(1 for u in a2 if u not in in2):
+            return False
+        return self.labels[n1] == self.labels[n2]
+
+    @staticmethod
+    def _grow(inout: dict, core: dict, adj: List[dict], node: int, depth: int) -> None:
+        if node not in inout:
+            inout[node] = depth
+        new_nodes = set()
+        for v in core:
+            new_nodes.update([u for u in adj[v] if u not in core])
+        for v in new_nodes:
+            if v not in inout:
+                inout[v] = depth
+
+    def run(self, found) -> None:
+        """Calls ``found(core_1)`` for every automorphism, in networkx's
+        order, until ``found`` raises ``_Stop``."""
+        core_1, core_2 = self.core_1, self.core_2
+        if len(core_1) == self.n:
+            found(core_1)
+            return
+        for n1, n2 in self._candidates():
+            if not self._feasible(n1, n2):
+                continue
+            core_1[n1], core_2[n2] = n2, n1
+            depth = len(core_1)
+            self._grow(self.inout_1, core_1, self.adj, n1, depth)
+            self._grow(self.inout_2, core_2, self.adj, n2, depth)
+            self.run(found)
+            del core_1[n1], core_2[n2]
+            for inout in (self.inout_1, self.inout_2):
+                for v in [v for v, d in inout.items() if d == depth]:
+                    del inout[v]
 
 
 def molecular_automorphisms(
@@ -73,53 +114,40 @@ def molecular_automorphisms(
     time_budget_s: float = 10.0,
 ) -> List[np.ndarray]:
     """Element-preserving graph automorphisms as index permutations
-    (``perm[src] = dst``), at most ``max_isomorphisms`` of them, searched
-    for at most ``time_budget_s`` seconds; the identity when none is found."""
+    (``perm[src] = dst``), in the order networkx's VF2 matcher yields them
+    for the graph built by adding nodes ``0..n-1`` and then ``bonds``. As in
+    the JAX package, each is appended and the search stops once
+    ``max_isomorphisms`` are kept or, after a permutation, once more than
+    ``time_budget_s`` seconds have passed; the identity when none is found.
+    The wall-clock budget is the one place where the two packages can
+    differ: each spends it at its own speed, so a search that the budget
+    cuts keeps a different prefix of the same sequence."""
     n = len(elements)
-    adj: List[set] = [set() for _ in range(n)]
-    loops = set()
+    adj: List[dict] = [{} for _ in range(n)]
+    loops = [0] * n
     for i, j in bonds:
+        adj[i][j] = adj[j][i] = True
         if i == j:
-            loops.add(i)
-        else:
-            adj[i].add(j)
-            adj[j].add(i)
-    col = _refined_colors(elements, adj, loops)
-    order = _search_order(adj, col)
-    pos = {v: k for k, v in enumerate(order)}
-    back = [[u for u in adj[v] if pos[u] < pos[v]] for v in order]
-    by_colour: dict = {}
-    for v in range(n):
-        by_colour.setdefault(col[v], []).append(v)
-
-    mapping, used = [-1] * n, [False] * n
+            loops[i] = 1
     perms: List[np.ndarray] = []
     t0 = time.time()
 
-    def extend(k: int) -> None:
-        if k == n:
-            perms.append(np.asarray(mapping, dtype=np.int64))
-            if len(perms) >= max_isomorphisms or time.time() - t0 > time_budget_s:
-                raise _Stop
-            return
-        v, prev = order[k], back[k]
-        cands = (sorted(adj[mapping[prev[0]]]) if prev else by_colour[col[v]])
-        for c in cands:
-            if used[c] or col[c] != col[v]:
-                continue
-            # the images of v's placed neighbours are exactly c's placed neighbours
-            if not all(mapping[u] in adj[c] for u in prev):
-                continue
-            if sum(used[x] for x in adj[c]) != len(prev):
-                continue
-            mapping[v], used[c] = c, True
-            extend(k + 1)
-            mapping[v], used[c] = -1, False
+    def found(core: dict) -> None:
+        perm = np.empty(n, dtype=np.int64)
+        for src, dst in core.items():
+            perm[src] = dst
+        perms.append(perm)
+        if len(perms) >= max_isomorphisms or time.time() - t0 > time_budget_s:
+            raise _Stop
 
+    limit = sys.getrecursionlimit()
+    sys.setrecursionlimit(max(limit, 2 * n + 100))
     try:
-        extend(0)
+        _VF2(list(elements), adj, loops).run(found)
     except _Stop:
         pass
+    finally:
+        sys.setrecursionlimit(limit)
     if not perms:
         perms = [np.arange(n)]
     return perms

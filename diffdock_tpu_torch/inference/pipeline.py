@@ -23,10 +23,17 @@ each entry's first chunk, which pays the one-time costs (the kernels'
 build, the allocator's growth to the entry's shapes), is not judged.
 ``dock_batch`` docks several complexes one after the other.
 
-Not ported yet: confidence models of the new architectures, the
-confidence model's receptor crop, affinity prediction, the host-side
-receptor pre-crop (``pre_crop_radius``) and the device mesh; asking for
-any of them raises.
+With ``crop_beyond`` in the score model's config, the receptor is cropped
+as in the JAX pipeline: on the host before bucketing (``pre_crop_radius``,
+a radius that covers every step's crop by default), then at each step to
+the residues within 3 tr_sigma(t) + ``crop_beyond`` of some pose, by mask
+or, with ``pocket_capacity``, by gathering the nearest residues into a
+smaller receptor; the receptor embedding is then computed at every step.
+A confidence model with ``crop_beyond`` keeps the residues within that
+distance of the final poses.
+
+Not ported yet: confidence models of the new architectures, affinity
+prediction and the device mesh; asking for any of them raises.
 """
 
 from __future__ import annotations
@@ -47,10 +54,16 @@ from diffdock_tpu_torch.data.complexes import (
     ComplexData,
     atom_bucket,
     bucket_sizes,
+    compact_receptor,
+    crop_aa_complex,
+    crop_complex,
     pad_aa_to,
     pad_to,
+    pocket_indices,
+    rec_keep_mask,
     to_device,
 )
+from diffdock_tpu_torch.diffusion.schedules import t_to_sigma
 from diffdock_tpu_torch.diffusion.so3 import SO3Tables, get_so3_tables
 from diffdock_tpu_torch.diffusion.torus import TorusTables, get_torus_tables
 from diffdock_tpu_torch.geometry import use_full_fp32
@@ -186,8 +199,13 @@ class DockingPipeline:
     cover ladder on a CUDA device (where the JAX package says a TPU
     backend) and 0 (off) otherwise.
 
-    ``pre_crop_radius``, ``pocket_capacity`` and ``mesh`` are options of
-    the JAX pipeline that are not ported; setting one raises.
+    ``pre_crop_radius``: the host crop before padding drops the residues
+    farther than this from every atom of the input ligand; None derives,
+    when the score config sets ``crop_beyond``, a radius that covers every
+    step's crop, as the JAX pipeline does. ``pocket_capacity``: with
+    ``crop_beyond``, each step gathers at most this many nearest residues
+    into a smaller receptor instead of masking. ``mesh`` is not ported;
+    setting it raises.
     """
 
     def __init__(
@@ -208,14 +226,8 @@ class DockingPipeline:
         mesh=None,
         anomaly_guard: Optional[float] = None,
     ):
-        not_ported = {
-            "pre_crop_radius (needs crop_beyond, ROADMAP queue 1 item 5)": pre_crop_radius is not None,
-            "pocket_capacity (ROADMAP queue 1 item 5)": pocket_capacity is not None,
-            "a device mesh (ROADMAP queue 1 item 8)": mesh is not None,
-        }
-        bad = [k for k, v in not_ported.items() if v]
-        if bad:
-            raise ConfigError(f"not ported yet: {', '.join(bad)}")
+        if mesh is not None:
+            raise ConfigError("not ported yet: a device mesh (ROADMAP queue 1 item 8)")
         if bucket_ladder not in ("fine", "fine_dense", "cover"):
             raise ValueError(f"unknown bucket_ladder {bucket_ladder!r}")
         use_full_fp32()
@@ -226,6 +238,12 @@ class DockingPipeline:
         self._warm_entries: Set[Tuple[int, int, int, int]] = set()
         self.score_cfg = score_cfg
         self.sampler_cfg = sampler_cfg
+        if pre_crop_radius is None and score_cfg.crop_beyond is not None:
+            pre_crop_radius = (3.0 * score_cfg.sigma.tr_sigma_max
+                               * max(sampler_cfg.initial_noise_std_proportion, 1.0)
+                               + score_cfg.crop_beyond + 10.0)
+        self.pre_crop_radius = pre_crop_radius
+        self.pocket_capacity = pocket_capacity
         self.model = _with_weights(CGScoreModel(score_cfg, reference_kernels=reference_kernels),
                                    score_weights, self.device)
         self.confidence_cfg = confidence_cfg
@@ -260,11 +278,32 @@ class DockingPipeline:
                 aa_data = aa_data._replace(base=data)
         return data, aa_data
 
+    def pre_crop(self, data: ComplexData, aa_data: Optional[AAComplexData] = None):
+        """(data, aa_data) without ``rec_scv`` and, with ``pre_crop_radius``,
+        without the residues (and their atoms) farther than it from every
+        atom of the input ligand: the JAX pipeline's host crop before
+        bucketing. A complex it keeps whole comes back as it was, so a
+        second call changes nothing."""
+        data, aa_data = self._normalize_inference_data(data, aa_data)
+        if self.pre_crop_radius is None:
+            return data, aa_data
+        keep = rec_keep_mask(np.asarray(data.rec_pos), np.asarray(data.rec_mask),
+                             np.asarray(data.lig_pos)[None], np.asarray(data.lig_mask),
+                             self.pre_crop_radius)
+        if keep.all():
+            return data, aa_data
+        data = crop_complex(data, keep)
+        if aa_data is not None:
+            aa_data = crop_aa_complex(aa_data, keep)._replace(base=data)
+        return data, aa_data
+
     def dock_bucket(self, data: ComplexData):
         """((nl, nr, nb), cover entry or None): the padded bucket this
         pipeline docks the complex in. With the cover ladder, the first
         entry that fits and is not quarantined; otherwise, and for a complex
-        no entry fits, the fine (or dense) ladder's bucket."""
+        no entry fits, the fine (or dense) ladder's bucket; of the complex
+        after :meth:`pre_crop`."""
+        data, _ = self.pre_crop(data)
         if self.bucket_ladder == "cover":
             cov = ladder.cover_bucket(data.n_lig, data.n_rec, data.n_bonds, exclude=self._quarantined)
             if cov is not None:
@@ -278,7 +317,8 @@ class DockingPipeline:
         In a cover entry: its pose count, capped at :func:`auto_pose_chunk`
         of its bucket, and an explicit ``batch_size`` capped there.
         Otherwise ``batch_size`` (all poses when None), capped at
-        :func:`auto_pose_chunk` of the bucket."""
+        :func:`auto_pose_chunk` of the bucket. The bucket is that of the
+        complex after :meth:`pre_crop`."""
         (nl, nr, _), cov = self.dock_bucket(data)
         chunk = batch_size
         cap = auto_pose_chunk(nl, nr)
@@ -318,7 +358,7 @@ class DockingPipeline:
         Each chunk resolves its bucket anew, as in the JAX pipeline, so a
         chunk after one that tripped the anomaly guard runs in the next
         cover entry."""
-        data, aa_data = self._normalize_inference_data(data, aa_data)
+        data, aa_data = self.pre_crop(data, aa_data)
         noise = noise if noise is not None else self.draw_noise
         chunk = self.effective_pose_chunk(data, num_poses, batch_size)
         if chunk < num_poses:
@@ -393,7 +433,8 @@ class DockingPipeline:
         pocket = (None if pocket_center is None else
                   torch.as_tensor(np.asarray(pocket_center, np.float32).reshape(3), device=self.device))
 
-        rec_cache = self.model.embed_receptor(padded)
+        crop = scfg.crop_beyond is not None
+        rec_cache = None if crop else self.model.embed_receptor(padded)
         init = randomize_position(
             padded, num_poses,
             sampler.pocket_tr_max if sampler.pocket_tr_max is not None else scfg.sigma.tr_sigma_max,
@@ -406,6 +447,8 @@ class DockingPipeline:
         )
 
         def score_fn(poses, t):
+            if crop:
+                return self._cropped_score(padded, poses, t)
             step = self.model.step_cache(padded, t, rec_cache)
             return self.model(padded, poses, t, self.so3, self.torus,
                               rec_cache=rec_cache, step_cache=step)
@@ -423,18 +466,40 @@ class DockingPipeline:
         if conf_data is None:
             return DockingResult(poses=poses, confidence=None, order=np.arange(num_poses),
                                  trajectory=traj)
-        conf = self.confidence(conf_data, final).cpu().numpy()
+        keep = None
+        if self.confidence_cfg.crop_beyond is not None:
+            # plain crop_beyond, no sigma term, over the final pose batch
+            keep = rec_keep_mask(padded.rec_pos, padded.rec_mask, final, padded.lig_mask,
+                                 self.confidence_cfg.crop_beyond)
+        conf = self.confidence(conf_data, final, rec_keep=keep).cpu().numpy()
         return DockingResult(poses=poses, confidence=conf, order=np.argsort(-conf),
                              trajectory=traj)
+
+    def _cropped_score(self, padded: ComplexData, poses: torch.Tensor, t: torch.Tensor):
+        """The score forward under ``crop_beyond``: the residues within
+        3 tr_sigma(t) + crop_beyond of some pose of the batch, by mask or,
+        with ``pocket_capacity``, gathered into a receptor of at most that
+        many residues; the receptor embedding is computed under the crop."""
+        scfg = self.score_cfg
+        tr_sigma, _, _ = t_to_sigma(t, t, t, scfg.sigma)
+        cutoff = 3.0 * tr_sigma + scfg.crop_beyond
+        if self.pocket_capacity is not None:
+            cap = min(self.pocket_capacity, padded.rec_mask.shape[0])
+            idx, valid = pocket_indices(padded.rec_pos, padded.rec_mask, poses, padded.lig_mask,
+                                        cutoff, cap)
+            return self.model(compact_receptor(padded, idx, valid), poses, t, self.so3, self.torus)
+        keep = rec_keep_mask(padded.rec_pos, padded.rec_mask, poses, padded.lig_mask, cutoff)
+        return self.model(padded, poses, t, self.so3, self.torus, rec_keep=keep)
 
     def confidence_input(self, data: ComplexData, aa_data: Optional[AAComplexData] = None,
                          padded: Optional[ComplexData] = None, bucket=None):
         """The confidence model's padded input on the device (None without a
         confidence model): the all-atom tree padded to the complex's bucket
         (``bucket``, or :meth:`dock_bucket`'s) and its atom bucket, or the
-        padded coarse-grained complex."""
+        padded coarse-grained complex; of the complex after :meth:`pre_crop`."""
         if self.confidence_model is None:
             return None
+        data, aa_data = self.pre_crop(data, aa_data)
         nl, nr, nb = bucket if bucket is not None else self.dock_bucket(data)[0]
         if not self.confidence_cfg.all_atoms:
             return padded if padded is not None else to_device(pad_to(data, nl, nr, nb), self.device)
@@ -452,11 +517,13 @@ class DockingPipeline:
         return auto_confidence_chunk(lig_pos.shape[0], n_nodes, num_poses)
 
     @torch.inference_mode()
-    def confidence(self, conf_data, poses: torch.Tensor) -> torch.Tensor:
+    def confidence(self, conf_data, poses: torch.Tensor,
+                   rec_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Confidence of each padded pose (P, NL, 3) at t = 0, chunk by chunk
-        (each pose's confidence does not depend on its chunk); NaN -> -1000."""
+        (each pose's confidence does not depend on its chunk); NaN -> -1000.
+        ``rec_keep``: the confidence model's receptor crop."""
         c = self.confidence_chunk_for(conf_data, poses.shape[0])
-        out = torch.cat([self.confidence_model(conf_data, poses[i : i + c], 0.0)
+        out = torch.cat([self.confidence_model(conf_data, poses[i : i + c], 0.0, rec_keep=rec_keep)
                          for i in range(0, poses.shape[0], c)])
         return torch.nan_to_num(out[..., 0], nan=-1000.0)
 

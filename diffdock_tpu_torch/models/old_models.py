@@ -25,18 +25,25 @@ them:
 * the AA ligand<-atom edges embed distances with the CROSS distance
   expansion despite their 5 A cutoff.
 
-Only confidence mode is ported; the old family's score mode, receptor
-crops (``crop_beyond``/``rec_keep``) and the affinity column raise
-``ConfigError``. Submodule names follow the flax tree (see
-``utils/convert.py``).
+Only confidence mode is ported; the old family's score mode and the
+affinity column raise ``ConfigError``. ``rec_keep`` crops the receptor
+(the pipeline's ``crop_beyond``), as in the JAX models. Submodule names
+follow the flax tree (see ``utils/convert.py``).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
-from diffdock_tpu_torch.data.complexes import AAComplexData, ComplexData
+from diffdock_tpu_torch.data.complexes import (
+    AAComplexData,
+    ComplexData,
+    apply_rec_keep,
+    apply_rec_keep_aa,
+)
 from diffdock_tpu_torch.diffusion.time_embed import get_timestep_embedding
 from diffdock_tpu_torch.models.config import ConfigError, ScoreModelConfig
 from diffdock_tpu_torch.models.encoders import GaussianSmearing, MLP2, OldAtomEncoder
@@ -56,7 +63,6 @@ def _check_supported(cfg: ScoreModelConfig) -> None:
         "odd_parity": cfg.odd_parity,
         "use_old_atom_encoder=False": not cfg.use_old_atom_encoder,
         "affinity_prediction": cfg.affinity_prediction,
-        "crop_beyond": cfg.crop_beyond is not None,
         "depthwise_convolution": cfg.depthwise_convolution,
         "factored_tp=False": not cfg.factored_tp,
         f"compute_dtype={cfg.compute_dtype}": cfg.compute_dtype != "float32",
@@ -208,9 +214,14 @@ class OldCGScoreModel(nn.Module):
         return t, self._sigma_embedding(t)
 
     # ------------------------------------------------------------------
-    def forward(self, data: ComplexData, lig_pos: torch.Tensor, t=0.0) -> torch.Tensor:
+    def forward(self, data: ComplexData, lig_pos: torch.Tensor, t=0.0,
+                rec_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Confidence outputs (P, num_confidence_outputs) for the poses
-        ``lig_pos`` (P, NL, 3) at time ``t`` (the pipeline passes 0)."""
+        ``lig_pos`` (P, NL, 3) at time ``t`` (the pipeline passes 0);
+        ``rec_keep`` (NR,) bool crops the receptor
+        (:func:`~diffdock_tpu_torch.data.complexes.apply_rec_keep`)."""
+        if rec_keep is not None:
+            data = apply_rec_keep(data, rec_keep)
         cfg = self.cfg
         ns = cfg.ns
         P, nl = lig_pos.shape[:2]
@@ -295,9 +306,14 @@ class OldAAScoreModel(OldCGScoreModel):
         )
         self._build_old_confidence_mlp()
 
-    def forward(self, data: AAComplexData, lig_pos: torch.Tensor, t=0.0) -> torch.Tensor:
+    def forward(self, data: AAComplexData, lig_pos: torch.Tensor, t=0.0,
+                rec_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Confidence outputs (P, num_confidence_outputs) for the poses
-        ``lig_pos`` (P, NL, 3) at time ``t`` (the pipeline passes 0)."""
+        ``lig_pos`` (P, NL, 3) at time ``t`` (the pipeline passes 0);
+        ``rec_keep`` (NR,) bool crops the receptor and its atoms
+        (:func:`~diffdock_tpu_torch.data.complexes.apply_rec_keep_aa`)."""
+        if rec_keep is not None:
+            data = apply_rec_keep_aa(data, rec_keep)
         cfg = self.cfg
         ns = cfg.ns
         base = data.base

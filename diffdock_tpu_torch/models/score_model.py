@@ -30,7 +30,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
-from diffdock_tpu_torch.data.complexes import ComplexData
+from diffdock_tpu_torch.data.complexes import ComplexData, apply_rec_keep
 from diffdock_tpu_torch.diffusion.schedules import t_to_sigma
 from diffdock_tpu_torch.diffusion.so3 import SO3Tables
 from diffdock_tpu_torch.diffusion.time_embed import get_timestep_embedding
@@ -121,7 +121,6 @@ def _check_supported(cfg: ScoreModelConfig) -> None:
         "all_atoms": cfg.all_atoms,
         "depthwise_convolution": cfg.depthwise_convolution,
         "sidechain_pred": cfg.sidechain_pred,
-        "crop_beyond (ROADMAP queue 1 item 5)": cfg.crop_beyond is not None,
         "factored_tp=False": not cfg.factored_tp,
         f"compute_dtype={cfg.compute_dtype} (ROADMAP queue 1 item 5)": cfg.compute_dtype != "float32",
     }
@@ -414,6 +413,7 @@ class CGScoreModel(nn.Module):
         torus_tables: TorusTables,
         rec_cache: Optional[RecCache] = None,
         step_cache=None,
+        rec_keep: Optional[torch.Tensor] = None,
     ) -> ScoreOutput:
         """Scores for a batch of poses ``lig_pos`` (P, NL, 3).
 
@@ -423,9 +423,17 @@ class CGScoreModel(nn.Module):
         precomputed. Training: ``data`` is a stacked batch of P complexes
         (fields (P, ...)), pose p belongs to complex p and ``t`` is (P,); the
         receptor embedding and the layer-0 rec<-rec message are computed
-        inline, under autograd (the JAX trainer's ``vmap`` over complexes)."""
+        inline, under autograd (the JAX trainer's ``vmap`` over complexes).
+        ``rec_keep`` (NR,) bool: the receptor crop of ``crop_beyond``
+        (:func:`~diffdock_tpu_torch.data.complexes.apply_rec_keep`) for one
+        complex; the receptor embedding is then computed under the crop,
+        so ``rec_cache`` and ``step_cache`` must be None."""
         cfg = self.cfg
         P, nl = lig_pos.shape[:2]
+        if rec_keep is not None:
+            if rec_cache is not None or step_cache is not None:
+                raise ValueError("rec_keep recomputes the receptor embedding: pass no rec_cache or step_cache")
+            data = apply_rec_keep(data, rec_keep)
         batched = _is_batched(data)
         db = data if batched else _batched(data)
         nr = db.rec_pos.shape[1]

@@ -28,7 +28,7 @@ import torch
 from diffdock_tpu_torch.data.complexes import ComplexData
 from diffdock_tpu_torch.diffusion.so3 import SO3Tables
 from diffdock_tpu_torch.diffusion.torus import TorusTables
-from diffdock_tpu_torch.models.config import ScoreModelConfig
+from diffdock_tpu_torch.models.config import ConfigError, ScoreModelConfig
 from diffdock_tpu_torch.models.score_model import CGScoreModel
 from diffdock_tpu_torch.train.losses import per_complex_losses, sigma_interval_metrics, total_loss
 from diffdock_tpu_torch.train.noise import NoiseDraws, apply_noise
@@ -154,6 +154,13 @@ def create_train_state(model: CGScoreModel, train_cfg: TrainConfig) -> TrainStat
     )
 
 
+def _refuse_crop(cfg: ScoreModelConfig) -> None:
+    """The JAX trainer crops each complex's receptor at 3 tr_sigma +
+    ``crop_beyond``; this trainer does not yet."""
+    if cfg.crop_beyond is not None:
+        raise ConfigError("not ported yet: training with crop_beyond (ROADMAP queue 1 item 3)")
+
+
 def _forward_losses(model, batch: ComplexData, draws: NoiseDraws, train_cfg: TrainConfig,
                     so3: SO3Tables, torus: TorusTables):
     cfg = model.cfg
@@ -174,6 +181,7 @@ def make_eval_step(model: CGScoreModel, train_cfg: TrainConfig, so3: SO3Tables,
     training, in evaluation mode (running statistics, no dropout, no
     gradients), with the state's raw parameters — the reference's
     ``test_epoch``. ``eval_step(state, batch, draws) -> metrics``."""
+    _refuse_crop(model.cfg)
 
     def eval_step(state: TrainState, batch: ComplexData, draws: NoiseDraws):
         model.eval()
@@ -191,6 +199,7 @@ def make_train_step(model: CGScoreModel, train_cfg: TrainConfig, so3: SO3Tables,
     The model's parameters and running statistics (``state.params``,
     ``state.batch_stats``) move in place; ``state.grads`` keeps the step's
     gradients by parameter name."""
+    _refuse_crop(model.cfg)
     tx = make_optimizer(train_cfg)
 
     def train_step(state: TrainState, batch: ComplexData, draws: NoiseDraws):

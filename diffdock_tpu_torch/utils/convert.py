@@ -152,3 +152,37 @@ def flax_from_model(model: torch.nn.Module,
     if not tree["batch_stats"]:
         del tree["batch_stats"]
     return tree
+
+
+def build_model(cfg: ScoreModelConfig) -> torch.nn.Module:
+    """The port model of ``cfg`` on the CPU: the old family's confidence
+    models, or the coarse-grained score model."""
+    from diffdock_tpu_torch.models.old_models import build_confidence_model
+    from diffdock_tpu_torch.models.score_model import CGScoreModel
+
+    if cfg.confidence_mode or cfg.old_architecture:
+        return build_confidence_model(cfg)
+    return CGScoreModel(cfg)
+
+
+def load_converted(params: Mapping, batch_stats: Mapping, report: Mapping,
+                   cfg: ScoreModelConfig) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of the port model of ``cfg`` from an importer's
+    ``(params, batch_stats, report)``
+    (:func:`diffdock_tpu_torch.utils.torch_import.convert_state_dict`).
+    Nothing is guessed: a reference key the importer left unconsumed, a
+    model entry the tree does not produce, an entry the model does not
+    have and a shape that differs each raise, naming the keys."""
+    unconsumed = list(report.get("unconsumed", ()))
+    if unconsumed:
+        raise ValueError(f"{len(unconsumed)} reference keys were not consumed: {unconsumed}")
+    sd = state_dict_from_flax({"params": params, "batch_stats": batch_stats}, cfg)
+    want = build_model(cfg).state_dict()
+    missing = sorted(set(want) - set(sd))
+    extra = sorted(set(sd) - set(want))
+    shapes = sorted(k for k in set(sd) & set(want) if tuple(sd[k].shape) != tuple(want[k].shape))
+    if missing or extra or shapes:
+        raise ValueError(
+            f"converted weights do not fit the model: missing {missing}, not in the model "
+            f"{extra}, shapes differ {[(k, tuple(sd[k].shape), tuple(want[k].shape)) for k in shapes]}")
+    return sd

@@ -160,7 +160,7 @@ def test_confidence_chunks_do_not_change_results(tables):
 
 def test_unported_confidence_configurations_are_refused():
     for kw in (dict(confidence_mode=False), dict(old_architecture=False), dict(affinity_prediction=True),
-               dict(crop_beyond=20.0), dict(odd_parity=True), dict(use_old_atom_encoder=False),
+               dict(odd_parity=True), dict(use_old_atom_encoder=False),
                dict(compute_dtype="bfloat16")):
         cfg = dataclasses.replace(ScoreModelConfig(**_conf_kw(True, 0, 2)), **kw)
         with pytest.raises(ConfigError):
@@ -170,3 +170,5 @@ def test_unported_confidence_configurations_are_refused():
                             confidence_weights=0, so3_tables=object(), torus_tables=object())
     with pytest.raises(ConfigError):
         OldAAScoreModel(ScoreModelConfig(**_conf_kw(False, 0, 2)))
+    # crop_beyond is ported (tests/test_torch_port_crop.py)
+    build_confidence_model(dataclasses.replace(ScoreModelConfig(**_conf_kw(True, 0, 2)), crop_beyond=20.0))

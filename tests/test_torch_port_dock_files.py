@@ -354,8 +354,7 @@ def test_cli_config_overrides_and_refusals(setup, tables, monkeypatch, tmp_path,
     assert "unknown config key 'bogus'" in capsys.readouterr().err
     score_dir, conf_dir = _write_run_dirs(setup, tmp_path)
     base = ["--model_dir", str(score_dir), "--device", "cpu"]
-    for extra, match in ((["--compute_dtype", "bfloat16"], "item 5"), (["--crop_beyond", "5"], "crop_beyond.*item 5"),
-                         (["--pocket_capacity", "10"], "pocket_capacity"), (["--pose_devices", "2"], "item 8")):
+    for extra, match in ((["--compute_dtype", "bfloat16"], "item 5"), (["--pose_devices", "2"], "item 8")):
         with pytest.raises(ConfigError, match=match):
             dock.load_pipeline(dock.get_parser().parse_args(base + extra))
     # the bucket ladders are ported: the guard stays off on the CPU
@@ -364,15 +363,29 @@ def test_cli_config_overrides_and_refusals(setup, tables, monkeypatch, tmp_path,
     for ladder in ("fine_dense", "cover"):
         pipe = dock.load_pipeline(dock.get_parser().parse_args(base + ["--bucket_ladder", ladder]))
         assert pipe.bucket_ladder == ladder and pipe.anomaly_guard == 0.0
+    # the crop options reach the config and the pipeline
+    pipe = dock.load_pipeline(dock.get_parser().parse_args(base + ["--crop_beyond", "5", "--pocket_capacity", "10"]))
+    assert pipe.score_cfg.crop_beyond == 5.0 and pipe.pocket_capacity == 10 and pipe.pre_crop_radius > 5.0
+    # a reference .pt directory is converted (tests/test_torch_port_import_weights.py); an
+    # unreadable checkpoint fails there
     ref_dir = tmp_path / "reference"
     ref_dir.mkdir()
     (ref_dir / "best_ema_inference_epoch_model.pt").write_bytes(b"")
     (ref_dir / "model_parameters.yml").write_text("ns: 16\n")
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    with pytest.raises(EOFError):
         dock.load_pipeline(dock.get_parser().parse_args(["--model_dir", str(ref_dir), "--device", "cpu"]))
-    with pytest.raises(FileNotFoundError):
+    # a missing directory is downloaded first: with no network, every URL fails
+    from diffdock_tpu_torch.utils import download
+
+    def no_network(url, timeout):
+        raise OSError("no network")
+
+    monkeypatch.setattr(download, "_default_opener", no_network)
+    with pytest.raises(RuntimeError, match="failed to download"):
         dock.load_pipeline(dock.get_parser().parse_args(["--model_dir", str(tmp_path / "nope")]))
-    for kw in (dict(pre_crop_radius=10.0), dict(pocket_capacity=5), dict(mesh=object())):
-        with pytest.raises(ConfigError, match="not ported"):
-            DockingPipeline(ScoreModelConfig(**SKW), 0, device="cpu", **kw)
+    with pytest.raises(ConfigError, match="not ported"):
+        DockingPipeline(ScoreModelConfig(**SKW), 0, device="cpu", mesh=object())
+    for kw in (dict(pre_crop_radius=10.0), dict(pocket_capacity=5)):
+        assert DockingPipeline(ScoreModelConfig(**SKW), 0, device="cpu", so3_tables=tables[2],
+                               torus_tables=tables[3], **kw).pre_crop_radius == kw.get("pre_crop_radius")
     assert dock.main(["--device", "cpu"]) == 2

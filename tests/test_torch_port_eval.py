@@ -3,12 +3,11 @@ automorphisms, symmetry-corrected RMSD, metric tables, the evaluate CLI's
 artifact writer and the gnina hook.
 
 The JAX package enumerates automorphisms with networkx's VF2 matcher; the
-port has its own search (networkx is not on the card's machine). The sets
-must be equal (their order may differ) on every e2e_synth ligand and on
-symmetric molecules whose counts stay under the 10,000 cap. Where the cap
-cuts a search short the two packages keep different subsets, so that case
-is held only to "every permutation kept is an automorphism". The RMSDs are
-float64 numpy in both packages and agree to 1e-10.
+port replays that matcher in plain Python (networkx is not on the card's
+machine), so the permutations are equal in order on every e2e_synth ligand,
+on symmetric molecules, and where the cap cuts a search short
+(``tests/test_torch_port_vf2.py`` holds the same past the 10,000 cap). The
+RMSDs are float64 numpy in both packages and agree to 1e-10.
 """
 
 import json
@@ -79,6 +78,7 @@ def test_automorphisms_equal_networkx_on_every_e2e_synth_ligand(name):
     ref = jrmsd.molecular_automorphisms(mol.elements, bonds)
     assert len(ref) < 10000
     assert _as_set(ours) == _as_set(ref)
+    assert [p.tolist() for p in ours] == [p.tolist() for p in ref]
 
 
 @pytest.mark.parametrize("name", sorted(SYMMETRIC))
@@ -88,6 +88,7 @@ def test_automorphisms_equal_networkx_on_symmetric_molecules(name):
     ref = jrmsd.molecular_automorphisms(elements, bonds)
     assert len(ref) == count
     assert _as_set(ours) == _as_set(ref)
+    assert [p.tolist() for p in ours] == [p.tolist() for p in ref]
     # the same set whatever the atom numbering: relabel the graph at random
     rng = np.random.RandomState(len(name))
     perm = rng.permutation(len(elements))
@@ -100,11 +101,13 @@ def test_automorphisms_equal_networkx_on_symmetric_molecules(name):
 
 def test_automorphism_caps():
     """A star of 8 leaves has 40,320 automorphisms: past the cap the search
-    stops with valid automorphisms (a subset that may differ from
-    networkx's); with no time left it stops after the first."""
+    stops with networkx's first 100, in its order; with no time left it
+    stops after the first."""
     elements, bonds = ["C"] * 9, [(0, i) for i in range(1, 9)]
     capped = rmsd.molecular_automorphisms(elements, bonds, max_isomorphisms=100)
+    ref = jrmsd.molecular_automorphisms(elements, bonds, max_isomorphisms=100, time_budget_s=1e9)
     assert len(_as_set(capped)) == 100
+    assert [p.tolist() for p in capped] == [p.tolist() for p in ref]
     assert all(_is_automorphism(p.tolist(), elements, bonds) for p in capped)
     first = rmsd.molecular_automorphisms(elements, bonds, time_budget_s=0.0)
     assert len(first) == 1 and _is_automorphism(first[0].tolist(), elements, bonds)

@@ -204,14 +204,18 @@ def test_parser_has_every_jax_flag_with_its_default():
     assert "--device" in evaluate.get_parser().format_help()
 
 
-def test_unported_options_raise(run_dirs, tmp_path):
+def test_unported_options_raise(run_dirs, tables, monkeypatch, tmp_path):  # noqa: F811
     _, _, _, score_dir, conf_dir = run_dirs
     base = argv(tmp_path, score_dir, conf_dir, "--device", "cpu", "--out_dir", str(tmp_path / "o"),
                 "--cache_path", str(tmp_path / "c"))
-    for extra, match in ((["--compute_dtype", "bfloat16"], "item 5"), (["--crop_beyond", "5"], "item 5"),
-                         (["--pocket_capacity", "10"], "item 5"), (["--complex_devices", "0"], "item 8")):
+    for extra, match in ((["--compute_dtype", "bfloat16"], "item 5"), (["--complex_devices", "0"], "item 8")):
         with pytest.raises(ConfigError, match=match):
             evaluate.main(base + extra)
+    # the crop options are ported: they reach the pipeline
+    patch_tables_and_draws(monkeypatch, tables)
+    args = evaluate.get_parser().parse_args(base + ["--crop_beyond", "5", "--pocket_capacity", "10"])
+    pipe = evaluate.build_pipeline(args)
+    assert pipe.score_cfg.crop_beyond == 5.0 and pipe.pocket_capacity == 10
     with pytest.raises(SystemExit, match="not found"):
         evaluate.main(base + ["--no_rec_overlap_names", str(tmp_path / "absent.txt")])
 

@@ -179,8 +179,14 @@ def test_unported_options_raise_and_name_their_item(tmp_path, flags, item):
 
 
 def test_crop_beyond_is_refused_by_the_model():
-    with pytest.raises(ConfigError, match="crop_beyond.*item 5"):
-        CGScoreModel(ScoreModelConfig(crop_beyond=20.0))
+    """The model crops (the dock's crop_beyond is ported); the trainer's
+    per-complex crop is not, so the train and eval steps refuse it."""
+    from diffdock_tpu_torch.train.trainer import TrainConfig, make_eval_step, make_train_step
+
+    model = CGScoreModel(ScoreModelConfig(ns=8, nv=2, num_conv_layers=1, crop_beyond=20.0))
+    for make in (make_train_step, make_eval_step):
+        with pytest.raises(ConfigError, match="crop_beyond.*item 3"):
+            make(model, TrainConfig(), None, None)
 
 
 @pytest.mark.parametrize("scheduler", ["plateau", "layer_linear_warmup"])
