@@ -131,6 +131,31 @@ F. reference run directories: the DiffDock-L score model (seed 0) and the
    confidences and ranking as in phase 5), each dock's wall and device-busy
    share, and fused_tp3 against its plain version and timed beside its
    bound at the pocket's row count.
+G. confidence training and new-architecture ranking: G1 fused_tp3's
+   gradient against its plain version's (as E1) at the training blocks of
+   the coarse-grained confidence model at DiffDock-L width (three) and of
+   the all-atom one at the shipped model's width (its nine edge types),
+   four complexes at the shared (48, 704) bucket with 3328 atom rows; G2
+   ``diffdock_tpu_torch.cli.confidence_train.main`` on eight e2e_synth
+   complexes (four of (48, 320), four of (48, 704), padded by the CLI to
+   one bucket): the CG model (``--ns 48 --nv 10 --num_conv_layers 3
+   --num_prot_emb_layers 3``) generating 4 poses per complex with random
+   score weights at those widths (``--cache_id 0``), then the all-atom
+   model (``--all_atoms --ns 24 --nv 6 --num_conv_layers 5``) on the same
+   caches (``--cache_ids_to_combine 0``), batch 4, 2 epochs each. Gates:
+   the 8 caches (poses (4, 48, 3), finite RMSDs), exact fused_tp3 counts
+   for every generation dock and every step (one VJP per forward launch),
+   no plain version, no generation in the second run, finite losses,
+   ``last_model.msgpack`` read back bit for bit; G3 one step from each
+   saved state through the kernels and through the plain versions for BCE,
+   CE (cutoffs 2 and 5, the head's last layer drawn at that width) and
+   MSE, under phase E3's limits, the leaves whose exact gradient is zero
+   held apart; G4 the warm step's wall (median and range of 5 after 2),
+   peak memory and ``torch.profiler`` over one step, per model; G5
+   ``syn016_l36r224`` docked through the dock CLI's ``load_pipeline``
+   (``diffdock_l`` preset) and ranked by each run directory: exact counts
+   (the receptor embedded once), and the plain models' confidences on the
+   same poses within CONF_RTOL of scale, the same ranking.
 
 It then prints the card line (``nvidia-smi --query-gpu=name,power.limit``),
 one JSON line with the kernels' numbers, and, last, the result line
@@ -431,7 +456,8 @@ def docks_agree(res, ref_res, pose_tol: float = POSE_ATOL) -> dict:
 
 def dock_launches(pipe, cfg, ccfg, data, aa, poses: int, batch_size=None) -> int:
     """fused_tp3 launches of one ``dock_complex`` of ``poses`` poses: per
-    pose chunk one score dock and its confidence forwards, in the bucket the
+    pose chunk one score dock, a new-architecture confidence model's
+    receptor embedding and its confidence forwards, in the bucket the
     pipeline's ladder gives the complex."""
     from diffdock_tpu_torch.models.old_models import confidence_launches
 
@@ -439,6 +465,7 @@ def dock_launches(pipe, cfg, ccfg, data, aa, poses: int, batch_size=None) -> int
     conf_chunk = pipe.confidence_chunk_for(pipe.confidence_input(data, aa), chunk)
     nb = pipe.dock_bucket(data)[0][2]
     return -(-poses // chunk) * (expected_tp3_launches(cfg, pipe.sampler_cfg.num_steps, nb)
+                                 + confidence_launches(ccfg, embed=True)
                                  + -(-chunk // conf_chunk) * confidence_launches(ccfg))
 
 
@@ -697,6 +724,7 @@ def run(args) -> dict:
         score_blocks = dict(list(blocks_all.items())[:3])
         report["train"] = train_phase(args, Path(tmp), cfg, kernels, score_blocks, card, dev)
         report["reference_dirs"] = reference_dirs(args, Path(tmp), cfg, ccfg, kernels, card)
+        report["confidence"] = confidence_phase(args, Path(tmp), kernels, card, dev)
 
     sources = {"fused_tp3": "diffdock_tpu/ops/pallas_tpconv3.py:57",
                "factored_tp2": "diffdock_tpu/ops/pallas_tpconv2.py:125",
@@ -2222,6 +2250,420 @@ def reference_dirs(args, tmp: Path, cfg, ccfg, kernels, card: str) -> dict:
     _log(f"[F reference run dirs] {name} | conversion {report['conversion_s']:.2f} s | "
          f"crop docks {report['crop_mask']['wall_s']:.2f} / {report['crop_pocket']['wall_s']:.2f} s | "
          f"{card} | phase {time.perf_counter() - t_start:.1f} s")
+    return report
+
+
+# phase G: confidence training and new-architecture ranking on the card.
+# Eight of phase E's complexes, the first four of the (48, 320) bucket and
+# the last four of (48, 704), padded by the CLI to one bucket, (48, 704),
+# with 3328 receptor-atom rows for the all-atom model
+CONF_COMPLEXES = TRAIN_COMPLEXES[:4] + TRAIN_COMPLEXES[-4:]
+# the coarse-grained confidence model at DiffDock-L's width and depth (the
+# JAX CLI has no ESM or reduce_pseudoscalars flag, so it has neither), and
+# the all-atom model at the width of the shipped confidence model
+CONF_CG_ARGS = ["--ns", "48", "--nv", "10", "--num_conv_layers", "3", "--num_prot_emb_layers", "3"]
+CONF_AA_ARGS = ["--all_atoms", "--ns", "24", "--nv", "6", "--num_conv_layers", "5", "--num_prot_emb_layers", "0"]
+CONF_SAMPLES, CONF_STEPS, CONF_BATCH, CONF_EPOCHS = 4, 8, 4, 2
+# the losses of G3's twin steps: BCE at one cutoff, CE over the bins of two,
+# MSE on the RMSD
+CONF_LOSSES = {"bce": {}, "ce": {"rmsd_classification_cutoff": (2.0, 5.0)}, "mse": {"rmsd_prediction": True}}
+# the leaves whose exact gradient is zero (see conf_zero_gradient_leaves):
+# both routes' rounding noise there is held within this share of the
+# model's largest gradient, and their weights within 2 lr
+ZERO_GRAD_RTOL = 1e-4
+# G5: the dock ranked by each run directory
+CONF_DOCK_COMPLEX = TRAIN_COMPLEXES[0]
+
+
+def conf_train_launches(cfg) -> int:
+    """Merged contractions of one training forward of a new-architecture
+    confidence model: its receptor embedding inline, then the forward."""
+    from diffdock_tpu_torch.models.old_models import confidence_launches
+
+    return confidence_launches(cfg) + confidence_launches(cfg, embed=True)
+
+
+def conf_zero_gradient_leaves(model) -> set:
+    """Flax paths of the leaves whose exact gradient is zero when the
+    confidence head starts with a training-mode batch norm: the biases of
+    the Linears such a norm follows (it subtracts the batch mean), and the
+    last conv layer's batch-norm bias, which shifts every pooled row by the
+    same vector before that norm. Both routes give rounding noise there."""
+    from diffdock_tpu_torch.models.score_model import ConfidenceMLP
+    from diffdock_tpu_torch.utils.convert import flax_path
+
+    out = {"/".join(flax_path(f"{name}.layers.{i}.bias"))
+           for name, m in model.named_modules() if isinstance(m, ConfidenceMLP) and m.norms is not None
+           for i in range(2)}
+    if model.confidence_predictor.norms is not None:
+        out.add(f"conv_{len(model.conv_layers) - 1}/bn/bias")
+    return out
+
+
+def conf_blocks(cg_model, aa_model, nl: int, nr: int, na: int, kr: int, ka: int, ar: int) -> dict:
+    """The merged contractions of a training forward of CONF_BATCH
+    complexes at the shared bucket: the coarse-grained confidence model's
+    three blocks (the joint layer 0's cross blocks, the last protein
+    embedding layer), and the all-atom model's nine edge types at its
+    layer L-2 (the last with atom receivers; its TP is the ladder's
+    widest): label -> (tp, rows, K, H)."""
+    B = CONF_BATCH
+    Hc, Ha = 3 * cg_model.cfg.ns, 3 * aa_model.cfg.ns
+    tp_cg = cg_model.conv_layers[0].tp
+    tp_aa = aa_model.conv_layers[aa_model.cfg.num_conv_layers - 2].tp
+    blocks = {
+        "lig<-rec cross (CG confidence conv_0)": (tp_cg, B * nl, nr, Hc),
+        "rec<-lig cross (CG confidence conv_0)": (tp_cg, B * nr, nl, Hc),
+        "rec<-rec (CG confidence rec_emb_2)": (cg_model.rec_emb_layers[-1].tp, B * nr, kr, Hc),
+    }
+    for label, rows, K in (("lig<-lig radius", nl, nl), ("lig<-rec", nl, nr), ("lig<-atom", nl, na),
+                           ("rec<-rec", nr, kr), ("rec<-lig", nr, nl), ("rec<-atom", nr, ar),
+                           ("atom<-atom", na, ka), ("atom<-lig", na, nl), ("atom<-rec", na, 1)):
+        blocks[f"{label} (AA confidence)"] = (tp_aa, B * rows, K, Ha)
+    return blocks
+
+
+def conf_twin_step(model, tc, sd, batch, poses, labels, seed: int, dev) -> dict:
+    """One confidence train step of ``model`` from the weights ``sd`` with
+    the batch, poses, labels and dropout generator of ``seed``: the
+    metrics, the gradients, params and batch stats by flax path (numpy),
+    the launch counts and the output of every pre-ReLU Linear."""
+    import torch
+
+    from diffdock_tpu_torch.ops import fused_tp3 as ft
+    from diffdock_tpu_torch.train import confidence as tconf
+
+    model.load_state_dict(sd, strict=True)
+    state = tconf.create_confidence_train_state(model, tc)
+    acts: dict = {}
+    hooks = [m.register_forward_hook(lambda _m, _i, out, n=n: acts.setdefault(n, []).append(out.detach()))
+             for n, m in pre_relu_linears(model).items()]
+    ft.counts.reset()
+    try:
+        state, metrics = tconf.make_confidence_train_step(model, tc)(
+            state, batch, poses, labels, torch.Generator(device=dev).manual_seed(seed))
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": _flat_leaves(model, state.grads), "params": _flat_leaves(model, state.params),
+            "stats": {k: v.detach().cpu().numpy() for k, v in state.batch_stats.items()},
+            "counts": ft.counts.as_dict(), "acts": acts}
+
+
+def compare_conf_twins(model, plain: dict, kern: dict, lr: float) -> dict:
+    """The kernel step against the plain one under phase E3's limits
+    (:func:`compare_twins`), the zero-gradient leaves held apart: their
+    gradients within ZERO_GRAD_RTOL of the model's largest on both routes,
+    their weights within 2 lr."""
+    import numpy as np
+
+    zero = conf_zero_gradient_leaves(model)
+    largest = max(float(np.abs(g).max(initial=0.0)) for g in plain["grads"].values())
+    noise = max(max(float(np.abs(r["grads"][k]).max(initial=0.0)) for r in (plain, kern)) for k in zero)
+    moved = max(float(np.abs(kern["params"][k] - plain["params"][k]).max(initial=0.0)) for k in zero)
+
+    def rest(r):
+        return dict(r, grads={k: v for k, v in r["grads"].items() if k not in zero},
+                    params={k: v for k, v in r["params"].items() if k not in zero})
+
+    out = compare_twins(model, rest(plain), rest(kern), lr)
+    out.update(zero_leaves=sorted(zero), zero_grad_share=noise / max(largest, 1e-30),
+               zero_param_err_lr=moved / lr)
+    if noise > ZERO_GRAD_RTOL * largest:
+        out["outside"].append("zero_grad")
+    if moved > 2 * lr + 1e-6:
+        out["outside"].append("zero_param")
+    out["ok"] = not out["outside"]
+    return out
+
+
+def confidence_phase(args, tmp: Path, kernels, card: str, dev) -> dict:
+    """Phase G: G1 fused_tp3's gradient at the confidence models' training
+    blocks at full width; G2 the port's confidence-train CLI, a
+    coarse-grained model at DiffDock-L width generating the pose caches,
+    then the all-atom model trained on them, every generation dock and
+    every step's launches counted; G3 one step from each saved state
+    through the kernels and through the plain versions for BCE, CE and
+    MSE; G4 the warm step's wall, peak memory and a profile of one step per
+    model; G5 a dock through the dock CLI's ``load_pipeline`` ranked by each
+    run directory, against the plain versions' confidences on its poses."""
+    import numpy as np
+    import torch
+
+    from diffdock_tpu_torch.cli import confidence_train as conf_cli
+    from diffdock_tpu_torch.cli import dock as dock_cli
+    from diffdock_tpu_torch.data import chem
+    from diffdock_tpu_torch.data.complexes import AAComplexData, to_device
+    from diffdock_tpu_torch.data.loaders import stack_padded
+    from diffdock_tpu_torch.inference.pipeline import DockingPipeline
+    from diffdock_tpu_torch.models.factory import build_model
+    from diffdock_tpu_torch.models.old_models import confidence_launches
+    from diffdock_tpu_torch.ops import fused_tp3 as ft
+    from diffdock_tpu_torch.train import checkpoints as ckpt
+    from diffdock_tpu_torch.train import confidence as tconf
+    from diffdock_tpu_torch.utils import flax_msgpack
+    from diffdock_tpu_torch.utils.convert import flax_from_model, state_dict_from_flax
+
+    t_start = time.perf_counter()
+    report: dict = {}
+    root = tmp / "confidence"
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "train.txt").write_text("\n".join(CONF_COMPLEXES) + "\n")
+    common = ["--data_dir", str(E2E_SYNTH), "--split_train", str(root / "train.txt"),
+              "--cache_path", str(root / "cache"), "--pose_cache", str(root / "poses"),
+              "--samples_per_complex", str(CONF_SAMPLES), "--inference_steps", str(CONF_STEPS),
+              "--batch_size", str(CONF_BATCH), "--n_epochs", str(CONF_EPOCHS), "--seed", "0",
+              "--device", str(dev)]
+    runs = {"cg": common + ["--log_dir", str(root / "cg"), "--cache_id", "0"] + CONF_CG_ARGS,
+            "aa": common + ["--log_dir", str(root / "aa"), "--cache_ids_to_combine", "0"] + CONF_AA_ARGS}
+    parsed = {k: conf_cli.get_parser().parse_args(v) for k, v in runs.items()}
+    cfgs = {k: conf_cli.confidence_config(a, 1) for k, a in parsed.items()}
+    datas, _ = conf_cli.load_complexes(parsed["aa"])  # the all-atom trees at the shared bucket
+    d0 = next(iter(datas.values()))
+    nl, nr = d0.base.lig_pos.shape[0], d0.base.rec_pos.shape[0]
+    na, ka, ar = d0.atom_pos.shape[0], d0.atom_nbr.shape[1], d0.res_atom_idx.shape[1]
+    kr = d0.base.rec_nbr.shape[1]
+
+    # G1: the gradient at the confidence models' blocks
+    t0 = time.perf_counter()
+    models = {k: build_model(c).to(dev) for k, c in cfgs.items()}
+    blocks = conf_blocks(models["cg"], models["aa"], nl, nr, na, kr, ka, ar)
+    report["gradients"] = tp3_gradients(blocks, dev)
+    del models
+    _log(f"[G1 fused_tp3 gradient] {len(blocks)} blocks at (nl, nr, na) = ({nl}, {nr}, {na}) x "
+         f"{CONF_BATCH} | {time.perf_counter() - t0:.1f} s")
+
+    # G2: the CLI, each generation dock and each step counted
+    gen_calls, steps = [], []
+    generate, make_step = tconf.generate_poses_for_complex, tconf.make_confidence_train_step
+
+    def counted_generate(pipeline, data, samples, seed, **kw):
+        before = ft.counts.as_dict()
+        out = generate(pipeline, data, samples, seed, **kw)
+        after = ft.counts.as_dict()
+        want = (expected_tp3_launches(pipeline.score_cfg, pipeline.sampler_cfg.num_steps,
+                                      pipeline.dock_bucket(data)[0][2])
+                * -(-samples // pipeline.effective_pose_chunk(data, samples)))
+        gen_calls.append({**{k: after[k] - before[k] for k in after}, "expected": want})
+        return out
+
+    def counted_make_step(model, cfg):
+        step = make_step(model, cfg)
+
+        def counted(state, batch, poses, labels, generator=None):
+            before = ft.counts.as_dict()
+            out = step(state, batch, poses, labels, generator)
+            after = ft.counts.as_dict()
+            steps.append({"batch": int(poses.shape[0]), "loss": float(out[1]["loss"]),
+                          "expected": conf_train_launches(model.cfg),
+                          **{k: after[k] - before[k] for k in after}})
+            return out
+        return counted
+
+    cli_report = {}
+    for key in ("cg", "aa"):
+        t0 = time.perf_counter()
+        gen_calls.clear()
+        steps.clear()
+        for m in kernels.values():
+            m.counts.reset()
+        tconf.generate_poses_for_complex, tconf.make_confidence_train_step = counted_generate, counted_make_step
+        try:
+            rc = conf_cli.main(runs[key])
+        finally:
+            tconf.generate_poses_for_complex, tconf.make_confidence_train_step = generate, make_step
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for m in kernels.values() for k, v in m.counts.as_dict().items()}
+        log_dir = Path(parsed[key].log_dir)
+        if rc != 0:
+            raise PhaseError(f"the confidence-train CLI ({key}) returned {rc}")
+        records = [json.loads(x) for x in (log_dir / "metrics.jsonl").read_text().splitlines()]
+        caches = {n: tconf.load_pose_cache(root / "poses", n, [0]) for n in CONF_COMPLEXES}
+        bad_cache = [n for n, c in caches.items()
+                     if c is None or c[0].shape != (CONF_SAMPLES, nl, 3) or not np.isfinite(c[1]).all()]
+        n_steps = CONF_EPOCHS * -(-len(CONF_COMPLEXES) // CONF_BATCH)
+        step_bad = [s for s in steps if not (s["fused_tp3"] == s["fused_tp3_vjp"] == s["expected"]
+                                             and s["fused_tp3_reference"] == 0 and s["batch"] == CONF_BATCH)]
+        gen_bad = [g for g in gen_calls if g["fused_tp3"] != g["expected"] or g["fused_tp3_reference"]]
+        want_gens = len(CONF_COMPLEXES) if key == "cg" else 0
+        total = sum(g["fused_tp3"] for g in gen_calls) + sum(s["fused_tp3"] for s in steps)
+        # the weights file read back and written again: the same bytes
+        params, run_cfg, meta = ckpt.load_checkpoint(str(log_dir), "last_model.msgpack")
+        back = build_model(run_cfg)
+        back.load_state_dict(state_dict_from_flax(params, run_cfg), strict=True)
+        same_bytes = flax_msgpack.to_bytes(flax_from_model(back)) == (log_dir / "last_model.msgpack").read_bytes()
+        losses = [r["loss"] for r in records]
+        _log(f"  G2 {key}: {len(gen_calls)} generation docks, fused_tp3 {[g['fused_tp3'] for g in gen_calls]} "
+             f"(expected {[g['expected'] for g in gen_calls]}); {len(steps)} steps, fused_tp3 "
+             f"{[s['fused_tp3'] for s in steps]}, VJP {[s['fused_tp3_vjp'] for s in steps]} (expected "
+             f"{conf_train_launches(run_cfg)} each); run {launches}; losses {losses}; last_model read "
+             f"back bit for bit: {same_bytes}")
+        if bad_cache or step_bad or gen_bad or len(gen_calls) != want_gens or len(steps) != n_steps or \
+                launches["fused_tp3"] != total or launches["fused_tp3_reference"] or \
+                launches["fused_tp3_vjp"] != sum(s["fused_tp3"] for s in steps) or \
+                len(records) != CONF_EPOCHS or not np.isfinite(losses).all() or not same_bytes or \
+                meta.get("epoch") != CONF_EPOCHS - 1 or run_cfg != cfgs[key]:
+            raise PhaseError(f"confidence-train CLI ({key}): caches {bad_cache}, generation {gen_calls}, "
+                             f"steps {steps}, run {launches}, records {records}, bytes {same_bytes}")
+        cli_report[key] = {"rc": rc, "wall_s": wall, "generation": list(gen_calls), "steps": list(steps),
+                           "launches": launches, "metrics": records,
+                           "rmsds": {n: c[1].tolist() for n, c in caches.items()}}
+        _log(f"[G2 confidence-train CLI {key}] {' '.join(runs[key][-8:])}: {len(CONF_COMPLEXES)} complexes "
+             f"at ({nl}, {nr}{', ' + str(na) if key == 'aa' else ''}) x {CONF_EPOCHS} epochs, "
+             f"{len(steps)} steps | wall {wall:.2f} s | {card}")
+    report["cli"] = cli_report
+
+    # G3: twin steps from each saved state, the same batch and generator
+    t0 = time.perf_counter()
+    names = list(datas)[:CONF_BATCH]
+    cached = [tconf.load_pose_cache(root / "poses", n, [0]) for n in names]
+    poses = torch.as_tensor(np.stack([c[0][0] - np.asarray(datas[n].base.original_center)
+                                      for n, c in zip(names, cached)]), dtype=torch.float32, device=dev)
+    rmsds = [float(c[1][0]) for c in cached]
+    batches = {"aa": to_device(stack_padded([datas[n] for n in names]), dev)}
+    batches["cg"] = batches["aa"].base
+    cases = []
+    for key in ("cg", "aa"):
+        params, run_cfg, _ = ckpt.load_checkpoint(str(parsed[key].log_dir), "last_model.msgpack")
+        saved = state_dict_from_flax(params, run_cfg)
+        for loss, loss_kw in CONF_LOSSES.items():
+            tc = tconf.ConfidenceTrainConfig(**loss_kw)
+            cfg_l = dataclasses.replace(run_cfg, num_confidence_outputs=tc.num_outputs)
+            sd = dict(saved)
+            if tc.num_outputs != run_cfg.num_confidence_outputs:
+                # the head's last layer at the loss's width, drawn from a seed
+                g = torch.Generator().manual_seed(0)
+                w = saved["confidence_predictor.layers.2.weight"]
+                sd["confidence_predictor.layers.2.weight"] = torch.randn(
+                    (tc.num_outputs, w.shape[1]), generator=g) / math.sqrt(w.shape[1])
+                sd["confidence_predictor.layers.2.bias"] = torch.zeros(tc.num_outputs)
+            labels = torch.as_tensor(tc.labels_from_rmsds(rmsds), device=dev)
+            km = build_model(cfg_l).to(dev)
+            pm = build_model(cfg_l, reference_kernels=True).to(dev)
+            plain = conf_twin_step(pm, tc, sd, batches[key], poses, labels, 7, dev)
+            kern = conf_twin_step(km, tc, sd, batches[key], poses, labels, 7, dev)
+            n_fwd = conf_train_launches(cfg_l)
+            if kern["counts"] != {"fused_tp3": n_fwd, "fused_tp3_reference": 0, "fused_tp3_vjp": n_fwd} or \
+                    plain["counts"] != {"fused_tp3": 0, "fused_tp3_reference": n_fwd, "fused_tp3_vjp": 0}:
+                raise PhaseError(f"G3 twin counts: kernel {kern['counts']}, plain {plain['counts']}")
+            c = compare_conf_twins(km, plain, kern, tc.lr)
+            cases.append({"model": key, "loss": loss, "loss_plain": plain["metrics"]["loss"], "kernel": c})
+            sw = c["relu_switched"]
+            _log(f"  G3 {key} {loss} twin: loss {c['loss']:.6f} vs {plain['metrics']['loss']:.6f} (worst metric "
+                 f"{c['metric_rel_err']:.3e}, tol {TWIN_LOSS_RTOL:.0e}) | worst gradient leaf "
+                 f"{c['grad_worst_leaf']} {c['grad_norm_rel_err']:.3e} in norm (tol {TWIN_GRAD_RTOL:.0e}), all "
+                 f"leaves {c['grad_all_rel_err']:.3e} (tol {TWIN_GRAD_ALL_RTOL:.0e}) | params "
+                 f"{c['param_solid_err_lr']:.3e} lr where |g| is solid, {c['param_err_lr']:.3e} lr anywhere | "
+                 f"batch stats {c['batch_stat_rel_err']:.3e} | zero-gradient leaves: noise "
+                 f"{c['zero_grad_share']:.2e} of the largest gradient (tol {ZERO_GRAD_RTOL:.0e}), weights "
+                 f"{c['zero_param_err_lr']:.2f} lr | ReLU units switched {sw['total']} | outside: "
+                 f"{', '.join(c['outside']) or 'none'}")
+            del km, pm, plain, kern
+    report["twin"] = {"cases": cases, "limits": {
+        "metric": TWIN_LOSS_RTOL, "grad_all": TWIN_GRAD_ALL_RTOL, "grad_leaf": TWIN_GRAD_RTOL,
+        "batch_stat": TWIN_STAT_RTOL, "param_solid_lr": TWIN_PARAM_SOLID, "param_lr": 2.0,
+        "zero_grad": ZERO_GRAD_RTOL}}
+    bad = [(c["model"], c["loss"], c["kernel"]["outside"]) for c in cases if not c["kernel"]["ok"]]
+    if bad:
+        raise PhaseError(f"the kernel confidence step disagrees with the plain one: {bad}")
+    _log(f"[G3 twin steps] {len(cases)} cases | {time.perf_counter() - t0:.1f} s")
+
+    # G4: warm step walls, peak memory, one profiled step per model
+    t0 = time.perf_counter()
+    timing = {}
+    labels = torch.as_tensor(tconf.ConfidenceTrainConfig().labels_from_rmsds(rmsds), device=dev)
+    for key in ("cg", "aa"):
+        params, run_cfg, _ = ckpt.load_checkpoint(str(parsed[key].log_dir), "last_model.msgpack")
+        model = build_model(run_cfg).to(dev)
+        model.load_state_dict(state_dict_from_flax(params, run_cfg))
+        tc = tconf.ConfidenceTrainConfig()
+        state = tconf.create_confidence_train_state(model, tc)
+        step = tconf.make_confidence_train_step(model, tc)
+        gen = torch.Generator(device=dev).manual_seed(11)
+
+        def one():
+            nonlocal state
+            state, _m = step(state, batches[key], poses, labels, gen)
+
+        for _ in range(2):
+            one()
+        walls = []
+        for _ in range(TIMED_STEPS):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            s0 = time.perf_counter()
+            one()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - s0)
+        peak = torch.cuda.max_memory_allocated()
+        med = float(np.median(walls))
+        timing[key] = {"walls_s": walls, "median_s": med, "complexes_per_s": CONF_BATCH / med,
+                       "peak_bytes": peak, "launches_per_step": conf_train_launches(run_cfg)}
+        _log(f"  G4 {key} warm step at ({nl}, {nr}{', ' + str(na) if key == 'aa' else ''}) x {CONF_BATCH}: "
+             f"median {med:.4f} s (min {min(walls):.4f}, max {max(walls):.4f}) | {CONF_BATCH / med:.2f} "
+             f"complexes/s | peak {peak / 2**30:.2f} GiB | {card}")
+        timing[key]["profile"] = profile_step(one, med)
+        del model, state, step
+    report["step_timing"] = timing
+    _log(f"[G4 confidence step numbers] {time.perf_counter() - t0:.1f} s")
+
+    # G5: a dock through the dock CLI's load_pipeline, ranked by each run directory
+    t0 = time.perf_counter()
+    lig = E2E_SYNTH / CONF_DOCK_COMPLEX / f"{CONF_DOCK_COMPLEX}_ligand.sdf"
+    pdb = E2E_SYNTH / CONF_DOCK_COMPLEX / f"{CONF_DOCK_COMPLEX}_protein_processed.pdb"
+    ranking = {}
+    for key in ("cg", "aa"):
+        dargs = dock_cli.get_parser().parse_args(
+            ["--protein_path", str(pdb), "--ligand", str(lig), "--model_preset", "diffdock_l",
+             "--confidence_model_dir", str(parsed[key].log_dir), "--samples_per_complex", str(args.poses),
+             "--device", str(dev)])
+        pipe = dock_cli.load_pipeline(dargs)
+        ccfg = pipe.confidence_cfg
+        data, aa, _heavy = pipe.featurize(chem.read_molecule_file(str(lig)), chem.read_pdb_file(str(pdb)))
+        want = dock_launches(pipe, pipe.score_cfg, ccfg, data, aa, args.poses)
+        for m in kernels.values():
+            m.counts.reset()
+        s0 = time.perf_counter()
+        res = pipe.dock_complex(data, num_poses=args.poses, seed=0, aa_data=aa)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - s0
+        launches = {k: v for m in kernels.values() for k, v in m.counts.as_dict().items()}
+        ref_pipe = DockingPipeline(pipe.score_cfg, pipe.model.state_dict(), pipe.sampler_cfg, pipe.so3,
+                                   pipe.torus, device=dev, reference_kernels=True, confidence_cfg=ccfg,
+                                   confidence_weights=pipe.confidence_model.state_dict())
+        bucket = pipe.dock_bucket(data)[0]
+        final = torch.as_tensor(res.poses - np.asarray(data.original_center)[None, None],
+                                dtype=torch.float32, device=dev)
+        final = _pad_rows(final.transpose(0, 1), bucket[0] - data.n_lig).transpose(0, 1)
+        ft.counts.reset()
+        conf_plain = ref_pipe.confidence(ref_pipe.confidence_input(data, aa), final).cpu().numpy()
+        plain_counts = ft.counts.as_dict()
+        tol = CONF_RTOL * max(float(np.abs(conf_plain).max()), 1.0)
+        err = float(np.abs(conf_plain - res.confidence).max())
+        order_plain = np.argsort(-conf_plain)
+        rank_ok = all(res.confidence[a] > res.confidence[b] for a, b in zip(order_plain[:-1], order_plain[1:])
+                      if conf_plain[a] - conf_plain[b] > 2 * tol)
+        embed = confidence_launches(ccfg, embed=True)
+        _log(f"  G5 {key}: {type(pipe.confidence_model).__name__} from {parsed[key].log_dir}: {args.poses} "
+             f"poses in {wall:.2f} s | launches {launches} (expected fused_tp3 {want}: the receptor embedded "
+             f"once, {embed} launches) | plain confidences on the same poses: max diff {err:.3e} (tol "
+             f"{tol:.3e}), {plain_counts['fused_tp3_reference']} plain launches | order "
+             f"{res.order.tolist()} vs {order_plain.tolist()} | {card}")
+        if not isinstance(res.confidence, np.ndarray) or not np.isfinite(res.confidence).all() or \
+                launches["fused_tp3"] != want or launches["fused_tp3_reference"] or not err <= tol or \
+                not rank_ok or plain_counts["fused_tp3"]:
+            raise PhaseError(f"G5 {key}: launches {launches} (expected {want}), confidence gap {err:.3e} "
+                             f"(tol {tol:.3e}), ranking {rank_ok}")
+        ranking[key] = {"model": type(pipe.confidence_model).__name__, "wall_s": wall, "launches": launches,
+                        "expected_fused_tp3": want, "embed_launches": embed, "conf_diff": err, "conf_tol": tol,
+                        "order": res.order.tolist(), "order_plain": order_plain.tolist()}
+        del pipe, ref_pipe
+    report["ranking"] = ranking
+    _log(f"[G5 ranking] {CONF_DOCK_COMPLEX} | {time.perf_counter() - t0:.1f} s")
+    _log(f"[G confidence] {card} | phase {time.perf_counter() - t_start:.1f} s")
     return report
 
 

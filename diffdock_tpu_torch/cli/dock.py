@@ -18,6 +18,10 @@ and ``--confidence_model_dir`` read native run directories
 (``model_parameters.yml`` plus msgpack weights) and the reference's own
 (``.pt`` weights plus its args dump), which are converted once into a
 ``tpu_native*`` subdirectory; a missing directory is downloaded first.
+The confidence model may be of the old (v1.0) family or of the new
+architectures (a native run directory says which; a reference ``.pt``
+directory of a new-architecture model needs ``--no-old_confidence_model``),
+coarse-grained or all-atom, as ``models/factory.py:build_model`` builds it.
 ``--crop_beyond`` crops the receptor per step and ``--pocket_capacity``
 compacts it to that many residues. ``--pose_devices`` above 1 raises.
 """

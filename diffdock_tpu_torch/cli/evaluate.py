@@ -26,7 +26,9 @@ The flags and defaults are the JAX CLI's, with two exceptions, as in
 queue 1 item 5). ``--complex_devices`` and ``--pose_devices`` other than 1
 raise (item 8). ``--crop_beyond`` and ``--pocket_capacity`` crop the
 receptor as in the dock CLI, and ``--model_dir`` and
-``--confidence_model_dir`` may be reference ``.pt`` run directories.
+``--confidence_model_dir`` may be reference ``.pt`` run directories; the
+confidence model may be of either family, as in the dock CLI (the run
+directories of ``cli/confidence_train.py`` included).
 
 One deliberate deviation from the JAX CLI: with an all-atom confidence
 model (the shipped default), the dataset is featurized with the receptor's

@@ -1,5 +1,6 @@
 """Stacking same-bucket complexes into one training batch (port of
-``_stack`` in ``diffdock_tpu/data/loaders.py``)."""
+``_stack`` in ``diffdock_tpu/data/loaders.py``, and the ``jnp.stack`` of
+padded complexes in ``diffdock_tpu/cli/confidence_train.py``)."""
 
 from __future__ import annotations
 
@@ -7,7 +8,7 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
-from diffdock_tpu_torch.data.complexes import ComplexData, pad_to
+from diffdock_tpu_torch.data.complexes import AAComplexData, ComplexData, pad_to
 
 
 def stack_batch(members: Sequence[Tuple[str, ComplexData]], bucket: Tuple[int, int, int]
@@ -19,12 +20,19 @@ def stack_batch(members: Sequence[Tuple[str, ComplexData]], bucket: Tuple[int, i
     nl, nr, nb = bucket
     kb = max(4, *(d.lig_bond_nbr.shape[1] for _, d in members))
     kr = max(d.rec_nbr.shape[1] for _, d in members)
-    datas = [pad_to(d, nl, nr, nb, kb=kb, kr=kr) for _, d in members]
+    return [n for n, _ in members], stack_padded([pad_to(d, nl, nr, nb, kb=kb, kr=kr) for _, d in members])
 
-    def stack_field(f):
+
+def stack_padded(datas: Sequence):
+    """One numpy ComplexData or AAComplexData with a leading batch axis from
+    complexes already padded to one bucket and one set of widths. A field
+    that any member lacks (``rec_scv``) is None."""
+    if isinstance(datas[0], AAComplexData):
+        return AAComplexData(stack_padded([d.base for d in datas]),
+                             *[np.stack([np.asarray(d[i]) for d in datas])
+                               for i in range(1, len(AAComplexData._fields))])
+    fields = []
+    for f in ComplexData._fields:
         vals = [getattr(d, f) for d in datas]
-        if any(v is None for v in vals):
-            return None
-        return np.stack([np.asarray(v) for v in vals])
-
-    return [n for n, _ in members], ComplexData(*[stack_field(f) for f in ComplexData._fields])
+        fields.append(None if any(v is None for v in vals) else np.stack([np.asarray(v) for v in vals]))
+    return ComplexData(*fields)

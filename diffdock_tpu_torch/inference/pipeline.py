@@ -32,8 +32,17 @@ smaller receptor; the receptor embedding is then computed at every step.
 A confidence model with ``crop_beyond`` keeps the residues within that
 distance of the final poses.
 
-Not ported yet: confidence models of the new architectures, affinity
-prediction and the device mesh; asking for any of them raises.
+The confidence model is built by ``models/factory.py:build_model``: the
+old (v1.0) family, or a new-architecture model (the coarse-grained model
+in confidence mode, or ``AAScoreModel``), whose receptor embedding runs
+once per pose batch and serves every confidence chunk (per chunk under
+``crop_beyond``, as in the JAX pipeline). A new-architecture model with
+``affinity_prediction`` also gives the pose set's affinity
+(``predict_affinity`` of the outputs after the confidences; a chunked dock
+averages its chunks' affinities, as the JAX pipeline does). Not ported
+yet: the device mesh and the old family's affinity column; a confidence
+model with ``atom_confidence`` is refused, because the JAX pipeline fails
+on it too. Asking for any of them raises.
 """
 
 from __future__ import annotations
@@ -77,8 +86,8 @@ from diffdock_tpu_torch.inference.sampler import (
 )
 from diffdock_tpu_torch.data.featurize import build_aa_complex_data, build_complex_data
 from diffdock_tpu_torch.models.config import ConfigError, ScoreModelConfig
+from diffdock_tpu_torch.models.factory import build_model
 from diffdock_tpu_torch.models.old_models import build_confidence_model
-from diffdock_tpu_torch.models.score_model import CGScoreModel
 
 # Device bytes one pose adds to the confidence forward's peak,
 # CONF_BYTES_PER_EDGE * nl * n_nodes + CONF_BYTES_PER_NODE * n_nodes
@@ -160,7 +169,7 @@ class DockingResult:
     poses: np.ndarray  # (P, NL, 3) in the original input frame
     confidence: Optional[np.ndarray]  # (P,) higher is better, or None
     order: np.ndarray  # (P,) indices sorted by confidence (best first)
-    affinity: Optional[float] = None  # affinity prediction is not ported: always None
+    affinity: Optional[float] = None  # pose-set aggregated affinity (affinity_prediction)
     trajectory: Optional[np.ndarray] = None  # (steps+1, P, NL, 3) input frame
 
 
@@ -244,13 +253,21 @@ class DockingPipeline:
                                + score_cfg.crop_beyond + 10.0)
         self.pre_crop_radius = pre_crop_radius
         self.pocket_capacity = pocket_capacity
-        self.model = _with_weights(CGScoreModel(score_cfg, reference_kernels=reference_kernels),
+        if score_cfg.confidence_mode or score_cfg.all_atoms or score_cfg.old_architecture:
+            raise ConfigError("the pose generator is a coarse-grained score model of the new "
+                              "architecture, as in the JAX pipeline (inference/pipeline.py:340)")
+        self.model = _with_weights(build_model(score_cfg, reference_kernels=reference_kernels),
                                    score_weights, self.device)
         self.confidence_cfg = confidence_cfg
         self.confidence_model = None
         if confidence_cfg is not None:
             if confidence_weights is None:
                 raise ValueError("a confidence model needs confidence_weights")
+            if confidence_cfg.atom_confidence:
+                raise ConfigError(
+                    "a confidence model with atom_confidence returns (confidences, atom "
+                    "confidences), and the JAX pipeline's out[..., 0] fails on that tuple; "
+                    "its ranking is not defined (ROADMAP, facts of the reference)")
             self.confidence_model = _with_weights(
                 build_confidence_model(confidence_cfg, reference_kernels=reference_kernels),
                 confidence_weights, self.device)
@@ -375,7 +392,11 @@ class DockingPipeline:
             traj = (np.concatenate([r.trajectory for r in results], axis=1)[:, :num_poses]
                     if return_trajectory else None)
             order = np.argsort(-conf) if conf is not None else np.arange(num_poses)
-            return DockingResult(poses=poses, confidence=conf, order=order, trajectory=traj)
+            # every chunk runs `chunk` poses: the mean of the chunks'
+            # affinities weighs every sampled pose alike
+            affs = [r.affinity for r in results if r.affinity is not None]
+            return DockingResult(poses=poses, confidence=conf, order=order, trajectory=traj,
+                                 affinity=float(np.mean(affs)) if affs else None)
         bucket, cov = self.dock_bucket(data)
         guard = self.anomaly_guard if cov is not None else 0.0
         if guard and cov not in self._warm_entries:
@@ -471,9 +492,14 @@ class DockingPipeline:
             # plain crop_beyond, no sigma term, over the final pose batch
             keep = rec_keep_mask(padded.rec_pos, padded.rec_mask, final, padded.lig_mask,
                                  self.confidence_cfg.crop_beyond)
-        conf = self.confidence(conf_data, final, rec_keep=keep).cpu().numpy()
+        out = self.confidence_outputs(conf_data, final, rec_keep=keep)
+        conf = torch.nan_to_num(out[..., 0], nan=-1000.0).cpu().numpy()
+        affinity = None
+        if self.confidence_cfg.affinity_prediction:
+            n = self.confidence_cfg.num_confidence_outputs
+            affinity = float(self.confidence_model.predict_affinity(out[:, n:]))
         return DockingResult(poses=poses, confidence=conf, order=np.argsort(-conf),
-                             trajectory=traj)
+                             trajectory=traj, affinity=affinity)
 
     def _cropped_score(self, padded: ComplexData, poses: torch.Tensor, t: torch.Tensor):
         """The score forward under ``crop_beyond``: the residues within
@@ -522,10 +548,27 @@ class DockingPipeline:
         """Confidence of each padded pose (P, NL, 3) at t = 0, chunk by chunk
         (each pose's confidence does not depend on its chunk); NaN -> -1000.
         ``rec_keep``: the confidence model's receptor crop."""
-        c = self.confidence_chunk_for(conf_data, poses.shape[0])
-        out = torch.cat([self.confidence_model(conf_data, poses[i : i + c], 0.0, rec_keep=rec_keep)
-                         for i in range(0, poses.shape[0], c)])
+        out = self.confidence_outputs(conf_data, poses, rec_keep)
         return torch.nan_to_num(out[..., 0], nan=-1000.0)
+
+    @torch.inference_mode()
+    def confidence_outputs(self, conf_data, poses: torch.Tensor,
+                           rec_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The confidence model's outputs (P, outputs) for the padded poses,
+        chunk by chunk. A new-architecture model embeds the receptor once
+        for all chunks (:meth:`embed_receptor`), or inline in each chunk
+        under ``rec_keep``."""
+        model = self.confidence_model
+        c = self.confidence_chunk_for(conf_data, poses.shape[0])
+        if self.confidence_cfg.old_architecture:
+            def forward(p):
+                return model(conf_data, p, 0.0, rec_keep=rec_keep)
+        else:
+            cache = None if rec_keep is not None else model.embed_receptor(conf_data)
+
+            def forward(p):
+                return model(conf_data, p, 0.0, self.so3, self.torus, rec_cache=cache, rec_keep=rec_keep)
+        return torch.cat([forward(poses[i : i + c]) for i in range(0, poses.shape[0], c)])
 
     # ------------------------------------------------------------------
     def featurize(self, mol, protein, lm_embeddings: Optional[np.ndarray] = None):

@@ -47,8 +47,14 @@ from diffdock_tpu_torch.data.complexes import (
 from diffdock_tpu_torch.diffusion.time_embed import get_timestep_embedding
 from diffdock_tpu_torch.models.config import ConfigError, ScoreModelConfig
 from diffdock_tpu_torch.models.encoders import GaussianSmearing, MLP2, OldAtomEncoder
-from diffdock_tpu_torch.models.score_model import CGScoreModel, ConfidenceMLP, _batched, _pairwise
-from diffdock_tpu_torch.models.tpconv import NeighborBlock, TPConvLayer, _residual_pad, gather_nodes
+from diffdock_tpu_torch.models.score_model import (
+    CGScoreModel,
+    ConfidenceMLP,
+    _batched,
+    _pairwise,
+    edge_scalars,
+)
+from diffdock_tpu_torch.models.tpconv import NeighborBlock, TPConvLayer, _residual_pad
 from diffdock_tpu_torch.ops.irreps import Irreps, get_irrep_seq
 from diffdock_tpu_torch.ops.spherical import spherical_harmonics
 
@@ -78,9 +84,8 @@ class OldCGScoreModel(nn.Module):
     the kernel's plain version."""
 
     # geometry and edge helpers shared with the new family: they read only
-    # cfg, lig_edge_embedding, lig_distance_expansion and _with_scalars
+    # cfg, lig_edge_embedding and lig_distance_expansion
     _edge_weight = CGScoreModel._edge_weight
-    _with_scalars = staticmethod(CGScoreModel._with_scalars)
     reset_parameters = CGScoreModel.reset_parameters
 
     # the score model's helpers take a stacked batch and (B,) times; these
@@ -183,19 +188,6 @@ class OldCGScoreModel(nn.Module):
         sh = spherical_harmonics(vec, cfg.sh_lmax)
         return mask, embedding(raw), sh, sh.transpose(1, 2), self._edge_weight(dist, cutoff)
 
-    @staticmethod
-    def _xattr(ns, recv_attr, send_attr, base, send_idx, swap=False):
-        """(base, receiver, sender) scalar concatenation; ``swap`` flips to
-        (base, sender, receiver), the CG lig->rec quirk. ``recv_attr``
-        (B, R, F), ``send_idx`` (B, R, K); B may be 1 and broadcasts."""
-        send = gather_nodes(send_attr[..., :ns], send_idx)  # (B, R, K, ns)
-        lead = torch.broadcast_shapes(send.shape[:-1], base.shape[:-1],
-                                      recv_attr.shape[:-1] + (1,))
-        recv = recv_attr[:, :, None, :ns].expand(lead + (ns,))
-        send = send.expand(lead + (ns,))
-        parts = [base.expand(lead + base.shape[-1:])] + ([send, recv] if swap else [recv, send])
-        return torch.cat(parts, dim=-1)
-
     def _old_confidence_head(self, data: ComplexData, lig_attr: torch.Tensor) -> torch.Tensor:
         """Scalar channels (the first ns, plus the final ns x0o block when
         deep enough) mean-pooled over real ligand atoms -> (P, outputs)."""
@@ -248,14 +240,14 @@ class OldCGScoreModel(nn.Module):
             lig_intra = self.lig_conv_layers[l](None, [bond_block, radius_block])
             r2l_block = NeighborBlock(
                 sender_attr=rec_attr, nbr_idx=rec_idx_all, nbr_mask=cmask,
-                edge_attr=self._xattr(ns, lig_attr, rec_attr, cross_attr, rec_idx_all),
+                edge_attr=edge_scalars(ns, lig_attr, rec_attr, cross_attr, rec_idx_all),
                 edge_sh=cross_sh, edge_weight=cross_w,
             )
             lig_inter = self.rec_to_lig_conv_layers[l](None, [r2l_block])
             if l < L - 1:
                 rec_rec_block = NeighborBlock(
                     sender_attr=rec_attr, nbr_idx=rec_nbr, nbr_mask=data.rec_nbr_mask[None],
-                    edge_attr=self._xattr(ns, rec_attr, rec_attr, rec_edge_attr[None], rec_nbr),
+                    edge_attr=edge_scalars(ns, rec_attr, rec_attr, rec_edge_attr[None], rec_nbr),
                     edge_sh=rec_edge_sh[None],
                     edge_weight=None if rec_edge_w is None else rec_edge_w[None],
                 )
@@ -263,7 +255,7 @@ class OldCGScoreModel(nn.Module):
                 # lig->rec: edge features (base, SENDER lig, RECEIVER rec)
                 l2r_block = NeighborBlock(
                     sender_attr=lig_attr, nbr_idx=lig_idx_all, nbr_mask=cmask.transpose(1, 2),
-                    edge_attr=self._xattr(ns, rec_attr, lig_attr, cross_attr.transpose(1, 2),
+                    edge_attr=edge_scalars(ns, rec_attr, lig_attr, cross_attr.transpose(1, 2),
                                           lig_idx_all, swap=True),
                     edge_sh=rev_cross_sh, edge_weight=rev_cross_w,
                 )
@@ -378,13 +370,13 @@ class OldAAScoreModel(OldCGScoreModel):
             lig_update = conv(0)(None, [bond_block, radius_block])
             lr_block = NeighborBlock(
                 sender_attr=rec_attr, nbr_idx=rec_idx_all, nbr_mask=cmask,
-                edge_attr=self._xattr(ns, lig_attr, rec_attr, lr_attr, rec_idx_all),
+                edge_attr=edge_scalars(ns, lig_attr, rec_attr, lr_attr, rec_idx_all),
                 edge_sh=lr_sh, edge_weight=lr_w,
             )
             lr_update = conv(1)(None, [lr_block])
             la_block = NeighborBlock(
                 sender_attr=atom_attr, nbr_idx=atom_idx_all, nbr_mask=lamask,
-                edge_attr=self._xattr(ns, lig_attr, atom_attr, la_attr, atom_idx_all),
+                edge_attr=edge_scalars(ns, lig_attr, atom_attr, la_attr, atom_idx_all),
                 edge_sh=la_sh, edge_weight=la_w,
             )
             la_update = conv(2)(None, [la_block])
@@ -392,34 +384,34 @@ class OldAAScoreModel(OldCGScoreModel):
             if l < L - 1:
                 atom_block = NeighborBlock(
                     sender_attr=atom_attr, nbr_idx=atom_nbr, nbr_mask=data.atom_nbr_mask[None],
-                    edge_attr=self._xattr(ns, atom_attr, atom_attr, atom_edge_attr[None], atom_nbr),
+                    edge_attr=edge_scalars(ns, atom_attr, atom_attr, atom_edge_attr[None], atom_nbr),
                     edge_sh=atom_edge_sh[None],
                     edge_weight=None if atom_edge_w is None else atom_edge_w[None],
                 )
                 atom_update = conv(3)(None, [atom_block])
                 al_block = NeighborBlock(
                     sender_attr=lig_attr, nbr_idx=lig_idx_a, nbr_mask=lamask.transpose(1, 2),
-                    edge_attr=self._xattr(ns, atom_attr, lig_attr, la_attr.transpose(1, 2),
+                    edge_attr=edge_scalars(ns, atom_attr, lig_attr, la_attr.transpose(1, 2),
                                           lig_idx_a),
                     edge_sh=al_sh, edge_weight=al_w,
                 )
                 al_update = conv(4)(None, [al_block])
                 ar_block = NeighborBlock(
                     sender_attr=rec_attr, nbr_idx=atom_res, nbr_mask=data.atom_mask[None, :, None],
-                    edge_attr=self._xattr(ns, atom_attr, rec_attr, ar_attr[None], atom_res),
+                    edge_attr=edge_scalars(ns, atom_attr, rec_attr, ar_attr[None], atom_res),
                     edge_sh=ar_sh[None],
                 )
                 ar_update = conv(5)(None, [ar_block])
                 rec_block = NeighborBlock(
                     sender_attr=rec_attr, nbr_idx=rec_nbr, nbr_mask=base.rec_nbr_mask[None],
-                    edge_attr=self._xattr(ns, rec_attr, rec_attr, rec_edge_attr[None], rec_nbr),
+                    edge_attr=edge_scalars(ns, rec_attr, rec_attr, rec_edge_attr[None], rec_nbr),
                     edge_sh=rec_edge_sh[None],
                     edge_weight=None if rec_edge_w is None else rec_edge_w[None],
                 )
                 rec_update = conv(6)(None, [rec_block])
                 rl_block = NeighborBlock(
                     sender_attr=lig_attr, nbr_idx=lig_idx_r, nbr_mask=cmask.transpose(1, 2),
-                    edge_attr=self._xattr(ns, rec_attr, lig_attr, lr_attr.transpose(1, 2),
+                    edge_attr=edge_scalars(ns, rec_attr, lig_attr, lr_attr.transpose(1, 2),
                                           lig_idx_r),
                     edge_sh=rl_sh, edge_weight=rl_w,
                 )
@@ -427,7 +419,7 @@ class OldAAScoreModel(OldCGScoreModel):
                 ra_block = NeighborBlock(
                     sender_attr=atom_attr, nbr_idx=res_atom_idx,
                     nbr_mask=data.res_atom_mask[None],
-                    edge_attr=self._xattr(ns, rec_attr, atom_attr, ra_attr[None], res_atom_idx),
+                    edge_attr=edge_scalars(ns, rec_attr, atom_attr, ra_attr[None], res_atom_idx),
                     edge_sh=ra_sh[None],
                 )
                 ra_update = conv(8)(None, [ra_block])
@@ -439,20 +431,29 @@ class OldAAScoreModel(OldCGScoreModel):
         return self._old_confidence_head(base, lig_attr)
 
 
-def confidence_launches(cfg: ScoreModelConfig) -> int:
-    """Merged TP contractions of one confidence forward (one pose chunk):
-    per layer the ligand receivers' blocks (bonded + radius, and the cross
-    blocks), and before the last layer the receptor (and atom) receivers'
-    blocks."""
-    L = cfg.num_conv_layers
+def confidence_launches(cfg: ScoreModelConfig, embed: bool = False) -> int:
+    """Merged TP contractions of one confidence forward (one pose chunk) of
+    the confidence model of ``cfg``: per layer the ligand receivers' blocks
+    (bonded + radius, and the cross blocks), before the last layer the
+    receptor (and atom) receivers' blocks, and for the new architectures
+    the ligand embedding layers' two blocks each. ``embed``: the count of
+    the new architectures' receptor embedding instead (one block per
+    embedding layer, four in the all-atom model), which the pipeline runs
+    once per pose batch; the old family has none."""
+    L, npe = cfg.num_conv_layers, cfg.num_prot_emb_layers
+    if embed:
+        return 0 if cfg.old_architecture else (4 if cfg.all_atoms else 1) * npe
+    lig_emb = 0 if cfg.old_architecture or not cfg.embed_also_ligand else 2 * npe
     if cfg.all_atoms:
-        return 4 * L + 6 * (L - 1)
-    return 3 * L + 2 * (L - 1)
+        return lig_emb + 4 * L + 6 * (L - 1)
+    return lig_emb + 3 * L + 2 * (L - 1)
 
 
 def build_confidence_model(cfg: ScoreModelConfig, reference_kernels: bool = False) -> nn.Module:
-    """The confidence model a config asks for (the old family only)."""
-    if not cfg.old_architecture:
-        raise ConfigError("not ported yet: confidence models of the new architectures")
-    cls = OldAAScoreModel if cfg.all_atoms else OldCGScoreModel
-    return cls(cfg, reference_kernels=reference_kernels)
+    """The confidence model a config asks for, through
+    :func:`diffdock_tpu_torch.models.factory.build_model`."""
+    from diffdock_tpu_torch.models.factory import build_model
+
+    if not cfg.confidence_mode:
+        raise ConfigError("a confidence model needs confidence_mode=True")
+    return build_model(cfg, reference_kernels=reference_kernels)

@@ -1,14 +1,20 @@
-"""The coarse-grained score network (port of ``diffdock_tpu/models/score_model.py``).
+"""The coarse-grained score and confidence network (port of ``diffdock_tpu/models/score_model.py``).
 
 ``CGScoreModel`` — a heterogeneous equivariant GNN over ligand atoms and
-receptor residues with the translation/rotation head and the torsion head.
-Its confidence head and ``predict_affinity`` are not ported yet;
-:class:`ConfidenceMLP` serves the old family's confidence models
-(``models/old_models.py``).
+receptor residues. In score mode it ends in the translation/rotation head
+and the torsion head; in confidence mode (``cfg.confidence_mode``) every
+sigma is ``t`` itself, the score heads are not built, and
+:meth:`CGScoreModel._confidence_head` pools the ligand's scalar channels
+over its real atoms into :class:`ConfidenceMLP` (with the per-atom head of
+``atom_confidence`` and the pose-set head of ``affinity_prediction``,
+:meth:`CGScoreModel.predict_affinity`). The all-atom subclass lives in
+``models/aa_model.py``; :class:`ConfidenceMLP` also serves the old family's
+confidence models (``models/old_models.py``).
 
 Where the JAX model runs one pose and is ``vmap``ped, this one takes a
 batch of poses: ``lig_pos`` is (P, NL, 3) and the outputs are (P, 3),
-(P, 3), (P, n_bonds). The time-independent receptor embedding
+(P, 3), (P, n_bonds), or (P, outputs) in confidence mode. The
+time-independent receptor embedding
 (:meth:`CGScoreModel.embed_receptor`) and the pose-independent layer-0
 receptor message (:meth:`CGScoreModel.step_cache`) are computed once and
 shared by every pose, as in the JAX package. For training the same forward
@@ -50,7 +56,7 @@ from diffdock_tpu_torch.models.tpconv import (
     TPConvLayer,
     gather_nodes,
 )
-from diffdock_tpu_torch.ops.batch_norm import IrrepsBatchNorm
+from diffdock_tpu_torch.ops.batch_norm import MOMENTUM, IrrepsBatchNorm
 from diffdock_tpu_torch.ops.irreps import Irreps, get_irrep_seq
 from diffdock_tpu_torch.ops.spherical import irrep1_to_vector, spherical_harmonics
 from diffdock_tpu_torch.ops.tensor_product import FullTensorProduct
@@ -72,8 +78,13 @@ class ScoreOutput(NamedTuple):
 
 
 class ScalarBatchNorm(nn.Module):
-    """Eval-mode batch norm over the last axis with flax ``nn.BatchNorm``'s
-    epsilon: always the running statistics (this port runs inference)."""
+    """Batch norm over the last axis, flax ``nn.BatchNorm(momentum=0.9)``.
+    In evaluation mode the running statistics serve. In training mode
+    (``module.training``) the statistics come from every row of the batch,
+    all leading axes together (the JAX module's ``pmean`` over its vmapped
+    batch axis), with flax's fast variance ``E[x^2] - E[x]^2`` clipped at
+    zero, and the running statistics move 0.1 of the way to them. The
+    module starts in evaluation mode."""
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -82,29 +93,43 @@ class ScalarBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
         self.register_buffer("running_mean", torch.zeros(dim))
         self.register_buffer("running_var", torch.ones(dim))
+        self.train(False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv = torch.rsqrt(self.running_var + self.eps)
-        return (x - self.running_mean) * inv * self.weight + self.bias
+        if not self.training:
+            inv = torch.rsqrt(self.running_var + self.eps)
+            return (x - self.running_mean) * inv * self.weight + self.bias
+        flat = x.reshape(-1, x.shape[-1])
+        mean = flat.mean(0)
+        var = torch.clamp((flat * flat).mean(0) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(1 - MOMENTUM).add_(MOMENTUM * mean)
+            self.running_var.mul_(1 - MOMENTUM).add_(MOMENTUM * var)
+        return (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
 
 
 class ConfidenceMLP(nn.Module):
-    """Dense-BN-ReLU x2 + Dense (reference ``cg_model.py:198-208``), at
-    inference: batch norm on its running statistics, dropout the identity.
-    Flax names: ``Dense_{i}`` -> ``layers.{i}``, ``BatchNorm_{i}`` ->
-    ``norms.{i}``."""
+    """Dense-BN-ReLU-Dropout x2 + Dense (reference ``cg_model.py:198-208``).
+    In training mode the batch norms take their statistics over every row
+    they are given: the B pooled rows of a stacked batch (the JAX module's
+    ``axis_names=("batch",)``; a norm over one complex's single row would
+    output zero and stop every gradient behind it), and the dropouts draw
+    from the model's generator. Flax names: ``Dense_{i}`` -> ``layers.{i}``,
+    ``BatchNorm_{i}`` -> ``norms.{i}``."""
 
-    def __init__(self, in_dim: int, ns: int, out_dim: int, no_batchnorm: bool = False):
+    def __init__(self, in_dim: int, ns: int, out_dim: int, no_batchnorm: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
         self.layers = nn.ModuleList([nn.Linear(in_dim, ns), nn.Linear(ns, ns), nn.Linear(ns, out_dim)])
         self.norms = None if no_batchnorm else nn.ModuleList([ScalarBatchNorm(ns), ScalarBatchNorm(ns)])
+        self.drop = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(2):
             x = self.layers[i](x)
             if self.norms is not None:
                 x = self.norms[i](x)
-            x = torch.relu(x)
+            x = self.drop(torch.relu(x))
         return self.layers[2](x)
 
 
@@ -116,9 +141,7 @@ def _pairwise(sender_pos: torch.Tensor, receiver_pos: torch.Tensor):
 
 def _check_supported(cfg: ScoreModelConfig) -> None:
     unsupported = {
-        "confidence_mode": cfg.confidence_mode,
-        "old_architecture": cfg.old_architecture,
-        "all_atoms": cfg.all_atoms,
+        "old_architecture (models/old_models.py)": cfg.old_architecture,
         "depthwise_convolution": cfg.depthwise_convolution,
         "sidechain_pred": cfg.sidechain_pred,
         "factored_tp=False": not cfg.factored_tp,
@@ -137,40 +160,14 @@ class CGScoreModel(nn.Module):
     def __init__(self, cfg: ScoreModelConfig, reference_kernels: bool = False):
         super().__init__()
         _check_supported(cfg)
-        self.cfg = cfg
-        ns, nv = cfg.ns, cfg.nv
-        self.irrep_seq = get_irrep_seq(ns, nv, cfg.use_second_order_repr, cfg.reduce_pseudoscalars)
-        sh = str(Irreps.spherical_harmonics(cfg.sh_lmax))
-        self.timestep_emb = get_timestep_embedding(
-            cfg.embedding_type, cfg.sigma_embed_dim, cfg.embedding_scale
-        )
-        sig, dist = cfg.sigma_embed_dim, cfg.distance_embed_dim
-
-        self.lig_node_embedding = AtomEncoder(ns, cfg.lig_node_categorical_dims, sig)
-        drop = cfg.dropout
-        self.lig_edge_embedding = MLP2(cfg.in_lig_edge_features + sig + dist, ns, drop)
-        self.rec_node_embedding = AtomEncoder(ns, cfg.rec_node_categorical_dims, cfg.lm_embedding_dim)
-        self.rec_edge_embedding = MLP2(dist, ns, drop)
-        self.rec_sigma_embedding = MLP2(sig, ns, drop)
-        self.cross_edge_embedding = MLP2(sig + cfg.cross_distance_embed_dim, ns, drop)
-
-        self.lig_distance_expansion = GaussianSmearing(0.0, cfg.lig_max_radius, dist)
-        self.rec_distance_expansion = GaussianSmearing(0.0, cfg.rec_max_radius, dist)
-        self.cross_distance_expansion = GaussianSmearing(
-            0.0, cfg.cross_max_distance, cfg.cross_distance_embed_dim
-        )
-
-        conv = dict(
-            n_edge_features=3 * ns, hidden_features=3 * ns, batch_norm=cfg.batch_norm,
-            tp_weights_layers=cfg.tp_weights_layers, reference_kernels=reference_kernels,
-            dropout=drop,
-        )
+        if cfg.all_atoms:
+            raise ConfigError("all_atoms=True is the all-atom model: models/factory.py:build_model "
+                              "builds AAScoreModel")
+        self._setup_base(cfg, reference_kernels)
+        ns, sh, conv = cfg.ns, self.sh_irreps, self._conv
+        self.cross_edge_embedding = MLP2(cfg.sigma_embed_dim + cfg.cross_distance_embed_dim, ns,
+                                         cfg.dropout)
         npe, n_joint = cfg.num_prot_emb_layers, cfg.num_conv_layers
-        if cfg.embed_also_ligand:
-            self.lig_emb_layers = nn.ModuleList(
-                TPConvLayer(self._ladder(i), sh, self._ladder(i + 1), residual=True, **conv)
-                for i in range(npe)
-            )
         self.rec_emb_layers = nn.ModuleList(
             TPConvLayer(self._ladder(i), sh, self._ladder(i + 1), residual=True, **conv)
             for i in range(npe)
@@ -184,9 +181,81 @@ class CGScoreModel(nn.Module):
             )
             for i in range(n_joint)
         )
-        final_ladder = self._ladder(npe + n_joint)
 
-        # score heads
+    def _setup_base(self, cfg: ScoreModelConfig, reference_kernels: bool) -> None:
+        """The modules the coarse-grained and all-atom models share (the JAX
+        model's ``_setup_base``): encoders, edge embeddings, the ligand
+        embedding layers and the heads of the mode."""
+        self.cfg = cfg
+        ns, nv = cfg.ns, cfg.nv
+        self.irrep_seq = get_irrep_seq(ns, nv, cfg.use_second_order_repr, cfg.reduce_pseudoscalars)
+        self.sh_irreps = sh = str(Irreps.spherical_harmonics(cfg.sh_lmax))
+        self.timestep_emb = get_timestep_embedding(
+            cfg.embedding_type, cfg.sigma_embed_dim, cfg.embedding_scale
+        )
+        sig, dist = cfg.sigma_embed_dim, cfg.distance_embed_dim
+
+        self.lig_node_embedding = AtomEncoder(ns, cfg.lig_node_categorical_dims, sig)
+        drop = cfg.dropout
+        self.lig_edge_embedding = MLP2(cfg.in_lig_edge_features + sig + dist, ns, drop)
+        self.rec_node_embedding = AtomEncoder(ns, cfg.rec_node_categorical_dims, cfg.lm_embedding_dim)
+        self.rec_edge_embedding = MLP2(dist, ns, drop)
+        self.rec_sigma_embedding = MLP2(sig, ns, drop)
+
+        self.lig_distance_expansion = GaussianSmearing(0.0, cfg.lig_max_radius, dist)
+        self.rec_distance_expansion = GaussianSmearing(0.0, cfg.rec_max_radius, dist)
+        self.cross_distance_expansion = GaussianSmearing(
+            0.0, cfg.cross_max_distance, cfg.cross_distance_embed_dim
+        )
+
+        self._conv = dict(
+            n_edge_features=3 * ns, hidden_features=3 * ns, batch_norm=cfg.batch_norm,
+            tp_weights_layers=cfg.tp_weights_layers, reference_kernels=reference_kernels,
+            dropout=drop,
+        )
+        npe, n_joint = cfg.num_prot_emb_layers, cfg.num_conv_layers
+        if cfg.embed_also_ligand:
+            self.lig_emb_layers = nn.ModuleList(
+                TPConvLayer(self._ladder(i), sh, self._ladder(i + 1), residual=True, **self._conv)
+                for i in range(npe)
+            )
+        if cfg.confidence_mode:
+            self._setup_confidence_heads()
+        else:
+            self._setup_score_heads(self._ladder(npe + n_joint), reference_kernels)
+
+    def _setup_confidence_heads(self) -> None:
+        """The pooled confidence MLP (with ``affinity_prediction``, ns more
+        outputs: the per-pose affinity features), the per-atom head of
+        ``atom_confidence`` and the pose-set affinity head."""
+        cfg = self.cfg
+        ns = cfg.ns
+        kw = dict(no_batchnorm=cfg.confidence_no_batchnorm, dropout=cfg.confidence_dropout)
+        in_dim = ns + self._confidence_extra_dim()
+        if cfg.atom_confidence:
+            # per-atom head: atom confidences and the ns scalars that replace
+            # the pooled ones (reference aa_model.py:188-199)
+            self.atom_confidence_predictor = ConfidenceMLP(
+                in_dim, ns, cfg.atom_num_confidence_outputs + ns, **kw)
+            in_dim = ns
+        out_dim = cfg.num_confidence_outputs + (ns if cfg.affinity_prediction else 0)
+        self.confidence_predictor = ConfidenceMLP(in_dim, ns, out_dim, **kw)
+        if cfg.affinity_prediction:
+            self.affinity_predictor = ConfidenceMLP(len(cfg.parallel_aggregators) * ns, ns, 1, **kw)
+
+    def _confidence_extra_dim(self) -> int:
+        """The ladder's last block the head reads beside the first ns
+        scalars once the stack is 3 layers deep: nv x0o with
+        ``reduce_pseudoscalars``, else ns x0o."""
+        cfg = self.cfg
+        if cfg.num_conv_layers + cfg.num_prot_emb_layers < 3:
+            return 0
+        return cfg.nv if cfg.reduce_pseudoscalars else cfg.ns
+
+    def _setup_score_heads(self, final_ladder: str, reference_kernels: bool) -> None:
+        cfg = self.cfg
+        ns, sig, dist, drop, sh = (cfg.ns, cfg.sigma_embed_dim, cfg.distance_embed_dim,
+                                   cfg.dropout, self.sh_irreps)
         self.center_distance_expansion = GaussianSmearing(0.0, cfg.center_max_distance, dist)
         self.center_edge_embedding = MLP2(dist + sig, ns, drop)
         self.final_conv = TPConvLayer(
@@ -275,25 +344,17 @@ class CGScoreModel(nn.Module):
         for layer in self.rec_emb_layers:
             block = NeighborBlock(
                 sender_attr=node_attr, nbr_idx=db.rec_nbr, nbr_mask=db.rec_nbr_mask,
-                edge_attr=self._with_scalars(ns, node_attr, edge_attr, db.rec_nbr),
+                edge_attr=edge_scalars(ns, node_attr, node_attr, edge_attr, db.rec_nbr),
                 edge_sh=edge_sh, edge_weight=edge_weight,
             )
             node_attr = layer(node_attr, [block], db.rec_mask)
         return RecCache(node_attr=node_attr, edge_attr=edge_attr, edge_sh=edge_sh,
                         edge_weight=edge_weight)
 
-    @staticmethod
-    def _with_scalars(ns, node_attr, base_attr, nbr_idx):
-        """Edge features: [base, receiver scalars, sender scalars]."""
-        send = gather_nodes(node_attr[..., :ns], nbr_idx)  # (B, R, K, ns)
-        recv = node_attr[:, :, None, :ns].expand(send.shape)
-        return torch.cat([base_attr.expand(send.shape[:-1] + base_attr.shape[-1:]), recv, send],
-                         dim=-1)
-
     def _rec_rec_block(self, db, rec_node_attr, rec_edge_attr_base, rec_cache) -> NeighborBlock:
         return NeighborBlock(
             sender_attr=rec_node_attr, nbr_idx=db.rec_nbr, nbr_mask=db.rec_nbr_mask,
-            edge_attr=self._with_scalars(self.cfg.ns, rec_node_attr, rec_edge_attr_base, db.rec_nbr),
+            edge_attr=edge_scalars(self.cfg.ns, rec_node_attr, rec_node_attr, rec_edge_attr_base, db.rec_nbr),
             edge_sh=rec_cache.edge_sh, edge_weight=rec_cache.edge_weight,
         )
 
@@ -380,12 +441,12 @@ class CGScoreModel(nn.Module):
         bond_block = NeighborBlock(
             sender_attr=node_attr, nbr_idx=bond_idx,
             nbr_mask=db.lig_bond_mask.expand(bond_idx.shape),
-            edge_attr=self._with_scalars(ns, node_attr, bond_attr, bond_idx),
+            edge_attr=edge_scalars(ns, node_attr, node_attr, bond_attr, bond_idx),
             edge_sh=bond_sh, edge_weight=bond_w,
         )
         radius_block = NeighborBlock(
             sender_attr=node_attr, nbr_idx=all_idx, nbr_mask=rmask,
-            edge_attr=self._with_scalars(ns, node_attr, radius_attr, all_idx),
+            edge_attr=edge_scalars(ns, node_attr, node_attr, radius_attr, all_idx),
             edge_sh=radius_sh, edge_weight=radius_w,
         )
         return bond_block, radius_block
@@ -409,13 +470,15 @@ class CGScoreModel(nn.Module):
         data: ComplexData,
         lig_pos: torch.Tensor,
         t: torch.Tensor,
-        so3_tables: SO3Tables,
-        torus_tables: TorusTables,
+        so3_tables: Optional[SO3Tables] = None,
+        torus_tables: Optional[TorusTables] = None,
         rec_cache: Optional[RecCache] = None,
         step_cache=None,
         rec_keep: Optional[torch.Tensor] = None,
-    ) -> ScoreOutput:
-        """Scores for a batch of poses ``lig_pos`` (P, NL, 3).
+    ):
+        """Scores (:class:`ScoreOutput`) or, in confidence mode, confidence
+        outputs (see :meth:`_confidence_head`; the tables are then unused)
+        for a batch of poses ``lig_pos`` (P, NL, 3).
 
         Docking: ``data`` is one complex (fields (NL, ...), (NR, ...)), the
         P poses are poses of it and ``t`` is 0-d; ``rec_cache`` and
@@ -429,6 +492,7 @@ class CGScoreModel(nn.Module):
         complex; the receptor embedding is then computed under the crop,
         so ``rec_cache`` and ``step_cache`` must be None."""
         cfg = self.cfg
+        ns = cfg.ns
         P, nl = lig_pos.shape[:2]
         if rec_keep is not None:
             if rec_cache is not None or step_cache is not None:
@@ -438,7 +502,7 @@ class CGScoreModel(nn.Module):
         db = data if batched else _batched(data)
         nr = db.rec_pos.shape[1]
         t = torch.as_tensor(t, dtype=torch.float32, device=lig_pos.device).reshape(-1)
-        tr_sigma, rot_sigma, tor_sigma = t_to_sigma(t, t, t, cfg.sigma)
+        tr_sigma, rot_sigma, tor_sigma = self._sigmas(t)
         sigma_emb = self._sigma_embedding(t)  # (B, sig)
 
         if rec_cache is None:
@@ -470,7 +534,7 @@ class CGScoreModel(nn.Module):
             bond_block, radius_block = self._lig_blocks_from_graph(db, lig_graph, lig_node_attr)
             lig_cross_block = NeighborBlock(
                 sender_attr=rec_node_attr, nbr_idx=rec_idx_all, nbr_mask=cmask,
-                edge_attr=self._cross_attr(lig_node_attr, rec_node_attr, cross_attr, rec_idx_all),
+                edge_attr=edge_scalars(ns, lig_node_attr, rec_node_attr, cross_attr, rec_idx_all),
                 edge_sh=cross_sh, edge_weight=cross_w,
             )
             lig_blocks = [bond_block, radius_block, lig_cross_block]
@@ -481,8 +545,8 @@ class CGScoreModel(nn.Module):
                 rec_cross_block = NeighborBlock(
                     sender_attr=lig_node_attr, nbr_idx=lig_idx_all,
                     nbr_mask=cmask.transpose(1, 2),
-                    edge_attr=self._cross_attr(rec_node_attr, lig_node_attr,
-                                               cross_attr.transpose(1, 2), lig_idx_all),
+                    edge_attr=edge_scalars(ns, rec_node_attr, lig_node_attr,
+                                           cross_attr.transpose(1, 2), lig_idx_all),
                     edge_sh=rev_cross_sh, edge_weight=rev_cross_w,
                 )
                 if li == 0 and step_cache is not None:
@@ -500,22 +564,66 @@ class CGScoreModel(nn.Module):
                 rec_blocks, rec_groups, rec_extra=rec_extra,
                 lig_mask=db.lig_mask, rec_mask=db.rec_mask,
             )
+        return self._heads(db, lig_pos, lig_node_attr, sigma_emb, (tr_sigma, rot_sigma, tor_sigma),
+                           so3_tables, torus_tables)
 
+    def _sigmas(self, t: torch.Tensor):
+        """(tr, rot, tor) sigmas of the times ``t`` (B,): in confidence mode
+        each is ``t`` itself."""
+        if self.cfg.confidence_mode:
+            return t, t, t
+        return t_to_sigma(t, t, t, self.cfg.sigma)
+
+    def _heads(self, db, lig_pos, lig_node_attr, sigma_emb, sigmas, so3_tables, torus_tables):
+        """The confidence head in confidence mode, else the score heads."""
+        if self.cfg.confidence_mode:
+            return self._confidence_head(db, lig_node_attr)
+        tr_sigma, rot_sigma, tor_sigma = sigmas
+        P = lig_pos.shape[0]
         tr_pred, rot_pred = self._center_head(
             db, lig_pos, lig_node_attr, sigma_emb, tr_sigma, rot_sigma, so3_tables
         )
         nb = db.rot_u.shape[1]
-        if cfg.no_torsion or nb == 0:
+        if self.cfg.no_torsion or nb == 0:
             tor_pred = lig_pos.new_zeros(P, nb)
         else:
             tor_pred = self._torsion_head(db, lig_pos, lig_node_attr, tor_sigma, torus_tables)
         return ScoreOutput(tr=tr_pred, rot=rot_pred, tor=tor_pred)
 
-    def _cross_attr(self, recv_attr, send_attr, base, send_idx):
-        ns = self.cfg.ns
-        send = gather_nodes(send_attr[..., :ns], send_idx)  # (P, R, K, ns)
-        recv = recv_attr[:, :, None, :ns].expand(send.shape)
-        return torch.cat([base, recv, send], dim=-1)
+    # ------------------------------------------------------------------
+    def _confidence_head(self, db, lig_node_attr):
+        """(P, num_confidence_outputs [+ ns affinity features]) from the
+        ligand's scalar channels (the first ns, plus the ladder's last block
+        once 3 layers deep) mean-pooled over its real atoms; with
+        ``atom_confidence`` the tuple (that, per-atom confidences (P, NL,
+        atom_num_confidence_outputs)), the per-atom head's ns further
+        outputs replacing the pooled scalars, as the JAX model returns it."""
+        cfg = self.cfg
+        ns = cfg.ns
+        extra = self._confidence_extra_dim()
+        scalar = lig_node_attr[..., :ns]
+        if extra:
+            scalar = torch.cat([scalar, lig_node_attr[..., -extra:]], dim=-1)
+        atom_conf = None
+        if cfg.atom_confidence:
+            z = self.atom_confidence_predictor(scalar)
+            k = cfg.atom_num_confidence_outputs
+            atom_conf, scalar = z[..., :k], z[..., k:]
+        w = db.lig_mask[..., None].to(scalar.dtype)  # (B, NL, 1)
+        pooled = (scalar * w).sum(1) / torch.clamp(w.sum(1), min=1.0)
+        out = self.confidence_predictor(pooled)
+        return out if atom_conf is None else (out, atom_conf)
+
+    def predict_affinity(self, pose_feats: torch.Tensor) -> torch.Tensor:
+        """One affinity (0-d) for a pose set: the per-pose affinity features
+        ``pose_feats`` (P, ns), the confidence head's outputs after the
+        first ``num_confidence_outputs``, aggregated over the poses (mean,
+        max, min, population std, in ``parallel_aggregators`` order) and
+        regressed (reference ``aa_model.py:16-19,448-454``)."""
+        aggs = {"mean": lambda x: x.mean(0), "max": lambda x: x.max(0).values,
+                "min": lambda x: x.min(0).values, "std": lambda x: x.std(0, unbiased=False)}
+        feats = torch.cat([aggs[a](pose_feats) for a in self.cfg.parallel_aggregators])
+        return self.affinity_predictor(feats[None])[0, 0]
 
     # ------------------------------------------------------------------
     def _center_head(self, db, lig_pos, lig_node_attr, sigma_emb, tr_sigma, rot_sigma,
@@ -624,6 +732,20 @@ def _per_edge(sigma_emb: torch.Tensor, shape) -> torch.Tensor:
     """(B, sig) -> ``shape`` + (sig,), the first axis broadcast from B."""
     view = sigma_emb.reshape((sigma_emb.shape[0],) + (1,) * (len(shape) - 1) + sigma_emb.shape[-1:])
     return view.expand(tuple(shape) + sigma_emb.shape[-1:])
+
+
+def edge_scalars(ns: int, recv_attr, send_attr, base, send_idx, swap: bool = False) -> torch.Tensor:
+    """Edge features (base, receiver scalars, sender scalars): the first
+    ns channels of the receiver and of each gathered sender after the
+    base features; ``swap`` orders them (base, sender, receiver), the old
+    CG lig->rec quirk. ``recv_attr`` (B, R, F), ``send_attr`` (B, S, F),
+    ``base`` (B, R, K, E), ``send_idx`` (B, R, K); a B of 1 broadcasts."""
+    send = gather_nodes(send_attr[..., :ns], send_idx)  # (B, R, K, ns)
+    lead = torch.broadcast_shapes(send.shape[:-1], base.shape[:-1], recv_attr.shape[:-1] + (1,))
+    recv = recv_attr[:, :, None, :ns].expand(lead + (ns,))
+    send = send.expand(lead + (ns,))
+    parts = [base.expand(lead + base.shape[-1:])] + ([send, recv] if swap else [recv, send])
+    return torch.cat(parts, dim=-1)
 
 
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -184,6 +184,54 @@ class TPConvLayer(_ConvBase):
         return self._finish(out, receiver_attr, receiver_mask)
 
 
+class MultiTPConvLayer(_ConvBase):
+    """N receiver sets with per-edge-type FC groups and one joint batch norm
+    (the JAX package's ``MultiTPConvLayer``, the all-atom model's layer
+    over ligand, residues and atoms with up to nine edge groups). ``groups``
+    names the FC groups the layer has (flax ``fc_{g}``, or one
+    ``fc_shared`` without ``differentiate_convolutions``). A receiver set
+    with no blocks (the receptor sets of the last layer) gets zero messages
+    but still passes through the joint batch norm, as the reference's
+    concatenated node array does."""
+
+    def __init__(self, in_irreps, sh_irreps, out_irreps, n_edge_features: int,
+                 groups: Sequence[int], differentiate_convolutions: bool = True,
+                 residual: bool = True, batch_norm: bool = True,
+                 hidden_features: Optional[int] = None, tp_weights_layers: int = 2,
+                 reference_kernels: bool = False, dropout: float = 0.0):
+        super().__init__(in_irreps, sh_irreps, out_irreps, n_edge_features,
+                         hidden_features, tp_weights_layers, batch_norm, residual,
+                         reference_kernels, dropout)
+        self.differentiate_convolutions = differentiate_convolutions
+        if differentiate_convolutions:
+            for g in groups:
+                self.add_module(f"fc_{g}", self._make_fc())
+        else:
+            self.fc_shared = self._make_fc()
+
+    def get_fc(self, g: int) -> FCBlock:
+        return getattr(self, f"fc_{g}") if self.differentiate_convolutions else self.fc_shared
+
+    def forward(self, receiver_sets) -> List[torch.Tensor]:
+        """``receiver_sets``: (attr (B or 1, R, F), blocks, groups, mask
+        (B or 1, R)) per set; returns each set's new features (B, R, F_out),
+        B the widest batch among the sets and their messages. The masks are
+        the rows the training batch norm counts."""
+        outs = [_combine_reduced([self._message(self.get_fc(g), blk) for g, blk in zip(groups, blocks)])
+                if blocks else None for _attr, blocks, groups, _mask in receiver_sets]
+        B = max([o.shape[0] for o in outs if o is not None]
+                + [attr.shape[0] for attr, *_ in receiver_sets])
+        D = self.out_irreps.dim
+        sizes = [attr.shape[1] for attr, *_ in receiver_sets]
+        out = torch.cat([
+            o.expand(B, R, D) if o is not None else attr.new_zeros(B, R, D)
+            for o, (attr, *_), R in zip(outs, receiver_sets, sizes)], dim=1)
+        attr = torch.cat([a.expand((B,) + a.shape[1:]) for a, *_ in receiver_sets], dim=1)
+        mask = torch.cat([m.expand(B, R) for (*_, m), R in zip(receiver_sets, sizes)], dim=1)
+        out = self._finish(out, attr, mask)
+        return list(torch.split(out, sizes, dim=1))
+
+
 class JointTPConvLayer(_ConvBase):
     """Ligand+receptor joint conv with per-edge-type FC groups
     (0 = lig<-lig, 1 = lig<-rec, 2 = rec<-rec, 3 = rec<-lig; flax names

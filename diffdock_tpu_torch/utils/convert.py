@@ -65,11 +65,12 @@ def _module_path(parts: Tuple[str, ...]) -> list:
 
 def state_dict_from_flax(variables: Mapping, cfg: ScoreModelConfig) -> Dict[str, torch.Tensor]:
     """``variables``: {'params': ..., 'batch_stats': ...} from the JAX
-    model's ``init`` (``CGScoreModel``, or ``OldCGScoreModel`` /
-    ``OldAAScoreModel`` in confidence mode); returns a ``state_dict`` for
-    the port's model of the same config."""
-    if cfg.confidence_mode and not cfg.old_architecture:
-        raise ValueError("confidence models of the new architectures are not ported yet")
+    model's ``init`` (``CGScoreModel`` or ``AAScoreModel`` in either mode,
+    or ``OldCGScoreModel`` / ``OldAAScoreModel`` in confidence mode);
+    returns a ``state_dict`` for the port's model of the same config. The
+    confidence heads (``confidence_predictor``,
+    ``atom_confidence_predictor``, ``affinity_predictor``) map through the
+    inner ``Dense_{i}`` / ``BatchNorm_{i}`` names like every other MLP."""
     sd: Dict[str, torch.Tensor] = {}
     for path, value in _flatten(variables["params"]):
         *mods, leaf = path
@@ -155,14 +156,11 @@ def flax_from_model(model: torch.nn.Module,
 
 
 def build_model(cfg: ScoreModelConfig) -> torch.nn.Module:
-    """The port model of ``cfg`` on the CPU: the old family's confidence
-    models, or the coarse-grained score model."""
-    from diffdock_tpu_torch.models.old_models import build_confidence_model
-    from diffdock_tpu_torch.models.score_model import CGScoreModel
+    """The port model of ``cfg`` on the CPU
+    (:func:`diffdock_tpu_torch.models.factory.build_model`)."""
+    from diffdock_tpu_torch.models.factory import build_model as build
 
-    if cfg.confidence_mode or cfg.old_architecture:
-        return build_confidence_model(cfg)
-    return CGScoreModel(cfg)
+    return build(cfg)
 
 
 def load_converted(params: Mapping, batch_stats: Mapping, report: Mapping,

@@ -15,8 +15,8 @@ layout is the JAX package's.
 Converters exist for the four reference architectures:
 
 * ``convert_cg_state_dict``      — new CGModel (``models/cg_model.py``)
-* ``convert_aa_state_dict``      — new AAModel (``models/aa_model.py``);
-  the port has no ``AAScoreModel`` yet, so its tree cannot be loaded
+* ``convert_aa_state_dict``      — new AAModel (``models/aa_model.py``),
+  loaded into the port's ``AAScoreModel``
 * ``convert_old_cg_state_dict``  — CGOldModel (``models/old_cg_model.py``)
 * ``convert_old_aa_state_dict``  — AAOldModel (``models/old_aa_model.py``),
   the architecture of the shipped default confidence model

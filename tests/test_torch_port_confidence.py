@@ -159,7 +159,18 @@ def test_confidence_chunks_do_not_change_results(tables):
 
 
 def test_unported_confidence_configurations_are_refused():
-    for kw in (dict(confidence_mode=False), dict(old_architecture=False), dict(affinity_prediction=True),
+    # old_architecture=False builds the new all-atom model
+    # (tests/test_torch_port_confidence_head.py); atom_confidence is refused
+    # by the pipeline alone, as the JAX pipeline fails on its outputs
+    from diffdock_tpu_torch.models.aa_model import AAScoreModel
+
+    new = dataclasses.replace(ScoreModelConfig(**_conf_kw(True, 0, 2)), old_architecture=False)
+    assert isinstance(build_confidence_model(new), AAScoreModel)
+    with pytest.raises(ConfigError, match="atom_confidence"):
+        DockingPipeline(ScoreModelConfig(ns=8, nv=2), 0, device="cpu",
+                        confidence_cfg=dataclasses.replace(new, atom_confidence=True),
+                        confidence_weights=0, so3_tables=object(), torus_tables=object())
+    for kw in (dict(confidence_mode=False), dict(affinity_prediction=True),
                dict(odd_parity=True), dict(use_old_atom_encoder=False),
                dict(compute_dtype="bfloat16")):
         cfg = dataclasses.replace(ScoreModelConfig(**_conf_kw(True, 0, 2)), **kw)

@@ -1,8 +1,8 @@
 """The port's confidence-ranked dock vs the JAX pipeline on the CPU.
 
 One small synthetic complex docked by both packages' ``DockingPipeline``
-with the same converted flax parameters (score model and an old-family
-confidence model, all-atom and coarse-grained), the JAX pipeline's own
+with the same converted flax parameters (score model and a confidence
+model: old-family or new-architecture, all-atom and coarse-grained), the JAX pipeline's own
 ``jax.random`` draws injected into the port: poses within 1e-3 A,
 confidences within 1e-4 x max(max|conf|, 1), the same ranking wherever
 neighbouring confidences differ by more than twice that.
@@ -38,13 +38,11 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-@pytest.mark.parametrize("all_atoms", [True, False])
-def test_confidence_ranked_dock_matches_jax(tables, all_atoms):
-    """Poses, confidences and order of one dock: the JAX pipeline with its
-    own random draws, the port with the same draws injected."""
+def _compare_docks(tables, ckw, all_atoms):
+    """One dock of a small synthetic complex by both pipelines with the
+    same weights and the JAX pipeline's draws; returns the two results."""
     js, jt, ps, pt = tables
     skw = dict(ns=8, nv=2, num_conv_layers=2, num_prot_emb_layers=1)
-    ckw = _conf_kw(all_atoms, 0, 2)
     n = dict(n_lig=10, n_rec=16, n_bonds=2, atoms_per_res=3)
     aa = synthetic_aa_complex(np.random.RandomState(0), **n)
     jaa = j_complexes.synthetic_aa_complex(np.random.RandomState(0), **n)
@@ -71,8 +69,10 @@ def test_confidence_ranked_dock_matches_jax(tables, all_atoms):
     before = ft.counts["fused_tp3_reference"]
     res = pipe.dock_complex(aa.base, num_poses=P, seed=seed, noise=_jax_noise(steps[1]),
                             aa_data=aa)
-    # score model: 1 receptor layer + 12 per step; confidence: one chunk
-    assert ft.counts["fused_tp3_reference"] - before == 1 + 12 * steps[1] + confidence_launches(conf_cfg)
+    # score model: 1 receptor layer + 12 per step; confidence: its receptor
+    # embedding (new architectures) and one chunk
+    assert ft.counts["fused_tp3_reference"] - before == (
+        1 + 12 * steps[1] + confidence_launches(conf_cfg, embed=True) + confidence_launches(conf_cfg))
     np.testing.assert_allclose(res.poses, ref.poses, rtol=0, atol=1e-3)
     tol = 1e-4 * max(np.abs(ref.confidence).max(), 1.0)
     np.testing.assert_allclose(res.confidence, ref.confidence, rtol=0, atol=tol)
@@ -82,3 +82,29 @@ def test_confidence_ranked_dock_matches_jax(tables, all_atoms):
         if ref.confidence[a] - ref.confidence[b] > 2 * tol:
             assert res.confidence[a] > res.confidence[b]
     assert sorted(res.order) == list(range(P))
+    return res, ref
+
+
+@pytest.mark.parametrize("all_atoms", [True, False])
+def test_confidence_ranked_dock_matches_jax(tables, all_atoms):
+    """Poses, confidences and order of one dock: the JAX pipeline with its
+    own random draws, the port with the same draws injected."""
+    res, ref = _compare_docks(tables, _conf_kw(all_atoms, 0, 2), all_atoms)
+    assert res.affinity is None and ref.affinity is None
+
+
+@pytest.mark.parametrize("all_atoms", [True, False])
+def test_new_architecture_confidence_dock_matches_jax(tables, all_atoms):
+    """The same dock ranked by a new-architecture confidence model: the
+    coarse-grained model in confidence mode (with ``affinity_prediction``:
+    the pose set's affinity within the confidences' tolerance) or
+    ``AAScoreModel``, each with a protein-embedding layer whose receptor
+    embedding runs once."""
+    ckw = dict(ns=8, nv=2, num_conv_layers=2, num_prot_emb_layers=1, confidence_mode=True,
+               all_atoms=all_atoms, affinity_prediction=not all_atoms)
+    res, ref = _compare_docks(tables, ckw, all_atoms)
+    if all_atoms:
+        assert res.affinity is None and ref.affinity is None
+    else:
+        np.testing.assert_allclose(res.affinity, ref.affinity, rtol=0,
+                                   atol=1e-4 * max(abs(ref.affinity), 1.0))

@@ -42,6 +42,7 @@ from tests.test_torch_port_evaluate import (
 )
 
 CONF_KW = _conf_kw(True, 0, 2)
+NEW_CONF_KW = dict(ns=8, nv=2, num_conv_layers=2, num_prot_emb_layers=1, confidence_mode=True, all_atoms=True)
 
 
 @pytest.fixture(autouse=True)
@@ -75,6 +76,26 @@ def test_the_jax_cli_gives_penalty_rows_with_an_all_atom_confidence_model(run_di
 
 def test_the_port_cli_ranks_like_the_jax_pipeline_on_all_atom_shards(run_dirs, tables, monkeypatch,  # noqa: F811
                                                                      tmp_path):
+    _cli_against_jax_pipeline(run_dirs, CONF_KW, tables, monkeypatch, tmp_path)
+
+
+@pytest.fixture(scope="module")
+def new_run_dirs(tables, tmp_path_factory):  # noqa: F811
+    js, jt, _, _ = tables
+    jscore, jconf = init_params(js, jt, NEW_CONF_KW)
+    return (jscore, jconf) + write_run_dirs(tmp_path_factory.mktemp("runs_new_aa"), jscore, jconf, NEW_CONF_KW)
+
+
+def test_the_port_cli_ranks_with_a_new_all_atom_confidence_model(new_run_dirs, tables, monkeypatch,  # noqa: F811
+                                                                 tmp_path):
+    """The same sweep ranked by a new-architecture ``AAScoreModel``
+    confidence run directory (with a protein-embedding layer)."""
+    _cli_against_jax_pipeline(new_run_dirs, NEW_CONF_KW, tables, monkeypatch, tmp_path)
+
+
+def _cli_against_jax_pipeline(run_dirs, conf_kw, tables, monkeypatch, tmp_path):  # noqa: F811
+    """The port's evaluate CLI against the JAX pipeline's ``dock_complex``
+    fed the JAX package's all-atom shards: RMSD rows and confidences."""
     jscore, jconf, score_dir, conf_dir = run_dirs
     js, jt, _, _ = tables
     patch_tables_and_draws(monkeypatch, tables)
@@ -89,7 +110,7 @@ def test_the_port_cli_ranks_like_the_jax_pipeline_on_all_atom_shards(run_dirs, t
                             jds.DatasetConfig(cache_dir=str(tmp_path / "jc"), all_atoms=True))
     ds.preprocess(verbose=False)
     jpipe = JDockingPipeline(JScoreModelConfig(**SKW), jscore, jdock.sampler_config_from_args(args),
-                             confidence_cfg=JScoreModelConfig(**CONF_KW), confidence_params=jconf,
+                             confidence_cfg=JScoreModelConfig(**conf_kw), confidence_params=jconf,
                              so3_tables=js, torus_tables=jt, bucket_ladder="cover")
     rows, confs = [], []
     for name in NAMES:
@@ -102,7 +123,7 @@ def test_the_port_cli_ranks_like_the_jax_pipeline_on_all_atom_shards(run_dirs, t
         confs.append(np.asarray(res.confidence)[res.order])
     rmsds = np.load(out / "rmsds.npy")
     assert rmsds.shape == (len(NAMES), P) and np.isfinite(rmsds).all() and (rmsds < 10000.0).all()
-    assert_rows_match(rmsds, np.asarray(rows), lambda i: float64_rmsds(jscore, jconf, CONF_KW, tables, args,
+    assert_rows_match(rmsds, np.asarray(rows), lambda i: float64_rmsds(jscore, jconf, conf_kw, tables, args,
                                                                        NAMES[i], str(tmp_path / "c64")))
     confs = np.asarray(confs)
     np.testing.assert_allclose(np.load(out / "confidences.npy"), confs, rtol=0,

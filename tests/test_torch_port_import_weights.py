@@ -414,3 +414,56 @@ def test_evaluate_cli_reads_reference_run_dirs(ref_dirs, tables, monkeypatch, tm
         assert set(got) == set(want)
         for k in want:
             assert torch.equal(got[k], want[k]), k
+
+
+# a new-architecture coarse-grained confidence model's args dump (the
+# confidence head of CGScoreModel, with a protein-embedding layer)
+NEW_CONF_ARGS = dict(ns=8, nv=2, num_conv_layers=2, num_prot_emb_layers=1, embed_also_ligand=True,
+                     all_atoms=False, esm_embeddings_path=None, embedding_type="sinusoidal",
+                     embedding_scale=1000, rmsd_classification_cutoff=[2.0], confidence_dropout=0.1,
+                     log_dir="workdir/confidence_new")
+
+
+def test_dock_cli_ranks_with_a_new_architecture_reference_dir_like_the_jax_cli(ref_dirs, tables, monkeypatch,
+                                                                               tmp_path):
+    """``--no-old_confidence_model`` on a reference ``.pt`` directory of a
+    new-architecture confidence model: both CLIs convert it (the port into
+    ``tpu_native_conf``), the port's pipeline builds ``CGScoreModel`` in
+    confidence mode through the factory, and the ranked poses and their
+    confidences equal the JAX CLI's, as for the v1.0 model above."""
+    from diffdock_tpu_torch.models.score_model import CGScoreModel
+
+    js, jt, ps, pt = tables
+    jcfg = jimport.config_from_reference_args(NEW_CONF_ARGS, confidence_mode=True, old=False)
+    assert jcfg.confidence_mode and not jcfg.old_architecture and not jcfg.all_atoms
+    conf_ref = write_reference_dir(str(tmp_path / "new_conf"), NEW_CONF_ARGS, _jax_variables(jcfg, js, jt, 5),
+                                   jcfg)
+    monkeypatch.setattr(jpipeline_mod, "get_so3_tables", lambda *a, **k: js)
+    monkeypatch.setattr(jpipeline_mod, "get_torus_tables", lambda *a, **k: jt)
+    monkeypatch.setattr(pipeline_mod, "get_so3_tables", lambda *a, **k: ps)
+    monkeypatch.setattr(pipeline_mod, "get_torus_tables", lambda *a, **k: pt)
+    monkeypatch.setattr(DockingPipeline, "draw_noise",
+                        lambda self, num_poses, n_bonds, seed: _jax_draws(seed, num_poses, n_bonds, STEPS))
+    lig = SYNTH / NAME / f"{NAME}_ligand.sdf"
+    pdb = SYNTH / NAME / f"{NAME}_protein_processed.pdb"
+    outs = {}
+    for pkg, main in (("port", dock.main), ("jax", jdock.main)):
+        runs = tmp_path / f"runs_{pkg}"
+        score = shutil.copytree(ref_dirs["score"][0], runs / "score")
+        conf = shutil.copytree(conf_ref, runs / "confidence")
+        outs[pkg] = tmp_path / f"out_{pkg}"
+        argv = ["--protein_path", str(pdb), "--ligand", str(lig), "--complex_name", NAME,
+                "--model_dir", str(score), "--confidence_model_dir", str(conf), "--no-old_confidence_model",
+                "--out_dir", str(outs[pkg]), "--samples_per_complex", str(P), "--inference_steps", str(STEPS),
+                "--actual_steps", str(STEPS), "--seed", str(SEED)]
+        extra = ["--device", "cpu"] if pkg == "port" else ["--compute_dtype", "float32"]
+        assert main(argv + extra) == 0
+        assert os.path.isdir(runs / "confidence" / "tpu_native_conf")
+        if pkg == "port":
+            pipe = dock.load_pipeline(dock.get_parser().parse_args(argv + extra))
+            assert type(pipe.confidence_model) is CGScoreModel and pipe.confidence_cfg.confidence_mode
+    ours, ref = _read_ranked(outs["port"] / NAME), _read_ranked(outs["jax"] / NAME)
+    assert sorted(ours) == sorted(ref) == list(range(1, P + 1))
+    for r in ref:
+        np.testing.assert_allclose(ours[r][1], ref[r][1], rtol=0, atol=1e-3)
+        assert ours[r][0] == pytest.approx(ref[r][0], abs=2e-4)

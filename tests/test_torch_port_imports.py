@@ -66,7 +66,8 @@ def test_port_imports_nothing_missing_on_the_card_machine():
     "inference/ladder.py", "data/datasets.py", "data/moad.py", "eval/rmsd.py", "eval/metrics.py",
     "eval/gnina.py", "cli/evaluate.py", "train/noise.py", "train/losses.py", "train/trainer.py",
     "train/schedulers.py", "train/validation.py", "data/loaders.py", "utils/logging.py",
-    "cli/train.py",
+    "cli/train.py", "models/aa_model.py", "models/factory.py", "models/tpconv.py",
+    "train/confidence.py", "cli/confidence_train.py",
 ])
 def test_port_modules_are_in_the_checked_set(module):
     assert REPO / "diffdock_tpu_torch" / module in _port_files()

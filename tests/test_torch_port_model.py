@@ -133,7 +133,11 @@ def test_score_model_per_class_oracle_matches_merged_path(tables, monkeypatch):
 
 
 def test_unported_configurations_are_refused():
-    for kw in (dict(confidence_mode=True), dict(all_atoms=True), dict(old_architecture=True),
+    # all_atoms is the all-atom model's (models/aa_model.py), old_architecture
+    # the old family's (models/old_models.py); confidence mode is ported
+    # (tests/test_torch_port_confidence_head.py)
+    for kw in (dict(all_atoms=True), dict(old_architecture=True),
                dict(depthwise_convolution=True), dict(compute_dtype="bfloat16")):
         with pytest.raises(ConfigError):
             CGScoreModel(ScoreModelConfig(**kw))
+    assert not hasattr(CGScoreModel(ScoreModelConfig(confidence_mode=True)), "final_conv")

@@ -115,13 +115,22 @@ def test_load_converted_is_strict(arch):
 
 
 def test_aa_score_model_tree_has_no_port_model():
-    """New-architecture all-atom trees convert exactly (above), but the
-    port has no AAScoreModel yet (ROADMAP queue 1 item 5): loading raises."""
+    """New-architecture all-atom trees convert exactly (above) and, since
+    the port has ``AAScoreModel``, load into it strictly: every entry
+    consumed, none missing or extra (the test's name predates the model)."""
+    from diffdock_tpu_torch.models.aa_model import AAScoreModel
+    from diffdock_tpu_torch.utils.convert import build_model
+
     jcfg = ARCHS["aa_confidence"]
     sd, _, _ = reference_sd(jcfg)
     cfg = port_cfg(jcfg)
-    with pytest.raises(ValueError):
-        load_converted(*torch_import.convert_state_dict(sd, cfg), cfg)
+    p, s, r = torch_import.convert_state_dict(sd, cfg)
+    weights = load_converted(p, s, r, cfg)
+    model = build_model(cfg)
+    assert isinstance(model, AAScoreModel)
+    model.load_state_dict(weights, strict=True)
+    with pytest.raises(ValueError, match="missing"):
+        load_converted({k: v for k, v in p.items() if k != "conv_0"}, s, r, cfg)
 
 
 @pytest.mark.parametrize("case", ["old_cg", "old_aa"])
