@@ -156,9 +156,31 @@ G. confidence training and new-architecture ranking: G1 fused_tp3's
    (``diffdock_l`` preset) and ranked by each run directory: exact counts
    (the receptor embedded once), and the plain models' confidences on the
    same poses within CONF_RTOL of scale, the same ranking.
+H. bfloat16, the JAX package's default compute dtype (phases 4-G above run
+   the CLIs with ``--compute_dtype float32``, so their gates stay
+   float32's): H1 fused_tp3's bfloat16 mode against its bfloat16 plain
+   version at phase 3's six blocks (within BF16_KERNEL_RTOL of scale),
+   timed beside the float32 mode, the plain version, the library pair in
+   bfloat16 (cuBLAS) and its bound (2-byte operands over 3.35 TB/s, or both
+   products at the bfloat16 rate, 989 TFLOP/s); H2 phase 4's dock with both
+   models in bfloat16 from phase 4's draws: launch counts by mode
+   (``fused_tp3_bf16`` for the bfloat16 layers, ``fused_tp3`` for
+   ``final_conv`` and ``tor_bond_conv``, which stay float32 as in the JAX
+   model), no plain version, bond lengths within 1e-3 A, its plain twin
+   (first step within BF16_FIRST_STEP_ATOL, final poses within twice the
+   spread of a BF16_NUDGE nudge, confidences and ranking as in phase 5), the
+   per-pose RMSD to phase 4's float32 dock (reported, no gate), the warm
+   wall (median and range of 5) beside phase 4's, peak memory and phase C's
+   bytes per pose; H3 the web server (``diffdock_tpu_torch/app/server.py``)
+   in this process on a free port over phase B's run directories with its
+   defaults (bfloat16, cuda): three requests from files, each polled to
+   ``done``, its ``rank1.sdf`` parsed with bond lengths within 1e-3 A and
+   exact launch counts, the walls from submit to done; a bad submit gets
+   400; ``python -m diffdock_tpu_torch.cli.main --help`` returns 0.
 
 It then prints the card line (``nvidia-smi --query-gpu=name,power.limit``),
-one JSON line with the kernels' numbers, and, last, the result line
+one JSON line with the kernels' numbers (fused_tp3's bfloat16 mode as
+``fused_tp3_bf16``, with phase H's numbers), and, last, the result line
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero before
 the result line; without a CUDA device, or without the package beside
 this script, it exits non-zero at once. Nothing runs on the CPU instead.
@@ -181,6 +203,7 @@ F32_PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 # H100 SXM dense TF32 on the tensor cores; 3xTF32 takes three products
 TF32X3_PEAK_FLOPS = 495e12 / 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+BF16_PEAK_FLOPS = 989e12  # H100 SXM dense bfloat16 on the tensor cores
 
 # |kernel - plain| <= KERNEL_RTOL * max(max|plain|, 1): both sum in float32,
 # in different orders, over up to K*(H+1) = 46,400 terms per output
@@ -428,16 +451,18 @@ def check_blocks(kernels, blocks: dict, dev, tag: str = "") -> dict:
     return checks
 
 
-def docks_agree(res, ref_res, pose_tol: float = POSE_ATOL) -> dict:
+def docks_agree(res, ref_res, pose_tol: float = POSE_ATOL, conf_tol=None) -> dict:
     """The dock through the kernels against the same dock through the plain
-    versions: poses within ``pose_tol``, confidences within CONF_RTOL of
-    their scale, and the same ranking wherever neighbouring confidences (the
-    plain dock's order) differ by more than twice that; raises otherwise."""
+    versions: poses within ``pose_tol``, confidences within ``conf_tol``
+    (default CONF_RTOL of their scale), and the same ranking wherever
+    neighbouring confidences (the plain dock's order) differ by more than
+    twice that; raises otherwise."""
     import numpy as np
 
     pose_err = float(np.abs(res.poses - ref_res.poses).max())
     conf_err = float(np.abs(res.confidence - ref_res.confidence).max())
-    conf_tol = CONF_RTOL * max(float(np.abs(ref_res.confidence).max()), 1.0)
+    if conf_tol is None:
+        conf_tol = CONF_RTOL * max(float(np.abs(ref_res.confidence).max()), 1.0)
     rank_ok = all(res.confidence[a] > res.confidence[b]
                   for a, b in zip(ref_res.order[:-1], ref_res.order[1:])
                   if ref_res.confidence[a] - ref_res.confidence[b] > 2 * conf_tol)
@@ -454,19 +479,35 @@ def docks_agree(res, ref_res, pose_tol: float = POSE_ATOL) -> dict:
             "conf_tol": conf_tol, "order": ref_res.order.tolist(), "ranking_agrees": rank_ok}
 
 
-def dock_launches(pipe, cfg, ccfg, data, aa, poses: int, batch_size=None) -> int:
-    """fused_tp3 launches of one ``dock_complex`` of ``poses`` poses: per
-    pose chunk one score dock, a new-architecture confidence model's
+def mode_launches(pipe, data, aa, poses: int, batch_size=None) -> dict:
+    """fused_tp3 launches of one ``dock_complex`` of ``poses`` poses by mode:
+    per pose chunk one score dock, a new-architecture confidence model's
     receptor embedding and its confidence forwards, in the bucket the
-    pipeline's ladder gives the complex."""
+    pipeline's ladder gives the complex. The bfloat16 conv layers of a
+    bfloat16 model count as ``fused_tp3_bf16``; ``final_conv`` and
+    ``tor_bond_conv`` (float32 in any model, as in the JAX package) and
+    every layer of a float32 model as ``fused_tp3``."""
     from diffdock_tpu_torch.models.old_models import confidence_launches
 
+    cfg, ccfg = pipe.score_cfg, pipe.confidence_cfg
     chunk = pipe.effective_pose_chunk(data, poses, batch_size)
     conf_chunk = pipe.confidence_chunk_for(pipe.confidence_input(data, aa), chunk)
     nb = pipe.dock_bucket(data)[0][2]
-    return -(-poses // chunk) * (expected_tp3_launches(cfg, pipe.sampler_cfg.num_steps, nb)
-                                 + confidence_launches(ccfg, embed=True)
-                                 + -(-chunk // conf_chunk) * confidence_launches(ccfg))
+    steps = pipe.sampler_cfg.num_steps
+    score = expected_tp3_launches(cfg, steps, nb)
+    heads = steps * (1 + (1 if not cfg.no_torsion and nb > 0 else 0))
+    conf = confidence_launches(ccfg, embed=True) + -(-chunk // conf_chunk) * confidence_launches(ccfg)
+    out = {"fused_tp3": 0, "fused_tp3_bf16": 0}
+    out["fused_tp3_bf16" if cfg.compute_dtype == "bfloat16" else "fused_tp3"] += score - heads
+    out["fused_tp3"] += heads
+    out["fused_tp3_bf16" if ccfg.compute_dtype == "bfloat16" else "fused_tp3"] += conf
+    n_chunks = -(-poses // chunk)
+    return {k: n_chunks * v for k, v in out.items()}
+
+
+def dock_launches(pipe, data, aa, poses: int, batch_size=None) -> int:
+    """fused_tp3 launches of one ``dock_complex``, both modes together."""
+    return sum(mode_launches(pipe, data, aa, poses, batch_size).values())
 
 
 def run(args) -> dict:
@@ -725,8 +766,11 @@ def run(args) -> dict:
         report["train"] = train_phase(args, Path(tmp), cfg, kernels, score_blocks, card, dev)
         report["reference_dirs"] = reference_dirs(args, Path(tmp), cfg, ccfg, kernels, card)
         report["confidence"] = confidence_phase(args, Path(tmp), kernels, card, dev)
+        report["bf16"] = bf16_phase(args, Path(tmp), cfg, ccfg, blocks_all, report["dock"], res, noise,
+                                    data, aa, so3, torus, card, dev)
 
     sources = {"fused_tp3": "diffdock_tpu/ops/pallas_tpconv3.py:57",
+               "fused_tp3_bf16": "diffdock_tpu/ops/pallas_tpconv3.py:57",
                "factored_tp2": "diffdock_tpu/ops/pallas_tpconv2.py:125",
                "factored_tp1": "diffdock_tpu/ops/pallas_tpconv.py:118"}
     report["kernels"] = []
@@ -745,6 +789,18 @@ def run(args) -> dict:
             "bound_by": main["bound_by"],
             "library_ms": main["library_ms"],
         })
+    # the bfloat16 mode: its launches are those of phase H2's dock, the
+    # bfloat16 main path
+    h1 = report["bf16"]["kernel"]
+    main = h1["rec<-lig cross (conv)"]
+    report["kernels"].append({
+        "name": "fused_tp3_bf16", "route": "cuda", "source": "diffdock_tpu_torch/csrc/fused_tp3.cu",
+        "replaces": sources["fused_tp3_bf16"],
+        "launches": report["bf16"]["dock"]["launches"]["fused_tp3_bf16"],
+        "max_abs_err": max(c["max_abs_err"] for c in h1.values()),
+        "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+    })
     return report
 
 
@@ -831,7 +887,8 @@ def file_dock(args, tmp: Path, cfg, ccfg, kernels, card: str):
         raise PhaseError(f"the native kNN library did not load: {load_error}")
     dirs = _write_run_dirs(tmp / "runs_lm", cfg, ccfg)
     args_cli = cli.get_parser().parse_args(["--model_dir", dirs["score"], "--confidence_model_dir",
-                                            dirs["confidence"], "--device", "cuda"])
+                                            dirs["confidence"], "--compute_dtype", "float32",
+                                            "--device", "cuda"])
     pipe = cli.load_pipeline(args_cli)
     name = FILE_DOCK_COMPLEX
     d = E2E_SYNTH / name
@@ -850,7 +907,7 @@ def file_dock(args, tmp: Path, cfg, ccfg, kernels, card: str):
     n_chunks = -(-P // chunk)
     conf_chunk = pipe.confidence_chunk_for(pipe.confidence_input(data, aa), chunk)
     bucket = bucket_sizes(data.n_lig, data.n_rec, data.n_bonds)
-    expected = dock_launches(pipe, cfg, ccfg, data, aa, P, batch)
+    expected = dock_launches(pipe, data, aa, P, batch)
     drawn = {}  # each chunk's draws, by seed, for the plain dock below
 
     def noise(num_poses, n_bonds, seed):
@@ -991,7 +1048,7 @@ def cli_dock(args, tmp: Path, cfg, ccfg, kernels, pipe, card: str) -> dict:
         rows.append(f"{name},{pdb},{sdf}")
         mol, protein, _ = builder.load(InferenceSpec(name, str(pdb), ligand_description=str(sdf)))
         featurized[name] = pipe.featurize(mol, protein)[:2]
-        expected += dock_launches(pipe, cfg0, ccfg, *featurized[name], args.poses)
+        expected += dock_launches(pipe, *featurized[name], args.poses)
     csv.write_text("\n".join(rows) + "\n")
     out = tmp / "cli"
     buf = io.StringIO()
@@ -1001,7 +1058,8 @@ def cli_dock(args, tmp: Path, cfg, ccfg, kernels, pipe, card: str) -> dict:
     with contextlib.redirect_stdout(buf):
         rc = cli.main(["--protein_ligand_csv", str(csv), "--model_dir", dirs["score"],
                        "--confidence_model_dir", dirs["confidence"], "--out_dir", str(out),
-                       "--samples_per_complex", str(args.poses), "--device", "cuda"])
+                       "--samples_per_complex", str(args.poses), "--compute_dtype", "float32",
+                       "--device", "cuda"])
     wall = time.perf_counter() - t0
     launches = {k: v for m in kernels.values() for k, v in m.counts.as_dict().items()}
     for line in buf.getvalue().splitlines():
@@ -1138,7 +1196,7 @@ def eval_sweep(args, tmp: Path, cfg, ccfg, kernels, nudge: float, card: str) -> 
     argv = ["--data_dir", str(E2E_SYNTH), "--split", str(split), "--esm_embeddings_path",
             str(E2E_SYNTH / "_esm"), "--model_dir", str(score_dir), "--confidence_model_dir",
             str(conf_dir), "--out_dir", str(out), "--cache_path", str(cache), "--samples_per_complex",
-            str(args.poses), "--device", "cuda"]
+            str(args.poses), "--compute_dtype", "float32", "--device", "cuda"]
     eargs = evaluate.get_parser().parse_args(argv)
     if eargs.bucket_ladder != "cover" or eargs.inference_steps != 20 or eargs.actual_steps != 19:
         raise PhaseError(f"the evaluate CLI's defaults moved: {eargs}")
@@ -1197,7 +1255,7 @@ def eval_sweep(args, tmp: Path, cfg, ccfg, kernels, nudge: float, card: str) -> 
     if pipe.bucket_ladder != "cover" or pipe.anomaly_guard != 5.0:
         raise PhaseError(f"ladder {pipe.bucket_ladder}, guard {pipe.anomaly_guard} (expected cover, 5.0)")
     swept = {n: d for n, d in zip(names, docked)}
-    expected = sum(dock_launches(pipe, cfg, ccfg, data, aa, args.poses) for data, aa, _ in docked)
+    expected = sum(dock_launches(pipe, data, aa, args.poses) for data, aa, _ in docked)
     plain_runs = {k: v for k, v in launches.items() if "reference" in k and v}
     _log(f"  launches {launches} (expected fused_tp3 = {expected} over {len(EVAL_COMPLEXES)} docks)")
     if launches["fused_tp3"] != expected or plain_runs:
@@ -1404,7 +1462,7 @@ def tp3_gradients(blocks: dict, dev) -> dict:
         if not all(c["ok"] for c in checks.values()):
             raise PhaseError(f"fused_tp3's gradient disagrees with the plain version's at {label}: "
                              f"{ {k: v for k, v in checks.items() if not v['ok']} }")
-        if counts != {"fused_tp3": 1, "fused_tp3_reference": 0, "fused_tp3_vjp": 1}:
+        if counts != {"fused_tp3": 1, "fused_tp3_bf16": 0, "fused_tp3_reference": 0, "fused_tp3_vjp": 1}:
             raise PhaseError(f"fused_tp3 under autograd counted {counts}, not one launch and one VJP")
         del inp, leaves, ref_leaves, got, grads, ref, ref_grads
     return out
@@ -1721,8 +1779,10 @@ def train_phase(args, tmp: Path, cfg, kernels, score_blocks: dict, card: str, de
             plain = twin_step(pm, "plain", tc, log_dir, tb, seed, so3, torus, dev)
             kern = twin_step(km, "kernel", tc, log_dir, tb, seed, so3, torus, dev)
             kcounts, pcounts = kern["counts"], plain["counts"]
-            if kcounts != {"fused_tp3": n_fwd, "fused_tp3_reference": 0, "fused_tp3_vjp": n_fwd} or \
-                    pcounts != {"fused_tp3": 0, "fused_tp3_reference": n_fwd, "fused_tp3_vjp": 0}:
+            if kcounts != {"fused_tp3": n_fwd, "fused_tp3_bf16": 0, "fused_tp3_reference": 0,
+                           "fused_tp3_vjp": n_fwd} or \
+                    pcounts != {"fused_tp3": 0, "fused_tp3_bf16": 0, "fused_tp3_reference": n_fwd,
+                                "fused_tp3_vjp": 0}:
                 raise PhaseError(f"twin step counts: kernel {kcounts}, plain {pcounts}")
             case = {"names": names, "shape": [TRAIN_BATCH, shape[0], shape[1]], "seed": seed,
                     "loss_plain": plain["metrics"]["loss"],
@@ -1898,16 +1958,19 @@ def _pad_rows(t, n: int):
     return torch.cat([t, t.new_zeros((n,) + tuple(t.shape[1:]))])
 
 
-def _block_diag_t3(tp, classes, out_kernel, out_bias):
+def _block_diag_t3(tp, classes, out_kernel, out_bias, dtype=None):
     """The (H+1, F_tot, W_tot) block-diagonal weight tensor of the TPU
-    kernel, for the library yardstick."""
+    kernel, in ``dtype`` (default float32), for the library yardstick."""
+    import torch
+
     from diffdock_tpu_torch.ops import fused_tp3 as ft
 
-    blocks = ft.class_weights(tp, classes, out_kernel, out_bias)
+    dtype = dtype or torch.float32
+    blocks = ft.class_weights(tp, classes, out_kernel, out_bias, dtype)
     H1 = blocks[0].shape[0]
     f_tot = sum(fan * d3 for _k, _o, fan, d3, _m in classes)
     w_tot = sum(mul * d3 for _k, _o, _f, d3, mul in classes)
-    t3 = out_kernel.new_zeros(H1, f_tot, w_tot)
+    t3 = out_kernel.new_zeros(H1, f_tot, w_tot, dtype=dtype)
     f_off = w_off = 0
     for (_k, _o, fan, d3, mul), blk in zip(classes, blocks):
         t3[:, f_off:f_off + fan * d3, w_off:w_off + mul * d3] = (
@@ -2156,13 +2219,13 @@ def reference_dirs(args, tmp: Path, cfg, ccfg, kernels, card: str) -> dict:
     def pipeline(dirs, *extra):
         return cli.load_pipeline(cli.get_parser().parse_args(
             ["--model_dir", dirs["score"], "--confidence_model_dir", dirs["confidence"], "--device", "cuda",
-             *extra]))
+             "--compute_dtype", "float32", *extra]))
 
     docks = {}
     for label, dirs in (("reference", {k: v[0] for k, v in ref_dirs.items()}), ("native", native)):
         pipe = pipeline(dirs)
         data, aa, _ = pipe.featurize(mol, protein, lm)
-        expected = dock_launches(pipe, cfg, ccfg, data, aa, P)
+        expected = dock_launches(pipe, data, aa, P)
         for m in kernels.values():
             m.counts.reset()
         torch.cuda.synchronize()
@@ -2192,7 +2255,7 @@ def reference_dirs(args, tmp: Path, cfg, ccfg, kernels, card: str) -> dict:
         ccrop = pipe.score_cfg
         data, aa, _ = pipe.featurize(mol, protein, lm)
         bucket = pipe.dock_bucket(data)[0]
-        expected = dock_launches(pipe, ccrop, ccfg, data, aa, P)
+        expected = dock_launches(pipe, data, aa, P)
         drawn = {}
 
         def noise(num_poses, n_bonds, seed):
@@ -2546,8 +2609,10 @@ def confidence_phase(args, tmp: Path, kernels, card: str, dev) -> dict:
             plain = conf_twin_step(pm, tc, sd, batches[key], poses, labels, 7, dev)
             kern = conf_twin_step(km, tc, sd, batches[key], poses, labels, 7, dev)
             n_fwd = conf_train_launches(cfg_l)
-            if kern["counts"] != {"fused_tp3": n_fwd, "fused_tp3_reference": 0, "fused_tp3_vjp": n_fwd} or \
-                    plain["counts"] != {"fused_tp3": 0, "fused_tp3_reference": n_fwd, "fused_tp3_vjp": 0}:
+            if kern["counts"] != {"fused_tp3": n_fwd, "fused_tp3_bf16": 0, "fused_tp3_reference": 0,
+                                  "fused_tp3_vjp": n_fwd} or \
+                    plain["counts"] != {"fused_tp3": 0, "fused_tp3_bf16": 0, "fused_tp3_reference": n_fwd,
+                                        "fused_tp3_vjp": 0}:
                 raise PhaseError(f"G3 twin counts: kernel {kern['counts']}, plain {plain['counts']}")
             c = compare_conf_twins(km, plain, kern, tc.lr)
             cases.append({"model": key, "loss": loss, "loss_plain": plain["metrics"]["loss"], "kernel": c})
@@ -2619,11 +2684,11 @@ def confidence_phase(args, tmp: Path, kernels, card: str, dev) -> dict:
         dargs = dock_cli.get_parser().parse_args(
             ["--protein_path", str(pdb), "--ligand", str(lig), "--model_preset", "diffdock_l",
              "--confidence_model_dir", str(parsed[key].log_dir), "--samples_per_complex", str(args.poses),
-             "--device", str(dev)])
+             "--compute_dtype", "float32", "--device", str(dev)])
         pipe = dock_cli.load_pipeline(dargs)
         ccfg = pipe.confidence_cfg
         data, aa, _heavy = pipe.featurize(chem.read_molecule_file(str(lig)), chem.read_pdb_file(str(pdb)))
-        want = dock_launches(pipe, pipe.score_cfg, ccfg, data, aa, args.poses)
+        want = dock_launches(pipe, data, aa, args.poses)
         for m in kernels.values():
             m.counts.reset()
         s0 = time.perf_counter()
@@ -2665,6 +2730,321 @@ def confidence_phase(args, tmp: Path, kernels, card: str, dev) -> dict:
     _log(f"[G5 ranking] {CONF_DOCK_COMPLEX} | {time.perf_counter() - t0:.1f} s")
     _log(f"[G confidence] {card} | phase {time.perf_counter() - t_start:.1f} s")
     return report
+
+
+# phase H: bfloat16. The kernel's bfloat16 mode against its plain version:
+# both round P to bfloat16 after float32 sums taken in different orders, so
+# an element at a rounding tie lands one bfloat16 ulp (2^-8 relative) apart
+BF16_KERNEL_RTOL = 1e-3
+# relative nudge of the start translations that measures how far bfloat16
+# rounding moves the bf16 dock: the kernel and its plain version differ by
+# a few P elements one bfloat16 ulp apart, 1-3e-4 of the output's scale
+# (H1), so the nudge is 1e-4; the final poses of the kernel dock and its
+# plain twin are held to twice the nudged dock's spread
+BF16_NUDGE = 1e-4
+# the first step of the bf16 dock and its plain twin from the same draws:
+# a few P elements one ulp apart move the scores by ~1e-4 of their size
+BF16_FIRST_STEP_ATOL = 2e-2
+# the bf16 confidence model's kernels against its plain versions on the
+# same poses, as a share of the confidences' scale: one-ulp differences of
+# P compound through the 45 convs of the shipped model (7.9e-3 of scale
+# measured by phase H2 on an NVIDIA H100 80GB HBM3 at 700 W)
+BF16_CONF_RTOL = 2e-2
+# the requests phase H3 sends to the server (phase B's complexes, with
+# syn016_l36r224 in the place of syn001_l24r104)
+SERVER_COMPLEXES = ("syn000_l50r368", "syn016_l36r224", "syn045_l8r1547")
+
+
+def tp3_bf16_work(tp, rows: int, K: int, H: int):
+    """(FLOPs, bytes) of the gen-3 contraction in bfloat16: both products,
+    h_aug, the coupled tensor and the weights read once at 2 bytes, the
+    float32 output written once."""
+    products, _, _ = tp3_work(tp, rows, K, H)
+    f_tot, _weight, w_len = _class_sums(tp)
+    Ha = H + 1
+    nbytes = 2.0 * (rows * K * Ha + rows * K * f_tot + Ha * w_len) + 4.0 * rows * tp.irreps_out.dim
+    return products, nbytes
+
+
+def _bond_error(bonds, ref_xyz, poses) -> float:
+    """The largest change of a bond length over ``poses`` (P, N, 3)."""
+    import numpy as np
+
+    i, j = bonds
+    ref = np.linalg.norm(ref_xyz[i] - ref_xyz[j], axis=-1)
+    return float(max(np.abs(np.linalg.norm(p[i] - p[j], axis=-1) - ref).max() for p in poses))
+
+
+def bf16_phase(args, tmp: Path, cfg, ccfg, blocks: dict, f32_dock: dict, f32_res, noise, data, aa,
+               so3, torus, card: str, dev) -> dict:
+    """Phase H: H1 the bfloat16 mode against its plain version and timed at
+    the six blocks; H2 phase 4's dock in bfloat16 (launch counts by mode,
+    its plain twin, walls, memory); H3 the web server on the card."""
+    import numpy as np
+    import torch
+
+    from diffdock_tpu_torch.inference.pipeline import DockingPipeline
+    from diffdock_tpu_torch.inference.sampler import SamplerConfig
+    from diffdock_tpu_torch.ops import fused_tp3 as ft
+
+    t_start = time.perf_counter()
+    bf16 = torch.bfloat16
+    report: dict = {}
+
+    # H1: kernel vs plain, then times, at the six blocks
+    h1 = {}
+    with torch.inference_mode():
+        for i, (label, (tp, rows, K, Hb)) in enumerate(blocks.items()):
+            inp = tp_inputs(tp, rows, K, Hb, seed=i, device=dev)
+            binp = [a.to(bf16) for a in inp[:4]] + list(inp[4:])
+            got = ft.fused_tp3(tp, *binp)
+            ref = ft.fused_tp3_reference(tp, *binp)
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            scale = max(ref.abs().max().item(), 1.0)
+            ok = bool(torch.isfinite(got).all()) and err <= BF16_KERNEL_RTOL * scale
+            if not ok:
+                raise PhaseError(f"fused_tp3_bf16 disagrees with its plain version at {label}: "
+                                 f"{err:.3e} > {BF16_KERNEL_RTOL:.0e} x {scale:.3g}")
+            classes, h_aug, coupled, weights, table = ft.prepare(tp, *binp)
+            t3 = _block_diag_t3(tp, classes, inp[4], inp[5], bf16)
+            f32_ops = ft.prepare(tp, *inp)
+            ms = cuda_ms(lambda: ft.launch(h_aug, coupled, weights, table), args.iters)
+            f32_ms = cuda_ms(lambda: ft.launch(*f32_ops[1:]), args.iters)
+            plain_ms = cuda_ms(lambda: ft.fused_tp3_reference(tp, *binp), args.iters)
+            # the library pair in the same types: cuBLAS bfloat16 products
+            library_ms = cuda_ms(lambda: torch.einsum(
+                "rhF,hFW->rW", torch.einsum("rkh,rkF->rhF", h_aug, coupled), t3), args.iters)
+            flops, nbytes = tp3_bf16_work(tp, rows, K, Hb)
+            t_ops, t_bytes = flops / BF16_PEAK_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+            b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+            h1[label] = {"rows": rows, "K": K, "H": Hb, "max_abs_err": err, "max_abs_ref": scale,
+                         "ms": ms, "f32_ms": f32_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                         "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": nbytes}
+            _log(f"  fused_tp3_bf16 {label}: R={rows} K={K} H+1={Hb + 1} max_abs_err={err:.3e} (tol "
+                 f"{BF16_KERNEL_RTOL:.0e} x {scale:.3g}) | kernel {ms:.4f} ms | float32 kernel {f32_ms:.4f} ms"
+                 f" | plain {plain_ms:.4f} ms | library bf16 pair {library_ms:.4f} ms | bound {b_ms:.4f} ms "
+                 f"({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) | {flops / ms / 1e9:.2f} TFLOP/s")
+            del inp, binp, got, ref, h_aug, coupled, weights, t3, f32_ops
+    report["kernel"] = h1
+    _log(f"[H1 bf16 kernel vs plain] worst {max(v['max_abs_err'] / v['max_abs_ref'] for v in h1.values()):.2e} "
+         f"of scale | {card} | {time.perf_counter() - t_start:.1f} s")
+
+    # H2: phase 4's dock with both models in bfloat16, from phase 4's draws
+    t0 = time.perf_counter()
+    bcfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    bccfg = dataclasses.replace(ccfg, compute_dtype="bfloat16")
+    models = dict(confidence_cfg=bccfg, confidence_weights=1)
+    sampler = SamplerConfig()  # 20-step schedule, 19 steps, as phase 4
+    pipe = DockingPipeline(bcfg, 0, sampler, so3, torus, device=dev, **models)
+    P = args.poses
+    pipe.dock_complex(data, num_poses=P, seed=1, aa_data=aa)  # pays the first-call costs
+    expected = mode_launches(pipe, data, aa, P)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ft.counts.reset()
+    t1 = time.perf_counter()
+    res = pipe.dock_complex(data, num_poses=P, seed=0, noise=noise, aa_data=aa, return_trajectory=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = ft.counts.as_dict()
+    peak = torch.cuda.max_memory_allocated()
+    _log(f"  launches {launches} (expected {expected}: the score model's conv layers and the confidence "
+         f"model in bf16, final_conv and tor_bond_conv in float32)")
+    if launches["fused_tp3_bf16"] != expected["fused_tp3_bf16"] or \
+            launches["fused_tp3"] != expected["fused_tp3"] or launches["fused_tp3_reference"]:
+        raise PhaseError(f"bf16 dock launch counts {launches} != expected {expected}, 0 plain")
+    if res.poses.shape != (P, data.n_lig, 3) or not np.isfinite(res.poses).all() or \
+            not np.isfinite(res.confidence).all():
+        raise PhaseError("the bf16 dock gave non-finite poses or confidences")
+    nbr, mask = np.asarray(data.lig_bond_nbr), np.asarray(data.lig_bond_mask)
+    bi, bk = np.nonzero(mask)
+    bonds = (bi, nbr[bi, bk])
+    start = np.asarray(data.lig_pos, np.float64)[: data.n_lig]
+    bond_err = _bond_error(bonds, start, res.poses.astype(np.float64))
+    if bond_err > BOND_ATOL:
+        raise PhaseError(f"bf16 dock: bond lengths moved by {bond_err:.2e} A (tol {BOND_ATOL:.0e})")
+
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pipe.dock_complex(data, num_poses=P, seed=0, noise=noise, aa_data=aa)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    med, f32_med = float(np.median(walls)), float(np.median(f32_dock["repeat_wall_s"]))
+    rmsd_f32 = np.sqrt(((res.poses - f32_res.poses) ** 2).sum(-1).mean(-1))
+    _log(f"[H2 bf16 dock] diffdock_l + shipped confidence in bf16, {P} poses, {sampler.num_steps} steps | "
+         f"{wall:.2f} s | 5 warm: median {med:.4f} s ({P / med:.3f} poses/s), min {min(walls):.4f}, "
+         f"max {max(walls):.4f} | float32 dock (phase 4): median {f32_med:.4f} s ({P / f32_med:.3f} "
+         f"poses/s) | peak {peak / 2**30:.2f} GiB (float32 {f32_dock['max_memory_allocated'] / 2**30:.2f}) "
+         f"| bond lengths within {bond_err:.2e} A | {card}")
+    _log(f"  per-pose RMSD to the float32 dock from the same draws (no gate): "
+         f"{' '.join(f'{r:.3f}' for r in rmsd_f32)} A")
+
+    # the same dock through the bfloat16 plain versions, and nudged
+    ref_pipe = DockingPipeline(bcfg, 0, sampler, so3, torus, device=dev, reference_kernels=True, **models)
+    ref_res = ref_pipe.dock_complex(data, num_poses=P, seed=0, noise=noise, aa_data=aa, return_trajectory=True)
+    init, steps = noise(P, 0, 0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    e = torch.randn(init.tr.shape, generator=gen, device=dev)
+    nudged = (init._replace(tr=init.tr * (1 + BF16_NUDGE * e)), steps)
+    nudge_res = pipe.dock_complex(data, num_poses=P, seed=0, noise=lambda *a: nudged, aa_data=aa,
+                                  return_trajectory=True)
+    torch.cuda.synchronize()
+    step_gap = [float(np.abs(res.trajectory[k] - ref_res.trajectory[k]).max())
+                for k in range(res.trajectory.shape[0])]
+    nudge_gap = [float(np.abs(res.trajectory[k] - nudge_res.trajectory[k]).max())
+                 for k in range(res.trajectory.shape[0])]
+    _log(f"  max |poses(kernel) - poses(plain)| by step: {' '.join(f'{g:.1e}' for g in step_gap)}")
+    _log(f"  max |poses(kernel) - poses(kernel, start nudged by {BF16_NUDGE:.1e})| by step: "
+         f"{' '.join(f'{g:.1e}' for g in nudge_gap)}")
+    if not (step_gap[0] == 0.0 and step_gap[1] <= BF16_FIRST_STEP_ATOL):
+        raise PhaseError(f"bf16 kernel and plain docks part by {step_gap[1]:.3e} A after the first step "
+                         f"(tol {BF16_FIRST_STEP_ATOL:.0e})")
+    # the twins' final poses and confidences: within twice what the nudge
+    # moves them (the poses as in phase A; the confidences the same way,
+    # since the random-weight confidence model moves a lot with its poses)
+    conf_scale = max(float(np.abs(ref_res.confidence).max()), 1.0)
+    conf_nudge = float(np.abs(res.confidence - nudge_res.confidence).max())
+    plain = docks_agree(res, ref_res, pose_tol=max(POSE_ATOL, 2 * nudge_gap[-1]),
+                        conf_tol=max(CONF_RTOL * conf_scale, 2 * conf_nudge))
+    # the bf16 confidence model's plain version on the kernel dock's own poses
+    nl = pipe.dock_bucket(data)[0][0]
+    final = torch.as_tensor(res.poses - np.asarray(data.original_center)[None, None],
+                            dtype=torch.float32, device=dev)
+    final = _pad_rows(final.transpose(0, 1), nl - data.n_lig).transpose(0, 1)
+    conf_same = ref_pipe.confidence(ref_pipe.confidence_input(data, aa), final).cpu().numpy()
+    conf_same_err = float(np.abs(conf_same - res.confidence).max())
+    _log(f"  confidences nudged: max diff {conf_nudge:.3e}; plain bf16 confidence model on the kernel dock's "
+         f"poses: max diff {conf_same_err:.3e} (tol {BF16_CONF_RTOL:.0e} x {conf_scale:.3g})")
+    if not conf_same_err <= BF16_CONF_RTOL * conf_scale:
+        raise PhaseError("the bf16 confidence model's plain version disagrees on the kernel dock's poses")
+    plain.update(conf_nudge=conf_nudge, conf_same_poses_diff=conf_same_err)
+    del ref_pipe
+    mem = score_memory(pipe, bcfg, card)
+    report["dock"] = {"wall_s": wall, "repeat_wall_s": walls, "poses_per_s": P / med,
+                      "f32_poses_per_s": P / f32_med, "max_memory_allocated": peak,
+                      "f32_max_memory_allocated": f32_dock["max_memory_allocated"], "launches": launches,
+                      "expected": expected, "bond_error": bond_err, "rmsd_to_f32": rmsd_f32.tolist(),
+                      "plain": dict(plain, step_gap=step_gap, nudge_gap=nudge_gap),
+                      "score_memory": mem, "s": time.perf_counter() - t0}
+    del pipe
+
+    report["server"] = server_phase(args, tmp, cfg, card)
+    _log(f"[H bf16] {card} | phase {time.perf_counter() - t_start:.1f} s")
+    return report
+
+
+def server_phase(args, tmp: Path, cfg, card: str) -> dict:
+    """H3: the web server in this process on a free port, over phase B's
+    run directories (the server, like the dock CLI, has no ESM input) with
+    its defaults (bf16 score model, cuda): three requests from files, each
+    to ``done``, its rank1.sdf parsed and its bond lengths held to the
+    input's, exact launch counts; a bad submit gets 400; the console entry
+    point's help returns 0."""
+    import threading
+    import urllib.error
+    import urllib.request
+    import uuid
+
+    import numpy as np
+
+    from diffdock_tpu_torch.app import server as server_mod
+    from diffdock_tpu_torch.data import chem
+    from diffdock_tpu_torch.ops import fused_tp3 as ft
+
+    t_start = time.perf_counter()
+    runs = tmp / "runs_no_lm"
+    sargs = server_mod.get_parser().parse_args([
+        "--port", "0", "--out_dir", str(tmp / "web"), "--model_dir", str(runs / "score"),
+        "--confidence_model_dir", str(runs / "confidence")])
+    if sargs.compute_dtype != "bfloat16" or sargs.device != "cuda":
+        raise PhaseError(f"the server's defaults moved: {sargs}")
+    server = server_mod.make_server(sargs)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    host, port = server.server_address[:2]
+    url = f"http://{host}:{port}"
+    service = server.service
+
+    def post(fields):
+        boundary = uuid.uuid4().hex
+        body = b"".join(f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"\r\n\r\n{v}\r\n'.encode()
+                        for k, v in fields.items()) + f"--{boundary}--\r\n".encode()
+        req = urllib.request.Request(url + "/submit", data=body, headers={
+            "Content-Type": f"multipart/form-data; boundary={boundary}"})
+
+        class NoRedirect(urllib.request.HTTPRedirectHandler):
+            def redirect_request(self, *a, **k):
+                return None
+        try:
+            with urllib.request.build_opener(NoRedirect).open(req, timeout=60) as r:
+                return r.status
+        except urllib.error.HTTPError as e:
+            return e.code
+
+    def get(path):
+        with urllib.request.urlopen(url + path, timeout=60) as r:
+            return r.read()
+
+    out = {}
+    try:
+        if b"diffdock-tpu-torch" not in get("/"):
+            raise PhaseError("the server's index did not render")
+        if post({"protein_path": str(E2E_SYNTH / SERVER_COMPLEXES[0])}) != 400:
+            raise PhaseError("a submit without a ligand did not get 400")
+        for name in SERVER_COMPLEXES:
+            d = E2E_SYNTH / name
+            pdb, sdf = d / f"{name}_protein_processed.pdb", d / f"{name}_ligand.sdf"
+            known = set(service.jobs)
+            ft.counts.reset()
+            t0 = time.perf_counter()
+            if post({"protein_path": str(pdb), "ligand": str(sdf), "samples": args.poses}) != 303:
+                raise PhaseError(f"the submit of {name} was not accepted")
+            (job_id,) = set(service.jobs) - known
+            while True:
+                info = json.loads(get(f"/status/{job_id}"))
+                if info["status"] in ("done", "failed") or time.perf_counter() - t0 > 300:
+                    break
+                time.sleep(0.02)
+            wall = time.perf_counter() - t0
+            if info["status"] != "done":
+                raise PhaseError(f"the server's job for {name} ended {info}")
+            launches = ft.counts.as_dict()
+            pipe = service.pipeline
+            mol, protein = chem.read_molecule_file(str(sdf)), chem.read_pdb_file(str(pdb))
+            data, aa, heavy = pipe.featurize(mol, protein)
+            expected = mode_launches(pipe, data, aa, args.poses)
+            if launches["fused_tp3_bf16"] != expected["fused_tp3_bf16"] or \
+                    launches["fused_tp3"] != expected["fused_tp3"] or launches["fused_tp3_reference"]:
+                raise PhaseError(f"server dock of {name}: launch counts {launches} != expected {expected}")
+            text = get(f"/results/{job_id}/rank1.sdf").decode()
+            got = chem.parse_sdf(text)
+            if len(got) != 1 or got[0].bonds != heavy.bonds or not np.isfinite(got[0].coords).all():
+                raise PhaseError(f"{name}: rank1.sdf does not parse back to the input's bonds")
+            bonds = np.array([b[:2] for b in heavy.bonds]).T
+            bond_err = _bond_error(bonds, np.asarray(heavy.coords, np.float64),
+                                   got[0].coords.astype(np.float64)[None])
+            if bond_err > BOND_ATOL:
+                raise PhaseError(f"{name}: rank1.sdf bond lengths moved by {bond_err:.2e} A")
+            out[name] = {"wall_s": wall, "launches": launches, "expected": expected, "bond_error": bond_err,
+                         "confidences": info["confidences"], "score_dtype": pipe.score_cfg.compute_dtype}
+            _log(f"  server {name}: submit to done {wall:.3f} s | launches {launches} | bond lengths within "
+                 f"{bond_err:.2e} A")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(30)
+    rc = subprocess.run([sys.executable, "-m", "diffdock_tpu_torch.cli.main", "--help"],
+                        capture_output=True, text=True, timeout=120).returncode
+    if rc != 0:
+        raise PhaseError(f"diffdock-tpu-torch --help returned {rc}")
+    walls = [v["wall_s"] for v in out.values()]
+    _log(f"[H3 server] {len(out)} requests of {args.poses} poses: first {walls[0]:.2f} s (the pipeline is "
+         f"built then), warm {', '.join(f'{w:.2f}' for w in walls[1:])} s | --help rc 0 | {card} | "
+         f"{time.perf_counter() - t_start:.1f} s")
+    return {"requests": out, "help_rc": rc}
 
 
 def main(argv=None) -> int:

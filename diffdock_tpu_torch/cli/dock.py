@@ -11,9 +11,11 @@ Examples::
     python -m diffdock_tpu_torch.cli.dock --protein_ligand_csv pairs.csv \
         --model_dir runs/score --confidence_model_dir runs/confidence --out_dir results
 
-The flags and defaults are the JAX CLI's, with two exceptions:
-``--device`` (default ``cuda``) is added, and ``--compute_dtype`` defaults
-to ``float32`` (``bfloat16`` is not ported and raises). ``--model_dir``
+The flags and defaults are the JAX CLI's, with one addition: ``--device``
+(default ``cuda``). ``--compute_dtype`` defaults to ``bfloat16``, as in the
+JAX CLI, and sets the score model's conv layers only (not its
+``final_conv`` and ``tor_bond_conv``, which stay float32 as in the JAX
+model); the confidence model keeps its run directory's dtype. ``--model_dir``
 and ``--confidence_model_dir`` read native run directories
 (``model_parameters.yml`` plus msgpack weights) and the reference's own
 (``.pt`` weights plus its args dump), which are converted once into a
@@ -102,10 +104,10 @@ def get_parser() -> argparse.ArgumentParser:
                    help="preset when no --model_dir given (random weights)")
     p.add_argument("--save_visualisation", action="store_true", default=False,
                    help="write rankN_reverseprocess.pdb denoising trajectories")
-    p.add_argument("--compute_dtype", default="float32",
+    p.add_argument("--compute_dtype", default="bfloat16",
                    choices=["float32", "bfloat16"],
-                   help="conv-layer compute dtype; bfloat16 is not ported "
-                        "(ROADMAP queue 1 item 5) and raises")
+                   help="the score model's conv-layer compute dtype (the "
+                        "confidence model keeps its run directory's)")
     p.add_argument("--crop_beyond", type=float, default=None,
                    help="sigma-dependent receptor crop: each step keeps the "
                         "residues within 3*tr_sigma + crop_beyond of a pose")
@@ -172,9 +174,9 @@ def _run_dir(model_dir: str, ckpt, confidence_mode: bool, old: bool):
 
 def load_pipeline(args):
     """The DockingPipeline the parsed ``args`` ask for, on ``args.device``.
-    The options that are not ported are refused where they land, as in the
-    JAX CLI: ``--compute_dtype`` by the score model's config and
-    ``--pose_devices`` above 1 here, where the JAX CLI builds its mesh."""
+    ``--compute_dtype`` replaces the score model's config's, as in the JAX
+    CLI. ``--pose_devices`` above 1 is not ported and is refused here, where
+    the JAX CLI builds its mesh."""
     from diffdock_tpu_torch.inference.pipeline import DockingPipeline
     from diffdock_tpu_torch.models.config import PRESETS
     from diffdock_tpu_torch.train.checkpoints import load_checkpoint

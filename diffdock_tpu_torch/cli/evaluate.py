@@ -20,10 +20,10 @@ under ``--out_dir``, as the JAX CLI writes them: ``rmsds.npy``,
 ``--gnina_minimize``), each again with a ``no_overlap_`` prefix for
 ``--no_rec_overlap_names``, and ``metrics.json``.
 
-The flags and defaults are the JAX CLI's, with two exceptions, as in
-``cli/dock.py``: ``--device`` (default ``cuda``) is added, and
-``--compute_dtype`` defaults to ``float32`` (``bfloat16`` raises, ROADMAP
-queue 1 item 5). ``--complex_devices`` and ``--pose_devices`` other than 1
+The flags and defaults are the JAX CLI's, with one addition, as in
+``cli/dock.py``: ``--device`` (default ``cuda``). ``--compute_dtype``
+defaults to ``bfloat16``, as in the JAX CLI, and reaches the score model
+(see ``cli/dock.py``). ``--complex_devices`` and ``--pose_devices`` other than 1
 raise (item 8). ``--crop_beyond`` and ``--pocket_capacity`` crop the
 receptor as in the dock CLI, and ``--model_dir`` and
 ``--confidence_model_dir`` may be reference ``.pt`` run directories; the
@@ -120,10 +120,9 @@ def get_parser():
     p.add_argument("--esm_embeddings_path", default=None,
                    help="directory of precomputed per-complex LM "
                         "embedding .npy files")
-    p.add_argument("--compute_dtype", default="float32",
+    p.add_argument("--compute_dtype", default="bfloat16",
                    choices=["float32", "bfloat16"],
-                   help="conv-layer compute dtype; bfloat16 is not ported "
-                        "(ROADMAP queue 1 item 5) and raises")
+                   help="the score model's conv-layer compute dtype")
     p.add_argument("--gnina_minimize", action="store_true", default=False)
     p.add_argument("--gnina_path", default="gnina")
     p.add_argument("--gnina_full_dock", action="store_true", default=False)

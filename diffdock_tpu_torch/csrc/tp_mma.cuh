@@ -1,6 +1,7 @@
 // Device helpers shared by the factored TP kernels (fused_tp3.cu,
 // factored_tp2.cu, factored_tp1.cu): float32 products on Hopper's tensor
-// cores in 3xTF32, and asynchronous global -> shared copies.
+// cores in 3xTF32, bfloat16 products with float32 accumulation, and
+// asynchronous global -> shared copies.
 //
 // 3xTF32: each float32 operand is split into a TF32 head (rounded to
 // nearest) and a TF32 remainder, and rem*head + head*rem + head*head is
@@ -9,9 +10,11 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
 
 namespace tp_mma {
 
@@ -44,6 +47,36 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ah)[4
   mma_tf32(c, al, bh0, bh1);
   mma_tf32(c, ah, bl0, bl1);
   mma_tf32(c, ah, bh0, bh1);
+}
+
+// two bfloat16 values in one register, lo in the low half (the lower k of
+// an mma fragment pair)
+__device__ __forceinline__ uint32_t bf16x2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  const __nv_bfloat162 v = __halves2bfloat162(lo, hi);
+  uint32_t r;
+  memcpy(&r, &v, sizeof(r));
+  return r;
+}
+// the same from two floats that hold bfloat16 values (exact)
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  return bf16x2(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));
+}
+
+// c += a*b, bfloat16 operands (exact products), float32 accumulation
+__device__ __forceinline__ void mma_bf16_k8(float (&c)[4], const uint32_t (&a)[2], uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+__device__ __forceinline__ void mma_bf16_k16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                             uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // 4-byte asynchronous copy; a masked element (ok = false) is zero-filled

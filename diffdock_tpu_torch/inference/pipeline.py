@@ -135,6 +135,11 @@ SCORE_BYTES_PER_LIG_PAIR = 1_100
 # take; the confidence model runs after the score model, with its own
 # CONF_BUDGET_BYTES
 SCORE_BUDGET_BYTES = 40e9
+# Both rules' coefficients were measured with float32 models. A bfloat16
+# model (the CLIs' default) keeps its gathered senders, harmonics, hidden
+# activations and coupled tensors at 2 bytes; the rules stay as they are
+# for it, and chip_smoke.py phase H2 measures its bytes per pose at phase
+# C's buckets for a later refit.
 
 
 def score_bytes_per_pose(nl: int, nr: int) -> int:

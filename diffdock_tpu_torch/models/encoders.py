@@ -60,9 +60,18 @@ class FCBlock(nn.Module):
 
     def hidden(self, x: torch.Tensor) -> torch.Tensor:
         """The hidden activations; the weights are ``hidden(x) @ out_kernel
-        + out_bias``, contracted only after the neighbour reduction."""
+        + out_bias``, contracted only after the neighbour reduction. They
+        are computed in ``x``'s dtype, as flax's ``Dense(dtype=...)`` of the
+        JAX block: for bfloat16 the kernel and bias are cast to it, the
+        product sums its exact products in float32 and rounds, and the bias
+        is added in bfloat16."""
         for layer in self.layers:
-            x = self.drop(torch.relu(layer(x)))
+            if x.dtype == torch.float32:
+                y = layer(x)
+            else:
+                y = nn.functional.linear(x.float(), layer.weight.to(x.dtype).float()).to(x.dtype)
+                y = y + layer.bias.to(x.dtype)
+            x = self.drop(torch.relu(y))
         return x
 
 

@@ -71,7 +71,8 @@ def _check_supported(cfg: ScoreModelConfig) -> None:
         "affinity_prediction": cfg.affinity_prediction,
         "depthwise_convolution": cfg.depthwise_convolution,
         "factored_tp=False": not cfg.factored_tp,
-        f"compute_dtype={cfg.compute_dtype}": cfg.compute_dtype != "float32",
+        f"compute_dtype={cfg.compute_dtype} (float32 or bfloat16)":
+            cfg.compute_dtype not in ("float32", "bfloat16"),
     }
     bad = [name for name, on in unsupported.items() if on]
     if bad:
@@ -122,7 +123,7 @@ class OldCGScoreModel(nn.Module):
         return TPConvLayer(self._ladder(i), self.sh_irreps, self._ladder(i + 1),
                            n_edge_features=3 * cfg.ns, residual=False, batch_norm=cfg.batch_norm,
                            hidden_features=3 * cfg.ns, tp_weights_layers=2,
-                           reference_kernels=self.reference_kernels)
+                           reference_kernels=self.reference_kernels, dtype=cfg.compute_dtype)
 
     def _setup_old_base(self, reference_kernels: bool) -> None:
         cfg = self.cfg

@@ -145,7 +145,8 @@ def _check_supported(cfg: ScoreModelConfig) -> None:
         "depthwise_convolution": cfg.depthwise_convolution,
         "sidechain_pred": cfg.sidechain_pred,
         "factored_tp=False": not cfg.factored_tp,
-        f"compute_dtype={cfg.compute_dtype} (ROADMAP queue 1 item 5)": cfg.compute_dtype != "float32",
+        f"compute_dtype={cfg.compute_dtype} (float32 or bfloat16)":
+            cfg.compute_dtype not in ("float32", "bfloat16"),
     }
     bad = [name for name, on in unsupported.items() if on]
     if bad:
@@ -208,10 +209,13 @@ class CGScoreModel(nn.Module):
             0.0, cfg.cross_max_distance, cfg.cross_distance_embed_dim
         )
 
+        # the JAX model's _conv_common: the compute dtype reaches the receptor
+        # and ligand embeddings and the joint (all-atom: multi-set) layers,
+        # not the score heads' final_conv and tor_bond_conv, which stay float32
         self._conv = dict(
             n_edge_features=3 * ns, hidden_features=3 * ns, batch_norm=cfg.batch_norm,
             tp_weights_layers=cfg.tp_weights_layers, reference_kernels=reference_kernels,
-            dropout=drop,
+            dropout=drop, dtype=cfg.compute_dtype,
         )
         npe, n_joint = cfg.num_prot_emb_layers, cfg.num_conv_layers
         if cfg.embed_also_ligand:

@@ -17,6 +17,12 @@ through the gen-3 Hopper kernel (:func:`diffdock_tpu_torch.ops.fused_tp3.fused_t
 or, for layers built with ``reference_kernels=True``, through its plain
 version. The per-class branch (``merged=False``) stays as the numeric
 oracle, as in the JAX package.
+
+A layer's ``dtype`` ("float32" or "bfloat16") is the JAX layer's compute
+dtype: in bfloat16 the edge MLP, the gathered senders, the harmonics, the
+coupling and both products run as the JAX layer runs them (see
+``_tp_message_reduced``); the summed messages, the counts, the mean, the
+batch norm and the residual stay float32.
 """
 
 from __future__ import annotations
@@ -69,48 +75,57 @@ Contraction = Callable[..., torch.Tensor]
 
 
 def _tp_message_reduced(tp: FullyConnectedTensorProduct, fc: FCBlock, blk: NeighborBlock,
-                        merged: bool = True, contraction: Contraction = fused_tp3):
+                        merged: bool = True, contraction: Contraction = fused_tp3,
+                        dtype: str = "float32"):
     """Factored message computation: reduce over neighbours BEFORE applying
     the weight-generating FC's last (linear) layer — an exact reassociation
     of fc + tp + sum (see the JAX package's docstring).
 
-    Returns (summed_messages (B, R, out_dim), valid_counts (B, R)).
+    ``dtype`` places the casts where the JAX function places them: the
+    mask, edge weights, MLP input (and with it the MLP, see
+    :meth:`FCBlock.hidden`), senders and harmonics in ``dtype``; the
+    contraction takes them in that dtype and returns float32.
+
+    Returns (summed_messages (B, R, out_dim) f32, valid_counts (B, R) f32).
     """
-    mask = blk.nbr_mask.to(torch.float32)
-    mw = mask if blk.edge_weight is None else mask * blk.edge_weight
-    h = fc.hidden(blk.edge_attr) * mw[..., None]
-    x_nbr = gather_nodes(blk.sender_attr, blk.nbr_idx)  # (B, R, K, F_in)
+    cd = getattr(torch, dtype)
+    mask = blk.nbr_mask.to(cd)
+    mw = mask if blk.edge_weight is None else mask * blk.edge_weight.to(cd)
+    h = fc.hidden(blk.edge_attr.to(cd)) * mw[..., None]
+    x_nbr = gather_nodes(blk.sender_attr.to(cd), blk.nbr_idx)  # (B, R, K, F_in)
     # the block's tensors may broadcast along B (shared receptor features)
     lead = torch.broadcast_shapes(
         mw.shape[:-1], h.shape[:-2], x_nbr.shape[:-2], blk.edge_sh.shape[:-2]
     )  # (B, R)
     K = mw.shape[-1]
-    counts = mask.sum(dim=-1).expand(lead)
+    counts = blk.nbr_mask.to(torch.float32).sum(dim=-1).expand(lead)
 
     rows = math.prod(lead)
     flat = lambda x: x.expand(lead + x.shape[-2:]).reshape(rows, K, x.shape[-1])
-    h, x_nbr, edge_sh = flat(h), flat(x_nbr), flat(blk.edge_sh)
+    h, x_nbr, edge_sh = flat(h), flat(x_nbr), flat(blk.edge_sh.to(cd))
     mw = mw.expand(lead + (K,)).reshape(rows, K)
 
     if merged:
         out = contraction(tp, x_nbr, edge_sh, h, mw, fc.out_kernel, fc.out_bias)
         return out.reshape(lead + (out.shape[-1],)), counts
 
-    # per-class reference path (the merged layout's numeric oracle)
+    # per-class reference path (the merged layout's numeric oracle): float32
+    # products of the operands' values, P and the weights in ``dtype``
     H = h.shape[-1]
+    rnd = lambda x: x.to(cd).float()
     outs = []
     for k, ((offset, fan, mul), ek) in enumerate(zip(tp.weight_slices(), tp.irreps_out)):
         if fan == 0:
-            outs.append(h.new_zeros(rows, ek.dim))
+            outs.append(h.new_zeros(rows, ek.dim, dtype=torch.float32))
             continue
         d3 = ek.ir.dim
-        coupled = tp.coupled_class_merged(k, x_nbr, edge_sh)  # (rows, K, fan*d3)
-        p_h = torch.einsum("rkh,rkF->rhF", h, coupled)
-        p_b = torch.einsum("rk,rkF->rF", mw, coupled)
+        coupled = tp.coupled_class_merged(k, x_nbr, edge_sh).float()  # (rows, K, fan*d3)
+        p_h = rnd(torch.einsum("rkh,rkF->rhF", h.float(), coupled))
+        p_b = rnd(torch.einsum("rk,rkF->rF", mw.float(), coupled))
         t_k = fc.out_kernel[:, offset : offset + fan * mul].reshape(H, fan, mul)
         b_k = fc.out_bias[offset : offset + fan * mul].reshape(fan, mul)
-        tt = tp.expand_weight_identity(t_k, d3)  # (H*fan*d3, mul*d3)
-        bb = tp.expand_bias_identity(b_k, d3)  # (fan*d3, mul*d3)
+        tt = tp.expand_weight_identity(rnd(t_k), d3)  # (H*fan*d3, mul*d3)
+        bb = tp.expand_bias_identity(rnd(b_k), d3)  # (fan*d3, mul*d3)
         out_k = (p_h.reshape(rows, H * fan * d3) @ tt + p_b @ bb) / math.sqrt(fan)
         outs.append(out_k)
     out = torch.cat(outs, dim=-1)
@@ -133,8 +148,9 @@ class _ConvBase(nn.Module):
     def __init__(self, in_irreps, sh_irreps, out_irreps, n_edge_features: int,
                  hidden_features: Optional[int], tp_weights_layers: int,
                  batch_norm: bool, residual: bool, reference_kernels: bool,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, dtype: str = "float32"):
         super().__init__()
+        self.dtype = dtype
         self.tp = FullyConnectedTensorProduct(in_irreps, sh_irreps, out_irreps)
         self.out_irreps = Irreps(out_irreps)
         self._fc_args = dict(
@@ -152,7 +168,8 @@ class _ConvBase(nn.Module):
         return FCBlock(**self._fc_args)
 
     def _message(self, fc: FCBlock, blk: NeighborBlock):
-        return _tp_message_reduced(self.tp, fc, blk, contraction=self.contraction)
+        return _tp_message_reduced(self.tp, fc, blk, contraction=self.contraction,
+                                   dtype=self.dtype)
 
     def _finish(self, out: torch.Tensor, receiver_attr: Optional[torch.Tensor],
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -171,10 +188,11 @@ class TPConvLayer(_ConvBase):
     def __init__(self, in_irreps, sh_irreps, out_irreps, n_edge_features: int,
                  residual: bool = True, batch_norm: bool = True,
                  hidden_features: Optional[int] = None, tp_weights_layers: int = 2,
-                 reference_kernels: bool = False, dropout: float = 0.0):
+                 reference_kernels: bool = False, dropout: float = 0.0,
+                 dtype: str = "float32"):
         super().__init__(in_irreps, sh_irreps, out_irreps, n_edge_features,
                          hidden_features, tp_weights_layers, batch_norm, residual,
-                         reference_kernels, dropout)
+                         reference_kernels, dropout, dtype)
         self.fc = self._make_fc()
 
     def forward(self, receiver_attr: Optional[torch.Tensor], blocks: Sequence[NeighborBlock],
@@ -198,10 +216,11 @@ class MultiTPConvLayer(_ConvBase):
                  groups: Sequence[int], differentiate_convolutions: bool = True,
                  residual: bool = True, batch_norm: bool = True,
                  hidden_features: Optional[int] = None, tp_weights_layers: int = 2,
-                 reference_kernels: bool = False, dropout: float = 0.0):
+                 reference_kernels: bool = False, dropout: float = 0.0,
+                 dtype: str = "float32"):
         super().__init__(in_irreps, sh_irreps, out_irreps, n_edge_features,
                          hidden_features, tp_weights_layers, batch_norm, residual,
-                         reference_kernels, dropout)
+                         reference_kernels, dropout, dtype)
         self.differentiate_convolutions = differentiate_convolutions
         if differentiate_convolutions:
             for g in groups:
@@ -243,10 +262,11 @@ class JointTPConvLayer(_ConvBase):
                  last_layer: bool = False, differentiate_convolutions: bool = True,
                  residual: bool = True, batch_norm: bool = True,
                  hidden_features: Optional[int] = None, tp_weights_layers: int = 2,
-                 reference_kernels: bool = False, dropout: float = 0.0):
+                 reference_kernels: bool = False, dropout: float = 0.0,
+                 dtype: str = "float32"):
         super().__init__(in_irreps, sh_irreps, out_irreps, n_edge_features,
                          hidden_features, tp_weights_layers, batch_norm, residual,
-                         reference_kernels, dropout)
+                         reference_kernels, dropout, dtype)
         self.last_layer = last_layer
         self.differentiate_convolutions = differentiate_convolutions
         if differentiate_convolutions:

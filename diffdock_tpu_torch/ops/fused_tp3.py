@@ -26,8 +26,21 @@ semantics), in e3nn layout, with empty output classes zero.
   ``merged=True``) against the block-diagonal (H+1, F_tot, W_tot) weight
   tensor. The CPU tests and the card check use it.
 
-Each keeps a count of its launches in :data:`counts`; the backward counts
-its calls as ``fused_tp3_vjp``.
+Both take float32 or bfloat16 ``x_nbr``, ``edge_sh``, ``h`` and ``mw`` (the
+conv layer's compute dtype; ``out_kernel`` and ``out_bias`` are float32
+parameters). In bfloat16 they compute what ``_tp_message_reduced(dtype=
+"bfloat16")`` computes: the coupling in bfloat16 arithmetic, ``P`` summed in
+float32 from exact products and rounded to bfloat16, the weight blocks
+rounded as JAX rounds its ``t3`` (``bf16(f32(bf16(T)) / sqrt(fan))``), the
+weight product summed in float32 into a float32 output. The plain version
+upcasts bfloat16 operands to float32 before each product (a bfloat16 matmul
+in torch would round its output); the kernel's bfloat16 mode reads 2 bytes
+per element and runs bfloat16 ``mma.sync``. bfloat16 inputs that need a
+gradient raise: no JAX entry point trains in bfloat16.
+
+Each keeps a count of its launches in :data:`counts` (the kernel's two
+modes apart: ``fused_tp3`` and ``fused_tp3_bf16``); the backward counts its
+calls as ``fused_tp3_vjp``.
 """
 
 from __future__ import annotations
@@ -64,7 +77,10 @@ class LaunchCounts:
         return dict(self._n)
 
 
-counts = LaunchCounts("fused_tp3", "fused_tp3_reference", "fused_tp3_vjp")
+counts = LaunchCounts("fused_tp3", "fused_tp3_bf16", "fused_tp3_reference", "fused_tp3_vjp")
+
+# the operand dtypes the kernel takes, with the launch count of each mode
+_MODES = {torch.float32: "fused_tp3", torch.bfloat16: "fused_tp3_bf16"}
 
 
 def merged_coupled(tp, x_nbr: torch.Tensor, edge_sh: torch.Tensor):
@@ -75,16 +91,19 @@ def merged_coupled(tp, x_nbr: torch.Tensor, edge_sh: torch.Tensor):
     return classes, torch.cat(parts, dim=-1)
 
 
-def class_weights(tp, classes, out_kernel: torch.Tensor, out_bias: torch.Tensor
-                  ) -> List[torch.Tensor]:
+def class_weights(tp, classes, out_kernel: torch.Tensor, out_bias: torch.Tensor,
+                  dtype: torch.dtype = torch.float32) -> List[torch.Tensor]:
     """Per live class the (H+1, fan, mul) block: last-layer weights, then the
-    bias as row H, with 1/sqrt(fan) folded in."""
+    bias as row H, with 1/sqrt(fan) folded in. In bfloat16 as the JAX model
+    path rounds them: the weights to bfloat16, the product with the float32
+    scale in float32, that to bfloat16 again."""
     H = out_kernel.shape[0]
     blocks = []
     for _k, offset, fan, _d3, mul in classes:
         t_k = out_kernel[:, offset : offset + fan * mul].reshape(H, fan, mul)
         b_k = out_bias[offset : offset + fan * mul].reshape(1, fan, mul)
-        blocks.append(torch.cat([t_k, b_k], dim=0) * (1.0 / math.sqrt(fan)))
+        blk = torch.cat([t_k, b_k], dim=0).to(dtype).float() * (1.0 / math.sqrt(fan))
+        blocks.append(blk.to(dtype))
     return blocks
 
 
@@ -114,20 +133,23 @@ def fused_tp3_reference(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias):
 def _plain(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias):
     N = x_nbr.shape[0]
     if not tp.live_classes():
-        return x_nbr.new_zeros(N, tp.irreps_out.dim)
+        return x_nbr.new_zeros(N, tp.irreps_out.dim, dtype=torch.float32)
     classes, coupled = merged_coupled(tp, x_nbr, edge_sh)
     f_tot = coupled.shape[-1]
     w_tot = sum(mul * d3 for *_r, d3, mul in classes)
     h_aug = torch.cat([h, mw[..., None].to(h.dtype)], dim=-1)
-    p = torch.einsum("rkh,rkF->rhF", h_aug, coupled)  # (N, H+1, F_tot)
+    # float32 products of the operands' values (bfloat16 ones are exact),
+    # float32 sums; in bfloat16 P is rounded to bfloat16, as in the JAX path
+    p = torch.einsum("rkh,rkF->rhF", h_aug.float(), coupled.float())  # (N, H+1, F_tot)
+    p = p.to(h.dtype).float()
 
     H1 = h_aug.shape[-1]
-    t3 = coupled.new_zeros(H1, f_tot, w_tot)
+    t3 = coupled.new_zeros(H1, f_tot, w_tot, dtype=torch.float32)
     f_off = w_off = 0
     for (_k, _o, fan, d3, mul), blk in zip(
-        classes, class_weights(tp, classes, out_kernel, out_bias)
+        classes, class_weights(tp, classes, out_kernel, out_bias, h.dtype)
     ):
-        tt = tp.expand_weight_identity(blk, d3).reshape(H1, fan * d3, mul * d3)
+        tt = tp.expand_weight_identity(blk.float(), d3).reshape(H1, fan * d3, mul * d3)
         t3[:, f_off : f_off + fan * d3, w_off : w_off + mul * d3] = tt
         f_off += fan * d3
         w_off += mul * d3
@@ -140,14 +162,18 @@ class _Kernel:
 
     def __init__(self):
         lib = build.load("fused_tp3", _SOURCES)
-        fn = lib.fused_tp3_forward
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
+        self.forward = {}
+        for dtype, name in ((torch.float32, "fused_tp3_forward"),
+                            (torch.bfloat16, "fused_tp3_forward_bf16")):
+            fn = getattr(lib, name)
+            fn.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p,
+            ]
+            fn.restype = ctypes.c_int
+            self.forward[dtype] = fn
         scratch = lib.fused_tp3_scratch_floats
         scratch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                             ctypes.c_int]
@@ -155,7 +181,6 @@ class _Kernel:
         for name in ("fused_tp3_max_classes", "fused_tp3_max_outputs", "fused_tp3_max_columns"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ctypes.c_int
-        self.forward = fn
         self.scratch_floats = scratch
         self.max_classes = lib.fused_tp3_max_classes()
         self.max_outputs = lib.fused_tp3_max_outputs()
@@ -230,12 +255,15 @@ def launch(h_aug: torch.Tensor, coupled: torch.Tensor, weights: torch.Tensor,
            table: np.ndarray) -> torch.Tensor:
     """Launch the kernel on prepared operands: ``h_aug`` (N, K, H+1),
     ``coupled`` (N, K, F_tot), ``weights`` the packed (H+1, fan, mul) blocks,
-    ``table`` from :func:`class_table`. Returns (N, W_tot) f32."""
+    ``table`` from :func:`class_table`; all three float32 (the float32 mode)
+    or all three bfloat16 (the bfloat16 mode). Returns (N, W_tot) f32."""
+    mode = _MODES.get(h_aug.dtype)
+    if mode is None or not h_aug.dtype == coupled.dtype == weights.dtype:
+        raise TypeError(f"fused_tp3: h_aug, coupled and weights must be all float32 or all "
+                        f"bfloat16, got {h_aug.dtype}, {coupled.dtype}, {weights.dtype}")
     for name, t in (("h_aug", h_aug), ("coupled", coupled), ("weights", weights)):
         if not t.is_cuda:
             raise ValueError(f"fused_tp3: {name} must be a CUDA tensor")
-        if t.dtype != torch.float32:
-            raise TypeError(f"fused_tp3: {name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"fused_tp3: {name} must be contiguous")
         if t.device != h_aug.device:
@@ -269,25 +297,25 @@ def launch(h_aug: torch.Tensor, coupled: torch.Tensor, weights: torch.Tensor,
                            f"tile_plan for {planned}")
     out = torch.empty(N, w_tot, device=h_aug.device, dtype=torch.float32)
     scratch = torch.empty(max(n_scratch, 1), device=h_aug.device, dtype=torch.float32)
-    err = kern.forward(
+    err = kern.forward[h_aug.dtype](
         h_aug.data_ptr(), coupled.data_ptr(), weights.data_ptr(), out.data_ptr(),
         scratch.data_ptr(), table.ctypes.data, n_classes, N, K, H1, f_tot, w_tot,
         torch.cuda.current_stream(h_aug.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"fused_tp3 kernel launch failed: cudaError {err}")
-    counts.add("fused_tp3")
+        raise RuntimeError(f"{mode} kernel launch failed: cudaError {err}")
+    counts.add(mode)
     return out
 
 
 def prepare(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias):
     """The torch side of the kernel call: (classes, h_aug, coupled, packed
-    weights, class table)."""
+    weights, class table), the operands in ``h``'s dtype."""
     classes, coupled = merged_coupled(tp, x_nbr, edge_sh)
     h_aug = torch.cat([h, mw[..., None].to(h.dtype)], dim=-1).contiguous()
     H1 = h_aug.shape[-1]
     weights = torch.cat(
-        [b.reshape(-1) for b in class_weights(tp, classes, out_kernel, out_bias)]
+        [b.reshape(-1) for b in class_weights(tp, classes, out_kernel, out_bias, h.dtype)]
     )
     table = class_table(classes, H1)
     return classes, h_aug, coupled.contiguous(), weights.contiguous(), table
@@ -335,13 +363,17 @@ def _vjp_plain(tp, *inputs):
 
 
 def fused_tp3(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias):
-    """Summed TP messages (N, dim_out) f32 through the Hopper kernel; on a
-    CPU tensor through :func:`fused_tp3_reference`. Differentiable: when
+    """Summed TP messages (N, dim_out) f32 through the Hopper kernel (the mode
+    of the inputs' dtype); on a CPU tensor through
+    :func:`fused_tp3_reference`. Differentiable: when
     autograd records and an input requires a gradient, the call goes
     through :class:`PlainVJP`, which saves the six inputs; otherwise nothing
     is saved."""
     inputs = (x_nbr, edge_sh, h, mw, out_kernel, out_bias)
     forward = _forward_kernel if x_nbr.is_cuda else fused_tp3_reference
     if tp.live_classes() and torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        if h.dtype != torch.float32:
+            raise TypeError(f"fused_tp3: no gradient through {h.dtype} inputs; training "
+                            "computes in float32, as the JAX package's trainers do")
         return PlainVJP.apply(tp, forward, _vjp_plain, "fused_tp3_vjp", *inputs)
     return forward(tp, *inputs)

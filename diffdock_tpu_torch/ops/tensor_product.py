@@ -130,7 +130,11 @@ class FullyConnectedTensorProduct:
         (fan, d3) axes merged (u-major, d-minor). Each path is one matmul of
         the edge harmonics against a static (sh_dim, d1*d3) matrix followed
         by an unrolled elementwise accumulation over the d1 input
-        components — the same arithmetic as the JAX package."""
+        components — the same arithmetic as the JAX package, in the
+        inputs' dtype: in bfloat16 each op rounds to bfloat16, the CG matrix
+        is cast to it, and the matmul sums its exact float32 products in
+        float32 before rounding (a bfloat16 matmul on the card may reduce in
+        bfloat16)."""
         ek = self.irreps_out[k]
         d3 = ek.ir.dim
         segs = []
@@ -142,7 +146,7 @@ class FullyConnectedTensorProduct:
             cgm = self._consts.get(
                 f"cgm{k}_{n}", p.cg.transpose(1, 0, 2).reshape(d2, d1 * d3), x1
             )
-            W = sh @ cgm  # (..., d1*d3)
+            W = (sh.float() @ cgm.float()).to(x1.dtype)  # (..., d1*d3)
             C = None
             for i_idx in range(d1):
                 term = a[..., :, i_idx, None] * W[..., None, i_idx * d3 : (i_idx + 1) * d3]

@@ -172,7 +172,7 @@ def test_unported_confidence_configurations_are_refused():
                         confidence_weights=0, so3_tables=object(), torus_tables=object())
     for kw in (dict(confidence_mode=False), dict(affinity_prediction=True),
                dict(odd_parity=True), dict(use_old_atom_encoder=False),
-               dict(compute_dtype="bfloat16")):
+               dict(compute_dtype="float16")):
         cfg = dataclasses.replace(ScoreModelConfig(**_conf_kw(True, 0, 2)), **kw)
         with pytest.raises(ConfigError):
             build_confidence_model(cfg)
@@ -181,5 +181,9 @@ def test_unported_confidence_configurations_are_refused():
                             confidence_weights=0, so3_tables=object(), torus_tables=object())
     with pytest.raises(ConfigError):
         OldAAScoreModel(ScoreModelConfig(**_conf_kw(False, 0, 2)))
+    # bfloat16 is ported (tests/test_torch_port_bf16.py): every conv takes it
+    bf = build_confidence_model(dataclasses.replace(ScoreModelConfig(**_conf_kw(True, 0, 2)),
+                                                    compute_dtype="bfloat16"))
+    assert {m.dtype for m in bf.conv_layers} == {"bfloat16"}
     # crop_beyond is ported (tests/test_torch_port_crop.py)
     build_confidence_model(dataclasses.replace(ScoreModelConfig(**_conf_kw(True, 0, 2)), crop_beyond=20.0))

@@ -231,3 +231,29 @@ def test_fused_tp3_refuses_a_class_wider_than_a_block():
     args = _inputs(tp, 3, 2, 5, dev)
     with pytest.raises(ValueError, match="mul\\*d3 = 300 outputs"):
         ft.fused_tp3(tp, *args)
+
+
+# the bfloat16 mode at the joint layers' TP: the main path's rec<-lig
+# block, ragged rows, long and short neighbour lists, H+1 = 145, 73, 17
+@pytest.mark.parametrize("rows,K,H1", [(3200, 32, 145), (67, 33, 73), (13, 320, 145), (9, 7, 17),
+                                       (320, 2560, 73)])
+def test_fused_tp3_bf16_kernel_matches_plain_version(rows, K, H1):
+    """The kernel's bfloat16 mode against the bfloat16 plain version: within
+    1e-3 of scale, since both round P to bfloat16 after float32 sums taken
+    in different orders (an element at a rounding tie lands one bfloat16
+    ulp apart)."""
+    dev = _card()
+    cfg = PRESETS["diffdock_l"]
+    seq = get_irrep_seq(cfg.ns, cfg.nv, False, cfg.reduce_pseudoscalars)
+    tp = FullyConnectedTensorProduct(seq[3], SH, seq[3])
+    x, sh, h, mw, wk, wb = _inputs(tp, rows, K, H1 - 1, dev, seed=1)
+    args = [a.to(torch.bfloat16) for a in (x, sh, h, mw)] + [wk, wb]
+    before = ft.counts.as_dict()
+    out = ft.fused_tp3(tp, *args)
+    ref = ft.fused_tp3_reference(tp, *args)
+    torch.cuda.synchronize()
+    after = ft.counts.as_dict()
+    assert after["fused_tp3_bf16"] == before["fused_tp3_bf16"] + 1
+    assert after["fused_tp3"] == before["fused_tp3"]
+    assert out.dtype == torch.float32
+    assert (out - ref).abs().max().item() <= 1e-3 * max(ref.abs().max().item(), 1.0)

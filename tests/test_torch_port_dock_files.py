@@ -48,6 +48,7 @@ from diffdock_tpu_torch.inference import pipeline as pipeline_mod
 from diffdock_tpu_torch.inference.pipeline import DockingPipeline, DockingResult, write_ranked_poses
 from diffdock_tpu_torch.inference.sampler import SamplerConfig
 from diffdock_tpu_torch.models.config import ConfigError, ScoreModelConfig
+from diffdock_tpu_torch.models.tpconv import _ConvBase
 from diffdock_tpu_torch.ops import fused_tp3 as ft
 from diffdock_tpu_torch.train.checkpoints import save_checkpoint
 from diffdock_tpu_torch.utils.convert import state_dict_from_flax
@@ -304,7 +305,7 @@ def test_cli_docks_a_csv_like_the_jax_pipeline(setup, tables, monkeypatch, tmp_p
     argv = ["--protein_ligand_csv", str(csv), "--model_dir", str(score_dir), "--confidence_model_dir",
             str(conf_dir), "--out_dir", str(out), "--samples_per_complex", str(P), "--inference_steps",
             str(STEPS), "--actual_steps", str(STEPS), "--seed", str(SEED), "--save_visualisation",
-            "--device", "cpu"]
+            "--compute_dtype", "float32", "--device", "cpu"]
     assert dock.main(argv) == 1  # one of three failed
     lig, pdb = _files(NAME)
     setup["pipe"].dock_mol_protein(chem.read_molecule_file(lig), chem.read_pdb_file(pdb),
@@ -333,8 +334,8 @@ def test_cli_parser_has_every_jax_flag_with_its_default():
     assert set(ours) - set(ref) == {"device"} and set(ref) <= set(ours)
     assert ours["device"] == (("--device",), "cuda")
     differ = {k for k in ref if ours[k] != ref[k]}
-    assert differ == {"compute_dtype"}
-    assert ours["compute_dtype"][1] == "float32" and ref["compute_dtype"][1] == "bfloat16"
+    assert differ == set()
+    assert ours["compute_dtype"][1] == ref["compute_dtype"][1] == "bfloat16"
     args = dock.get_parser().parse_args(["--temp_sampling_rot", "1.5", "--no-no_final_step_noise"])
     jargs = jdock.get_parser().parse_args(["--temp_sampling_rot", "1.5", "--no-no_final_step_noise"])
     cfg, jcfg = dock.sampler_config_from_args(args), jdock.sampler_config_from_args(jargs)
@@ -354,12 +355,21 @@ def test_cli_config_overrides_and_refusals(setup, tables, monkeypatch, tmp_path,
     assert "unknown config key 'bogus'" in capsys.readouterr().err
     score_dir, conf_dir = _write_run_dirs(setup, tmp_path)
     base = ["--model_dir", str(score_dir), "--device", "cpu"]
-    for extra, match in ((["--compute_dtype", "bfloat16"], "item 5"), (["--pose_devices", "2"], "item 8")):
-        with pytest.raises(ConfigError, match=match):
-            dock.load_pipeline(dock.get_parser().parse_args(base + extra))
-    # the bucket ladders are ported: the guard stays off on the CPU
+    with pytest.raises(ConfigError, match="item 8"):
+        dock.load_pipeline(dock.get_parser().parse_args(base + ["--pose_devices", "2"]))
+    # --compute_dtype (default bfloat16, as in the JAX CLI) sets the score
+    # model's conv layers, not its heads, and not the confidence model's
     monkeypatch.setattr(pipeline_mod, "get_so3_tables", lambda device=None: tables[2])
     monkeypatch.setattr(pipeline_mod, "get_torus_tables", lambda device=None: tables[3])
+    for extra, dtype in (([], "bfloat16"), (["--compute_dtype", "float32"], "float32")):
+        pipe = dock.load_pipeline(dock.get_parser().parse_args(
+            base + ["--confidence_model_dir", str(conf_dir)] + extra))
+        assert pipe.score_cfg.compute_dtype == dtype
+        assert {m.dtype for m in pipe.model.conv_layers} == {dtype}
+        assert pipe.model.final_conv.dtype == "float32"
+        assert pipe.confidence_cfg.compute_dtype == "float32"
+        assert {m.dtype for m in pipe.confidence_model.modules() if isinstance(m, _ConvBase)} == {"float32"}
+    # the bucket ladders are ported: the guard stays off on the CPU
     for ladder in ("fine_dense", "cover"):
         pipe = dock.load_pipeline(dock.get_parser().parse_args(base + ["--bucket_ladder", ladder]))
         assert pipe.bucket_ladder == ladder and pipe.anomaly_guard == 0.0

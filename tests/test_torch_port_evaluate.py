@@ -162,7 +162,8 @@ def test_evaluate_matches_the_jax_cli(run_dirs, tables, monkeypatch, tmp_path, l
     jout, out = tmp_path / "jax", tmp_path / "port"
     assert jevaluate.main(base + ["--out_dir", str(jout), "--cache_path", str(tmp_path / "jc"),
                                   "--compute_dtype", "float32"]) == 0
-    assert evaluate.main(base + ["--out_dir", str(out), "--cache_path", str(tmp_path / "pc"), "--device", "cpu"]) == 0
+    assert evaluate.main(base + ["--out_dir", str(out), "--cache_path", str(tmp_path / "pc"),
+                                 "--compute_dtype", "float32", "--device", "cpu"]) == 0
     files = sorted(os.listdir(jout))
     assert sorted(os.listdir(out)) == files and len(files) == 7
     np.testing.assert_array_equal(np.load(out / "names.npy"), np.load(jout / "names.npy"))
@@ -199,8 +200,8 @@ def test_parser_has_every_jax_flag_with_its_default():
     ours, ref = flags(evaluate.get_parser()), flags(jevaluate.get_parser())
     assert set(ours) - set(ref) == {"device"} and set(ref) <= set(ours)
     assert ours["device"][:2] == (("--device",), "cuda")
-    assert {k for k in ref if ours[k] != ref[k]} == {"compute_dtype"}
-    assert ours["compute_dtype"][1] == "float32" and ref["compute_dtype"][1] == "bfloat16"
+    assert {k for k in ref if ours[k] != ref[k]} == set()
+    assert ours["compute_dtype"][1] == ref["compute_dtype"][1] == "bfloat16"
     assert "--device" in evaluate.get_parser().format_help()
 
 
@@ -208,11 +209,17 @@ def test_unported_options_raise(run_dirs, tables, monkeypatch, tmp_path):  # noq
     _, _, _, score_dir, conf_dir = run_dirs
     base = argv(tmp_path, score_dir, conf_dir, "--device", "cpu", "--out_dir", str(tmp_path / "o"),
                 "--cache_path", str(tmp_path / "c"))
-    for extra, match in ((["--compute_dtype", "bfloat16"], "item 5"), (["--complex_devices", "0"], "item 8")):
-        with pytest.raises(ConfigError, match=match):
-            evaluate.main(base + extra)
-    # the crop options are ported: they reach the pipeline
+    with pytest.raises(ConfigError, match="item 8"):
+        evaluate.main(base + ["--complex_devices", "0"])
     patch_tables_and_draws(monkeypatch, tables)
+    # --compute_dtype (default bfloat16, as in the JAX CLI) reaches the score
+    # model's conv layers; the confidence model keeps its run directory's
+    for extra, dtype in (([], "bfloat16"), (["--compute_dtype", "float32"], "float32")):
+        pipe = evaluate.build_pipeline(evaluate.get_parser().parse_args(base + extra))
+        assert pipe.score_cfg.compute_dtype == dtype
+        assert {m.dtype for m in pipe.model.conv_layers} == {dtype}
+        assert pipe.confidence_cfg.compute_dtype == "float32"
+    # the crop options are ported: they reach the pipeline
     args = evaluate.get_parser().parse_args(base + ["--crop_beyond", "5", "--pocket_capacity", "10"])
     pipe = evaluate.build_pipeline(args)
     assert pipe.score_cfg.crop_beyond == 5.0 and pipe.pocket_capacity == 10

@@ -101,7 +101,8 @@ def _cli_against_jax_pipeline(run_dirs, conf_kw, tables, monkeypatch, tmp_path):
     patch_tables_and_draws(monkeypatch, tables)
     base = argv(tmp_path, score_dir, conf_dir)
     out = tmp_path / "port"
-    assert evaluate.main(base + ["--out_dir", str(out), "--cache_path", str(tmp_path / "pc"), "--device", "cpu"]) == 0
+    assert evaluate.main(base + ["--out_dir", str(out), "--cache_path", str(tmp_path / "pc"),
+                                 "--compute_dtype", "float32", "--device", "cpu"]) == 0
     metrics = json.loads((out / "metrics.json").read_text())
     assert metrics["failures"] == 0 and np.load(out / "names.npy").tolist() == list(NAMES)
 

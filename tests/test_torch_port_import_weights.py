@@ -338,7 +338,7 @@ def test_dock_cli_on_a_reference_run_dir_matches_the_jax_cli(ref_dirs, tables, m
                 "--model_dir", str(score), "--confidence_model_dir", str(conf), "--out_dir", str(outs[pkg]),
                 "--samples_per_complex", str(P), "--inference_steps", str(STEPS), "--actual_steps",
                 str(STEPS), "--seed", str(SEED)]
-        extra = ["--device", "cpu"] if pkg == "port" else ["--compute_dtype", "float32"]
+        extra = ["--compute_dtype", "float32"] + (["--device", "cpu"] if pkg == "port" else [])
         assert main(argv + extra) == 0
         assert os.path.isdir(runs / "score" / "tpu_native") and os.path.isdir(runs / "confidence" / "tpu_native_conf_old")
     ours, ref = _read_ranked(outs["port"] / NAME), _read_ranked(outs["jax"] / NAME)
@@ -456,7 +456,7 @@ def test_dock_cli_ranks_with_a_new_architecture_reference_dir_like_the_jax_cli(r
                 "--model_dir", str(score), "--confidence_model_dir", str(conf), "--no-old_confidence_model",
                 "--out_dir", str(outs[pkg]), "--samples_per_complex", str(P), "--inference_steps", str(STEPS),
                 "--actual_steps", str(STEPS), "--seed", str(SEED)]
-        extra = ["--device", "cpu"] if pkg == "port" else ["--compute_dtype", "float32"]
+        extra = ["--compute_dtype", "float32"] + (["--device", "cpu"] if pkg == "port" else [])
         assert main(argv + extra) == 0
         assert os.path.isdir(runs / "confidence" / "tpu_native_conf")
         if pkg == "port":

@@ -67,15 +67,17 @@ def test_port_imports_nothing_missing_on_the_card_machine():
     "eval/gnina.py", "cli/evaluate.py", "train/noise.py", "train/losses.py", "train/trainer.py",
     "train/schedulers.py", "train/validation.py", "data/loaders.py", "utils/logging.py",
     "cli/train.py", "models/aa_model.py", "models/factory.py", "models/tpconv.py",
-    "train/confidence.py", "cli/confidence_train.py",
+    "train/confidence.py", "cli/confidence_train.py", "app/__init__.py", "app/server.py",
+    "cli/main.py",
 ])
 def test_port_modules_are_in_the_checked_set(module):
     assert REPO / "diffdock_tpu_torch" / module in _port_files()
 
 
 def test_kernel_sources_include_no_jax_and_no_pytorch_headers():
-    """The CUDA sources include only the CUDA runtime, the C++ standard
-    library and headers of ``csrc/`` itself (checked here as sources):
+    """The CUDA sources include only the CUDA runtime and its bfloat16
+    header, the C++ standard library and headers of ``csrc/`` itself
+    (checked here as sources):
     nothing of JAX or the JAX package (and no PyTorch headers, which would
     turn a seconds-long build into minutes)."""
     csrc = REPO / "diffdock_tpu_torch" / "csrc"
@@ -89,7 +91,8 @@ def test_kernel_sources_include_no_jax_and_no_pytorch_headers():
             root = inc.split("/")[0].split(".")[0]
             assert root not in FORBIDDEN | {"torch", "ATen", "c10", "pybind11"}, f"{path.name}: {inc}"
             local = "/" not in inc and (csrc / inc).is_file()
-            assert inc == "cuda_runtime.h" or "." not in inc or local, f"{path.name}: {inc}"
+            assert inc in ("cuda_runtime.h", "cuda_bf16.h") or "." not in inc or local, \
+                f"{path.name}: {inc}"
 
 
 def test_port_imports_are_checked_by_the_ast_walk():

@@ -126,7 +126,8 @@ def test_score_model_per_class_oracle_matches_merged_path(tables, monkeypatch):
         merged = model(data, poses, torch.tensor(0.4), ps, pt)
         orig = tpconv._tp_message_reduced
         monkeypatch.setattr(tpconv, "_tp_message_reduced",
-                            lambda tp, fc, blk, contraction=None: orig(tp, fc, blk, merged=False))
+                            lambda tp, fc, blk, contraction=None, dtype="float32":
+                            orig(tp, fc, blk, merged=False, dtype=dtype))
         per_class = model(data, poses, torch.tensor(0.4), ps, pt)
     for a, b in zip(merged, per_class):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4, atol=1e-5)
@@ -137,7 +138,12 @@ def test_unported_configurations_are_refused():
     # the old family's (models/old_models.py); confidence mode is ported
     # (tests/test_torch_port_confidence_head.py)
     for kw in (dict(all_atoms=True), dict(old_architecture=True),
-               dict(depthwise_convolution=True), dict(compute_dtype="bfloat16")):
+               dict(depthwise_convolution=True), dict(compute_dtype="float16")):
         with pytest.raises(ConfigError):
             CGScoreModel(ScoreModelConfig(**kw))
+    # bfloat16 is ported (tests/test_torch_port_bf16.py): the conv layers take
+    # it, the score heads stay float32 as in the JAX model
+    bf = CGScoreModel(ScoreModelConfig(compute_dtype="bfloat16"))
+    assert {m.dtype for m in (*bf.rec_emb_layers, *bf.lig_emb_layers, *bf.conv_layers)} == {"bfloat16"}
+    assert bf.final_conv.dtype == bf.tor_bond_conv.dtype == "float32"
     assert not hasattr(CGScoreModel(ScoreModelConfig(confidence_mode=True)), "final_conv")

@@ -103,7 +103,7 @@ def test_fused_tp3_function_backward_with_an_injected_forward():
     torch.testing.assert_close(g_h, r_h, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(g_k, r_k, rtol=1e-5, atol=1e-6)
     assert calls == [1] and ft.counts.as_dict() == {
-        "fused_tp3": 0, "fused_tp3_reference": 0, "fused_tp3_vjp": 1}
+        "fused_tp3": 0, "fused_tp3_bf16": 0, "fused_tp3_reference": 0, "fused_tp3_vjp": 1}
     with torch.inference_mode():
         out = ft.fused_tp3(tp, *leaves)
     assert out.grad_fn is None and ft.counts["fused_tp3_vjp"] == 1
