@@ -158,11 +158,15 @@ G. confidence training and new-architecture ranking: G1 fused_tp3's
    same poses within CONF_RTOL of scale, the same ranking.
 H. bfloat16, the JAX package's default compute dtype (phases 4-G above run
    the CLIs with ``--compute_dtype float32``, so their gates stay
-   float32's): H1 fused_tp3's bfloat16 mode against its bfloat16 plain
-   version at phase 3's six blocks (within BF16_KERNEL_RTOL of scale),
-   timed beside the float32 mode, the plain version, the library pair in
-   bfloat16 (cuBLAS) and its bound (2-byte operands over 3.35 TB/s, or both
-   products at the bfloat16 rate, 989 TFLOP/s); H2 phase 4's dock with both
+   float32's): H1 fused_tp3's bfloat16 kernel (``csrc/fused_tp3_bf16.cu``)
+   against its bfloat16 plain version at phase 3's six blocks and the score
+   model's ligand-embedding lig<-lig block (within BF16_KERNEL_RTOL of
+   scale, and the same bits from two launches), timed beside the float32
+   mode, the plain version, the library pair in bfloat16 (cuBLAS) and its
+   bound (2-byte operands over 3.35 TB/s, or both products at the bfloat16
+   rate, 989 TFLOP/s), with the share of the bound and the TFLOP/s reached
+   and the kernel's plan (receivers per block, slices per block, neighbour
+   halves); H2 phase 4's dock with both
    models in bfloat16 from phase 4's draws: launch counts by mode
    (``fused_tp3_bf16`` for the bfloat16 layers, ``fused_tp3`` for
    ``final_conv`` and ``tor_bond_conv``, which stay float32 as in the JAX
@@ -171,7 +175,8 @@ H. bfloat16, the JAX package's default compute dtype (phases 4-G above run
    spread of a BF16_NUDGE nudge, confidences and ranking as in phase 5), the
    per-pose RMSD to phase 4's float32 dock (reported, no gate), the warm
    wall (median and range of 5) beside phase 4's, peak memory and phase C's
-   bytes per pose; H3 the web server (``diffdock_tpu_torch/app/server.py``)
+   bytes per pose, and one warm dock under torch.profiler: device time in
+   ``fused_tp3_bf16``, in the float32 ``fused_tp3`` and in all; H3 the web server (``diffdock_tpu_torch/app/server.py``)
    in this process on a free port over phase B's run directories with its
    defaults (bfloat16, cuda): three requests from files, each polled to
    ``done``, its ``rank1.sdf`` parsed with bond lengths within 1e-3 A and
@@ -766,7 +771,11 @@ def run(args) -> dict:
         report["train"] = train_phase(args, Path(tmp), cfg, kernels, score_blocks, card, dev)
         report["reference_dirs"] = reference_dirs(args, Path(tmp), cfg, ccfg, kernels, card)
         report["confidence"] = confidence_phase(args, Path(tmp), kernels, card, dev)
-        report["bf16"] = bf16_phase(args, Path(tmp), cfg, ccfg, blocks_all, report["dock"], res, noise,
+        # phase H1 adds the score model's ligand-embedding lig<-lig radius
+        # block (poses x nl receivers, nl neighbours) to the six
+        bf16_blocks = dict(blocks_all)
+        bf16_blocks["lig<-lig (lig_emb_2)"] = (model.lig_emb_layers[-1].tp, P * nl, nl, 3 * cfg.ns)
+        report["bf16"] = bf16_phase(args, Path(tmp), cfg, ccfg, bf16_blocks, report["dock"], res, noise,
                                     data, aa, so3, torus, card, dev)
 
     sources = {"fused_tp3": "diffdock_tpu/ops/pallas_tpconv3.py:57",
@@ -794,7 +803,7 @@ def run(args) -> dict:
     h1 = report["bf16"]["kernel"]
     main = h1["rec<-lig cross (conv)"]
     report["kernels"].append({
-        "name": "fused_tp3_bf16", "route": "cuda", "source": "diffdock_tpu_torch/csrc/fused_tp3.cu",
+        "name": "fused_tp3_bf16", "route": "cuda", "source": "diffdock_tpu_torch/csrc/fused_tp3_bf16.cu",
         "replaces": sources["fused_tp3_bf16"],
         "launches": report["bf16"]["dock"]["launches"]["fused_tp3_bf16"],
         "max_abs_err": max(c["max_abs_err"] for c in h1.values()),
@@ -1904,11 +1913,12 @@ def profile_step(one_step, wall_s: float) -> dict:
     return out
 
 
-def profile_dock(pipe, data, aa, n_poses: int) -> dict:
+def profile_dock(pipe, data, aa, n_poses: int, names=()) -> dict:
     """torch.profiler over one warm dock of ``pipe``: device time by
-    kernel and the share of the hand-written kernels; the device's busy
-    share is taken against the same dock timed without the profiler (whose
-    own overhead inflates the traced wall time)."""
+    kernel and the share of the hand-written kernels (and the device time
+    and launches of the kernels whose names hold each of ``names``); the
+    device's busy share is taken against the same dock timed without the
+    profiler (whose own overhead inflates the traced wall time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1942,6 +1952,8 @@ def profile_dock(pipe, data, aa, n_poses: int) -> dict:
            "device_busy_share": total / wall_us, "fused_tp3_ms": ours / 1e3,
            "fused_tp3_share_of_device": ours / total,
            "kernel_launches": launches,
+           "ms_by_name": {n: sum(k[1] for k in kernels if n in k[0]) / 1e3 for n in names},
+           "launches_by_name": {n: sum(k[2] for k in kernels if n in k[0]) for n in names},
            "top": [{"name": k[0][:90], "ms": k[1] / 1e3, "count": k[2]} for k in kernels[:10]]}
     _log(f"  wall {wall_us / 1e3:.1f} ms (unprofiled) | device busy {total / 1e3:.1f} ms "
          f"({100 * out['device_busy_share']:.1f} %) | fused_tp3 {ours / 1e3:.1f} ms "
@@ -2791,13 +2803,15 @@ def bf16_phase(args, tmp: Path, cfg, ccfg, blocks: dict, f32_dock: dict, f32_res
     bf16 = torch.bfloat16
     report: dict = {}
 
-    # H1: kernel vs plain, then times, at the six blocks
+    # H1: kernel vs plain (and against itself), then times, at the seven blocks
     h1 = {}
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     with torch.inference_mode():
         for i, (label, (tp, rows, K, Hb)) in enumerate(blocks.items()):
             inp = tp_inputs(tp, rows, K, Hb, seed=i, device=dev)
             binp = [a.to(bf16) for a in inp[:4]] + list(inp[4:])
             got = ft.fused_tp3(tp, *binp)
+            again = ft.fused_tp3(tp, *binp)
             ref = ft.fused_tp3_reference(tp, *binp)
             torch.cuda.synchronize()
             err = (got - ref).abs().max().item()
@@ -2806,10 +2820,18 @@ def bf16_phase(args, tmp: Path, cfg, ccfg, blocks: dict, f32_dock: dict, f32_res
             if not ok:
                 raise PhaseError(f"fused_tp3_bf16 disagrees with its plain version at {label}: "
                                  f"{err:.3e} > {BF16_KERNEL_RTOL:.0e} x {scale:.3g}")
-            classes, h_aug, coupled, weights, table = ft.prepare(tp, *binp)
+            if not torch.equal(got, again):
+                raise PhaseError(f"fused_tp3_bf16 gave other bits on a second launch at {label}")
+            ops = ft.prepare(tp, *binp)
+            classes, table = ops[0], ops[4]
+            plan = ft.bf16_plan(table, rows, K, Hb, n_sm)
+            # the library pair's operands: h_aug and the coupled columns
+            # without the kernel's padding
+            h_aug = torch.cat([binp[2], binp[3][..., None]], dim=-1)
+            coupled = ft.merged_coupled(tp, binp[0], binp[1])[1]
             t3 = _block_diag_t3(tp, classes, inp[4], inp[5], bf16)
             f32_ops = ft.prepare(tp, *inp)
-            ms = cuda_ms(lambda: ft.launch(h_aug, coupled, weights, table), args.iters)
+            ms = cuda_ms(lambda: ft.launch(*ops[1:]), args.iters)
             f32_ms = cuda_ms(lambda: ft.launch(*f32_ops[1:]), args.iters)
             plain_ms = cuda_ms(lambda: ft.fused_tp3_reference(tp, *binp), args.iters)
             # the library pair in the same types: cuBLAS bfloat16 products
@@ -2819,13 +2841,19 @@ def bf16_phase(args, tmp: Path, cfg, ccfg, blocks: dict, f32_dock: dict, f32_res
             t_ops, t_bytes = flops / BF16_PEAK_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
             b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
             h1[label] = {"rows": rows, "K": K, "H": Hb, "max_abs_err": err, "max_abs_ref": scale,
-                         "ms": ms, "f32_ms": f32_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                         "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": nbytes}
+                         "repeat_identical": True, "ms": ms, "f32_ms": f32_ms, "plain_ms": plain_ms,
+                         "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+                         "bound_share": b_ms / ms, "tflops": flops / ms / 1e9, "flops": flops,
+                         "bytes": nbytes, "plan": {"R": plan.R, "whole": plan.whole,
+                                                   "k_parts": plan.k_parts, "blocks": plan.n_blocks}}
             _log(f"  fused_tp3_bf16 {label}: R={rows} K={K} H+1={Hb + 1} max_abs_err={err:.3e} (tol "
-                 f"{BF16_KERNEL_RTOL:.0e} x {scale:.3g}) | kernel {ms:.4f} ms | float32 kernel {f32_ms:.4f} ms"
-                 f" | plain {plain_ms:.4f} ms | library bf16 pair {library_ms:.4f} ms | bound {b_ms:.4f} ms "
-                 f"({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) | {flops / ms / 1e9:.2f} TFLOP/s")
-            del inp, binp, got, ref, h_aug, coupled, weights, t3, f32_ops
+                 f"{BF16_KERNEL_RTOL:.0e} x {scale:.3g}), repeat identical | kernel {ms:.4f} ms | float32 "
+                 f"kernel {f32_ms:.4f} ms | plain {plain_ms:.4f} ms | library bf16 pair {library_ms:.4f} ms | "
+                 f"bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) | "
+                 f"{100 * b_ms / ms:.1f} % of bound | {flops / ms / 1e9:.2f} TFLOP/s | plan R={plan.R} "
+                 f"{'all slices' if plan.whole else 'one slice'} per block, {plan.k_parts} neighbour "
+                 f"part(s), {plan.n_blocks} blocks")
+            del inp, binp, got, again, ref, ops, coupled, h_aug, t3, f32_ops
     report["kernel"] = h1
     _log(f"[H1 bf16 kernel vs plain] worst {max(v['max_abs_err'] / v['max_abs_ref'] for v in h1.values()):.2e} "
          f"of scale | {card} | {time.perf_counter() - t_start:.1f} s")
@@ -2881,6 +2909,11 @@ def bf16_phase(args, tmp: Path, cfg, ccfg, blocks: dict, f32_dock: dict, f32_res
          f"| bond lengths within {bond_err:.2e} A | {card}")
     _log(f"  per-pose RMSD to the float32 dock from the same draws (no gate): "
          f"{' '.join(f'{r:.3f}' for r in rmsd_f32)} A")
+    prof = profile_dock(pipe, data, aa, P, names=("fused_tp3_bf16", "fused_tp3_kernel", "fused_tp3_reduce"))
+    _log(f"  H2 device time per bf16 dock: fused_tp3_bf16 {prof['ms_by_name']['fused_tp3_bf16']:.1f} ms "
+         f"({prof['launches_by_name']['fused_tp3_bf16']} kernel launches) | float32 fused_tp3 "
+         f"{prof['ms_by_name']['fused_tp3_kernel'] + prof['ms_by_name']['fused_tp3_reduce']:.1f} ms | all "
+         f"{prof['device_ms']:.1f} ms | {card}")
 
     # the same dock through the bfloat16 plain versions, and nudged
     ref_pipe = DockingPipeline(bcfg, 0, sampler, so3, torus, device=dev, reference_kernels=True, **models)
@@ -2928,7 +2961,7 @@ def bf16_phase(args, tmp: Path, cfg, ccfg, blocks: dict, f32_dock: dict, f32_res
                       "f32_max_memory_allocated": f32_dock["max_memory_allocated"], "launches": launches,
                       "expected": expected, "bond_error": bond_err, "rmsd_to_f32": rmsd_f32.tolist(),
                       "plain": dict(plain, step_gap=step_gap, nudge_gap=nudge_gap),
-                      "score_memory": mem, "s": time.perf_counter() - t0}
+                      "score_memory": mem, "profile": prof, "s": time.perf_counter() - t0}
     del pipe
 
     report["server"] = server_phase(args, tmp, cfg, card)

@@ -41,23 +41,10 @@
 // One block per SM (16 warps at 128 registers); nothing is split with
 // atomics.
 //
-// The bfloat16 mode (fused_tp3_forward_bf16) computes what the JAX model
-// path computes with compute_dtype="bfloat16" (models/tpconv.py:
-// _tp_message_reduced; its XLA einsums, not the Pallas kernel): h_aug,
-// coupled and the weights arrive as bfloat16 (2 bytes read per element,
-// half the float32 mode's), the neighbour product runs as bfloat16
-// mma.sync m16n8k8 (exact products, float32 sums), P is rounded to
-// bfloat16 to nearest even (__float2bfloat16_rn, as XLA's convert) before
-// the weight product, which runs as bfloat16 mma.sync m16n8k16 with float32
-// sums; the output is float32. One product per tile where 3xTF32 takes
-// three. cp.async moves 4 or 8 bytes, and bfloat16 rows of odd width
-// (H+1 = 145) do not keep pairs aligned, so this mode stages each
-// neighbour step through registers: the loads of the step kStages - 1
-// ahead are issued before this step's products and stored (as floats)
-// after them. The ring and the P tiles keep the float32 layout; P holds
-// the rounded values.
+// The bfloat16 operand mode is a kernel of its own, designed for Hopper's
+// TMA and wgmma: fused_tp3_bf16.cu.
 //
-// The 3xTF32, bfloat16 and cp.async helpers are in tp_mma.cuh. Plain C
+// The 3xTF32 and cp.async helpers are in tp_mma.cuh. Plain C
 // interface (no PyTorch headers), built with nvcc into a shared library
 // and called through ctypes; see diffdock_tpu_torch/ops/fused_tp3.py.
 
@@ -65,7 +52,6 @@
 
 #include <algorithm>
 #include <cstdint>
-#include <type_traits>
 
 #include "tp_mma.cuh"
 
@@ -103,18 +89,17 @@ __device__ __forceinline__ void cp_async_wait_stages() { cp_async_wait<kStages -
 
 // ---- the kernel ---------------------------------------------------------
 
-// MT: m16 tiles of hidden rows per block (2, or 1 when H+1 <= 16); BF16:
-// bfloat16 operands (else float32)
-template <int MT, bool BF16>
+// MT: m16 tiles of hidden rows per block (2, or 1 when H+1 <= 16)
+template <int MT>
 __global__ void __launch_bounds__(kThreads, 1)
-fused_tp3_kernel(const std::conditional_t<BF16, __nv_bfloat16, float>* __restrict__ h_aug,
-                 const std::conditional_t<BF16, __nv_bfloat16, float>* __restrict__ coupled,
-                 const std::conditional_t<BF16, __nv_bfloat16, float>* __restrict__ weights,
+fused_tp3_kernel(const float* __restrict__ h_aug,
+                 const float* __restrict__ coupled,
+                 const float* __restrict__ weights,
                  float* __restrict__ dst,            // out, or the scratch parts
                  ClassTable tbl, int n_classes, long long n_rows, int K, int Ha, int F,
                  int D, int n_groups, int n_sl, int s_max) {
   // h_aug (n_rows, K, Ha), coupled (n_rows, K, F), weights the packed W_c
-  using In = std::conditional_t<BF16, __nv_bfloat16, float>;
+  using In = float;
   constexpr int HR = MT * 16;          // hidden rows per block
   constexpr int AStride = HR + 8;      // 24 or 40: conflict-free fragment reads
   constexpr int StageFloats = kKC * AStride + kKC * kBStride;
@@ -160,153 +145,83 @@ fused_tp3_kernel(const std::conditional_t<BF16, __nv_bfloat16, float>* __restric
   const In* c_row = coupled + rr * K * static_cast<long long>(F) + tbl.f_off[c] + u0 * d3;
   const int n_steps = (K + kKC - 1) / kKC;
 
-  if constexpr (BF16) {
-    // neighbours [kc*8, kc*8+8) into registers, then into stage `st` as
-    // floats; the same element per lane as load_stage
-    __nv_bfloat16 ra[kKC * HR / 32], rb[2 * kKC];
-    const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-    auto fetch = [&](int kc) {
-      const int k0 = kc * kKC;
-      const int ha = lane % HR;
-      const bool h_ok = row_ok && h0 + ha < Ha;
+  // stage `st` of the ring <- neighbours [kc*8, kc*8+8): per lane, A takes
+  // hidden row (lane % HR) of 32/HR neighbours per pass, B column lane and
+  // lane+32 of one neighbour per pass
+  auto load_stage = [&](int kc, int st) {
+    float* as = ring + st * StageFloats;
+    float* bs = as + kKC * AStride;
+    const int k0 = kc * kKC;
+    const int ha = lane % HR;
+    const bool h_ok = row_ok && h0 + ha < Ha;
 #pragma unroll
-      for (int i = 0; i < kKC * HR / 32; ++i) {
-        const int kk = i * (32 / HR) + lane / HR;
-        ra[i] = h_ok && k0 + kk < K ? h_row[static_cast<long long>(k0 + kk) * Ha + h0 + ha] : zero;
+    for (int i = 0; i < kKC * HR / 32; ++i) {
+      const int kk = i * (32 / HR) + lane / HR;
+      const bool ok = h_ok && k0 + kk < K;
+      cp_async4(as + kk * AStride + ha,
+                ok ? h_row + static_cast<long long>(k0 + kk) * Ha + h0 + ha : h_aug, ok);
+    }
+    if (tbl.pairs[c]) {  // every slice starts on an even column of an even-width row
+#pragma unroll
+      for (int kk = 0; kk < kKC; ++kk) {
+        const int j = 2 * lane;
+        const int n = row_ok && k0 + kk < K ? max(0, min(2, ncols - j)) : 0;
+        cp_async8(bs + kk * kBStride + j,
+                  n > 0 ? c_row + static_cast<long long>(k0 + kk) * F + j : coupled, n);
       }
+    } else {
 #pragma unroll
       for (int i = 0; i < 2 * kKC; ++i) {
         const int kk = i >> 1;
         const int j = lane + 32 * (i & 1);
-        rb[i] = row_ok && k0 + kk < K && j < ncols ? c_row[static_cast<long long>(k0 + kk) * F + j]
-                                                   : zero;
+        const bool ok = row_ok && k0 + kk < K && j < ncols;
+        cp_async4(bs + kk * kBStride + j,
+                  ok ? c_row + static_cast<long long>(k0 + kk) * F + j : coupled, ok);
       }
-    };
-    auto put = [&](int st) {
-      float* as = ring + st * StageFloats;
-      float* bs = as + kKC * AStride;
+    }
+  };
+
 #pragma unroll
-      for (int i = 0; i < kKC * HR / 32; ++i)
-        as[(i * (32 / HR) + lane / HR) * AStride + lane % HR] = __bfloat162float(ra[i]);
-#pragma unroll
-      for (int i = 0; i < 2 * kKC; ++i)
-        bs[(i >> 1) * kBStride + lane + 32 * (i & 1)] = __bfloat162float(rb[i]);
-    };
-#pragma unroll
-    for (int st = 0; st < kStages - 1; ++st)
-      if (st < n_steps) {
-        fetch(st);
-        put(st);
-      }
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < n_steps) load_stage(st, st);
+    cp_async_commit();
+  }
+  for (int kc = 0; kc < n_steps; ++kc) {
+    cp_async_wait_stages();
     __syncwarp();
-    for (int kc = 0; kc < n_steps; ++kc) {
-      // stage (kc + kStages - 1) % kStages was last read in step kc - 1
-      const bool ahead = kc + kStages - 1 < n_steps;
-      if (ahead) fetch(kc + kStages - 1);
-      const float* as = ring + (kc % kStages) * StageFloats;
-      const float* bs = as + kKC * AStride;
-      // m16n8k8 fragments: A (hidden row, neighbour pair 2tq, 2tq+1),
-      // B (neighbour pair, column)
-      uint32_t a[MT][2];
+    // refill the stage read in the step before, so kStages - 1 stages are
+    // in flight while this one is multiplied
+    if (kc + kStages - 1 < n_steps) load_stage(kc + kStages - 1, (kc + kStages - 1) % kStages);
+    cp_async_commit();
+    const float* stage = ring + (kc % kStages) * StageFloats;
 #pragma unroll
-      for (int mi = 0; mi < MT; ++mi)
+    for (int k8 = 0; k8 < kKC / 8; ++k8) {
+      const float* as = stage + k8 * 8 * AStride;
+      const float* bs = stage + kKC * AStride + k8 * 8 * kBStride;
+      uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
-        for (int v = 0; v < 2; ++v) {
-          const int m = mi * 16 + gq + 8 * v;
-          a[mi][v] = bf16x2(as[2 * tq * AStride + m], as[(2 * tq + 1) * AStride + m]);
-        }
+      for (int mi = 0; mi < MT; ++mi) {
+        split(as[tq * AStride + mi * 16 + gq], ah[mi][0], al[mi][0]);
+        split(as[tq * AStride + mi * 16 + gq + 8], ah[mi][1], al[mi][1]);
+        split(as[(tq + 4) * AStride + mi * 16 + gq], ah[mi][2], al[mi][2]);
+        split(as[(tq + 4) * AStride + mi * 16 + gq + 8], ah[mi][3], al[mi][3]);
+      }
 #pragma unroll
       for (int ni = 0; ni < kNT; ++ni) {
         if (ni < nt_used) {
-          const int n = ni * 8 + gq;
-          const uint32_t b = bf16x2(bs[2 * tq * kBStride + n], bs[(2 * tq + 1) * kBStride + n]);
+          uint32_t bh0, bl0, bh1, bl1;
+          split(bs[tq * kBStride + ni * 8 + gq], bh0, bl0);
+          split(bs[(tq + 4) * kBStride + ni * 8 + gq], bh1, bl1);
 #pragma unroll
-          for (int mi = 0; mi < MT; ++mi) mma_bf16_k8(acc[mi][ni], a[mi], b);
+          for (int mi = 0; mi < MT; ++mi)
+            mma_3xtf32(acc[mi][ni], ah[mi], al[mi], bh0, bh1, bl0, bl1);
         }
       }
-      if (ahead) put((kc + kStages - 1) % kStages);
-      __syncwarp();
     }
-    __syncthreads();  // the ring is free: P and the partial sums reuse it
-  } else {
-    // stage `st` of the ring <- neighbours [kc*8, kc*8+8): per lane, A takes
-    // hidden row (lane % HR) of 32/HR neighbours per pass, B column lane and
-    // lane+32 of one neighbour per pass
-    auto load_stage = [&](int kc, int st) {
-      float* as = ring + st * StageFloats;
-      float* bs = as + kKC * AStride;
-      const int k0 = kc * kKC;
-      const int ha = lane % HR;
-      const bool h_ok = row_ok && h0 + ha < Ha;
-#pragma unroll
-      for (int i = 0; i < kKC * HR / 32; ++i) {
-        const int kk = i * (32 / HR) + lane / HR;
-        const bool ok = h_ok && k0 + kk < K;
-        cp_async4(as + kk * AStride + ha,
-                  ok ? h_row + static_cast<long long>(k0 + kk) * Ha + h0 + ha : h_aug, ok);
-      }
-      if (tbl.pairs[c]) {  // every slice starts on an even column of an even-width row
-#pragma unroll
-        for (int kk = 0; kk < kKC; ++kk) {
-          const int j = 2 * lane;
-          const int n = row_ok && k0 + kk < K ? max(0, min(2, ncols - j)) : 0;
-          cp_async8(bs + kk * kBStride + j,
-                    n > 0 ? c_row + static_cast<long long>(k0 + kk) * F + j : coupled, n);
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < 2 * kKC; ++i) {
-          const int kk = i >> 1;
-          const int j = lane + 32 * (i & 1);
-          const bool ok = row_ok && k0 + kk < K && j < ncols;
-          cp_async4(bs + kk * kBStride + j,
-                    ok ? c_row + static_cast<long long>(k0 + kk) * F + j : coupled, ok);
-        }
-      }
-    };
-
-#pragma unroll
-    for (int st = 0; st < kStages - 1; ++st) {
-      if (st < n_steps) load_stage(st, st);
-      cp_async_commit();
-    }
-    for (int kc = 0; kc < n_steps; ++kc) {
-      cp_async_wait_stages();
-      __syncwarp();
-      // refill the stage read in the step before, so kStages - 1 stages are
-      // in flight while this one is multiplied
-      if (kc + kStages - 1 < n_steps) load_stage(kc + kStages - 1, (kc + kStages - 1) % kStages);
-      cp_async_commit();
-      const float* stage = ring + (kc % kStages) * StageFloats;
-#pragma unroll
-      for (int k8 = 0; k8 < kKC / 8; ++k8) {
-        const float* as = stage + k8 * 8 * AStride;
-        const float* bs = stage + kKC * AStride + k8 * 8 * kBStride;
-        uint32_t ah[MT][4], al[MT][4];
-#pragma unroll
-        for (int mi = 0; mi < MT; ++mi) {
-          split(as[tq * AStride + mi * 16 + gq], ah[mi][0], al[mi][0]);
-          split(as[tq * AStride + mi * 16 + gq + 8], ah[mi][1], al[mi][1]);
-          split(as[(tq + 4) * AStride + mi * 16 + gq], ah[mi][2], al[mi][2]);
-          split(as[(tq + 4) * AStride + mi * 16 + gq + 8], ah[mi][3], al[mi][3]);
-        }
-#pragma unroll
-        for (int ni = 0; ni < kNT; ++ni) {
-          if (ni < nt_used) {
-            uint32_t bh0, bl0, bh1, bl1;
-            split(bs[tq * kBStride + ni * 8 + gq], bh0, bl0);
-            split(bs[(tq + 4) * kBStride + ni * 8 + gq], bh1, bl1);
-#pragma unroll
-            for (int mi = 0; mi < MT; ++mi)
-              mma_3xtf32(acc[mi][ni], ah[mi], al[mi], bh0, bh1, bl0, bl1);
-          }
-        }
-      }
-      __syncwarp();  // every lane has read this stage before it is refilled
-    }
-    cp_async_wait<0>();
-    __syncthreads();  // the ring is free: P and the partial sums reuse it
+    __syncwarp();  // every lane has read this stage before it is refilled
   }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: P and the partial sums reuse it
 
   // ---- P tiles to shared memory: ps[(uu*HR + hh)][t*d3 + d] -------------
   // (depth rows of the weight product, kWarps*d3 receiver-and-d columns;
@@ -326,9 +241,7 @@ fused_tp3_kernel(const std::conditional_t<BF16, __nv_bfloat16, float>* __restric
         const int j = ni * 8 + 2 * tq + (v & 1);
         if (j < ncols) {
           const int uu = (j * inv_d3) >> 16, d = j - uu * d3;
-          // the bfloat16 mode's P is rounded to bfloat16 (kept as a float)
-          ps[(uu * HR + hh) * nstride + warp * d3 + d] =
-              BF16 ? __bfloat162float(__float2bfloat16_rn(acc[mi][ni][v])) : acc[mi][ni][v];
+          ps[(uu * HR + hh) * nstride + warp * d3 + d] = acc[mi][ni][v];
         }
       }
   __syncthreads();
@@ -346,9 +259,8 @@ fused_tp3_kernel(const std::conditional_t<BF16, __nv_bfloat16, float>* __restric
   const int parts = wide ? kWarps / n_m : 1;
   const int part = wide ? warp / n_m : 0;
   const bool w_active = wide ? part < parts : warp < n_tiles;
-  // depth steps of 8 (m16n8k8 TF32), or 16 (m16n8k16 bfloat16; depth = HR*nu
-  // is a multiple of 16)
-  constexpr int kDepthStep = BF16 ? 16 : 8;
+  // depth steps of 8 (m16n8k8 TF32)
+  constexpr int kDepthStep = 8;
   const int steps = depth / kDepthStep;
   const int k_begin = part * steps / parts * kDepthStep;
   const int k_end = (part + 1) * steps / parts * kDepthStep;
@@ -371,72 +283,33 @@ fused_tp3_kernel(const std::conditional_t<BF16, __nv_bfloat16, float>* __restric
     const int mi = warp % n_m;
     const int w0 = mi * 16 + gq, w1 = w0 + 8;
     const bool w0_ok = w0 < mul, w1_ok = w1 < mul;
-    if constexpr (BF16) {
-      // m16n8k16 fragment register r: w (w0, or w1 for odd r), depth pair
-      // 2tq (+8 for r >= 2); the W values of kPrefetch / 2 steps load together
-      constexpr int kPre = kPrefetch / 2;
-      const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-      for (int kb = k_begin; kb < k_end; kb += 16 * kPre) {
-        __nv_bfloat16 raw[kPre][8];
+    for (int kb = k_begin; kb < k_end; kb += 8 * kPrefetch) {
+      // the W fragments of kPrefetch depth steps are loaded together
+      float raw[kPrefetch][4];
 #pragma unroll
-        for (int q = 0; q < kPre; ++q)
+      for (int q = 0; q < kPrefetch; ++q)
 #pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            const int r = e >> 1;
-            const int k = kb + 16 * q + 2 * tq + 8 * (r >> 1) + (e & 1);
-            const In* wr = k < k_end ? w_row(k) : nullptr;
-            const bool ok = wr != nullptr && (r & 1 ? w1_ok : w0_ok);
-            raw[q][e] = ok ? __ldg(wr + (r & 1 ? w1 : w0)) : zero;
-          }
-#pragma unroll
-        for (int q = 0; q < kPre; ++q) {
-          const int k0 = kb + 16 * q;
-          if (k0 < k_end) {
-            uint32_t a[4];
-#pragma unroll
-            for (int r = 0; r < 4; ++r) a[r] = bf16x2(raw[q][2 * r], raw[q][2 * r + 1]);
-#pragma unroll
-            for (int ni = 0; ni < kMaxWN; ++ni) {
-              if (ni < n_n) {
-                const float* col = ps + ni * 8 + gq;
-                const int k = k0 + 2 * tq;
-                mma_bf16_k16(wacc[ni], a,
-                             bf16x2(col[k * nstride], col[(k + 1) * nstride]),
-                             bf16x2(col[(k + 8) * nstride], col[(k + 9) * nstride]));
-              }
-            }
-          }
+        for (int half = 0; half < 2; ++half) {
+          const int k = kb + 8 * q + tq + 4 * half;
+          const float* wr = k < k_end ? w_row(k) : nullptr;
+          raw[q][2 * half] = wr != nullptr && w0_ok ? __ldg(wr + w0) : 0.f;
+          raw[q][2 * half + 1] = wr != nullptr && w1_ok ? __ldg(wr + w1) : 0.f;
         }
-      }
-    } else {
-      for (int kb = k_begin; kb < k_end; kb += 8 * kPrefetch) {
-        // the W fragments of kPrefetch depth steps are loaded together
-        float raw[kPrefetch][4];
 #pragma unroll
-        for (int q = 0; q < kPrefetch; ++q)
+      for (int q = 0; q < kPrefetch; ++q) {
+        const int k0 = kb + 8 * q;
+        if (k0 < k_end) {
+          // fragment order: (w0, k), (w1, k), (w0, k+4), (w1, k+4)
+          uint32_t ah[4], al[4];
 #pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int k = kb + 8 * q + tq + 4 * half;
-            const float* wr = k < k_end ? w_row(k) : nullptr;
-            raw[q][2 * half] = wr != nullptr && w0_ok ? __ldg(wr + w0) : 0.f;
-            raw[q][2 * half + 1] = wr != nullptr && w1_ok ? __ldg(wr + w1) : 0.f;
-          }
+          for (int v = 0; v < 4; ++v) split(raw[q][v], ah[v], al[v]);
 #pragma unroll
-        for (int q = 0; q < kPrefetch; ++q) {
-          const int k0 = kb + 8 * q;
-          if (k0 < k_end) {
-            // fragment order: (w0, k), (w1, k), (w0, k+4), (w1, k+4)
-            uint32_t ah[4], al[4];
-#pragma unroll
-            for (int v = 0; v < 4; ++v) split(raw[q][v], ah[v], al[v]);
-#pragma unroll
-            for (int ni = 0; ni < kMaxWN; ++ni) {
-              if (ni < n_n) {
-                uint32_t bh0, bl0, bh1, bl1;
-                split(ps[(k0 + tq) * nstride + ni * 8 + gq], bh0, bl0);
-                split(ps[(k0 + tq + 4) * nstride + ni * 8 + gq], bh1, bl1);
-                mma_3xtf32(wacc[ni], ah, al, bh0, bh1, bl0, bl1);
-              }
+          for (int ni = 0; ni < kMaxWN; ++ni) {
+            if (ni < n_n) {
+              uint32_t bh0, bl0, bh1, bl1;
+              split(ps[(k0 + tq) * nstride + ni * 8 + gq], bh0, bl0);
+              split(ps[(k0 + tq + 4) * nstride + ni * 8 + gq], bh1, bl1);
+              mma_3xtf32(wacc[ni], ah, al, bh0, bh1, bl0, bl1);
             }
           }
         }
@@ -458,38 +331,18 @@ fused_tp3_kernel(const std::conditional_t<BF16, __nv_bfloat16, float>* __restric
       const int mi = ti / n_n, ni = ti - mi * n_n;
       const int w0 = mi * 16 + gq, w1 = w0 + 8;
       float o[4] = {0.f, 0.f, 0.f, 0.f};
-      if constexpr (BF16) {
-        const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-        auto w_at = [&](int k, int w) {
-          const In* wr = w_row(k);
-          return wr != nullptr && w < mul ? __ldg(wr + w) : zero;
-        };
-        for (int k0 = 0; k0 < depth; k0 += 16) {
-          const int k = k0 + 2 * tq;
-          uint32_t a[4];
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const int kr = k + 8 * (r >> 1), w = r & 1 ? w1 : w0;
-            a[r] = bf16x2(w_at(kr, w), w_at(kr + 1, w));
-          }
-          const float* col = ps + ni * 8 + gq;
-          mma_bf16_k16(o, a, bf16x2(col[k * nstride], col[(k + 1) * nstride]),
-                       bf16x2(col[(k + 8) * nstride], col[(k + 9) * nstride]));
-        }
-      } else {
-        for (int k0 = 0; k0 < depth; k0 += 8) {
-          const float* wr0 = w_row(k0 + tq);
-          const float* wr1 = w_row(k0 + tq + 4);
-          uint32_t ah[4], al[4];
-          split(wr0 != nullptr && w0 < mul ? __ldg(wr0 + w0) : 0.f, ah[0], al[0]);
-          split(wr0 != nullptr && w1 < mul ? __ldg(wr0 + w1) : 0.f, ah[1], al[1]);
-          split(wr1 != nullptr && w0 < mul ? __ldg(wr1 + w0) : 0.f, ah[2], al[2]);
-          split(wr1 != nullptr && w1 < mul ? __ldg(wr1 + w1) : 0.f, ah[3], al[3]);
-          uint32_t bh0, bl0, bh1, bl1;
-          split(ps[(k0 + tq) * nstride + ni * 8 + gq], bh0, bl0);
-          split(ps[(k0 + tq + 4) * nstride + ni * 8 + gq], bh1, bl1);
-          mma_3xtf32(o, ah, al, bh0, bh1, bl0, bl1);
-        }
+      for (int k0 = 0; k0 < depth; k0 += 8) {
+        const float* wr0 = w_row(k0 + tq);
+        const float* wr1 = w_row(k0 + tq + 4);
+        uint32_t ah[4], al[4];
+        split(wr0 != nullptr && w0 < mul ? __ldg(wr0 + w0) : 0.f, ah[0], al[0]);
+        split(wr0 != nullptr && w1 < mul ? __ldg(wr0 + w1) : 0.f, ah[1], al[1]);
+        split(wr1 != nullptr && w0 < mul ? __ldg(wr1 + w0) : 0.f, ah[2], al[2]);
+        split(wr1 != nullptr && w1 < mul ? __ldg(wr1 + w1) : 0.f, ah[3], al[3]);
+        uint32_t bh0, bl0, bh1, bl1;
+        split(ps[(k0 + tq) * nstride + ni * 8 + gq], bh0, bl0);
+        split(ps[(k0 + tq + 4) * nstride + ni * 8 + gq], bh1, bl1);
+        mma_3xtf32(o, ah, al, bh0, bh1, bl0, bl1);
       }
 #pragma unroll
       for (int v = 0; v < 4; ++v) {
@@ -608,16 +461,12 @@ bool read_table(const long long* class_table, int n_classes, ClassTable& tbl) {
   return true;
 }
 
-template <int MT, bool BF16>
-cudaError_t launch(const void* h_aug_v, const void* coupled_v, const void* weights_v, float* out,
+template <int MT>
+cudaError_t launch(const float* h_aug, const float* coupled, const float* weights, float* out,
                    float* scratch, const ClassTable& tbl, const Plan& plan, int n_classes,
                    long long n_rows, int K, int Ha, int F, int D, cudaStream_t stream) {
-  using In = std::conditional_t<BF16, __nv_bfloat16, float>;
-  const In* h_aug = static_cast<const In*>(h_aug_v);
-  const In* coupled = static_cast<const In*>(coupled_v);
-  const In* weights = static_cast<const In*>(weights_v);
   const size_t smem = sizeof(float) * static_cast<size_t>(plan.smem_floats);
-  cudaError_t err = cudaFuncSetAttribute(fused_tp3_kernel<MT, BF16>,
+  cudaError_t err = cudaFuncSetAttribute(fused_tp3_kernel<MT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -625,14 +474,14 @@ cudaError_t launch(const void* h_aug_v, const void* coupled_v, const void* weigh
   const long long n_blocks = n_tiles * plan.n_sl * plan.n_groups;
   if (n_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const bool direct = plan.n_groups * plan.s_max == 1;
-  // (float32 mode) a class's coupled slices load in 8-byte pairs if the rows
+  // a class's coupled slices load in 8-byte pairs if the rows
   // have an even width and an 8-byte aligned base, and every slice starts on
   // an even column
   ClassTable t = tbl;
   const bool even_rows = F % 2 == 0 && reinterpret_cast<uintptr_t>(coupled) % 8 == 0;
   for (int c = 0; c < n_classes; ++c)
     t.pairs[c] = even_rows && t.f_off[c] % 2 == 0 && (t.us[c] * t.d3[c]) % 2 == 0;
-  fused_tp3_kernel<MT, BF16><<<static_cast<unsigned>(n_blocks), kThreads, smem, stream>>>(
+  fused_tp3_kernel<MT><<<static_cast<unsigned>(n_blocks), kThreads, smem, stream>>>(
       h_aug, coupled, weights, direct ? out : scratch, t, n_classes, n_rows, K, Ha, F, D,
       plan.n_groups, plan.n_sl, plan.s_max);
   err = cudaGetLastError();
@@ -644,8 +493,7 @@ cudaError_t launch(const void* h_aug_v, const void* coupled_v, const void* weigh
   return cudaGetLastError();
 }
 
-template <bool BF16>
-int forward(const void* h_aug, const void* coupled, const void* weights, float* out,
+int forward(const float* h_aug, const float* coupled, const float* weights, float* out,
             float* scratch, const long long* class_table, int n_classes, long long n_rows, int K,
             int Ha, int F, int D, void* stream) {
   ClassTable tbl;
@@ -656,9 +504,9 @@ int forward(const void* h_aug, const void* coupled, const void* weights, float* 
   if (n_rows == 0) return cudaSuccess;
   const auto s = static_cast<cudaStream_t>(stream);
   if (plan.mt == 1)
-    return launch<1, BF16>(h_aug, coupled, weights, out, scratch, tbl, plan, n_classes, n_rows,
+    return launch<1>(h_aug, coupled, weights, out, scratch, tbl, plan, n_classes, n_rows,
                            K, Ha, F, D, s);
-  return launch<2, BF16>(h_aug, coupled, weights, out, scratch, tbl, plan, n_classes, n_rows, K,
+  return launch<2>(h_aug, coupled, weights, out, scratch, tbl, plan, n_classes, n_rows, K,
                          Ha, F, D, s);
 }
 
@@ -685,24 +533,13 @@ long long fused_tp3_scratch_floats(const long long* class_table, int n_classes,
 
 // class_table: host array of n_classes rows of 6 int64 values
 // (f_off, fan, d3, mul, out_off, w_off); scratch: the floats that
-// fused_tp3_scratch_floats asks for (the same in both modes). Returns a
-// cudaError_t.
+// fused_tp3_scratch_floats asks for. Returns a cudaError_t.
 int fused_tp3_forward(const float* h_aug, const float* coupled, const float* weights,
                       float* out, float* scratch, const long long* class_table,
                       int n_classes, long long n_rows, int K, int Ha, int F, int D,
                       void* stream) {
-  return forward<false>(h_aug, coupled, weights, out, scratch, class_table, n_classes, n_rows, K,
-                        Ha, F, D, stream);
-}
-
-// The bfloat16 mode: h_aug, coupled and weights are bfloat16 arrays of the
-// float32 mode's shapes; out (and scratch) float32.
-int fused_tp3_forward_bf16(const void* h_aug, const void* coupled, const void* weights,
-                           float* out, float* scratch, const long long* class_table,
-                           int n_classes, long long n_rows, int K, int Ha, int F, int D,
-                           void* stream) {
-  return forward<true>(h_aug, coupled, weights, out, scratch, class_table, n_classes, n_rows, K,
-                       Ha, F, D, stream);
+  return forward(h_aug, coupled, weights, out, scratch, class_table, n_classes, n_rows, K, Ha, F,
+                 D, stream);
 }
 
 }  // extern "C"

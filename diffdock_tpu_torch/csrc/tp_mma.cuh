@@ -14,7 +14,6 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <cstring>
 
 namespace tp_mma {
 
@@ -49,27 +48,7 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ah)[4
   mma_tf32(c, ah, bh0, bh1);
 }
 
-// two bfloat16 values in one register, lo in the low half (the lower k of
-// an mma fragment pair)
-__device__ __forceinline__ uint32_t bf16x2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  const __nv_bfloat162 v = __halves2bfloat162(lo, hi);
-  uint32_t r;
-  memcpy(&r, &v, sizeof(r));
-  return r;
-}
-// the same from two floats that hold bfloat16 values (exact)
-__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
-  return bf16x2(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));
-}
-
 // c += a*b, bfloat16 operands (exact products), float32 accumulation
-__device__ __forceinline__ void mma_bf16_k8(float (&c)[4], const uint32_t (&a)[2], uint32_t b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(b));
-}
 __device__ __forceinline__ void mma_bf16_k16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                              uint32_t b1) {
   asm volatile(

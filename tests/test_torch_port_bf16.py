@@ -232,21 +232,25 @@ def test_fused_tp3_bf16_plain_matches_pallas_interpret(n, k):
 
 
 def test_fused_tp3_prepare_rounds_like_the_model_path():
-    """``prepare`` in bfloat16: h_aug, coupled and the packed weights
+    """``prepare`` in bfloat16: h, mw, coupled and the packed weights
     bfloat16, the weights bf16(f32(bf16(T)) / sqrt(fan)), the bias the
-    same as row H."""
+    same as row H; the packed weights are these blocks gathered into the
+    bfloat16 kernel's layout."""
     tp = FullyConnectedTensorProduct(IN_IR, SH_IR, OUT_IR)
     x, sh, h, mw, wk, wb = _tp3_args(tp, 5, 4, h_dim=6, seed=2)
-    classes, h_aug, coupled, weights, table = ft.prepare(
+    classes, h_k, coupled, weights, table, mw_k = ft.prepare(
         tp, *[T(v).to(BF16) for v in (x, sh, h, mw)], T(wk), T(wb))
-    assert h_aug.dtype == coupled.dtype == weights.dtype == BF16
-    k, offset, fan, _d3, mul = classes[0]
-    T0 = T(wk)[:, offset: offset + fan * mul].reshape(6, fan, mul)
-    want = (T0.to(BF16).float() * np.float32(1 / np.sqrt(fan))).to(BF16)
-    got = weights[: 7 * fan * mul].reshape(7, fan, mul)
-    assert torch.equal(got[:6], want)
-    b0 = T(wb)[offset: offset + fan * mul].reshape(fan, mul)
-    assert torch.equal(got[6], (b0.to(BF16).float() * np.float32(1 / np.sqrt(fan))).to(BF16))
+    assert h_k.dtype == coupled.dtype == weights.dtype == mw_k.dtype == BF16
+    blocks = []
+    for _k, offset, fan, _d3, mul in classes:
+        T0 = T(wk)[:, offset: offset + fan * mul].reshape(6, fan, mul)
+        want = (T0.to(BF16).float() * np.float32(1 / np.sqrt(fan))).to(BF16)
+        b0 = T(wb)[offset: offset + fan * mul].reshape(1, fan, mul)
+        bias = (b0.to(BF16).float() * np.float32(1 / np.sqrt(fan))).to(BF16)
+        blocks.append(torch.cat([want, bias]))
+    flat = torch.cat([b.reshape(-1) for b in blocks] + [blocks[0].new_zeros(1)])
+    idx = ft._bf16_weight_index(table, 6, ft.bf16_plan(table, 5, 4, 6))
+    assert torch.equal(weights, flat[torch.from_numpy(idx)])
     assert table.shape == (len(classes), 6)
 
 

@@ -257,3 +257,53 @@ def test_fused_tp3_bf16_kernel_matches_plain_version(rows, K, H1):
     assert after["fused_tp3"] == before["fused_tp3"]
     assert out.dtype == torch.float32
     assert (out - ref).abs().max().item() <= 1e-3 * max(ref.abs().max().item(), 1.0)
+
+
+def _bf16_args(tp, rows, K, H1, dev, seed=2):
+    x, sh, h, mw, wk, wb = _inputs(tp, rows, K, H1 - 1, dev, seed=seed)
+    return [a.to(torch.bfloat16) for a in (x, sh, h, mw)] + [wk, wb]
+
+
+def _joint_tp(ladder=(3, 3)):
+    cfg = PRESETS["diffdock_l"]
+    seq = get_irrep_seq(cfg.ns, cfg.nv, False, cfg.reduce_pseudoscalars)
+    return FullyConnectedTensorProduct(seq[ladder[0]], SH, seq[ladder[1]])
+
+
+# one case per edge of the kernel's TMA loads: h rows of 99 (not a multiple
+# of 8: prepare pads them), the rec_emb_1 TP's 292 coupled columns (padded
+# likewise), and the joint layers' TP, whose fourth slice starts on column
+# 175 (its box starts on column 168)
+@pytest.mark.parametrize("edge,ladder,rows,K,H1", [
+    ("h", (3, 3), 61, 35, 100), ("coupled", (1, 2), 37, 19, 145), ("odd column", (3, 3), 29, 21, 145),
+])
+def test_fused_tp3_bf16_at_the_tma_edges(edge, ladder, rows, K, H1):
+    dev = _card()
+    tp = _joint_tp(ladder)
+    table = ft.bf16_class_table(tp.live_classes(), H1)
+    f_tot = int(table[-1, 0] + table[-1, 1] * table[-1, 2])
+    plan = ft.bf16_plan(table, rows, K, H1 - 1)
+    present = {"h": (H1 - 1) % 8 != 0, "coupled": f_tot % 8 != 0,
+               "odd column": any(sl.f_col % 2 for sl in plan.slices)}
+    assert present[edge]
+    args = _bf16_args(tp, rows, K, H1, dev)
+    before = ft.counts["fused_tp3_bf16"]
+    out = ft.fused_tp3(tp, *args)
+    ref = ft.fused_tp3_reference(tp, *args)
+    torch.cuda.synchronize()
+    assert ft.counts["fused_tp3_bf16"] == before + 1
+    assert (out - ref).abs().max().item() <= 1e-3 * max(ref.abs().max().item(), 1.0)
+
+
+@pytest.mark.parametrize("rows,K,H1", [(3200, 32, 145), (320, 320, 145), (320, 2560, 73)])
+def test_fused_tp3_bf16_two_launches_are_bit_identical(rows, K, H1):
+    """Every sum runs in a fixed order: all slices in one block (3200 x
+    32), and the neighbour halves of the two warpgroups added first half +
+    second half (320 x 320, 320 x 2560)."""
+    dev = _card()
+    tp = _joint_tp()
+    args = _bf16_args(tp, rows, K, H1, dev, seed=5)
+    first = ft.fused_tp3(tp, *args)
+    second = ft.fused_tp3(tp, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
