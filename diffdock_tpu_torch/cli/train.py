@@ -8,8 +8,11 @@ Example::
         --split_val val_names.txt --esm_embeddings_dir esm/ \
         --log_dir runs/score --batch_size 16 --n_epochs 400
 
-An epoch loop over bucketed batches (``ComplexDataset.bucketed_batches``,
-or ``--synthetic N`` random complexes) with the train step of
+An epoch loop over bucketed batches (``ComplexDataset.bucketed_batches``;
+with ``--dataset moad|pdbsidechain``, ``--combined_training`` or
+``--triple_training`` the stream of ``data/loaders.py:build_train_source``
+through ``iter_bucketed_batches``; or ``--synthetic N`` random complexes)
+with the train step of
 ``train/trainer.py``, the validation loss, optional validation docking,
 the plateau and layer-warmup schedulers, and the JAX CLI's run directory
 under ``--log_dir``: ``model_parameters.yml``, ``train_state.msgpack``,
@@ -21,10 +24,17 @@ run here (and the reverse).
 
 The flags and defaults are the JAX CLI's, plus ``--device`` (default
 ``cuda``). One seeded ``torch.Generator`` on the device draws the noise and
-the dropout masks. Refused, each naming its ROADMAP item: ``--dataset moad|
-pdbsidechain``, ``--combined_training`` and ``--triple_training`` (queue 1
-item 7), ``--data_parallel`` (item 8), ``--backbone_loss_weight`` and
-``--sidechain_loss_weight`` above 0 (the sidechain head, item 5).
+the dropout masks. The data sources follow the JAX CLI: ``--triple_training``
+implies ``--combined_training``; MOAD reads ``--moad_dir`` (``--chain_cutoff``,
+``--unroll_clusters``), PDBSidechain ``--pdbsidechain_dir``
+(``--remove_second_segment``); there the epoch's items come from
+``source.epoch_items(epoch)``, no validation-loss set is read (the JAX CLI
+reads ``--split_val`` only for PDBBind alone) and validation docking docks
+the first items of ``source.epoch_items(10_000 + epoch)``. The JAX CLI
+initializes its flax model from an example batch; the port's model needs
+none. Refused, each naming its ROADMAP queue 1 item: ``--data_parallel``
+(item 8), ``--backbone_loss_weight`` and ``--sidechain_loss_weight`` above
+0 (the sidechain head, item 5).
 
 Deviations from the JAX CLI: the validation set is featurized with the
 ESM embeddings of ``--esm_embeddings_dir`` (the JAX CLI reads it without
@@ -39,6 +49,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import os
 import time
@@ -108,11 +119,6 @@ def refuse_unported(args) -> None:
     """``ConfigError`` for the options this port does not have yet."""
     from diffdock_tpu_torch.models.config import ConfigError
 
-    if args.dataset != "pdbbind" or args.combined_training or args.triple_training:
-        raise ConfigError(
-            "not ported yet: --dataset moad|pdbsidechain, --combined_training and "
-            "--triple_training need loaders.build_train_source and moad.epoch_iterator "
-            "(ROADMAP queue 1 item 7)")
     if args.data_parallel:
         raise ConfigError("not ported yet: --data_parallel (ROADMAP queue 1 item 8)")
     if args.backbone_loss_weight > 0 or args.sidechain_loss_weight > 0:
@@ -202,7 +208,21 @@ def main(argv=None):
     val_ds = None
     if args.synthetic:
         datas, batches = _synthetic_batches(args, cfg.lm_embedding_dim)
-        val_items = lambda n: [(str(i), datas[i]) for i in range(min(n, len(datas)))]  # noqa: E731
+        val_items = lambda n, epoch: [(str(i), datas[i]) for i in range(min(n, len(datas)))]  # noqa: E731
+    elif args.dataset != "pdbbind" or args.combined_training or args.triple_training:
+        from diffdock_tpu_torch.data.loaders import build_train_source, iter_bucketed_batches
+
+        if args.triple_training:
+            args.combined_training = True
+        source = build_train_source(args)
+        print(f"dataset({args.dataset}{'+combined' if args.combined_training else ''}): "
+              f"{len(source)} complexes/epoch")
+
+        def batches(epoch):
+            yield from iter_bucketed_batches(source.epoch_items(epoch), args.batch_size)
+
+        def val_items(n, epoch):
+            return list(itertools.islice(source.epoch_items(10_000 + epoch), n))
     else:
         if not args.data_dir:
             raise ValueError("need --data_dir or --synthetic")
@@ -216,7 +236,7 @@ def main(argv=None):
             val_ds = build_dataset(args, args.split_val, args.esm_embeddings_dir)
             print(f"val dataset: {len(val_ds)} complexes ready")
         inf_ds = val_ds if val_ds is not None and len(val_ds) else ds
-        val_items = lambda n: [(nm, inf_ds.get(nm)) for nm in inf_ds.names[:n]]  # noqa: E731
+        val_items = lambda n, epoch: [(nm, inf_ds.get(nm)) for nm in inf_ds.names[:n]]  # noqa: E731
 
     state = create_train_state(model, tc)
 
@@ -337,7 +357,7 @@ def main(argv=None):
                               actual_steps=args.inference_steps),
                 so3, torus, device=dev,
             )
-            metrics_inf = inference_epoch(pipe, dict(val_items(args.num_inference_complexes)),
+            metrics_inf = inference_epoch(pipe, dict(val_items(args.num_inference_complexes, epoch)),
                                           args.num_inference_complexes, args.inference_samples,
                                           seed=epoch)
             del pipe

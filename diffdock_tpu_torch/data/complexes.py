@@ -200,10 +200,18 @@ def apply_rec_keep(data: ComplexData, keep) -> ComplexData:
     """Mask crop: the reference filters the precomputed receptor edges (PyG
     ``subgraph``) instead of rebuilding them, so dropping residues is
     zeroing their validity masks. numpy arrays or torch tensors; ``keep``
-    (NR,) bool."""
+    (NR,) bool for one complex, or (B, NR) for each complex of a stacked
+    batch."""
+    if keep.ndim == 1:
+        nbr_keep = keep[data.rec_nbr]
+    else:
+        flat = data.rec_nbr.reshape(keep.shape[0], -1)
+        take = (np.take_along_axis(keep, flat, 1) if isinstance(keep, np.ndarray)
+                else torch.gather(keep, 1, flat.long()))
+        nbr_keep = take.reshape(data.rec_nbr.shape)
     return data._replace(
         rec_mask=data.rec_mask & keep,
-        rec_nbr_mask=data.rec_nbr_mask & keep[:, None] & keep[data.rec_nbr],
+        rec_nbr_mask=data.rec_nbr_mask & keep[..., None] & nbr_keep,
     )
 
 

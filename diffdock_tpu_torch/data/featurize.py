@@ -8,8 +8,8 @@ any trained checkpoint's contract. The featurizers turn a parsed
 :class:`~diffdock_tpu_torch.data.chem.ProteinStructure` into a
 :class:`~diffdock_tpu_torch.data.complexes.ComplexData` (and the all-atom
 :class:`~diffdock_tpu_torch.data.complexes.AAComplexData`) with the JAX
-package's numpy arithmetic, so the arrays are equal bit for bit. The
-training-time pocket crop (``pocket_crop_complex``) is not ported.
+package's numpy arithmetic, so the arrays are equal bit for bit, and
+crops a training complex's receptor to a pocket (:func:`pocket_crop_complex`).
 """
 
 from __future__ import annotations
@@ -326,6 +326,34 @@ def build_complex_data(
         receptor_radius=receptor_radius,
     )
     return join_complex_arrays(lig, rec), mol
+
+
+def pocket_crop_complex(data, capacity: int, k_rec: int = 10):
+    """Host-side pocket crop: keep the ``capacity`` residues nearest the
+    (crystal) ligand centroid, in their order, and rebuild the receptor kNN
+    graph (the JAX package's training-time analogue of the model's
+    ``crop_beyond`` and pocket compaction, to fit large receptors into small
+    training buckets; the reference crops by ligand distance when it
+    preprocesses)."""
+    from diffdock_tpu_torch.data.complexes import build_knn_neighbors
+
+    if data.n_rec <= capacity:
+        return data
+    lig_c = np.asarray(data.lig_pos)[np.asarray(data.lig_mask)].mean(0)
+    d = np.linalg.norm(np.asarray(data.rec_pos) - lig_c, axis=1)
+    keep = np.argsort(d)[:capacity]
+    keep.sort()
+    rec_pos = np.asarray(data.rec_pos)[keep]
+    rec_nbr, rec_nbr_mask = build_knn_neighbors(rec_pos, k_rec)
+    return data._replace(
+        rec_cat=np.asarray(data.rec_cat)[keep],
+        rec_lm=np.asarray(data.rec_lm)[keep],
+        rec_mask=np.asarray(data.rec_mask)[keep],
+        rec_pos=rec_pos,
+        rec_nbr=rec_nbr,
+        rec_nbr_mask=rec_nbr_mask,
+        rec_scv=None if data.rec_scv is None else np.asarray(data.rec_scv)[keep],
+    )
 
 
 def _atom_type2(name: str) -> str:

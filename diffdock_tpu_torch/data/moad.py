@@ -1,6 +1,6 @@
 """Binding MOAD / DockGen dataset (port of ``diffdock_tpu/data/moad.py``;
 the reference's ``datasets/moad.py:20-547``), for ``--dataset moad``
-evaluation.
+evaluation and training.
 
 * receptors live in ``{moad_dir}/pdb_protein/{rec}_protein.pdb`` and are
   shared by every ligand whose name starts with the same 6-char prefix;
@@ -8,14 +8,17 @@ evaluation.
   ``pdb_ligand`` (val/test), named ``{pdb}_{bio}_{chain}_{count}``;
 * ECOD binding-site clusters group the ligands; within a cluster, the
   ligands of one receptor with the same element formula are the
-  alternative ground truths of the min-over-ground-truths RMSD.
+  alternative ground truths of the min-over-ground-truths RMSD;
+* training samples the clusters evenly (``moad.py:260-277``): an epoch
+  draws one random ligand of each cluster, in a shuffled cluster order,
+  ``multiplicity`` times, with ``numpy.random.RandomState(seed)`` as the
+  JAX package does, so both serve the same items in the same order.
 
 Receptor and ligand arrays are cached as ``.npz`` files under the same
 names as in the JAX package. The cluster pickles
 (``MOAD_generalisation_splits.pkl``, ``new_cluster_to_ligands.pkl``) are
 read with ``pickle`` when given; without them every receptor's ligands form
-one cluster. The training sampler (the cluster-balanced ``get`` and
-``epoch_iterator``) is not ported yet (ROADMAP queue 1 item 7).
+one cluster.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import dataclasses
 import os
 import pickle
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -260,6 +263,9 @@ class MOADDataset:
         self.clusters = sorted(self.cluster_to_ligands)
 
     # -- access ----------------------------------------------------------
+    def __len__(self) -> int:
+        return len(self.clusters) * self.cfg.multiplicity
+
     @property
     def names(self) -> List[str]:
         return sorted(
@@ -276,6 +282,22 @@ class MOADDataset:
         if self.cfg.chain_cutoff:
             data = apply_chain_cutoff(data, chain_ids, self.cfg.chain_cutoff)
         return data
+
+    def get(self, idx: int, rng: Optional[np.random.RandomState] = None):
+        """Cluster-balanced draw (reference ``moad.py:260-277``): ``idx``
+        selects the cluster, a random member ligand is served (the first by
+        name with ``no_randomness`` or without ``rng``); a complex that the
+        chain cutoff empties is drawn again from a random cluster."""
+        cluster = self.clusters[idx % len(self.clusters)]
+        members = self.cluster_to_ligands[cluster]
+        if self.cfg.no_randomness or rng is None:
+            name = sorted(members)[0]
+        else:
+            name = members[rng.randint(len(members))]
+        data = self.get_by_name(name)
+        if data is None and rng is not None and len(self.clusters) > 1:
+            return self.get(rng.randint(len(self.clusters)), rng)
+        return name, data
 
     def alternative_ground_truths(self, name: str) -> List[np.ndarray]:
         """All ground-truth ligand poses for a val/test complex: same
@@ -303,3 +325,14 @@ class MOADDataset:
                 if cat.shape == own_cat.shape and np.all(cat == own_cat):
                     poses.append(z["lig_coords"])
         return poses
+
+    def epoch_iterator(self, seed: int = 0) -> Iterator[Tuple[str, ComplexData]]:
+        """One cluster-balanced epoch: the clusters in the order of
+        ``RandomState(seed).permutation``, ``multiplicity`` times."""
+        rng = np.random.RandomState(seed)
+        order = rng.permutation(len(self.clusters))
+        for _ in range(self.cfg.multiplicity):
+            for idx in order:
+                name, data = self.get(int(idx), rng)
+                if data is not None:
+                    yield name, data

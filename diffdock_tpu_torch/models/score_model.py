@@ -493,8 +493,9 @@ class CGScoreModel(nn.Module):
         inline, under autograd (the JAX trainer's ``vmap`` over complexes).
         ``rec_keep`` (NR,) bool: the receptor crop of ``crop_beyond``
         (:func:`~diffdock_tpu_torch.data.complexes.apply_rec_keep`) for one
-        complex; the receptor embedding is then computed under the crop,
-        so ``rec_cache`` and ``step_cache`` must be None."""
+        complex, or (P, NR) for each complex of a training batch; the
+        receptor embedding is then computed under the crop, so
+        ``rec_cache`` and ``step_cache`` must be None."""
         cfg = self.cfg
         ns = cfg.ns
         P, nl = lig_pos.shape[:2]

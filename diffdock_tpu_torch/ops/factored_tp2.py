@@ -34,6 +34,30 @@ The gradient of :func:`factored_tp2` (a ``torch.autograd.Function``)
 differentiates the plain version, as the TPU kernel's custom VJP
 differentiates ``_forward_xla``.
 
+**The bfloat16 mode.** Both TPU kernels compute in bfloat16 when ``x_nbr``
+is bfloat16 (``pallas_tpconv2.py:219``, ``pallas_tpconv.py:140-198``); so
+do the wrappers here, on ``csrc/factored_tp{2,1}.cu``'s bfloat16 mode, with
+:func:`factored_tp_bf16_reference` as its plain version. It rounds where
+the Pallas bodies round, not where the float32 einsum path would: the CG
+weights ``sh @ CG`` (float32 sums) rounded to bfloat16; the coupling's
+chain ``sum_i a_i * w`` in bfloat16 arithmetic, each product and each
+partial sum rounded, in the order i = 0, 1, ... (held against the TPU
+kernels in interpret mode: a chain summed in float32 and rounded once
+lands 4e-3 of scale away, the per-operation rounding 3e-7), except in gen
+1 where a class has one path and d3 = 1: there the chain is P's operand
+itself, with no concatenation between, and XLA leaves its last step (the
+last sum, or the product of a one-term chain) in float32, so the plain
+version does too (rounding it lands 1.5e-3 to 3e-3 of scale away from the
+interpret run, leaving it 2e-7; gen 2's body rounds it); ``P =
+h_aug^T coupled`` summed in float32 over the neighbours and rounded to
+bfloat16; the weights (the bias as row H) cast to bfloat16 once; the weight
+product summed in float32 and scaled by ``1/sqrt(fan)``. The output is
+float32 in e3nn layout. Gen 2 casts ``edge_sh``, ``h`` and ``mw`` to
+bfloat16 itself (``pallas_tpconv2.py:220-225``); gen 1 leaves them in the
+caller's dtypes, so a float32 ``h`` or ``mw`` makes ``P``'s products
+float32 ones (JAX's promotion) before its rounding. No gradient runs
+through the bfloat16 mode: no JAX entry point trains in bfloat16.
+
 An output class with no path (``fan == 0``) makes the JAX functions fail
 (``_forward_xla`` finds nothing to concatenate, the kernels divide by
 sqrt(0)); the port refuses such a TP with a ``ValueError`` naming the class.
@@ -54,7 +78,13 @@ from diffdock_tpu_torch.utils import build
 
 _SOURCES = ("factored_tp2.cu",)
 
-counts = LaunchCounts("factored_tp2", "factored_tp_reference")
+counts = LaunchCounts("factored_tp2", "factored_tp2_bf16", "factored_tp_reference")
+
+# the operand dtypes the kernels take, with the launch count of each mode
+MODES = {torch.float32: "factored_tp2", torch.bfloat16: "factored_tp2_bf16"}
+# the C interface's dtypes bits (csrc/factored_tp.cuh, kDt*): the bfloat16
+# mode, then bfloat16 sh and hidden rows (gen 1: h and mw)
+DT_BF16, DT_SH, DT_HID = 1, 2, 4
 
 
 def check_no_empty_class(tp, name: str) -> None:
@@ -87,6 +117,37 @@ def factored_tp_reference(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias):
         bb = tp.expand_bias_identity(b_k, d3)
         out_k = (p_h.reshape(p_h.shape[0], H * fan * d3) @ tt + p_b @ bb) / math.sqrt(fan)
         outs.append(out_k)
+    return torch.cat(outs, dim=-1)
+
+
+def factored_tp_bf16_reference(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias, gen: int = 2):
+    """Plain PyTorch version of the bfloat16 mode of gen ``gen`` (2 or 1),
+    with the TPU kernels' rounding points (see the module docstring):
+    ``x_nbr`` bfloat16; gen 2 casts ``edge_sh``, ``h`` and ``mw`` to
+    bfloat16, gen 1 takes them as they come. (N, dim_out) float32."""
+    check_no_empty_class(tp, "factored_tp_bf16_reference")
+    if x_nbr.dtype != torch.bfloat16:
+        raise TypeError(f"factored_tp_bf16_reference: x_nbr must be bfloat16, got {x_nbr.dtype}")
+    counts.add("factored_tp_reference")
+    dt = torch.bfloat16
+    if gen == 2:
+        edge_sh, h, mw = edge_sh.to(dt), h.to(dt), mw.to(dt)
+    N, H = x_nbr.shape[0], h.shape[-1]
+    outs = []
+    for k, ((offset, fan, mul), ek) in enumerate(zip(tp.weight_slices(), tp.irreps_out)):
+        d3 = ek.ir.dim
+        # the CG weights rounded to bfloat16, then the chain in bfloat16
+        # arithmetic, cg cast to x_nbr's dtype (both Pallas bodies' coupling;
+        # gen 1's last step in float32 where the class is one path of d3 = 1)
+        float_last = gen == 1 and len(tp.paths[k]) == 1 and d3 == 1
+        coupled = tp.coupled_class_merged(k, x_nbr, edge_sh, float_last).float()  # (N, K, fan*d3)
+        p_h = torch.einsum("rkh,rkF->rhF", h.float(), coupled).to(dt).float()
+        p_b = torch.einsum("rk,rkF->rF", mw.float(), coupled).to(dt).float()
+        t_k = out_kernel[:, offset : offset + fan * mul].reshape(H, fan, mul).to(dt).float()
+        b_k = out_bias[offset : offset + fan * mul].reshape(fan, mul).to(dt).float()
+        out = (torch.einsum("rhud,huw->rwd", p_h.reshape(N, H, fan, d3), t_k)
+               + torch.einsum("rud,uw->rwd", p_b.reshape(N, fan, d3), b_k)) * (1.0 / math.sqrt(fan))
+        outs.append(out.reshape(N, mul * d3))
     return torch.cat(outs, dim=-1)
 
 
@@ -183,12 +244,17 @@ def prepare(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias):
     packs it but for the hidden rows' layout: (xp, edge_sh, h_aug (N, K,
     He), H+1, cg_full, packed (He, fan, mul) weights, class rows, path
     rows). Hidden rows of ``h_aug`` past H+1 are zero padding, which the
-    kernel does not walk."""
+    kernel does not walk. A bfloat16 ``x_nbr`` casts every operand to
+    bfloat16 once, as the TPU wrapper does."""
     check_no_empty_class(tp, "factored_tp2")
     specs, cg_full, _xp_dim, _out_dim = build_specs2(tp)
     N, K, _ = x_nbr.shape
     H = h.shape[-1]
     He = _round_up(H + 1, 16)
+    if x_nbr.dtype == torch.bfloat16:
+        dt = torch.bfloat16
+        edge_sh, h, mw = edge_sh.to(dt), h.to(dt), mw.to(dt)
+        out_kernel, out_bias = out_kernel.to(dt), out_bias.to(dt)
     xp = pack_neighbors(tp, x_nbr).contiguous()
     h_aug = torch.cat([h, mw[..., None].to(h.dtype)], dim=-1)
     h_aug = torch.nn.functional.pad(h_aug, (0, He - H - 1)).contiguous()  # (N, K, He)
@@ -201,9 +267,21 @@ def prepare(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias):
         blocks.append(torch.cat([t_k, b_k, pad], dim=0).reshape(-1))
         off += s.fan * s.mul_out
     weights = torch.cat(blocks).contiguous()
-    cg = tp._consts.get("gen2_cg_full", cg_full, x_nbr)
+    if x_nbr.dtype == torch.bfloat16:
+        # the kernel copies bfloat16 in aligned pairs: even widths (the
+        # extra harmonic and its CG row are zero)
+        xp = pad_even(xp)
+        if edge_sh.shape[-1] % 2:
+            edge_sh = pad_even(edge_sh)
+            cg_full = np.pad(cg_full, ((0, 1), (0, 0)))
+    cg = tp._consts.get(f"gen2_cg_full_{cg_full.shape[0]}", cg_full, x_nbr)
     cls_rows, path_rows = class_table(specs, He)
     return xp, edge_sh.contiguous(), h_aug, H + 1, cg, weights, cls_rows, path_rows
+
+
+def pad_even(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with its last axis padded by a zero to an even width."""
+    return torch.nn.functional.pad(t, (0, t.shape[-1] % 2)).contiguous()
 
 
 # ----------------------------------------------------------------------
@@ -377,7 +455,7 @@ class _Kernel:
         fn.argtypes = [ctypes.c_void_p] * 8 + [
             ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
         plan = lib.factored_tp2_plan
@@ -406,14 +484,18 @@ def _get_kernel() -> _Kernel:
     return _kernel
 
 
-def check_operands(name: str, tensors) -> None:
-    """CUDA, float32, contiguous, all on one device."""
+def check_operands(name: str, tensors, dtypes=(torch.float32,)) -> None:
+    """CUDA, contiguous, all on one device, each of one of ``dtypes``
+    (``(label, tensor)`` pairs; a triple ``(label, tensor, dtypes)`` names
+    its own)."""
     dev = tensors[0][1].device
-    for label, t in tensors:
+    for label, t, *own in tensors:
+        allowed = own[0] if own else dtypes
         if not t.is_cuda:
             raise ValueError(f"{name}: {label} must be a CUDA tensor")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {label} must be float32, got {t.dtype}")
+        if t.dtype not in allowed:
+            names = " or ".join(str(d).replace("torch.", "") for d in allowed)
+            raise TypeError(f"{name}: {label} must be {names}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {label} must be contiguous")
         if t.device != dev:
@@ -439,10 +521,14 @@ def check_tables(name: str, kern, cls_rows: np.ndarray, path_rows: np.ndarray) -
 
 def launch(xp, sh, h_aug, Ha: int, cg, weights, cls_rows, path_rows, out_dim: int
            ) -> torch.Tensor:
-    """Launch the kernel on prepared operands (see :func:`prepare`).
-    Returns (N, out_dim) f32 in e3nn layout."""
+    """Launch the kernel on prepared operands (see :func:`prepare`), in the
+    mode of ``xp``'s dtype (every operand of that dtype). Returns (N,
+    out_dim) f32 in e3nn layout."""
+    mode = MODES.get(xp.dtype)
+    if mode is None:
+        raise TypeError(f"factored_tp2: xp must be float32 or bfloat16, got {xp.dtype}")
     check_operands("factored_tp2", (("xp", xp), ("edge_sh", sh), ("h_aug", h_aug), ("cg", cg),
-                                    ("weights", weights)))
+                                    ("weights", weights)), (xp.dtype,))
     N, K, XP = xp.shape
     J = sh.shape[-1]
     He = h_aug.shape[2]
@@ -464,11 +550,12 @@ def launch(xp, sh, h_aug, Ha: int, cg, weights, cls_rows, path_rows, out_dim: in
         xp.data_ptr(), sh.data_ptr(), h_aug.data_ptr(), cg.data_ptr(), weights.data_ptr(),
         out.data_ptr(), scratch.data_ptr(), cls_rows.ctypes.data, cls_rows.shape[0],
         path_rows.ctypes.data, path_rows.shape[0], N, K, XP, J, He, Ha, cg.shape[1], out_dim,
+        DT_BF16 | DT_SH | DT_HID if xp.dtype == torch.bfloat16 else 0,
         torch.cuda.current_stream(xp.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"factored_tp2 kernel launch failed: cudaError {err}")
-    counts.add("factored_tp2")
+        raise RuntimeError(f"{mode} kernel launch failed: cudaError {err}")
+    counts.add(mode)
     return out
 
 
@@ -477,9 +564,19 @@ def _forward_kernel(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias):
 
 
 def factored_tp2(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias):
-    """Summed TP messages (N, dim_out) f32 through the gen-2 Hopper kernel,
-    differentiable; on CPU tensors through :func:`factored_tp_reference`."""
+    """Summed TP messages (N, dim_out) f32 through the gen-2 Hopper kernel
+    in the mode of ``x_nbr``'s dtype, differentiable in float32; on CPU
+    tensors through :func:`factored_tp_reference` (bfloat16:
+    :func:`factored_tp_bf16_reference`)."""
     check_no_empty_class(tp, "factored_tp2")
+    if x_nbr.dtype == torch.bfloat16:
+        inputs = (x_nbr, edge_sh, h, mw, out_kernel, out_bias)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+            raise TypeError("factored_tp2: no gradient through bfloat16 inputs, as in the "
+                            "JAX package")
+        if x_nbr.is_cuda:
+            return _forward_kernel(tp, *inputs)
+        return factored_tp_bf16_reference(tp, *inputs, gen=2)
     fwd = _forward_kernel if x_nbr.is_cuda else factored_tp_reference
     # the backward differentiates the plain version (counted as such)
     return PlainVJP.apply(tp, fwd, factored_tp_reference, "factored_tp2_vjp",

@@ -124,7 +124,7 @@ class FullyConnectedTensorProduct:
         return torch.cat(segs, dim=-2)
 
     def coupled_class_merged(
-        self, k: int, x1: torch.Tensor, x2: torch.Tensor
+        self, k: int, x1: torch.Tensor, x2: torch.Tensor, float_last: bool = False
     ) -> torch.Tensor:
         """Like :meth:`coupled_class` but returns (..., fan_k * d3) with the
         (fan, d3) axes merged (u-major, d-minor). Each path is one matmul of
@@ -134,7 +134,10 @@ class FullyConnectedTensorProduct:
         inputs' dtype: in bfloat16 each op rounds to bfloat16, the CG matrix
         is cast to it, and the matmul sums its exact float32 products in
         float32 before rounding (a bfloat16 matmul on the card may reduce in
-        bfloat16)."""
+        bfloat16). ``float_last``: the last step of each chain (its last sum,
+        or the product of a one-term chain) in float32, and a float32
+        result (gen 1's bfloat16 Pallas body under XLA, for a class of one
+        path and d3 = 1)."""
         ek = self.irreps_out[k]
         d3 = ek.ir.dim
         segs = []
@@ -149,7 +152,13 @@ class FullyConnectedTensorProduct:
             W = (sh.float() @ cgm.float()).to(x1.dtype)  # (..., d1*d3)
             C = None
             for i_idx in range(d1):
-                term = a[..., :, i_idx, None] * W[..., None, i_idx * d3 : (i_idx + 1) * d3]
+                a_i, w_i = a[..., :, i_idx, None], W[..., None, i_idx * d3 : (i_idx + 1) * d3]
+                if float_last and i_idx == d1 - 1:
+                    # a one-term chain's product, else the last sum of the
+                    # rounded product
+                    C = a_i.float() * w_i.float() if C is None else C.float() + (a_i * w_i).float()
+                    continue
+                term = a_i * w_i
                 C = term if C is None else C + term
             segs.append(C.reshape(C.shape[:-2] + (e1.mul * d3,)))
         return torch.cat(segs, dim=-1)

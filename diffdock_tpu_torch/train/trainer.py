@@ -16,6 +16,15 @@ the EMA is taken over the new parameters.
 
 A :class:`TrainState` holds its model's own parameter and running-statistic
 tensors (by ``state_dict`` name), so a step updates the model in place.
+
+Under a model config's ``crop_beyond`` the train step crops each complex's
+receptor as the JAX step does (``diffdock_tpu/train/trainer.py:191-205``;
+the reference trains with per-sample, sigma-dependent crops,
+``datasets/pdbbind.py:112-114``): the residues with a ligand atom of the
+noised pose within ``3 tr_sigma(t) + crop_beyond`` are kept
+(:func:`~diffdock_tpu_torch.data.complexes.rec_keep_mask`), the others
+masked out of the forward through the model's ``rec_keep``. The eval step
+does not crop, as JAX's ``make_eval_step`` does not.
 """
 
 from __future__ import annotations
@@ -25,10 +34,11 @@ from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
-from diffdock_tpu_torch.data.complexes import ComplexData
+from diffdock_tpu_torch.data.complexes import ComplexData, rec_keep_mask
+from diffdock_tpu_torch.diffusion.schedules import t_to_sigma
 from diffdock_tpu_torch.diffusion.so3 import SO3Tables
 from diffdock_tpu_torch.diffusion.torus import TorusTables
-from diffdock_tpu_torch.models.config import ConfigError, ScoreModelConfig
+from diffdock_tpu_torch.models.config import ScoreModelConfig
 from diffdock_tpu_torch.models.score_model import CGScoreModel
 from diffdock_tpu_torch.train.losses import per_complex_losses, sigma_interval_metrics, total_loss
 from diffdock_tpu_torch.train.noise import NoiseDraws, apply_noise
@@ -154,19 +164,26 @@ def create_train_state(model: CGScoreModel, train_cfg: TrainConfig) -> TrainStat
     )
 
 
-def _refuse_crop(cfg: ScoreModelConfig) -> None:
-    """The JAX trainer crops each complex's receptor at 3 tr_sigma +
-    ``crop_beyond``; this trainer does not yet."""
-    if cfg.crop_beyond is not None:
-        raise ConfigError("not ported yet: training with crop_beyond (ROADMAP queue 1 item 3)")
+def train_rec_keep(cfg: ScoreModelConfig, batch: ComplexData, sample) -> torch.Tensor:
+    """(B, NR) bool: per complex of the stacked ``batch``, the residues
+    within ``3 tr_sigma(t) + crop_beyond`` of a ligand atom of its noised
+    pose ``sample.pos`` (the JAX train step's crop, in float32)."""
+    tr_sigma, _, _ = t_to_sigma(sample.t, sample.t, sample.t, cfg.sigma)
+    cutoff = 3.0 * tr_sigma + cfg.crop_beyond
+    return torch.stack([
+        rec_keep_mask(batch.rec_pos[b], batch.rec_mask[b], sample.pos[b][None], batch.lig_mask[b],
+                      cutoff[b])
+        for b in range(batch.rec_pos.shape[0])
+    ])
 
 
 def _forward_losses(model, batch: ComplexData, draws: NoiseDraws, train_cfg: TrainConfig,
-                    so3: SO3Tables, torus: TorusTables):
+                    so3: SO3Tables, torus: TorusTables, crop: bool = False):
     cfg = model.cfg
     with torch.no_grad():
         sample = apply_noise(batch, draws, cfg.sigma, so3, torus, no_torsion=cfg.no_torsion)
-    out = model(batch, sample.pos, sample.t, so3, torus)
+        rec_keep = train_rec_keep(cfg, batch, sample) if crop and cfg.crop_beyond is not None else None
+    out = model(batch, sample.pos, sample.t, so3, torus, rec_keep=rec_keep)
     parts = per_complex_losses(out, sample, batch.rot_mask, cfg.sigma, so3, torus)
     loss, metrics = total_loss(parts, train_cfg.tr_weight, train_cfg.rot_weight,
                                train_cfg.tor_weight)
@@ -180,8 +197,8 @@ def make_eval_step(model: CGScoreModel, train_cfg: TrainConfig, so3: SO3Tables,
     """Validation loss over a stacked batch: the same noising and loss as
     training, in evaluation mode (running statistics, no dropout, no
     gradients), with the state's raw parameters — the reference's
-    ``test_epoch``. ``eval_step(state, batch, draws) -> metrics``."""
-    _refuse_crop(model.cfg)
+    ``test_epoch``; no receptor crop, as in the JAX eval step.
+    ``eval_step(state, batch, draws) -> metrics``."""
 
     def eval_step(state: TrainState, batch: ComplexData, draws: NoiseDraws):
         model.eval()
@@ -195,17 +212,17 @@ def make_train_step(model: CGScoreModel, train_cfg: TrainConfig, so3: SO3Tables,
                     torus: TorusTables) -> Callable:
     """``train_step(state, batch, draws) -> (state, metrics)`` over a
     stacked batch (one bucket): the forward in training mode, gradients of
-    the loss, the optimizer update, ``lr_scale`` and ``param_mask``, the EMA.
-    The model's parameters and running statistics (``state.params``,
-    ``state.batch_stats``) move in place; ``state.grads`` keeps the step's
-    gradients by parameter name."""
-    _refuse_crop(model.cfg)
+    the loss, the optimizer update, ``lr_scale`` and ``param_mask``, the EMA;
+    under the model config's ``crop_beyond``, each complex's receptor crop
+    (:func:`train_rec_keep`). The model's parameters and running statistics
+    (``state.params``, ``state.batch_stats``) move in place; ``state.grads``
+    keeps the step's gradients by parameter name."""
     tx = make_optimizer(train_cfg)
 
     def train_step(state: TrainState, batch: ComplexData, draws: NoiseDraws):
         model.train()
         names = list(state.params)
-        loss, metrics = _forward_losses(model, batch, draws, train_cfg, so3, torus)
+        loss, metrics = _forward_losses(model, batch, draws, train_cfg, so3, torus, crop=True)
         grads = torch.autograd.grad(loss, [state.params[k] for k in names], allow_unused=True)
         grads = {k: torch.zeros_like(state.params[k]) if g is None else g
                  for k, g in zip(names, grads)}

@@ -196,6 +196,58 @@ def test_factored_kernels_take_a_class_of_256_outputs(gen, irreps_out):
     assert (out - ref).abs().max().item() <= 1e-4 * max(ref.abs().max().item(), 1.0)
 
 
+@pytest.mark.parametrize("gen", [2, 1])
+@pytest.mark.parametrize("model,ladder,rows,K,H1", GEN21_BLOCKS)
+def test_factored_kernels_bf16_match_their_plain_version(gen, model, ladder, rows, K, H1):
+    """The bfloat16 modes against ``factored_tp_bf16_reference`` on the
+    card, within 1e-3 of scale (one bfloat16 ulp of P at a tie); gen 1
+    also with float32 edge_sh, h and mw (its mixed case: two TF32 passes
+    for the hidden operand); the same bits from a second launch."""
+    from diffdock_tpu_torch.ops import factored_tp1 as f1
+    from diffdock_tpu_torch.ops import factored_tp2 as f2
+
+    dev = _card()
+    tp = _gen21_tp(model, ladder)
+    x, sh, h, mw, wk, wb = _inputs(tp, rows, K, H1 - 1, dev, seed=5)
+    m, fn = (f2, f2.factored_tp2) if gen == 2 else (f1, f1.factored_tp1)
+    cases = [(x.bfloat16(), sh.bfloat16(), h.bfloat16(), mw.bfloat16(), wk, wb)]
+    if gen == 1:
+        cases.append((x.bfloat16(), sh, h, mw, wk, wb))
+    for args in cases:
+        before = m.counts[f"factored_tp{gen}_bf16"]
+        out = fn(tp, *args)
+        again = fn(tp, *args)
+        ref = f2.factored_tp_bf16_reference(tp, *args, gen=gen)
+        torch.cuda.synchronize()
+        assert m.counts[f"factored_tp{gen}_bf16"] == before + 2
+        assert out.dtype == torch.float32 and torch.equal(out, again)
+        assert (out - ref).abs().max().item() <= 1e-3 * max(ref.abs().max().item(), 1.0)
+
+
+@pytest.mark.parametrize("ins,outs,H", [("48x0e", "48x0e + 10x1o", 144),
+                                        ("8x0e + 2x1o + 2x1e", "8x0e + 2x1o + 2x1e + 2x0o", 24),
+                                        ("8x0e + 2x1o + 2x1e", "8x0e + 2x1o + 2x1e + 2x0o", 23)])
+def test_factored_tp1_bf16_chain_f32_and_widened_hidden_rows(ins, outs, H):
+    """Gen 1's bfloat16 mode where a class has one path and d3 = 1 (the
+    chain's last step in float32: the coupled columns take their split),
+    with bfloat16 h and mw, a bfloat16 h beside a float32 mw, and an odd H
+    (both widened to float32 by prepare), against its plain version."""
+    from diffdock_tpu_torch.ops import factored_tp1 as f1
+    from diffdock_tpu_torch.ops import factored_tp2 as f2
+
+    dev = _card()
+    tp = FullyConnectedTensorProduct(ins, SH, outs)
+    x, sh, h, mw, wk, wb = _inputs(tp, 301, 19, H, dev, seed=6)
+    for args in ((x.bfloat16(), sh.bfloat16(), h.bfloat16(), mw.bfloat16(), wk, wb),
+                 (x.bfloat16(), sh, h.bfloat16(), mw, wk, wb)):
+        before = f1.counts["factored_tp1_bf16"]
+        out = f1.factored_tp1(tp, *args)
+        ref = f2.factored_tp_bf16_reference(tp, *args, gen=1)
+        torch.cuda.synchronize()
+        assert f1.counts["factored_tp1_bf16"] == before + 1
+        assert (out - ref).abs().max().item() <= 1e-3 * max(ref.abs().max().item(), 1.0)
+
+
 def test_factored_tp2_gradient_on_the_card():
     """The backward differentiates the plain version, on the card as on the CPU."""
     from diffdock_tpu_torch.ops import factored_tp2 as f2

@@ -5,7 +5,8 @@ A MOAD layout is built from e2e_synth files: two receptors under
 one other ligand on the first receptor, and one ligand on the second. Both
 packages preprocess it; the names, the joined complexes, the chain cutoff
 and the alternative ground truths must be equal, with and without the
-cluster pickles.
+cluster pickles, and so must the training split's cluster-balanced draws
+(``get``, ``__len__``, ``epoch_iterator``).
 """
 
 import pickle
@@ -124,3 +125,36 @@ def test_apply_chain_cutoff_equals_jax(layout, tmp_path):
     # the ligand files parse the same in both packages
     path = str(root / "pdb_ligand" / "s001_1_A_1.pdb")
     np.testing.assert_array_equal(read_molecule_file(path).coords, jchem.read_molecule_file(path).coords)
+
+
+@pytest.mark.parametrize("kw", [{}, dict(multiplicity=3), dict(no_randomness=True),
+                                dict(chain_cutoff=4.0, multiplicity=2)])
+def test_moad_training_sampler_equals_jax(layout, tmp_path, kw):
+    """The cluster-balanced sampler (``get``, ``__len__``,
+    ``epoch_iterator``) of the training split against JAX's: the same
+    ligands drawn in the same order from the same seeds, the same joined
+    complexes. Without the pickles every receptor's ligands form a cluster
+    (two here: three ligands and one)."""
+    root, _, _ = layout
+    ours = moad.MOADDataset(moad.MOADConfig(moad_dir=str(root), cache_dir=str(tmp_path / "port"), **kw))
+    ref = jmoad.MOADDataset(jmoad.MOADConfig(moad_dir=str(root), cache_dir=str(tmp_path / "jax"), **kw))
+    ours.preprocess(verbose=False)
+    ref.preprocess(verbose=False)
+    assert len(ours) == len(ref) == 2 * kw.get("multiplicity", 1)
+    r1, r2 = np.random.RandomState(3), np.random.RandomState(3)
+    for idx in (0, 1, 2, 0, 0, 1):
+        (na, da), (nb, db) = ours.get(idx, r1), ref.get(idx, r2)
+        assert na == nb
+        _same(da, db)
+        assert ours.get(idx)[0] == ref.get(idx)[0] == sorted(ours.cluster_to_ligands[ours.clusters[idx % 2]])[0]
+    names = set()
+    for seed in (0, 1, 7):
+        a, b = list(ours.epoch_iterator(seed)), list(ref.epoch_iterator(seed))
+        assert [n for n, _ in a] == [n for n, _ in b]
+        assert len(a) == len(ours)
+        for (_, x), (_, y) in zip(a, b):
+            _same(x, y)
+        names.update(n for n, _ in a)
+    # the draws reach past the first ligand of the three-ligand cluster,
+    # unless the sampler is told not to draw
+    assert len(names) == 2 if kw.get("no_randomness") else len(names) >= 3

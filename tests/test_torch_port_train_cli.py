@@ -6,8 +6,10 @@
 ``load_train_state`` read it; the port's dock CLI docks from its
 ``last_ema_model``. ``--restart_dir`` resumes the full state (and falls
 back to the weights), ``--pretrain_dir`` loads weights, the PDBBind path
-runs with a validation split, and the options that are not ported raise
-``ConfigError`` naming their ROADMAP item.
+runs with a validation split, ``--dataset moad``, ``--combined_training``
+and ``--triple_training`` train from MOAD and PDBSidechain layouts (those of
+``tests/test_torch_port_loaders.py``), and the options that are not ported
+raise ``ConfigError`` naming their ROADMAP item.
 """
 
 import dataclasses
@@ -28,9 +30,10 @@ from diffdock_tpu.train import trainer as jtrainer
 from diffdock_tpu_torch.cli import dock as dock_cli
 from diffdock_tpu_torch.cli import train as train_cli
 from diffdock_tpu_torch.data.complexes import synthetic_complex
-from diffdock_tpu_torch.models.config import ConfigError, ScoreModelConfig
-from diffdock_tpu_torch.models.score_model import CGScoreModel
+from diffdock_tpu_torch.models.config import ConfigError
 from tests.test_torch_port_datasets import SYNTH
+from tests.test_torch_port_moad import layout  # noqa: F401
+from tests.test_torch_port_pdb_sidechain import sc_dir  # noqa: F401
 
 SMALL = ["--ns", "8", "--nv", "2", "--num_conv_layers", "2", "--device", "cpu", "--batch_size", "2"]
 # the files the JAX CLI writes for a run with validation docking and a
@@ -165,28 +168,55 @@ def test_pdbbind_path_with_a_validation_split(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--dataset", "moad"], "item 7"),
-    (["--dataset", "pdbsidechain"], "item 7"),
-    (["--combined_training"], "item 7"),
-    (["--triple_training"], "item 7"),
-    (["--data_parallel"], "item 8"),
-    (["--backbone_loss_weight", "0.5"], "item 5"),
-    (["--sidechain_loss_weight", "0.5"], "item 5"),
+    pytest.param(["--data_parallel"], "item 8", id="flags4-item 8"),
+    pytest.param(["--backbone_loss_weight", "0.5"], "item 5", id="flags5-item 5"),
+    pytest.param(["--sidechain_loss_weight", "0.5"], "item 5", id="flags6-item 5"),
 ])
 def test_unported_options_raise_and_name_their_item(tmp_path, flags, item):
-    with pytest.raises(ConfigError, match=item):
+    with pytest.raises(ConfigError, match=f"ROADMAP queue 1 {item}"):
         train_cli.main(["--synthetic", "2", "--log_dir", str(tmp_path), *flags, *SMALL])
 
 
-def test_crop_beyond_is_refused_by_the_model():
-    """The model crops (the dock's crop_beyond is ported); the trainer's
-    per-complex crop is not, so the train and eval steps refuse it."""
-    from diffdock_tpu_torch.train.trainer import TrainConfig, make_eval_step, make_train_step
+@pytest.mark.parametrize("flags,sources", [
+    (["--dataset", "moad"], {"moad"}),
+    (["--dataset", "pdbsidechain", "--remove_second_segment"], {"pdbsidechain"}),
+    (["--combined_training"], {"pdbbind", "moad"}),
+    (["--triple_training", "--val_inference_freq", "1", "--num_inference_complexes", "1",
+      "--inference_steps", "2", "--inference_samples", "2"], {"pdbbind", "moad", "pdbsidechain"}),
+])
+def test_data_sources_train_through_the_cli(tmp_path, layout, sc_dir, monkeypatch, flags,  # noqa: F811
+                                            sources):
+    """Two epochs from MOAD, PDBSidechain and their combinations
+    (``--triple_training`` implies ``--combined_training``): finite losses,
+    every epoch's batches drawn from each source the flags name, the
+    validation docking of the source's first items, no validation-loss
+    set (as in the JAX CLI)."""
+    from diffdock_tpu_torch.data import loaders
 
-    model = CGScoreModel(ScoreModelConfig(ns=8, nv=2, num_conv_layers=1, crop_beyond=20.0))
-    for make in (make_train_step, make_eval_step):
-        with pytest.raises(ConfigError, match="crop_beyond.*item 3"):
-            make(model, TrainConfig(), None, None)
+    (tmp_path / "train.txt").write_text("syn044_l9r90\nsyn131_l25r90\nsyn001_l24r104\n")
+    (tmp_path / "val.txt").write_text("syn128_l41r90\n")
+    epochs = []
+    real = loaders.iter_bucketed_batches
+
+    def recorded(items, batch_size, flush_partial=True):
+        epochs.append(set())
+        for names, batch in real(items, batch_size, flush_partial):
+            epochs[-1].update(names)
+            yield names, batch
+
+    monkeypatch.setattr(loaders, "iter_bucketed_batches", recorded)
+    out = tmp_path / "run"
+    assert train_cli.main(["--data_dir", str(SYNTH), "--split_train", str(tmp_path / "train.txt"),
+                           "--split_val", str(tmp_path / "val.txt"), "--moad_dir", str(layout[0]),
+                           "--pdbsidechain_dir", str(sc_dir), "--cache_path", str(tmp_path / "cache"),
+                           "--n_epochs", "2", "--log_dir", str(out), "--num_workers", "0",
+                           *flags, *SMALL]) == 0
+    records = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+    want = ["train"] * 2 if "--val_inference_freq" not in flags else ["train", "val_inference"] * 2
+    assert [r["phase"] for r in records] == want
+    assert all(np.isfinite(r["loss"]) for r in records if r["phase"] == "train")
+    source_of = lambda n: "pdbbind" if n.startswith("syn") else "moad" if n[:2] == "s0" else "pdbsidechain"  # noqa: E731
+    assert len(epochs) == 2 and all({source_of(n) for n in e} == sources for e in epochs)
 
 
 @pytest.mark.parametrize("scheduler", ["plateau", "layer_linear_warmup"])
