@@ -188,9 +188,13 @@ I. the bfloat16 modes of gens 2 and 1, and training from the other data
    phase H1's seven blocks against their bfloat16 plain version on the card
    (within BF16_KERNEL_RTOL of scale; gen 1 also with float32 edge_sh, h and
    mw), the same bits from a repeat launch, exact launch counts, the median
-   of I1_LAUNCHES launches beside the bound (2-byte operands over 3.35 TB/s
-   or the products at 989 TFLOP/s plus the coupling at 67, the larger), the
-   plain version and the cuBLAS bfloat16 einsum pair; I2 ``cli/train.py
+   of I1_LAUNCHES launches (``csrc/factored_tp_bf16.cu``) and of as many
+   whole calls (the wrapper: prepare and launch) beside the bound (2-byte
+   operands over 3.35 TB/s or the products and the CG weights at 989
+   TFLOP/s plus the chains at 67, the larger), the plain version and the cuBLAS bfloat16 einsum
+   pair, with the kernel's plan (column slices, receivers per block, all
+   slices or one class per block, neighbour halves, stages and ring slots,
+   the hidden product's width); I2 ``cli/train.py
    --triple_training`` at DiffDock-L's widths (without the LM input, which
    PDBSidechain items lack) on phase E's twelve PDBBind complexes, a MOAD
    layout of three e2e_synth receptors (two poses each) and six receptors
@@ -330,25 +334,41 @@ def _coupling_flops(tp) -> float:
                      for pk, ek in zip(tp.paths, tp.irreps_out) for p in pk))
 
 
+def _cg_weight_terms(tp, gen: int) -> float:
+    """FMAs per edge of the CG weights: gen 2, each column's dot over its
+    nonzero rows of ``CG_full`` (the terms a dense ``sh @ CG`` has that are
+    not zero); gen 1, each path's dot over its own d2 harmonics."""
+    import numpy as np
+
+    if gen == 2:
+        from diffdock_tpu_torch.ops.factored_tp2 import build_specs2
+
+        cg_full = build_specs2(tp)[1]
+        rows_nz = [np.flatnonzero(col) for col in (cg_full != 0).T]
+        return float(sum(int(r[-1] - r[0]) + 1 for r in rows_nz if r.size))
+    from diffdock_tpu_torch.ops.factored_tp1 import build_specs
+
+    return float(sum(p.d2 * p.d1 * s.d3 for s in build_specs(tp)[0] for p in s.paths))
+
+
 def tp2_work(tp, rows: int, K: int, H: int):
     """(product FLOPs, coupling FLOPs, bytes) of the gen-2 contraction: P
     over the H+1 live hidden rows and the weight contraction; the CG
     weights (each column's dot over its nonzero rows of ``CG_full``, the
     terms a dense ``sh @ CG`` has that are not zero) and the coupled
-    columns; it reads the packed neighbour features, the harmonics, the H+1
-    live rows of ``h_aug``, the CG matrix and the (H+1, fan, mul) weights once
-    and writes the output."""
+    columns; it reads the neighbour features (x_nbr, whose per-path packed
+    copy is a layout of the kernel's own), the harmonics, the H+1 live rows
+    of ``h_aug``, the CG matrix and the (H+1, fan, mul) weights once and
+    writes the output."""
     import numpy as np
 
     from diffdock_tpu_torch.ops.factored_tp2 import build_specs2
 
-    _specs, cg_full, xp_dim, out_dim = build_specs2(tp)
+    _specs, cg_full, _xp_dim, out_dim = build_specs2(tp)
     f_tot, weight, w_len = _class_sums(tp)
-    J, Ha = tp.irreps_in2.dim, H + 1
-    rows_nz = [np.flatnonzero(col) for col in (cg_full != 0).T]
-    cg_terms = sum(int(r[-1] - r[0]) + 1 for r in rows_nz if r.size)
+    J, Ha, xp_dim = tp.irreps_in2.dim, H + 1, tp.irreps_in1.dim
     products = 2.0 * rows * Ha * K * f_tot + 2.0 * rows * Ha * weight
-    coupling = 2.0 * rows * K * (cg_terms + _coupling_flops(tp))
+    coupling = 2.0 * rows * K * (_cg_weight_terms(tp, 2) + _coupling_flops(tp))
     nbytes = 4.0 * (rows * K * (xp_dim + J + Ha) + cg_full.size + Ha * w_len + rows * out_dim)
     return products, coupling, nbytes
 
@@ -356,16 +376,16 @@ def tp2_work(tp, rows: int, K: int, H: int):
 def tp1_work(tp, rows: int, K: int, H: int):
     """(product FLOPs, coupling FLOPs, bytes) of the gen-1 contraction: p_h
     and p_b, the weight and bias contractions; each path's CG dot over its
-    own d2 harmonics and the coupled columns; it reads the packed neighbour
-    features, the harmonics, h, mw, the CG matrix, the weights and the bias
-    once and writes the output."""
+    own d2 harmonics and the coupled columns; it reads the neighbour
+    features (x_nbr), the harmonics, h, mw, the CG matrix, the weights and
+    the bias once and writes the output."""
     from diffdock_tpu_torch.ops.factored_tp1 import build_specs
 
-    specs, cg_all, xp_dim, out_dim = build_specs(tp)
+    specs, cg_all, _xp_dim, out_dim = build_specs(tp)
+    xp_dim = tp.irreps_in1.dim
     f_tot, weight, w_len = _class_sums(tp)
-    cg_flops = sum(p.d2 * p.d1 * s.d3 for s in specs for p in s.paths)
     products = 2.0 * rows * (H + 1) * K * f_tot + 2.0 * rows * (H + 1) * weight
-    coupling = 2.0 * rows * K * (cg_flops + _coupling_flops(tp))
+    coupling = 2.0 * rows * K * (_cg_weight_terms(tp, 1) + _coupling_flops(tp))
     nbytes = 4.0 * (rows * K * (xp_dim + tp.irreps_in2.dim + H + 1) + cg_all.size
                     + (H + 1) * w_len + rows * out_dim)
     return products, coupling, nbytes
@@ -832,7 +852,7 @@ def run(args) -> dict:
         i1 = report["bf16_factored"][kname]
         main = i1["rec<-lig cross (conv)"]
         report["kernels"].append({
-            "name": kname, "route": "cuda", "source": f"diffdock_tpu_torch/csrc/{kname[:-5]}.cu",
+            "name": kname, "route": "cuda", "source": "diffdock_tpu_torch/csrc/factored_tp_bf16.cu",
             "replaces": sources[kname[:-5]], "launches": launches[kname],
             "max_abs_err": max(c["max_abs_err"] for c in i1.values()),
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
@@ -3181,12 +3201,16 @@ def cuda_ms_median(fn, n: int, warmup: int = 3) -> float:
 
 
 def factored_bf16_work(tp, rows: int, K: int, H: int, gen: int):
-    """(product FLOPs, coupling FLOPs, bytes) of a bfloat16-mode call of gen
-    2 or 1: the float32 mode's work (``tp2_work``, ``tp1_work``) with every
-    operand read once at 2 bytes and the float32 output written once."""
+    """(product FLOPs, CG-weight FLOPs, chain FLOPs, bytes) of a
+    bfloat16-mode call of gen 2 or 1: the float32 mode's work (``tp2_work``,
+    ``tp1_work``) with its coupling split into the CG weights (bfloat16
+    products summed in float32: the tensor cores' type) and the chains
+    (rounded after every step: the CUDA cores), every operand read once at
+    2 bytes and the float32 output written once."""
     products, coupling, f32_bytes = (tp2_work if gen == 2 else tp1_work)(tp, rows, K, H)
+    cg = 2.0 * rows * K * _cg_weight_terms(tp, gen)
     out_bytes = 4.0 * rows * tp.irreps_out.dim
-    return products, coupling, (f32_bytes - out_bytes) / 2 + out_bytes
+    return products, cg, coupling - cg, (f32_bytes - out_bytes) / 2 + out_bytes
 
 
 def factored_bf16_kernels(blocks: dict, card: str, dev) -> dict:
@@ -3196,8 +3220,9 @@ def factored_bf16_kernels(blocks: dict, card: str, dev) -> dict:
     mixed case the TPU kernel leaves in float32), a repeat launch with the
     same bits, exact launch counts, and the median time of I1_LAUNCHES
     launches beside the bound (2-byte operands over 3.35 TB/s, or the
-    products at the bfloat16 tensor rate plus the coupling at the float32
-    rate, the larger), the plain version and the cuBLAS bfloat16 einsum
+    products and the CG weights at the bfloat16 tensor rate plus the
+    chains at the float32 rate, the larger), the plain version and the
+    cuBLAS bfloat16 einsum
     pair on the coupled operands."""
     import torch
 
@@ -3249,28 +3274,44 @@ def factored_bf16_kernels(blocks: dict, card: str, dev) -> dict:
                     errs[case] = (err, scale)
                     del got, again, ref
                 ops = m.prepare(tp, *binp)
+                call = ops[-1]
+                plan = f2.bf16_plan(call.slices, rows, K, Hb, call.F, call.J, call.sh_f32,
+                                    call.parts,
+                                    torch.cuda.get_device_properties(dev).multi_processor_count)
                 ms = cuda_ms_median(lambda: m.launch(*ops, tp.irreps_out.dim), I1_LAUNCHES)
+                # the whole call: prepare (the [sh | x] rows, the packed
+                # weights) and the launch
+                wrapper_ms = cuda_ms_median(lambda: wrapper(tp, *binp), I1_LAUNCHES)
                 plain_ms = cuda_ms_median(lambda: f2.factored_tp_bf16_reference(tp, *binp, gen=gen),
                                           I1_LAUNCHES)
-                products, coupling, nbytes = factored_bf16_work(tp, rows, K, Hb, gen)
-                t_ops = (products / BF16_PEAK_FLOPS + coupling / F32_PEAK_FLOPS) * 1e3
+                products, cg, chains, nbytes = factored_bf16_work(tp, rows, K, Hb, gen)
+                t_ops = ((products + cg) / BF16_PEAK_FLOPS + chains / F32_PEAK_FLOPS) * 1e3
                 t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
                 b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
                 err, scale = errs["bf16"]
                 out[name][label] = {
                     "rows": rows, "K": K, "H": Hb, "max_abs_err": err, "max_abs_ref": scale,
                     "mixed_max_abs_err": errs.get("mixed", (None,))[0], "repeat_identical": True,
-                    "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
-                    "bound_by": b_by, "bound_share": b_ms / ms, "product_flops": products,
-                    "coupling_flops": coupling, "bytes": nbytes}
+                    "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+                    "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "bound_share": b_ms / ms, "product_flops": products,
+                    "cg_weight_flops": cg, "chain_flops": chains, "bytes": nbytes,
+                    "plan": {"slices": len(call.slices), "R": plan.R, "whole": plan.whole,
+                             "k_parts": plan.k_parts, "KC": plan.KC, "S": plan.S,
+                             "NW": plan.NW, "blocks": plan.n_blocks}}
                 mixed_note = (f" | mixed (float32 sh, h, mw) {errs['mixed'][0]:.3e} (tol "
                               f"{BF16_KERNEL_RTOL:.0e} x {errs['mixed'][1]:.3g})" if "mixed" in errs else "")
                 _log(f"  {name} {label}: R={rows} K={K} H+1={Hb + 1} max_abs_err={err:.3e} (tol "
                      f"{BF16_KERNEL_RTOL:.0e} x {scale:.3g}){mixed_note}, repeat identical, launches "
-                     f"exact | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | cuBLAS bf16 pair "
-                     f"{library_ms:.4f} ms | bound {b_ms:.4f} ms ({b_by}; {products / 1e9:.2f} + "
-                     f"{coupling / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) | {100 * b_ms / ms:.1f} % of "
-                     f"bound | {card}")
+                     f"exact | kernel {ms:.4f} ms | whole call {wrapper_ms:.4f} ms | plain "
+                     f"{plain_ms:.4f} ms | cuBLAS bf16 pair {library_ms:.4f} ms | bound {b_ms:.4f} ms "
+                     f"({b_by}; {products / 1e9:.2f} + {cg / 1e9:.2f} GFLOP at the bf16 rate, "
+                     f"{chains / 1e9:.2f} at the f32 rate, "
+                     f"{nbytes / 1e6:.1f} MB) | {100 * b_ms / ms:.1f} % of bound | plan "
+                     f"{len(call.slices)} slices, R={plan.R} "
+                     f"{'all slices' if plan.whole else 'one class'} per block, {plan.k_parts} "
+                     f"neighbour part(s), stages of {plan.KC} in {plan.S} slots, N={plan.NW}, "
+                     f"{plan.n_blocks} blocks | {card}")
                 del ops
             del inp, binp, mixed
     return out

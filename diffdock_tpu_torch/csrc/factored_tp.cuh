@@ -56,35 +56,8 @@
 //     in a second small kernel over a scratch buffer): two launches give
 //     the same bits. Nothing is split with atomics.
 //
-// The bfloat16 mode (kBf16; the TPU kernels' mode for bfloat16 x_nbr,
-// pallas_tpconv2.py:219 and pallas_tpconv.py:140-198) reads 2-byte
-// operands and rounds where the TPU kernels round:
-//   - xp, the CG matrix and the last-layer weights (with the bias) are
-//     bfloat16; gen 2 takes the harmonics and h_aug in bfloat16 too, gen 1
-//     takes the harmonics in the caller's dtype, float32 or bfloat16, and
-//     h and mw both in bfloat16 or both in float32 (its wrapper widens a
-//     mixed pair, exactly: JAX's promotion gives float32 products there);
-//   - the CG weights are summed in float32 and rounded to bfloat16;
-//   - the coupling's chain is bfloat16 arithmetic: each product a_i * w
-//     and each partial sum rounds to bfloat16, in the order i = 0, 1, ...
-//     (what the TPU kernels give in interpret mode, held by the CPU tests),
-//     but for gen 1's classes of one path and d3 = 1, whose chain's last
-//     step stays float32 (chain_f32 below);
-//   - P is summed in float32 over the neighbours and rounded to bfloat16
-//     before the weight product, which sums in float32.
-// bfloat16 values are exact in TF32, so each tensor-core product takes one
-// m16n8k8 TF32 mma (exact products, float32 sums) instead of 3xTF32; a
-// float32 operand (gen 1's float32 h and mw, a chain_f32 column) keeps its
-// split, one more mma each. Both modes share the tiling, the plan and the
-// ring: the bfloat16 operands arrive by 4-byte cp.async as raw pairs of
-// bfloat16 (the ring's words then hold pairs: the hidden rows (2q, 2q+1)
-// of a neighbour, the stage's harmonics two by two, and for each packed
-// input the aligned pair that holds it, its half told by the offset's
-// parity), widened to float32 where they are read. The wrappers pad xp
-// and, where it is bfloat16, sh to an even width so that every pair is
-// aligned, and gen 1's wrapper widens a bfloat16 h of odd H (its pairs
-// would straddle neighbours) to float32 with mw; a float32 operand arrives
-// by cp.async of floats.
+// The bfloat16 modes of both gens are a kernel of their own,
+// factored_tp_bf16.cu.
 
 #pragma once
 
@@ -146,51 +119,22 @@ struct Tables {
   int col[kMaxPaths], sh_start[kMaxPaths], d2[kMaxPaths];
 };
 
-// Element types: in the float32 mode every operand is float32; in the
-// bfloat16 mode xp, cg, w_main and w_bias are bfloat16, sh and the hidden
-// rows (hid and mw) as the Dims flags say.
+// Every operand is float32.
 struct Operands {
-  const void* xp;      // (N, K, XP)
-  const void* sh;      // (N, K, J)
-  const void* hid;     // gen 2: h_aug (N, K, He); gen 1: h (N, K, H)
-  const void* mw;      // gen 1: (N, K)
-  const void* cg;      // (cg_rows, cg_cols)
-  const void* w_main;  // gen 2: packed (He, fan, mul); gen 1: packed T_c
-  const void* w_bias;  // gen 1: packed b_c
+  const float* xp;      // (N, K, XP)
+  const float* sh;      // (N, K, J)
+  const float* hid;     // gen 2: h_aug (N, K, He); gen 1: h (N, K, H)
+  const float* mw;      // gen 1: (N, K)
+  const float* cg;      // (cg_rows, cg_cols)
+  const float* w_main;  // gen 2: packed (He, fan, mul); gen 1: packed T_c
+  const float* w_bias;  // gen 1: packed b_c
 };
 
 struct Dims {
   long long n_rows;
   int K, XP, J, H, Ha, He, cg_rows, cg_cols, D;
   int n_groups, n_sl, s_max, xs_max, nc_max;
-  // the bfloat16 mode only: a bfloat16 sh; bfloat16 hidden rows (gen 2's
-  // h_aug, gen 1's h and mw, of even H), staged as pairs, where else they
-  // are float32
-  bool sh_bf16, hid_bf16;
 };
-
-// the dtypes argument of the C interface: bit 0 the bfloat16 mode, bits
-// 1-2 bfloat16 sh and hidden rows
-constexpr int kDtBf16 = 1, kDtSh = 2, kDtHid = 4;
-
-// element i of a float32 (bf16 = false) or bfloat16 array, as float32
-// (exact); read through the read-only cache
-__device__ __forceinline__ float load_elem(const void* base, long long i, bool bf16) {
-  if (bf16)
-    return __uint_as_float(static_cast<uint32_t>(__ldg(static_cast<const unsigned short*>(base) + i))
-                           << 16);
-  return __ldg(static_cast<const float*>(base) + i);
-}
-
-// x rounded to bfloat16 (to nearest, ties to even), as float32
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// the high (odd = true) or low bfloat16 of a staged pair, as float32
-__device__ __forceinline__ float pair_half(uint32_t w, bool odd) {
-  return __uint_as_float(odd ? (w & 0xffff0000u) : (w << 16));
-}
 
 // The paths pa..pb of class c that a slice [u0, u0 + nu) touches, its
 // packed input floats per neighbour (xs) and its CG-weight columns (nc,
@@ -222,15 +166,12 @@ __host__ __device__ inline Slice slice_of(const Tables& tb, int c, int u0, int n
 // ---- the kernel ---------------------------------------------------------
 
 // MT: m16 tiles of hidden rows per block (1-5: the hidden rows in the
-// fewest groups of at most 80, balanced); kBf16: the bfloat16 mode
-template <int MT, bool kGen1, bool kBf16>
+// fewest groups of at most 80, balanced)
+template <int MT, bool kGen1>
 __global__ void __launch_bounds__(kThreads, 1)
 factored_tp_kernel(Operands op, float* __restrict__ dst, Tables tb, Dims dm) {
   constexpr int HR = MT * 16;          // hidden rows per block
   constexpr int AStride = HR + 8;      // 8 or 24 mod 32: conflict-free fragment reads
-  // words per neighbour of a stage's hidden rows staged as bfloat16 pairs:
-  // 4 tq rows of a fragment read land 12 words apart (mod 32), no conflict
-  constexpr int AWords = HR / 2 + 4;
   const int J = dm.J, K = dm.K, xs_s = dm.xs_max, nc_s = dm.nc_max;
   const int stage_floats = kKC * (AStride + J + xs_s);
   const int warp_floats = kStages * stage_floats + kKC * kBStride + kKC * nc_s;
@@ -303,7 +244,7 @@ factored_tp_kernel(Operands op, float* __restrict__ dst, Tables tb, Dims dm) {
       // sh @ CG restricted to the rows where this column is not zero
       int lo = dm.cg_rows, hi = -1;
       for (int j = 0; j < dm.cg_rows; ++j) {
-        if (load_elem(op.cg, static_cast<long long>(j) * dm.cg_cols + gcol0 + cc, kBf16) != 0.f) {
+        if (__ldg(op.cg + static_cast<long long>(j) * dm.cg_cols + gcol0 + cc) != 0.f) {
           lo = min(lo, j);
           hi = j;
         }
@@ -327,7 +268,7 @@ factored_tp_kernel(Operands op, float* __restrict__ dst, Tables tb, Dims dm) {
   }
   for (int q = tid; q < dm.cg_rows * nc; q += kThreads) {
     const int j = q / nc, cc = q - j * nc;
-    cg_s[j * nc_s + cc] = load_elem(op.cg, static_cast<long long>(j) * dm.cg_cols + gcol0 + cc, kBf16);
+    cg_s[j * nc_s + cc] = __ldg(op.cg + static_cast<long long>(j) * dm.cg_cols + gcol0 + cc);
   }
   __syncthreads();
 
@@ -345,13 +286,6 @@ factored_tp_kernel(Operands op, float* __restrict__ dst, Tables tb, Dims dm) {
   float* ws = bs + kKC * kBStride;            // [kKC][nc_s]: the stage's CG weights
   const long long x_row = rr * K * static_cast<long long>(dm.XP);
   const int n_steps = (K + kKC - 1) / kKC;
-  const bool sh_bf16 = kBf16 && dm.sh_bf16, hid_bf16 = kBf16 && dm.hid_bf16;
-
-  // a 4-byte copy of the bfloat16 pair at element `i` (even) of `base`
-  auto cp_pair = [](uint32_t* dst, const void* base, long long i, bool ok) {
-    const float* src = reinterpret_cast<const float*>(static_cast<const unsigned short*>(base) + i);
-    cp_async4(reinterpret_cast<float*>(dst), ok ? src : static_cast<const float*>(base), ok);
-  };
 
   // stage `st` of the ring <- neighbours [kc*8, kc*8+8): the hidden rows
   // (A, k-major), the harmonics and the slice's packed input floats
@@ -362,33 +296,12 @@ factored_tp_kernel(Operands op, float* __restrict__ dst, Tables tb, Dims dm) {
     const int k0 = kc * kKC;
     const int n_k = row_ok ? min(kKC, K - k0) : 0;  // live neighbours of the stage
     const long long e0 = rr * K + k0;
-    if (hid_bf16) {
-      // bfloat16 pairs: the hidden rows (2q, 2q+1) of each neighbour (gen
-      // 1: row H is mw, row H+1 zero)
-      uint32_t* aw = reinterpret_cast<uint32_t*>(as);
-      for (int q = lane; q < HR / 2; q += 32) {
-        const int h = h0 + 2 * q;
-#pragma unroll
-        for (int kk = 0; kk < kKC; ++kk) {
-          const bool live = kk < n_k;
-          if constexpr (kGen1) {
-            if (h == dm.H) {
-              aw[kk * AWords + q] = live ? static_cast<uint32_t>(
-                  __ldg(static_cast<const unsigned short*>(op.mw) + e0 + kk)) : 0u;
-              continue;
-            }
-            cp_pair(aw + kk * AWords + q, op.hid, (e0 + kk) * dm.H + h, live && h < dm.H);
-          } else {
-            cp_pair(aw + kk * AWords + q, op.hid, (e0 + kk) * dm.He + h, live && h < dm.He);
-          }
-        }
-      }
-    } else {
-      // float32 hidden rows, (N, K, rows): consecutive lanes read
+    {
+      // hidden rows, (N, K, rows): consecutive lanes read
       // consecutive hidden rows, each lane its rows for the 8 neighbours.
       // Gen 2's h_aug holds row H (mw) itself; gen 1 reads h for rows below
       // H and mw for row H. Rows past H are zero.
-      const float* hid = static_cast<const float*>(op.hid);
+      const float* hid = op.hid;
 #pragma unroll 1
       for (int ha = lane; ha < HR; ha += 32) {
         const int h = h0 + ha;
@@ -397,7 +310,7 @@ factored_tp_kernel(Operands op, float* __restrict__ dst, Tables tb, Dims dm) {
         int step;
         if constexpr (kGen1) {
           h_ok = h <= dm.H;
-          src = h < dm.H ? hid + e0 * dm.H + h : static_cast<const float*>(op.mw) + e0;
+          src = h < dm.H ? hid + e0 * dm.H + h : op.mw + e0;
           step = h < dm.H ? dm.H : 1;
         } else {
           h_ok = h < dm.Ha;
@@ -412,49 +325,22 @@ factored_tp_kernel(Operands op, float* __restrict__ dst, Tables tb, Dims dm) {
       }
     }
     // the stage's harmonics are kKC contiguous rows of J values
-    if (sh_bf16) {
-      uint32_t* sw = reinterpret_cast<uint32_t*>(shs);
-      for (int w = lane; w < kKC * J / 2; w += 32)
-        cp_pair(sw + w, op.sh, e0 * J + 2 * w, 2 * w < n_k * J);
-    } else {
-      for (int e = lane; e < kKC * J; e += 32) {
-        const bool ok = e < n_k * J;
-        cp_async4(shs + e, static_cast<const float*>(op.sh) + (ok ? e0 * J + e : 0), ok);
-      }
+    for (int e = lane; e < kKC * J; e += 32) {
+      const bool ok = e < n_k * J;
+      cp_async4(shs + e, op.sh + (ok ? e0 * J + e : 0), ok);
     }
-    if constexpr (kBf16) {
-      // each packed input's aligned bfloat16 pair
-      uint32_t* xw = reinterpret_cast<uint32_t*>(xs);
-      for (int e = lane; e < sl.xs; e += 32) {
-        const int off = xmap[e] & ~1;
+    // each packed input's kKC neighbours, dm.XP floats apart
+    const float* x_rowf = op.xp + x_row + static_cast<long long>(k0) * dm.XP;
+    for (int e = lane; e < sl.xs; e += 32) {
+      const float* src = x_rowf + xmap[e];
 #pragma unroll
-        for (int kk = 0; kk < kKC; ++kk)
-          cp_pair(xw + kk * xs_s + e, op.xp, x_row + static_cast<long long>(k0 + kk) * dm.XP + off,
-                  kk < n_k);
-      }
-    } else {
-      const float* x_rowf = static_cast<const float*>(op.xp) + x_row;
-      for (int e = lane; e < sl.xs; e += 32) {
-        const int off = xmap[e];
-#pragma unroll
-        for (int kk = 0; kk < kKC; ++kk) {
-          const bool ok = kk < n_k;
-          cp_async4(xs + kk * xs_s + e,
-                    ok ? x_rowf + static_cast<long long>(k0 + kk) * dm.XP + off
-                       : static_cast<const float*>(op.xp), ok);
-        }
+      for (int kk = 0; kk < kKC; ++kk, src += dm.XP) {
+        const bool ok = kk < n_k;
+        cp_async4(xs + kk * xs_s + e, ok ? src : op.xp, ok);
       }
     }
   };
 
-  // The bfloat16 mode's hidden operand is exact in TF32 when it is
-  // bfloat16, and so are the coupled columns, but for one case: gen 1 leaves
-  // the last step of the coupling's chain (the last sum, or the product of
-  // a one-term chain) in float32 where a class has one path and d3 = 1, as
-  // its Pallas body does under XLA (the chain is then P's operand itself,
-  // with no concatenation to round it).
-  const bool a_exact = hid_bf16;
-  const bool chain_f32 = kGen1 && kBf16 && tb.np[c] == 1 && d3 == 1;
   load_stage(0, 0);
   cp_async_commit();
   for (int kc = 0; kc < n_steps; ++kc) {
@@ -466,17 +352,6 @@ factored_tp_kernel(Operands op, float* __restrict__ dst, Tables tb, Dims dm) {
     const float* as = ring + (kc % kStages) * stage_floats;
     const float* shs = as + kKC * AStride;
     const float* xs = shs + kKC * J;
-    // the stage's harmonic i and the hidden row `row` of neighbour kk, as
-    // float32 from either staging
-    auto sh_at = [&](int i) -> float {
-      if (kBf16 && sh_bf16) return pair_half(reinterpret_cast<const uint32_t*>(shs)[i >> 1], i & 1);
-      return shs[i];
-    };
-    auto a_at = [&](int kk, int row) -> float {
-      if (hid_bf16)
-        return pair_half(reinterpret_cast<const uint32_t*>(as)[kk * AWords + (row >> 1)], row & 1);
-      return as[kk * AStride + row];
-    };
 
     // CG weights: ws[kk][cc] = sum_t sh[kk][so + t] * cg[ro + t][cc]; lane
     // cc (and cc + 32) sums the 8 neighbours side by side
@@ -488,10 +363,10 @@ factored_tp_kernel(Operands op, float* __restrict__ dst, Tables tb, Dims dm) {
       for (int t = 0; t < wc.z; ++t) {
         const float gv = cg_s[(wc.y + t) * nc_s + cc];
 #pragma unroll
-        for (int kk = 0; kk < kKC; ++kk) v[kk] = fmaf(sh_at(kk * J + wc.x + t), gv, v[kk]);
+        for (int kk = 0; kk < kKC; ++kk) v[kk] = fmaf(shs[kk * J + wc.x + t], gv, v[kk]);
       }
 #pragma unroll
-      for (int kk = 0; kk < kKC; ++kk) ws[kk * nc_s + cc] = kBf16 ? bf16_round(v[kk]) : v[kk];
+      for (int kk = 0; kk < kKC; ++kk) ws[kk * nc_s + cc] = v[kk];
     }
     __syncwarp();
 
@@ -507,27 +382,8 @@ factored_tp_kernel(Operands op, float* __restrict__ dst, Tables tb, Dims dm) {
         const int e = ci.x + i * ci.y;
         const float* xr = xs + e;
         const float* wr = ws + ci.z + i * d3;
-        if constexpr (kBf16) {
-          // the packed input's half of its staged pair; bfloat16
-          // arithmetic: the product, then the sum, rounded (the last step
-          // of a chain_f32 column not)
-          const bool odd = xmap[e] & 1;
-          const uint32_t* xrw = reinterpret_cast<const uint32_t*>(xr);
-          if (!chain_f32 || i + 1 < ci.w) {
 #pragma unroll
-            for (int kk = 0; kk < kKC; ++kk)
-              v[kk] = bf16_round(v[kk] + bf16_round(pair_half(xrw[kk * xs_s], odd) * wr[kk * nc_s]));
-          } else {
-#pragma unroll
-            for (int kk = 0; kk < kKC; ++kk) {
-              const float pr = pair_half(xrw[kk * xs_s], odd) * wr[kk * nc_s];
-              v[kk] = i == 0 ? pr : v[kk] + bf16_round(pr);
-            }
-          }
-        } else {
-#pragma unroll
-          for (int kk = 0; kk < kKC; ++kk) v[kk] = fmaf(xr[kk * xs_s], wr[kk * nc_s], v[kk]);
-        }
+        for (int kk = 0; kk < kKC; ++kk) v[kk] = fmaf(xr[kk * xs_s], wr[kk * nc_s], v[kk]);
       }
 #pragma unroll
       for (int kk = 0; kk < kKC; ++kk) bs[kk * kBStride + lane] = v[kk];
@@ -536,7 +392,7 @@ factored_tp_kernel(Operands op, float* __restrict__ dst, Tables tb, Dims dm) {
 
     // P += A^T-stage x B-stage, 3xTF32: the B fragments of the slice's
     // column tiles, then each row tile against all of them
-    if constexpr (!kBf16) {
+    {
       uint32_t bh[kNT][2], bl[kNT][2];
 #pragma unroll
       for (int ni = 0; ni < kNT; ++ni) {
@@ -554,44 +410,6 @@ factored_tp_kernel(Operands op, float* __restrict__ dst, Tables tb, Dims dm) {
         for (int ni = 0; ni < kNT; ++ni)
           if (ni < nt_used)
             mma_3xtf32(acc[mi][ni], ah, al, bh[ni][0], bh[ni][1], bl[ni][0], bl[ni][1]);
-      }
-    } else {
-      // bfloat16: one mma where A and B are exact in TF32; a float32
-      // operand (gen 1's float32 h and mw, a chain_f32 column) adds its
-      // remainder's mma, as 3xTF32 does
-      uint32_t bh[kNT][2], bl[kNT][2];
-#pragma unroll
-      for (int ni = 0; ni < kNT; ++ni) {
-        const float b0 = bs[tq * kBStride + ni * 8 + gq], b1 = bs[(tq + 4) * kBStride + ni * 8 + gq];
-        if (chain_f32) {
-          split(b0, bh[ni][0], bl[ni][0]);
-          split(b1, bh[ni][1], bl[ni][1]);
-        } else {
-          bh[ni][0] = __float_as_uint(b0);
-          bh[ni][1] = __float_as_uint(b1);
-          bl[ni][0] = bl[ni][1] = 0u;
-        }
-      }
-#pragma unroll
-      for (int mi = 0; mi < MT; ++mi) {
-        const float a[4] = {a_at(tq, mi * 16 + gq), a_at(tq, mi * 16 + gq + 8),
-                            a_at(tq + 4, mi * 16 + gq), a_at(tq + 4, mi * 16 + gq + 8)};
-        uint32_t ah[4], al[4];
-#pragma unroll
-        for (int v = 0; v < 4; ++v) {
-          if (a_exact)
-            ah[v] = __float_as_uint(a[v]);
-          else
-            split(a[v], ah[v], al[v]);
-        }
-#pragma unroll
-        for (int ni = 0; ni < kNT; ++ni) {
-          if (ni < nt_used) {
-            if (!a_exact) mma_tf32(acc[mi][ni], al, bh[ni][0], bh[ni][1]);
-            if (chain_f32) mma_tf32(acc[mi][ni], ah, bl[ni][0], bl[ni][1]);
-            mma_tf32(acc[mi][ni], ah, bh[ni][0], bh[ni][1]);
-          }
-        }
       }
     }
     __syncwarp();  // every lane is done with this stage, ws and bs
@@ -617,9 +435,7 @@ factored_tp_kernel(Operands op, float* __restrict__ dst, Tables tb, Dims dm) {
         const int j = ni * 8 + 2 * tq + (v & 1);
         if (j < ncols) {
           const int uu = (j * inv_d3) >> 16, d = j - uu * d3;
-          // the bfloat16 mode rounds P to bfloat16, as the TPU kernels do
-          ps[(uu * HR + hh) * nstride + warp * d3 + d] =
-              kBf16 ? bf16_round(acc[mi][ni][v]) : acc[mi][ni][v];
+          ps[(uu * HR + hh) * nstride + warp * d3 + d] = acc[mi][ni][v];
         }
       }
   __syncthreads();
@@ -648,21 +464,18 @@ factored_tp_kernel(Operands op, float* __restrict__ dst, Tables tb, Dims dm) {
     for (int v = 0; v < 4; ++v) wacc[i][v] = 0.f;
 
   // the weight row of depth row k = uu*HR + hh, or null past the hidden
-  // rows; row H is the bias. ld_w reads its element w as float32
-  auto elem = [](const void* base, long long i) -> const void* {
-    return static_cast<const char*>(base) + i * (kBf16 ? 2 : 4);
-  };
-  auto w_row = [&](int k) -> const void* {
+  // rows; row H is the bias
+  auto w_row = [&](int k) -> const float* {
     const int h = h0 + k % HR, u = u0 + k / HR;
     if constexpr (kGen1) {
-      if (h < dm.H) return elem(op.w_main, tb.w_off[c] + (static_cast<long long>(h) * fan + u) * mul);
-      return h == dm.H ? elem(op.w_bias, tb.b_off[c] + static_cast<long long>(u) * mul) : nullptr;
+      if (h < dm.H) return op.w_main + tb.w_off[c] + (static_cast<long long>(h) * fan + u) * mul;
+      return h == dm.H ? op.w_bias + tb.b_off[c] + static_cast<long long>(u) * mul : nullptr;
     } else {
-      return h < dm.Ha ? elem(op.w_main, tb.w_off[c] + (static_cast<long long>(h) * fan + u) * mul)
+      return h < dm.Ha ? op.w_main + tb.w_off[c] + (static_cast<long long>(h) * fan + u) * mul
                        : nullptr;
     }
   };
-  auto ld_w = [](const void* row, int w) { return load_elem(row, w, kBf16); };
+  auto ld_w = [](const float* row, int w) { return __ldg(row + w); };
 
   if (w_active && wide) {
     const int mi = warp % n_m;
@@ -676,7 +489,7 @@ factored_tp_kernel(Operands op, float* __restrict__ dst, Tables tb, Dims dm) {
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int k = kb + 8 * q + tq + 4 * half;
-          const void* wr = k < k_end ? w_row(k) : nullptr;
+          const float* wr = k < k_end ? w_row(k) : nullptr;
           raw[q][2 * half] = wr != nullptr && w0_ok ? ld_w(wr, w0) : 0.f;
           raw[q][2 * half + 1] = wr != nullptr && w1_ok ? ld_w(wr, w1) : 0.f;
         }
@@ -684,29 +497,19 @@ factored_tp_kernel(Operands op, float* __restrict__ dst, Tables tb, Dims dm) {
       for (int q = 0; q < kPrefetch; ++q) {
         const int k0 = kb + 8 * q;
         if (k0 < k_end) {
-          // fragment order: (w0, k), (w1, k), (w0, k+4), (w1, k+4); in
-          // the bfloat16 mode weights and P are exact in TF32: one mma
+          // fragment order: (w0, k), (w1, k), (w0, k+4), (w1, k+4)
           uint32_t ah[4], al[4];
 #pragma unroll
-          for (int v = 0; v < 4; ++v) {
-            if constexpr (kBf16)
-              ah[v] = __float_as_uint(raw[q][v]);
-            else
-              split(raw[q][v], ah[v], al[v]);
-          }
+          for (int v = 0; v < 4; ++v) split(raw[q][v], ah[v], al[v]);
 #pragma unroll
           for (int ni = 0; ni < kMaxWN; ++ni) {
             if (ni < n_n) {
               const float p0 = ps[(k0 + tq) * nstride + ni * 8 + gq];
               const float p1 = ps[(k0 + tq + 4) * nstride + ni * 8 + gq];
-              if constexpr (kBf16) {
-                mma_tf32(wacc[ni], ah, __float_as_uint(p0), __float_as_uint(p1));
-              } else {
-                uint32_t bh0, bl0, bh1, bl1;
-                split(p0, bh0, bl0);
-                split(p1, bh1, bl1);
-                mma_3xtf32(wacc[ni], ah, al, bh0, bh1, bl0, bl1);
-              }
+              uint32_t bh0, bl0, bh1, bl1;
+              split(p0, bh0, bl0);
+              split(p1, bh1, bl1);
+              mma_3xtf32(wacc[ni], ah, al, bh0, bh1, bl0, bl1);
             }
           }
         }
@@ -729,8 +532,8 @@ factored_tp_kernel(Operands op, float* __restrict__ dst, Tables tb, Dims dm) {
       const int w0 = mi * 16 + gq, w1 = w0 + 8;
       float o[4] = {0.f, 0.f, 0.f, 0.f};
       for (int k0 = 0; k0 < depth; k0 += 8) {
-        const void* wr0 = w_row(k0 + tq);
-        const void* wr1 = w_row(k0 + tq + 4);
+        const float* wr0 = w_row(k0 + tq);
+        const float* wr1 = w_row(k0 + tq + 4);
         const float a[4] = {wr0 != nullptr && w0 < mul ? ld_w(wr0, w0) : 0.f,
                             wr0 != nullptr && w1 < mul ? ld_w(wr0, w1) : 0.f,
                             wr1 != nullptr && w0 < mul ? ld_w(wr1, w0) : 0.f,
@@ -738,18 +541,12 @@ factored_tp_kernel(Operands op, float* __restrict__ dst, Tables tb, Dims dm) {
         const float p0 = ps[(k0 + tq) * nstride + ni * 8 + gq];
         const float p1 = ps[(k0 + tq + 4) * nstride + ni * 8 + gq];
         uint32_t ah[4], al[4];
-        if constexpr (kBf16) {
 #pragma unroll
-          for (int v = 0; v < 4; ++v) ah[v] = __float_as_uint(a[v]);
-          mma_tf32(o, ah, __float_as_uint(p0), __float_as_uint(p1));
-        } else {
-#pragma unroll
-          for (int v = 0; v < 4; ++v) split(a[v], ah[v], al[v]);
-          uint32_t bh0, bl0, bh1, bl1;
-          split(p0, bh0, bl0);
-          split(p1, bh1, bl1);
-          mma_3xtf32(o, ah, al, bh0, bh1, bl0, bl1);
-        }
+        for (int v = 0; v < 4; ++v) split(a[v], ah[v], al[v]);
+        uint32_t bh0, bl0, bh1, bl1;
+        split(p0, bh0, bl0);
+        split(p1, bh1, bl1);
+        mma_3xtf32(o, ah, al, bh0, bh1, bl0, bl1);
       }
 #pragma unroll
       for (int v = 0; v < 4; ++v) {
@@ -926,11 +723,11 @@ long long scratch_floats(const Plan& p, long long n_rows, int D) {
   return n_parts == 1 ? 0 : n_parts * n_rows * D;
 }
 
-template <int MT, bool kGen1, bool kBf16>
+template <int MT, bool kGen1>
 cudaError_t launch_mt(const Operands& op, float* out, float* scratch, const Tables& tb,
                       const Dims& dm, const Plan& plan, cudaStream_t stream) {
   const size_t smem = sizeof(float) * static_cast<size_t>(plan.smem_floats);
-  cudaError_t err = cudaFuncSetAttribute(factored_tp_kernel<MT, kGen1, kBf16>,
+  cudaError_t err = cudaFuncSetAttribute(factored_tp_kernel<MT, kGen1>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -938,7 +735,7 @@ cudaError_t launch_mt(const Operands& op, float* out, float* scratch, const Tabl
   const long long n_blocks = n_tiles * plan.n_sl * plan.n_groups;
   if (n_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const bool direct = plan.n_groups * plan.s_max == 1;
-  factored_tp_kernel<MT, kGen1, kBf16><<<static_cast<unsigned>(n_blocks), kThreads, smem, stream>>>(
+  factored_tp_kernel<MT, kGen1><<<static_cast<unsigned>(n_blocks), kThreads, smem, stream>>>(
       op, direct ? out : scratch, tb, dm);
   err = cudaGetLastError();
   if (err != cudaSuccess || direct) return err;
@@ -951,9 +748,9 @@ cudaError_t launch_mt(const Operands& op, float* out, float* scratch, const Tabl
 }
 
 // Plans and launches one call; the tables must have passed tables_ok.
-template <bool kGen1, bool kBf16>
-cudaError_t launch_mode(const Operands& op, float* out, float* scratch, Tables tb, Dims dm,
-                        cudaStream_t stream) {
+template <bool kGen1>
+cudaError_t launch(const Operands& op, float* out, float* scratch, Tables tb, Dims dm,
+                   cudaStream_t stream) {
   const Plan plan = make_plan(tb, dm.Ha, dm.J, dm.cg_rows);
   if (plan.mt == 0) return cudaErrorInvalidValue;
   if (dm.n_rows == 0) return cudaSuccess;
@@ -963,33 +760,12 @@ cudaError_t launch_mode(const Operands& op, float* out, float* scratch, Tables t
   dm.xs_max = plan.xs_max;
   dm.nc_max = plan.nc_max;
   switch (plan.mt) {
-    case 1: return launch_mt<1, kGen1, kBf16>(op, out, scratch, tb, dm, plan, stream);
-    case 2: return launch_mt<2, kGen1, kBf16>(op, out, scratch, tb, dm, plan, stream);
-    case 3: return launch_mt<3, kGen1, kBf16>(op, out, scratch, tb, dm, plan, stream);
-    case 4: return launch_mt<4, kGen1, kBf16>(op, out, scratch, tb, dm, plan, stream);
-    default: return launch_mt<5, kGen1, kBf16>(op, out, scratch, tb, dm, plan, stream);
+    case 1: return launch_mt<1, kGen1>(op, out, scratch, tb, dm, plan, stream);
+    case 2: return launch_mt<2, kGen1>(op, out, scratch, tb, dm, plan, stream);
+    case 3: return launch_mt<3, kGen1>(op, out, scratch, tb, dm, plan, stream);
+    case 4: return launch_mt<4, kGen1>(op, out, scratch, tb, dm, plan, stream);
+    default: return launch_mt<5, kGen1>(op, out, scratch, tb, dm, plan, stream);
   }
-}
-
-// The mode of `dtypes` (kDt* bits): the float32 mode takes no bfloat16
-// operand; the bfloat16 mode reads sh and the hidden rows (gen 1: h and
-// mw) as the bits say (gen 2: both bfloat16).
-template <bool kGen1>
-cudaError_t launch(const Operands& op, float* out, float* scratch, Tables tb, Dims dm, int dtypes,
-                   cudaStream_t stream) {
-  if (dtypes & ~(kDtBf16 | kDtSh | kDtHid)) return cudaErrorInvalidValue;
-  if (!(dtypes & kDtBf16)) {
-    if (dtypes != 0) return cudaErrorInvalidValue;
-    return launch_mode<kGen1, false>(op, out, scratch, tb, dm, stream);
-  }
-  dm.sh_bf16 = dtypes & kDtSh;
-  dm.hid_bf16 = dtypes & kDtHid;
-  if (!kGen1 && !(dm.sh_bf16 && dm.hid_bf16)) return cudaErrorInvalidValue;
-  // pairs: xp, a bfloat16 sh and bfloat16 hidden rows of even widths
-  if (dm.XP % 2 != 0 || (dm.sh_bf16 && dm.J % 2 != 0) ||
-      (dm.hid_bf16 && (kGen1 ? dm.H : dm.He) % 2 != 0))
-    return cudaErrorInvalidValue;
-  return launch_mode<kGen1, true>(op, out, scratch, tb, dm, stream);
 }
 
 }  // namespace

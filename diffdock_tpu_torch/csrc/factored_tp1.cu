@@ -1,5 +1,5 @@
 // Gen-1 factored tensor-product contraction, per class and path, on
-// Hopper's tensor cores, in float32 or bfloat16 operands.
+// Hopper's tensor cores, in float32 operands.
 //
 // Replaces diffdock_tpu/ops/pallas_tpconv.py:_kernel (the body of
 // factored_tp_messages_pallas). Per receiver row r and output class c it
@@ -26,11 +26,7 @@
 // row H of the A operand (p_b is P's row H); the CG weights of a column
 // are its path's d2-term dot; the weight rows come from T_c, with b_c as
 // row H. Rows past H+1 are not walked. Its bfloat16 mode (the casts to
-// xp.dtype, :140-198) takes xp, the CG matrix, T_c and b_c in bfloat16,
-// the harmonics in the caller's dtype, float32 or bfloat16, and h and mw
-// both in bfloat16 (H even) or both in float32, and leaves the last step
-// of the coupling's chain in float32 where a class has one path and
-// d3 = 1, as the TPU kernel gives under XLA.
+// xp.dtype, :140-198) is factored_tp_bf16.cu.
 //
 // Plain C interface (no PyTorch headers), built with nvcc into a shared
 // library and called through ctypes; see diffdock_tpu_torch/ops/factored_tp1.py.
@@ -100,15 +96,13 @@ long long factored_tp1_plan(const int* class_rows, int n_classes, const int* pat
   return scratch_floats(plan, n_rows, D);
 }
 
-// scratch: the floats factored_tp1_plan asks for; dtypes: 0 for the
-// float32 mode, else kDtBf16 (xp, cg, t_all and b_all bfloat16) with
-// kDtSh where sh is bfloat16 and kDtHid where h and mw are (else float32).
+// scratch: the floats factored_tp1_plan asks for; every operand float32.
 // Returns a cudaError_t.
-int factored_tp1_forward(const void* xp, const void* sh, const void* h, const void* mw,
-                         const void* cg, const void* t_all, const void* b_all, float* out,
+int factored_tp1_forward(const float* xp, const float* sh, const float* h, const float* mw,
+                         const float* cg, const float* t_all, const float* b_all, float* out,
                          float* scratch, const int* class_rows, int n_classes,
                          const int* path_rows, int n_paths, long long n_rows, int K, int XP,
-                         int J, int H, int CG_rows, int CG, int D, int dtypes, void* stream) {
+                         int J, int H, int CG_rows, int CG, int D, void* stream) {
   Tables tb;
   if (!read_tables(class_rows, n_classes, path_rows, n_paths, tb) || K < 1 || H < 1 ||
       !tables_ok(tb, XP, J, CG_rows, CG, D, true))
@@ -125,7 +119,7 @@ int factored_tp1_forward(const void* xp, const void* sh, const void* h, const vo
   dm.cg_rows = CG_rows;
   dm.cg_cols = CG;
   dm.D = D;
-  return launch<true>(op, out, scratch, tb, dm, dtypes, static_cast<cudaStream_t>(stream));
+  return launch<true>(op, out, scratch, tb, dm, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

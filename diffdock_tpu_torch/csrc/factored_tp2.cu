@@ -1,5 +1,5 @@
 // Gen-2 factored tensor-product contraction with the coupling inside the
-// kernel, on Hopper's tensor cores, in float32 or bfloat16 operands.
+// kernel, on Hopper's tensor cores, in float32 operands.
 //
 // Replaces diffdock_tpu/ops/pallas_tpconv2.py:_kernel (the body of
 // _forward_pallas). Per receiver row r and output class c it computes
@@ -26,8 +26,7 @@
 // sums. Gen 2's own parts: the hidden rows come from h_aug, the CG weights
 // of a column are the dense sh @ CG over the rows where that column is not
 // zero, and the weight rows from one (He, fan, mul) block per class. Its
-// bfloat16 mode (_forward_pallas's dt, :219) takes every operand in
-// bfloat16, as the TPU wrapper casts them (:220-245).
+// bfloat16 mode (_forward_pallas's dt, :219) is factored_tp_bf16.cu.
 //
 // Plain C interface (no PyTorch headers), built with nvcc into a shared
 // library and called through ctypes; see diffdock_tpu_torch/ops/factored_tp2.py.
@@ -94,14 +93,12 @@ long long factored_tp2_plan(const int* class_rows, int n_classes, const int* pat
   return scratch_floats(plan, n_rows, D);
 }
 
-// scratch: the floats factored_tp2_plan asks for; dtypes: 0 for the
-// float32 mode, 7 (kDtBf16 | kDtSh | kDtHid) for the bfloat16 mode, where
-// xp, sh, h_aug, cg and weights are all bfloat16. Returns a cudaError_t.
-int factored_tp2_forward(const void* xp, const void* sh, const void* h_aug, const void* cg,
-                         const void* weights, float* out, float* scratch, const int* class_rows,
+// scratch: the floats factored_tp2_plan asks for; every operand float32.
+// Returns a cudaError_t.
+int factored_tp2_forward(const float* xp, const float* sh, const float* h_aug, const float* cg,
+                         const float* weights, float* out, float* scratch, const int* class_rows,
                          int n_classes, const int* path_rows, int n_paths, long long n_rows,
-                         int K, int XP, int J, int He, int Ha, int CG, int D, int dtypes,
-                         void* stream) {
+                         int K, int XP, int J, int He, int Ha, int CG, int D, void* stream) {
   Tables tb;
   if (!read_tables(class_rows, n_classes, path_rows, n_paths, tb) || K < 1 || Ha < 1 ||
       Ha > He || !tables_ok(tb, XP, J, J, CG, D, false))
@@ -118,7 +115,7 @@ int factored_tp2_forward(const void* xp, const void* sh, const void* h_aug, cons
   dm.cg_rows = J;
   dm.cg_cols = CG;
   dm.D = D;
-  return launch<false>(op, out, scratch, tb, dm, dtypes, static_cast<cudaStream_t>(stream));
+  return launch<false>(op, out, scratch, tb, dm, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

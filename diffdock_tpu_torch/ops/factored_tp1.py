@@ -27,14 +27,17 @@ with an output class that has no path is refused with a ``ValueError``
 (the JAX function divides by sqrt(0) there).
 
 A bfloat16 ``x_nbr`` selects the bfloat16 mode, as ``dt = x_nbr.dtype``
-does in the TPU wrapper: ``xp``, the CG matrix and the weights and bias in
-bfloat16, ``edge_sh``, ``h`` and ``mw`` in the caller's dtypes (each
-float32 or bfloat16; the kernel takes ``h`` and ``mw`` both bfloat16 with
-an even H or else both float32, so :func:`prepare` widens the others,
-exactly), the rounding points of
+does in the TPU wrapper: ``x_nbr``, the CG matrix and the weights and bias
+in bfloat16, ``edge_sh``, ``h`` and ``mw`` in the caller's dtypes (each
+float32 or bfloat16; a float32 ``h`` or ``mw`` goes to the kernel as
+three bfloat16 parts of each, an exact sum), the rounding points of
 :func:`~diffdock_tpu_torch.ops.factored_tp2.factored_tp_bf16_reference`
 with ``gen=1``, its plain version (the coupling chain's last step in
 float32 where a class has one path and d3 = 1, as XLA runs the Pallas body).
+It runs on gen 2's bfloat16 kernel, ``csrc/factored_tp_bf16.cu``
+(:func:`~diffdock_tpu_torch.ops.factored_tp2.prepare_bf16` and
+:func:`~diffdock_tpu_torch.ops.factored_tp2.launch_bf16` with ``gen=1``),
+built once, into gen 2's library.
 """
 
 from __future__ import annotations
@@ -46,18 +49,17 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from diffdock_tpu_torch.ops import factored_tp2
 from diffdock_tpu_torch.ops.factored_tp2 import (
-    DT_BF16,
-    DT_HID,
-    DT_SH,
     check_no_empty_class,
     check_operands,
     check_tables,
     checked_plan,
     factored_tp_bf16_reference,
     factored_tp_reference,
+    launch_bf16,
     pack_neighbors,
-    pad_even,
+    prepare_bf16,
 )
 from diffdock_tpu_torch.ops.fused_tp3 import LaunchCounts
 from diffdock_tpu_torch.utils import build
@@ -65,8 +67,6 @@ from diffdock_tpu_torch.utils import build
 _SOURCES = ("factored_tp1.cu",)
 
 counts = LaunchCounts("factored_tp1", "factored_tp1_bf16")
-MODES = {torch.float32: "factored_tp1", torch.bfloat16: "factored_tp1_bf16"}
-_BOTH = (torch.float32, torch.bfloat16)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,25 +145,16 @@ def class_table(specs, H: int) -> Tuple[np.ndarray, np.ndarray]:
 
 def prepare(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias):
     """The torch side of the kernel call: (xp, edge_sh, h, mw, cg_all,
-    packed T, packed b, class rows, path rows). A bfloat16 ``x_nbr`` casts
-    the CG matrix, T and b to bfloat16 and leaves ``edge_sh``, ``h`` and
-    ``mw`` in their dtypes, as the TPU wrapper does, but for one exact
-    widening: ``h`` and ``mw`` go to the kernel both bfloat16 with an even
-    H (staged as pairs) or else both float32."""
+    packed T, packed b, class rows, path rows). A bfloat16 ``x_nbr`` selects
+    the bfloat16 kernel: :func:`~diffdock_tpu_torch.ops.factored_tp2.prepare_bf16`
+    with ``gen=1``."""
+    if x_nbr.dtype == torch.bfloat16:
+        return prepare_bf16(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias, gen=1)
     check_no_empty_class(tp, "factored_tp1")
     specs, cg_all, _xp_dim, _out_dim = build_specs(tp)
     H = h.shape[-1]
     xp = pack_neighbors(tp, x_nbr).contiguous()
-    if x_nbr.dtype == torch.bfloat16:
-        out_kernel, out_bias = out_kernel.to(torch.bfloat16), out_bias.to(torch.bfloat16)
-        # the kernel copies bfloat16 in aligned pairs: even widths
-        xp = pad_even(xp)
-        if edge_sh.dtype == torch.bfloat16:
-            edge_sh = pad_even(edge_sh)
-        if not (h.dtype == mw.dtype == torch.bfloat16 and H % 2 == 0):
-            h, mw = h.float(), mw.float()
-    else:
-        mw = mw.to(h.dtype)
+    mw = mw.to(h.dtype)
     t_list, b_list = [], []
     off = 0
     for s in specs:
@@ -184,10 +175,8 @@ class _Kernel:
         lib = build.load("factored_tp1", _SOURCES)
         fn = lib.factored_tp1_forward
         fn.argtypes = [ctypes.c_void_p] * 10 + [
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+        ] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         plan = lib.factored_tp1_plan
         plan.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
@@ -215,29 +204,25 @@ def _get_kernel() -> _Kernel:
     return _kernel
 
 
-def launch(xp, sh, h, mw, cg, t_all, b_all, cls_rows, path_rows, out_dim: int) -> torch.Tensor:
-    """Launch the kernel on prepared operands (see :func:`prepare`), in the
-    mode of ``xp``'s dtype: float32 takes every operand in float32;
-    bfloat16 takes ``cg``, ``t_all`` and ``b_all`` in bfloat16, ``sh`` in
-    float32 or bfloat16, and ``h`` and ``mw`` both in float32 or both in
-    bfloat16 (then H even). Returns (N, out_dim) f32 in e3nn layout."""
-    mode = MODES.get(xp.dtype)
-    if mode is None:
-        raise TypeError(f"factored_tp1: xp must be float32 or bfloat16, got {xp.dtype}")
-    caller = _BOTH if xp.dtype == torch.bfloat16 else (torch.float32,)
-    check_operands("factored_tp1", (("xp", xp), ("edge_sh", sh, caller), ("h", h, caller),
-                                    ("mw", mw, caller), ("cg", cg), ("out_kernel", t_all),
-                                    ("out_bias", b_all)), (xp.dtype,))
+def launch(*ops) -> torch.Tensor:
+    """Launch a kernel on prepared operands and the output width,
+    ``launch(*prepare(...), out_dim)``: the float32 kernel on float32
+    operands, gen 2's bfloat16 kernel
+    (:func:`~diffdock_tpu_torch.ops.factored_tp2.launch_bf16`) on bfloat16
+    ones. Returns (N, out_dim) f32 in e3nn layout."""
+    if ops[0].dtype == torch.bfloat16:
+        return launch_bf16(factored_tp2._get_kernel().bf16, counts, "factored_tp1_bf16", *ops)
+    if ops[0].dtype != torch.float32:
+        raise TypeError(f"factored_tp1: xp must be float32 or bfloat16, got {ops[0].dtype}")
+    return _launch_f32(*ops)
+
+
+def _launch_f32(xp, sh, h, mw, cg, t_all, b_all, cls_rows, path_rows, out_dim: int) -> torch.Tensor:
+    check_operands("factored_tp1", (("xp", xp), ("edge_sh", sh), ("h", h), ("mw", mw),
+                                    ("cg", cg), ("out_kernel", t_all), ("out_bias", b_all)))
     N, K, XP = xp.shape
     J = sh.shape[-1]
     H = h.shape[-1]
-    dtypes = 0
-    if xp.dtype == torch.bfloat16:
-        if mw.dtype != h.dtype or (h.dtype == torch.bfloat16 and H % 2):
-            raise TypeError(f"factored_tp1: h ({h.dtype}, H = {H}) and mw ({mw.dtype}) must be both "
-                            "float32 or both bfloat16 with an even H (see prepare)")
-        dtypes = DT_BF16 | (DT_SH if sh.dtype == torch.bfloat16 else 0) | \
-            (DT_HID if h.dtype == torch.bfloat16 else 0)
     if sh.shape[:2] != (N, K) or h.shape[:2] != (N, K) or mw.shape != (N, K):
         raise ValueError(f"factored_tp1: operand shapes xp {tuple(xp.shape)}, edge_sh "
                          f"{tuple(sh.shape)}, h {tuple(h.shape)}, mw {tuple(mw.shape)} disagree")
@@ -258,12 +243,12 @@ def launch(xp, sh, h, mw, cg, t_all, b_all, cls_rows, path_rows, out_dim: int) -
         xp.data_ptr(), sh.data_ptr(), h.data_ptr(), mw.data_ptr(), cg.data_ptr(),
         t_all.data_ptr(), b_all.data_ptr(), out.data_ptr(), scratch.data_ptr(),
         cls_rows.ctypes.data, cls_rows.shape[0], path_rows.ctypes.data, path_rows.shape[0],
-        N, K, XP, J, H, cg.shape[0], cg.shape[1], out_dim, dtypes,
+        N, K, XP, J, H, cg.shape[0], cg.shape[1], out_dim,
         torch.cuda.current_stream(xp.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"{mode} kernel launch failed: cudaError {err}")
-    counts.add(mode)
+        raise RuntimeError(f"factored_tp1 kernel launch failed: cudaError {err}")
+    counts.add("factored_tp1")
     return out
 
 

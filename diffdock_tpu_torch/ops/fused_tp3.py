@@ -51,7 +51,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -455,26 +455,33 @@ def _bf16_plan(table, n_rows, K, H, n_sm):
 _pack_index: Dict[tuple, torch.Tensor] = {}
 
 
-def _bf16_weight_index(table: np.ndarray, H: int, plan: Bf16Plan) -> np.ndarray:
-    """For each element of the packed weights, its index in the class blocks
-    (H+1, fan, mul) flattened one after the other, or the index one past
-    their end (a zero). Per slice, chunks of [mul][64 depth], depth k =
-    u*HP + h (h < H the hidden rows, h = He the bias), the 8-element groups
-    of row w stored at group q ^ (w & 7)."""
-    H1 = H + 1
-    base = np.concatenate([[0], np.cumsum(H1 * table[:, 1] * table[:, 3])])
+def swizzled_weight_index(slices, class_sizes: Sequence[int], H: int, HP: int,
+                          He: int) -> np.ndarray:
+    """For each element of weights packed per column slice, its index in the
+    class blocks (H+1, fan, mul) flattened one after the other (of
+    ``class_sizes`` elements), or the index one past their end (a zero).
+    ``slices``: (class, u0, nu, fan, mul, depth) each. Per slice, chunks of
+    [mul][64 depth], depth k = u*HP + h (h < H the hidden rows, h = He the
+    bias), the 8-element groups of row w stored at group q ^ (w & 7)."""
+    base = np.concatenate([[0], np.cumsum(class_sizes)])
     zero = int(base[-1])
     parts = []
-    for sl in plan.slices:
-        n_sub = sl.depth // 64
-        j, w, pos = np.meshgrid(np.arange(n_sub), np.arange(sl.mul), np.arange(64), indexing="ij")
+    for cls, u0, nu, fan, mul, depth in slices:
+        j, w, pos = np.meshgrid(np.arange(depth // 64), np.arange(mul), np.arange(64), indexing="ij")
         k = j * 64 + ((pos // 8) ^ (w & 7)) * 8 + pos % 8
-        uu, h = k // plan.HP, k % plan.HP
-        live = (uu < sl.nu) & ((h < H) | (h == plan.He))
+        uu, h = k // HP, k % HP
+        live = (uu < nu) & ((h < H) | (h == He))
         hsrc = np.where(h < H, h, H)
-        idx = base[sl.cls] + (hsrc * sl.fan + sl.u0 + uu) * sl.mul + w
+        idx = base[cls] + (hsrc * fan + u0 + uu) * mul + w
         parts.append(np.where(live, idx, zero).reshape(-1))
     return np.concatenate(parts)
+
+
+def _bf16_weight_index(table: np.ndarray, H: int, plan: Bf16Plan) -> np.ndarray:
+    """:func:`swizzled_weight_index` of the plan's slices."""
+    return swizzled_weight_index(
+        [(sl.cls, sl.u0, sl.nu, sl.fan, sl.mul, sl.depth) for sl in plan.slices],
+        (H + 1) * table[:, 1] * table[:, 3], H, plan.HP, plan.He)
 
 
 def pack_bf16_weights(blocks: List[torch.Tensor], table: np.ndarray, H: int,

@@ -2,7 +2,7 @@
 the seven blocks of ``chip_smoke.py`` phase H1, in float32 and, where the
 tree has it, in bfloat16, on one CUDA card.
 
-    python scripts/tp21_blocks.py [--tree DIR] [--iters N] [--json PATH]
+    python scripts/tp21_blocks.py [--tree DIR] [--iters N] [--modes M,...] [--json PATH]
 
 ``--tree`` names a checkout whose ``diffdock_tpu_torch`` is timed (default:
 this one), so that two commits can be timed in one run on one card
@@ -10,7 +10,10 @@ this one), so that two commits can be timed in one run on one card
 ``scripts/tp3_bf16_blocks.py`` (block i from seed i). Each row gives the
 kernel's largest error against its plain version (as a share of its
 scale) and the kernel's time (CUDA events, mean of ``--iters`` launches of
-``launch`` on prepared operands after 3 warm-up calls), per mode. Exits
+``launch`` on prepared operands after 3 warm-up calls), per mode
+(``--modes``: float32, bfloat16 or both, the default), and in
+bfloat16 also the whole call's (the wrapper: ``prepare`` and ``launch``).
+Exits
 non-zero without a card or when a kernel disagrees with its plain version
 (1e-4 of scale in float32, 1e-3 in bfloat16).
 """
@@ -41,6 +44,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parent.parent))
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--modes", default="float32,bfloat16")
     ap.add_argument("--json", default=None)
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.tree).resolve()))
@@ -72,6 +76,7 @@ def main(argv=None) -> int:
             modes = {"float32": inp}
             if has_bf16:
                 modes["bfloat16"] = [a.to(torch.bfloat16) for a in inp[:4]] + list(inp[4:])
+            modes = {k: v for k, v in modes.items() if k in args.modes.split(",")}
             out = {}
             for mode, a in modes.items():
                 for gen, m in ((2, f2), (1, f1)):
@@ -83,12 +88,17 @@ def main(argv=None) -> int:
                     err = (got - ref).abs().max().item() / max(ref.abs().max().item(), 1.0)
                     ms = cs.cuda_ms(lambda: m.launch(*ops, tp.irreps_out.dim), args.iters)
                     out[f"gen{gen}_{mode}"] = {"err_of_scale": err, "ms": ms}
+                    if mode == "bfloat16":
+                        fn = f2.factored_tp2 if gen == 2 else f1.factored_tp1
+                        out[f"gen{gen}_{mode}"]["wrapper_ms"] = cs.cuda_ms(lambda: fn(tp, *a),
+                                                                           args.iters)
                     if not err <= RTOL[mode]:
                         bad.append((label, gen, mode, err))
                     del ops, got, ref
             rows_out[label] = {"rows": rows, "K": K, "H": H, **out}
             print(f"{label:30s} R={rows:5d} K={K:4d} H+1={H + 1}: " + " | ".join(
-                f"{k} {v['ms']:.4f} ms (err {v['err_of_scale']:.1e})" for k, v in out.items()),
+                f"{k} {v['ms']:.4f} ms" + (f" (call {v['wrapper_ms']:.4f})" if "wrapper_ms" in v else "")
+                + f" (err {v['err_of_scale']:.1e})" for k, v in out.items()),
                 flush=True)
             del inp, modes
     report = {"tree": os.path.abspath(args.tree), "card": card, "blocks": rows_out}

@@ -359,3 +359,56 @@ def test_fused_tp3_bf16_two_launches_are_bit_identical(rows, K, H1):
     second = ft.fused_tp3(tp, *args)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+# the bfloat16 kernel of gens 2 and 1 (csrc/factored_tp_bf16.cu) at the
+# edges of its plan: one neighbour; K not a multiple of 16 (stages of 16,
+# 32, 64 with zeros past K); K >= 256, where the two consumer warpgroups
+# split each receiver's neighbours (and an odd stage count); receiver counts
+# that are not a multiple of the block's receivers, in the mode where a
+# block takes every slice and where it takes one class; slices whose first
+# coupled column is not 8-aligned (DiffDock-L's (78, 3) class starts at
+# column 58, its slices at 60-column steps; "5x0e + 3x1o" classes of odd
+# widths); gen 1's chain_f32 classes, and its mixed case (float32 sh, h,
+# mw); H with a partial hidden box and an odd H
+FACTORED_BF16_EDGES = [
+    ("diffdock_l", 50, 1, 145), ("diffdock_l", 37, 23, 145), ("diffdock_l", 41, 33, 145),
+    ("diffdock_l", 3203, 32, 145), ("diffdock_l", 7, 257, 145), ("confidence", 10, 300, 73),
+    ("confidence", 5, 449, 73), ("confidence", 2001, 6, 73), ("odd", 29, 17, 24),
+    ("chain_f32", 61, 19, 24), ("chain_f32", 17, 70, 23), ("chain_f32", 5, 260, 100),
+]
+
+
+def _edge_tp(model):
+    if model == "odd":
+        return FullyConnectedTensorProduct("5x0e + 3x1o + 1x2e", SH, "5x0e + 3x1o + 3x1e + 1x2e")
+    if model == "chain_f32":  # a one-path d3 = 1 class of three-term chains (2x0o)
+        return FullyConnectedTensorProduct("8x0e + 2x1o + 2x1e", SH, "8x0e + 2x1o + 2x1e + 2x0o")
+    return _gen21_tp(model, (3, 3))
+
+
+@pytest.mark.parametrize("gen", [2, 1])
+@pytest.mark.parametrize("model,rows,K,H1", FACTORED_BF16_EDGES)
+def test_factored_bf16_kernel_at_its_plan_edges(gen, model, rows, K, H1):
+    """The bfloat16 kernel against ``factored_tp_bf16_reference``, within
+    1e-3 of scale, the same bits from a second launch, one launch counted
+    per call; gen 1 also in its mixed case."""
+    from diffdock_tpu_torch.ops import factored_tp1 as f1
+    from diffdock_tpu_torch.ops import factored_tp2 as f2
+
+    dev = _card()
+    tp = _edge_tp(model)
+    x, sh, h, mw, wk, wb = _inputs(tp, rows, K, H1 - 1, dev, seed=7)
+    m, fn = (f2, f2.factored_tp2) if gen == 2 else (f1, f1.factored_tp1)
+    cases = [(x.bfloat16(), sh.bfloat16(), h.bfloat16(), mw.bfloat16(), wk, wb)]
+    if gen == 1:
+        cases.append((x.bfloat16(), sh, h, mw, wk, wb))
+    for args in cases:
+        before = m.counts[f"factored_tp{gen}_bf16"]
+        out = fn(tp, *args)
+        again = fn(tp, *args)
+        ref = f2.factored_tp_bf16_reference(tp, *args, gen=gen)
+        torch.cuda.synchronize()
+        assert m.counts[f"factored_tp{gen}_bf16"] == before + 2
+        assert out.dtype == torch.float32 and torch.equal(out, again)
+        assert (out - ref).abs().max().item() <= 1e-3 * max(ref.abs().max().item(), 1.0)

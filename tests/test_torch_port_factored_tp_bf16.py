@@ -16,9 +16,9 @@ The gates are those of the message in ``tests/test_torch_port_bf16.py``:
 the port within 1e-3 of the output's scale (both round at the same places
 and differ in the order of float32 sums, so a rounding near a tie may go
 the other way) and within 0.2 of JAX's own bfloat16-vs-float32 gap in RMS,
-which a port that computes in float32 fails. The CPU walk of the kernels'
-blocking in ``tests/test_torch_port_tp21_tiles.py`` (the bfloat16 mode
-tiles as the float32 one) is held to the same plain version.
+which a port that computes in float32 fails. The CPU walk of the bfloat16
+kernel's blocking, ``tests/test_torch_port_tp21_bf16_tiles.py``, is held to
+the same plain version.
 """
 
 import jax.numpy as jnp
@@ -33,8 +33,6 @@ from diffdock_tpu_torch.ops import factored_tp1 as f1
 from diffdock_tpu_torch.ops import factored_tp2 as f2
 from diffdock_tpu_torch.ops.tensor_product import FullyConnectedTensorProduct
 from tests.test_torch_port_factored_tp import IRREPS, SH, _inputs
-from tests.test_torch_port_tp21_tiles import CONFIDENCE, HIGH_ORDER, SCORE, walk
-from tests.test_torch_port_tp21_tiles import _inputs as _walk_inputs
 
 BF16 = torch.bfloat16
 # classes of one path and d3 = 1, whose chain gen 1 ends in float32: the
@@ -181,31 +179,6 @@ def test_coupling_chain_rounds_each_operation():
     assert np.abs(rounded_once.numpy() - ref).max() > MESSAGE_RTOL * scale
 
 
-@pytest.mark.parametrize("gen", [2, 1])
-@pytest.mark.parametrize("irreps,rows,K,H1,mixed", [
-    (SCORE, 13, 7, 145, False), (SCORE, 9, 33, 17, True), (CONFIDENCE, 21, 33, 73, False),
-    (CONFIDENCE, 3, 1, 145, True), (HIGH_ORDER, 17, 7, 33, False),
-    (CHAIN_F32[0], 11, 9, 49, False), (CHAIN_F32[1], 7, 12, 25, True),
-])
-def test_walk_in_bf16_rebuilds_the_plain_version(gen, irreps, rows, K, H1, mixed):
-    """The kernels' blocking walked in the bfloat16 mode (the rounding
-    points in the kernels' own order, one TF32 pass for exact operands)
-    rebuilds ``factored_tp_bf16_reference``; ``mixed``: gen 1 with a
-    float32 h and mw (two passes), gen 2 with float32 inputs it casts."""
-    tp = FullyConnectedTensorProduct(irreps[0], SH, irreps[1])
-    x, sh, h, mw, wk, wb = _walk_inputs(tp, rows, K, H1 - 1, seed=rows + K)
-    x = x.to(BF16)
-    if not mixed:
-        sh, h, mw = sh.to(BF16), h.to(BF16), mw.to(BF16)
-    args = (x, sh, h, mw, wk, wb)
-    ops = (f2 if gen == 2 else f1).prepare(tp, *args)
-    assert ops[0].dtype == BF16
-    ref = f2.factored_tp_bf16_reference(tp, *args, gen=gen)
-    got = walk(gen, ops)
-    scale = max(ref.abs().max().item(), 1.0)
-    assert (got - ref).abs().max().item() <= MESSAGE_RTOL * scale
-
-
 @pytest.mark.parametrize("irreps", CHAIN_F32)
 def test_gen1_ends_a_lone_chain_in_float32(irreps):
     """Gen 1's Pallas body, where a class has one path and d3 = 1, hands
@@ -229,38 +202,47 @@ def test_gen1_ends_a_lone_chain_in_float32(irreps):
 
 
 def test_gen1_prepare_widens_a_mixed_hidden_pair():
-    """Gen 1's bfloat16 mode takes h and mw both bfloat16 with an even H
-    (staged as pairs), else both float32: prepare widens them, exactly."""
+    """Gen 1's bfloat16 mode keeps h and mw in their dtypes, as JAX does
+    (float32 products where either is float32): prepare hands a float32 or
+    mixed pair to the kernel as three bfloat16 parts of each, whose sum is
+    the float32 value exactly, and a bfloat16 pair of any H as it is."""
     tp, _ = _tps(IRREPS[0])
     x, sh, h, mw, wk, wb = (torch.from_numpy(a) for a in _inputs(tp, 5, 3, h_dim=7, seed=4))
     xb = x.to(BF16)
-    for hh, mm in ((h.to(BF16), mw), (h, mw.to(BF16)), (h.to(BF16), mw.to(BF16))):  # H = 7: odd
-        *_, h1, mw1 = f1.prepare(tp, xb, sh, hh, mm, wk, wb)[:4]
-        assert h1.dtype == mw1.dtype == torch.float32
-        assert torch.equal(h1, hh.float()) and torch.equal(mw1, mm.float())
-    h6 = h[..., :6].to(BF16)
-    *_, h1, mw1 = f1.prepare(tp, xb, sh, h6, mw.to(BF16), wk[:6], wb)[:4]
-    assert h1.dtype == mw1.dtype == BF16
+    for hh, mm in ((h.to(BF16), mw), (h, mw.to(BF16)), (h, mw)):  # H = 7: odd
+        _xs, h1, mw1, *_, call = f1.prepare(tp, xb, sh, hh, mm, wk, wb)
+        assert call.parts == 3 and h1.dtype == mw1.dtype == BF16
+        assert torch.equal(sum(h1[..., 8 * q: 8 * q + 7].float() for q in range(3)), hh.float())
+        assert torch.equal(mw1.float().sum(1), mm.float())
+    _xs, h1, mw1, *_, call = f1.prepare(tp, xb, sh, h.to(BF16), mw.to(BF16), wk, wb)
+    assert call.parts == 1 and torch.equal(h1, h.to(BF16))
 
 
 def test_prepare_casts_as_each_tpu_wrapper():
-    """Gen 2 casts every operand to bfloat16 once (weights with the bias
-    as row H, the CG matrix); gen 1 casts xp, the CG matrix and T and b,
-    and keeps sh, h and mw in their dtypes."""
+    """Gen 2 casts every operand to bfloat16 once (sh, h and mw; the CG
+    matrix and the weights with the bias as row H, unscaled); gen 1 casts
+    x, the CG matrix and T and b, and keeps sh, h and mw in their dtypes
+    (a float32 sh goes to the kernel as three bfloat16 parts, exactly)."""
     tp, _ = _tps(IRREPS[0])
     x, sh, h, mw, wk, wb = (torch.from_numpy(a) for a in _inputs(tp, 5, 3, h_dim=6, seed=2))
     xb = x.to(BF16)
-    xp, sh2, h_aug, Ha, cg, weights, *_ = f2.prepare(tp, xb, sh, h, mw, wk, wb)
-    assert all(t.dtype == BF16 for t in (xp, sh2, h_aug, cg, weights))
-    assert torch.equal(h_aug[..., :6], h.to(BF16)) and torch.equal(h_aug[..., 6], mw.to(BF16))
-    specs = f2.build_specs2(tp)[0]
-    fan, mul = specs[0].fan, specs[0].mul_out
-    block = weights[: 16 * fan * mul].reshape(16, fan, mul)
-    assert torch.equal(block[:6], wk[:, : fan * mul].reshape(6, fan, mul).to(BF16))
-    assert torch.equal(block[6], wb[: fan * mul].reshape(fan, mul).to(BF16))
-    xp1, sh1, h1, mw1, cg1, t_all, b_all, *_ = f1.prepare(tp, xb, sh, h, mw, wk, wb)
-    assert xp1.dtype == cg1.dtype == t_all.dtype == b_all.dtype == BF16
-    assert sh1.dtype == h1.dtype == mw1.dtype == torch.float32
+    xs, h2, mw2, cg, weights, _geo, call = f2.prepare(tp, xb, sh, h, mw, wk, wb)
+    assert all(t.dtype == BF16 for t in (xs, h2, mw2, cg, weights)) and call.parts == 1
+    assert not call.sh_f32 and torch.equal(h2, h.to(BF16)) and torch.equal(mw2[:, 0], mw.to(BF16))
+    assert torch.equal(xs[..., :call.J], sh.to(BF16))
+    assert torch.equal(xs[..., f2.BF16_MAX_J:f2.BF16_MAX_J + call.F], xb)
+    slices = call.slices
+    plan = f2.bf16_plan(slices, 5, 3, 6, call.F, call.J, False, False)
+    packed = f2.bf16_weight_index(slices, plan)
+    flat = torch.cat([b for off, fan, mul in tp.weight_slices()
+                      for b in (wk[:, off:off + fan * mul].reshape(-1), wb[off:off + fan * mul])]
+                     + [wb.new_zeros(1)])
+    assert torch.equal(weights, flat.to(BF16)[torch.from_numpy(packed)])
+    xs1, h1, mw1, cg1, w1, _g, call1 = f1.prepare(tp, xb, sh, h, mw, wk, wb)
+    assert xs1.dtype == cg1.dtype == w1.dtype == BF16 and call1.sh_f32
+    parts = [xs1[..., q * f2.BF16_MAX_J:q * f2.BF16_MAX_J + call1.J].float() for q in range(3)]
+    assert torch.equal(parts[0] + parts[1] + parts[2], sh)
+    assert call1.parts == 3
 
 
 def test_bf16_mode_refuses_gradients_and_unknown_dtypes():

@@ -31,6 +31,50 @@ NAMES = sorted(p.name for p in SYNTH.glob("syn*"))
 SAMPLE = sorted(set(NAMES[::10]) | {"syn045_l8r1547"})
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_library():
+    """The JAX package's native library, loaded before any comparison.
+
+    ``diffdock_tpu.native`` runs ``make`` when ``native/libgraphops.so`` is
+    missing, g++ writes that file in place, and a failed load is remembered
+    for the life of the process: a test process that loads while another
+    is still writing the file would compare against the numpy path for the
+    whole run. So, under a file lock shared by all test processes, the
+    library is built (with the Makefile's own flags, to a temporary name
+    moved into place) if it is missing or does not load, and the JAX
+    package's loader is asked again after a failure it recorded. If it
+    still cannot load, every test of this file fails with the reason."""
+    import ctypes
+    import fcntl
+    import os
+    import subprocess
+
+    from diffdock_tpu import native as jnative
+
+    lib = jnative._LIB_PATH
+    lock_dir = REPO / "diffdock_tpu_torch" / "_build"
+    lock_dir.mkdir(parents=True, exist_ok=True)
+    with open(lock_dir / "jax_graphops.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if jnative._lib is None:
+                try:
+                    ctypes.CDLL(str(lib))
+                except OSError:
+                    tmp = lock_dir / f"libgraphops.{os.getpid()}.so"
+                    proc = subprocess.run(["make", "-C", str(lib.parent), f"OUT={tmp}"],
+                                          capture_output=True, text=True, timeout=300)
+                    if proc.returncode != 0:
+                        pytest.fail(f"building {lib} failed:\n{proc.stdout}{proc.stderr}")
+                    os.replace(tmp, lib)
+                jnative._tried = False
+                if jnative._load() is None:
+                    pytest.fail(f"the JAX package's native library {lib} does not load")
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    yield
+
+
 @pytest.fixture(autouse=True)
 def _one_thread():
     n = torch.get_num_threads()

@@ -12,12 +12,8 @@ groups of up to 80 rows (whole 16-row tiles) with the bias as row H, the
 P tiles laid out as the weight product's depth rows, the scratch parts of
 each (slice, group) summed in the kernel's order, and every product in
 3xTF32. It must rebuild ``factored_tp_reference``, so an indexing fault
-shows before the card. On bfloat16 operands it walks the bfloat16 mode
-(same blocking; the CG weights, each step of the coupling's chain and P
-rounded to bfloat16, but the chain's last step in gen 1's classes of one
-path and d3 = 1, the products exact in one TF32 pass, or a float32
-operand's two passes), which ``tests/test_torch_port_factored_tp_bf16.py``
-holds to ``factored_tp_bf16_reference``.
+shows before the card. The bfloat16 modes are a kernel of their own,
+walked in ``tests/test_torch_port_tp21_bf16_tiles.py``.
 """
 
 import math
@@ -26,8 +22,8 @@ import numpy as np
 import pytest
 import torch
 
-# the kernels' TF32 rounding and 3xTF32 product, as the gen-3 walk has them
-from test_torch_port_tp3_tiles import mm_3xtf32, tf32
+# the kernels' 3xTF32 product, as the gen-3 walk has it
+from test_torch_port_tp3_tiles import mm_3xtf32
 
 from diffdock_tpu_torch.ops import factored_tp1 as f1
 from diffdock_tpu_torch.ops import factored_tp2 as f2
@@ -77,36 +73,18 @@ def slice_tables(paths, d3, u0, nu, cg, col0, gen):
 
 def walk(gen, ops):
     """The kernel's result, block by block, from the wrapper's prepared
-    operands (either mode)."""
-    bf = ops[0].dtype == torch.bfloat16
+    operands."""
     if gen == 2:
         xp, sh, hid, Ha, cg, weights, cls_rows, path_rows = ops  # hid: h_aug (N, K, He)
         N, K, _ = xp.shape
         He = hid.shape[2]
-        a_exact = bf
-        xp, sh, hid, cg, weights = (t.float() for t in (xp, sh, hid, cg, weights))
     else:
         xp, sh, h, mw, cg, t_all, b_all, cls_rows, path_rows = ops
         N, K, _ = xp.shape
         H = h.shape[-1]
         Ha = H + 1
-        a_exact = bf and h.dtype == mw.dtype == torch.bfloat16
-        hid = torch.cat([h.float(), mw.float()[..., None]], dim=-1)  # mw is row H
-        xp, sh, cg, t_all, b_all = (t.float() for t in (xp, sh, cg, t_all, b_all))
-
-    def rnd(t):  # the bfloat16 mode's rounding
-        return t.to(torch.bfloat16).float() if bf else t
-
-    def mm(a, b, b_exact=True):  # a tensor-core product of the mode
-        if not bf or not (a_exact or b_exact):
-            return mm_3xtf32(a, b)
-        if not b_exact:  # a float32 chain's last step (chain_f32)
-            bh = tf32(b)
-            return a @ tf32(b - bh) + a @ bh
-        if a_exact:
-            return a @ b
-        ah = tf32(a)
-        return tf32(a - ah) @ b + ah @ b
+        hid = torch.cat([h, mw[..., None]], dim=-1)  # mw is row H
+    mm = mm_3xtf32  # a tensor-core product
     J = sh.shape[-1]
     plan = f2.tile_plan(cls_rows, path_rows, Ha, J)
     hr, G, tr = plan.hidden_rows, plan.n_groups, f2.TILE_ROWS
@@ -122,9 +100,6 @@ def walk(gen, ops):
     for c, row in enumerate(cls_rows.tolist()):
         fan, d3, mul, out_off, col0, _nc, p0, n_paths = row[:8]
         paths = path_rows[p0:p0 + n_paths]
-        # gen 1 in bfloat16 leaves the last step of a chain in float32 where
-        # the class has one path and d3 = 1
-        chain_f32 = bf and gen == 1 and n_paths == 1 and d3 == 1
         # the weight rows of the walk's hidden rows: row H is the bias
         w_rows = torch.zeros(G * hr, fan, mul)
         if gen == 2:
@@ -144,20 +119,14 @@ def walk(gen, ops):
             for cc, (so, ro, n) in enumerate(wcol):
                 for t in range(n):
                     w_s[:, :, cc] += sh[:, :, so + t] * cg[ro + t, col0 + sl.cw0 + cc]
-            w_s = rnd(w_s)
-            # the coupled B columns (Np, K, nu*d3); in bfloat16 each product
-            # and each partial sum rounds, but a chain_f32 column's last step
+            # the coupled B columns (Np, K, nu*d3)
             b_s = torch.zeros(Np, K, nu * d3)
             for j, (xoff, xstr, woff, d1) in enumerate(colinfo):
                 for i in range(d1):
-                    pr = x_s[:, :, xoff + i * xstr] * w_s[:, :, woff + i * d3]
-                    if chain_f32 and i == d1 - 1:
-                        b_s[:, :, j] = pr if i == 0 else b_s[:, :, j] + rnd(pr)
-                    else:
-                        b_s[:, :, j] = rnd(b_s[:, :, j] + rnd(pr))
+                    b_s[:, :, j] += x_s[:, :, xoff + i * xstr] * w_s[:, :, woff + i * d3]
             for g in range(G):
                 a = a_all[:, :, g * hr:(g + 1) * hr].transpose(1, 2)  # (Np, hr, K)
-                p = rnd(mm(a, b_s, not chain_f32))  # (Np, hr, nu*d3): one warp's registers
+                p = mm(a, b_s)  # (Np, hr, nu*d3): one warp's registers
                 # shared memory: ps[tile][(uu*hr + hh), t*d3 + d]
                 ps = (p.reshape(n_tiles, tr, hr, nu, d3).permute(0, 3, 2, 1, 4)
                       .reshape(n_tiles, nu * hr, tr * d3))
