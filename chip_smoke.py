@@ -207,6 +207,29 @@ I. the bfloat16 modes of gens 2 and 1, and training from the other data
    padded to one bucket), through the kernels and through the plain
    versions with the same draws: the same receptor crop, within phase E3's
    limits; the share of receptor rows kept.
+J. the DiffDock v1.0 score model (``V1_SCORE``: the ICLR'23 paper's score
+   model at its published width, ns 48, nv 10, 6 conv layers, ESM 1280;
+   random weights from seed 0) on phase 4's complex, ranked by the shipped
+   confidence model: J1 fused_tp3 in both modes against its plain version
+   at the model's blocks (lig bonded and radius, rec<-rec, lig<-rec,
+   rec<-lig; final_conv and tor_bond_conv in float32 only, as the model
+   runs them), timed beside the plain version; J2 one warm dock in
+   bfloat16 (the JAX dock's default) with ranking: launch counts by mode
+   exactly as ``expected_tp3_launches`` gives them for the old family (the
+   receptor embedded at every step), no plain version, bond lengths, then
+   its plain twin from the same draws (the first step's scores of the two
+   models from the same start poses within BF16_MODEL_RTOL of scale, final
+   poses within twice a BF16_NUDGE nudge's spread, confidences and ranking
+   as in phase 5); J3 the warm wall (median
+   and range of V1_TIMED_DOCKS bf16 docks, one float32 dock beside them with
+   its own exact counts), launches per dock and peak memory; J4
+   ``cli/dock.py`` with ``--old_score_model`` on reference-format
+   directories (``.pt`` state dicts under the reference's names from
+   ``reference_state_dict``, args dumps from ``reference_args``; no LM
+   input) for V1_CLI_STEPS steps: rc 0, a finite ``rank1.sdf``, exact
+   counts; J5 one forward each of DiffDock-L with ``factored_tp=False``,
+   ``depthwise_convolution`` and ``sidechain_pred`` at one pose on the card,
+   each within KERNEL_RTOL of scale of the same forward on the CPU.
 
 It then prints the card line (``nvidia-smi --query-gpu=name,power.limit``),
 one JSON line with the kernels' numbers (fused_tp3's bfloat16 mode as
@@ -300,7 +323,11 @@ def tp_inputs(tp, rows: int, K: int, H: int, seed: int, device):
     mw = (torch.rand(rows, K, **kw) < 0.7).float()
     x_nbr = torch.randn(rows, K, tp.irreps_in1.dim, **kw)
     sh_dim = tp.irreps_in2.dim
-    edge_sh = spherical_harmonics(torch.randn(rows, K, 3, **kw), 2)[..., :sh_dim]
+    if sh_dim <= 9:
+        edge_sh = spherical_harmonics(torch.randn(rows, K, 3, **kw), 2)[..., :sh_dim]
+    else:
+        # the torsion head's products of two harmonics
+        edge_sh = torch.randn(rows, K, sh_dim, **kw)
     h = torch.relu(torch.randn(rows, K, H, **kw)) * mw[..., None]
     out_kernel = torch.randn(H, tp.weight_numel, **kw) / math.sqrt(H)
     out_bias = torch.randn(tp.weight_numel, **kw) * 0.1
@@ -410,7 +437,13 @@ def expected_tp3_launches(cfg, n_steps: int, n_bonds: int) -> int:
     0; none in the last layer), the center head and the torsion head.
     Under ``crop_beyond`` the receptor embedding runs at every step and
     the layer-0 rec<-rec block inside the forward, not once and in the
-    step cache."""
+    step cache. The v1.0 family (``old_architecture``) has no receptor
+    cache: per step its whole conv stack (as many contractions as its
+    confidence forward) and the two heads."""
+    if cfg.old_architecture:
+        from diffdock_tpu_torch.models.old_models import confidence_launches
+
+        return n_steps * (confidence_launches(cfg) + 1 + (1 if not cfg.no_torsion and n_bonds > 0 else 0))
     npe, nj = cfg.num_prot_emb_layers, cfg.num_conv_layers
     per_step = 1 if nj > 1 else 0
     per_step += 2 * npe if cfg.embed_also_ligand else 0
@@ -825,6 +858,7 @@ def run(args) -> dict:
         _log(f"[I1 bf16 gens 2 and 1 vs plain] {len(bf16_blocks)} blocks | {card} | "
              f"{time.perf_counter() - t0:.1f} s")
         report["combined_train"] = combined_training_phase(Path(tmp), kernels, card, dev)
+        report["v1"] = v1_phase(args, Path(tmp), ccfg, data, aa, noise, so3, torus, card, dev)
 
     sources = {"fused_tp3": "diffdock_tpu/ops/pallas_tpconv3.py:57",
                "fused_tp3_bf16": "diffdock_tpu/ops/pallas_tpconv3.py:57",
@@ -2144,9 +2178,11 @@ def reference_state_dict(model) -> dict:
     model: the inverse of ``utils/torch_import.py``'s key maps. Linears
     transpose back, each TP's weight-generating MLP takes the reference's
     flat weight order (the inverse of ``tp_weight_permutation``), batch
-    norms take ``running_*`` names, and the old all-atom family's six
-    last-layer convs that the reference builds but never calls are written
-    as copies of a called sibling, as a released checkpoint carries them."""
+    norms take ``running_*`` names, and the old family's last-layer convs
+    that the reference builds but never calls (six in the all-atom model,
+    the receptor receivers' two in the coarse-grained one) are written as
+    copies of a called sibling of the same irreps, as a released checkpoint
+    carries them."""
     import re
 
     import numpy as np
@@ -2221,6 +2257,12 @@ def reference_state_dict(model) -> dict:
         for k in range(3, 9):
             for key, v in called.items():
                 sd[key.replace(f"conv_layers.{last}.", f"conv_layers.{last + k}.", 1)] = v
+    elif cfg.old_architecture:
+        last = f"lig_conv_layers.{cfg.num_conv_layers - 1}."
+        called = {k: v for k, v in sd.items() if k.startswith(last)}
+        for stack in ("rec_conv_layers", "lig_to_rec_conv_layers"):
+            for key, v in called.items():
+                sd[key.replace("lig_conv_layers", stack, 1)] = v
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
 
 
@@ -2850,6 +2892,12 @@ BF16_NUDGE = 1e-4
 # the first step of the bf16 dock and its plain twin from the same draws:
 # a few P elements one ulp apart move the scores by ~1e-4 of their size
 BF16_FIRST_STEP_ATOL = 2e-2
+# a bfloat16 score model's scores through the kernel against through its
+# plain version, from the same poses, as a share of their scale: the CPU
+# tests' bound for a whole bf16 model against JAX's (one-ulp flips of P,
+# ~2e-4 of scale at each block, carried through its layers;
+# tests/test_torch_port_bf16.py:MODEL_RTOL)
+BF16_MODEL_RTOL = 5e-3
 # the bf16 confidence model's kernels against its plain versions on the
 # same poses, as a share of the confidences' scale: one-ulp differences of
 # P compound through the 45 convs of the shipped model (7.9e-3 of scale
@@ -3597,6 +3645,348 @@ def combined_training_phase(tmp: Path, kernels, card: str, dev) -> dict:
         raise PhaseError(f"the cropped kernel step disagrees with the plain one: {twin['outside']}")
     _log(f"[I3 crop twin step] {time.perf_counter() - t0:.1f} s")
     _log(f"[I2-I3 combined] {card} | {time.perf_counter() - t_start:.1f} s")
+    return report
+
+
+# phase J: the DiffDock v1.0 score model (the ICLR'23 paper's, the v1.0
+# release's workdir/paper_score_model: its training command sets ns 48, nv
+# 10, 6 conv layers, 64-wide sigma, distance and cross-distance embeddings,
+# ESM2 input, the dynamic cross cutoff, tr_sigma_max 19, rot_sigma_min 0.03
+# and rot_sigma_max 1.55; spherical harmonics to l = 2 and no second-order
+# irreps are the v1.0 code's; sinusoidal embedding at scale 1000 is its
+# parser's default). fixed_center_conv is False: the JAX package's importer
+# gives that to a v1.0 args dump, which has no not_fixed_center_conv
+V1_SCORE = dict(ns=48, nv=10, num_conv_layers=6, num_prot_emb_layers=0, sh_lmax=2,
+                use_second_order_repr=False, reduce_pseudoscalars=False, embed_also_ligand=False,
+                sigma_embed_dim=64, distance_embed_dim=64, cross_distance_embed_dim=64,
+                lm_embedding_dim=1280, dynamic_max_cross=True, cross_max_distance=80.0,
+                embedding_type="sinusoidal", embedding_scale=1000.0, fixed_center_conv=False,
+                old_architecture=True)
+V1_SIGMA = dict(tr_sigma_max=19.0, rot_sigma_min=0.03, rot_sigma_max=1.55)
+V1_TIMED_DOCKS = 3
+V1_CLI_STEPS = 2
+# phase J5's variants of DiffDock-L: each forward on the card against the
+# same forward on the CPU (float32, TF32 off) within KERNEL_RTOL of scale
+V1_VARIANTS = {"factored_tp=False": dict(factored_tp=False),
+               "depthwise_convolution": dict(depthwise_convolution=True),
+               "sidechain_pred": dict(sidechain_pred=True)}
+
+
+def v1_config():
+    """The DiffDock v1.0 score model's config (V1_SCORE)."""
+    from diffdock_tpu_torch.diffusion.schedules import SigmaConfig
+    from diffdock_tpu_torch.models.config import ScoreModelConfig
+
+    return ScoreModelConfig(**V1_SCORE, sigma=SigmaConfig(**V1_SIGMA))
+
+
+def v1_blocks(model, cfg, data, P: int, bucket) -> dict:
+    """The v1.0 score model's merged contractions at a padded bucket for P
+    poses in flight: label -> (tp, rows, K, H). The convs are the widest
+    layers' (the receptor receivers' last is layer L-2); from layer 1 on the
+    receptor carries a pose axis."""
+    nl, nr, nb = bucket
+    H, L = 3 * cfg.ns, cfg.num_conv_layers
+    return {
+        f"lig bonded (lig_conv_{L - 1})": (model.lig_conv_layers[-1].tp, P * nl, data.lig_bond_nbr.shape[1], H),
+        f"lig radius (lig_conv_{L - 1})": (model.lig_conv_layers[-1].tp, P * nl, nl, H),
+        f"rec<-rec (rec_conv_{L - 2})": (model.rec_conv_layers[-1].tp, P * nr, data.rec_nbr.shape[1], H),
+        f"lig<-rec (rec_to_lig_conv_{L - 1})": (model.rec_to_lig_conv_layers[-1].tp, P * nl, nr, H),
+        f"rec<-lig (lig_to_rec_conv_{L - 2})": (model.lig_to_rec_conv_layers[-1].tp, P * nr, nl, H),
+        "final_conv": (model.final_conv.tp, P, nl, 2 * cfg.ns),
+        "tor_bond_conv": (model.tor_bond_conv.tp, P * nb, nl, H),
+    }
+
+
+def v1_phase(args, tmp: Path, ccfg, data, aa, noise, so3, torus, card: str, dev) -> dict:
+    """Phase J: the DiffDock v1.0 score model at its published width on
+    phase 4's complex, ranked by the shipped confidence model. J1 fused_tp3
+    in both modes against its plain version at the model's blocks; J2 a
+    bfloat16 dock (the JAX dock's default) with exact launch counts and its
+    plain twin; J3 warm walls (bfloat16 and float32) and memory; J4 the dock
+    CLI with --old_score_model on a reference-format directory; J5 one
+    forward each of DiffDock-L's per-edge, depthwise and sidechain variants
+    on the card against the CPU."""
+    import contextlib
+    import copy
+    import io
+
+    import numpy as np
+    import torch
+
+    from diffdock_tpu_torch.cli import dock as cli
+    from diffdock_tpu_torch.data import chem
+    from diffdock_tpu_torch.data.complexes import pad_to, to_device
+    from diffdock_tpu_torch.data.inference_dataset import InferenceDatasetBuilder, InferenceSpec
+    from diffdock_tpu_torch.diffusion.so3 import get_so3_tables
+    from diffdock_tpu_torch.diffusion.torus import get_torus_tables
+    from diffdock_tpu_torch.inference.pipeline import DockingPipeline
+    from diffdock_tpu_torch.inference.sampler import SamplerConfig
+    from diffdock_tpu_torch.models.config import PRESETS
+    from diffdock_tpu_torch.models.factory import build_model
+    from diffdock_tpu_torch.models.old_models import build_confidence_model
+    from diffdock_tpu_torch.models.score_model import CGScoreModel
+    from diffdock_tpu_torch.ops import fused_tp3 as ft
+    from diffdock_tpu_torch.utils import simple_yaml
+    from diffdock_tpu_torch.utils.download import DEFAULT_CKPT
+
+    t_start = time.perf_counter()
+    bf16 = torch.bfloat16
+    report: dict = {}
+    cfg = v1_config()
+    bcfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    P = args.poses
+    sampler = SamplerConfig()  # 20-step schedule, 19 steps, as phase 4
+    models = dict(confidence_cfg=ccfg, confidence_weights=1)
+    pipe = DockingPipeline(bcfg, 0, sampler, so3, torus, device=dev, **models)
+    bucket = pipe.dock_bucket(data)[0]
+
+    # J1: both modes against the plain version at the v1.0 blocks
+    t0 = time.perf_counter()
+    blocks = v1_blocks(pipe.model, cfg, data, P, bucket)
+    checks = check_blocks(["fused_tp3"], blocks, dev, tag=" [v1.0]")["fused_tp3"]
+    j1 = {}
+    with torch.inference_mode():
+        for i, (label, (tp, rows, K, Hb)) in enumerate(blocks.items()):
+            inp = tp_inputs(tp, rows, K, Hb, seed=i, device=dev)
+            f32_ops = ft.prepare(tp, *inp)
+            row = dict(checks[label], ms=cuda_ms(lambda: ft.launch(*f32_ops[1:]), args.iters),
+                       plain_ms=cuda_ms(lambda: ft.fused_tp3_reference(tp, *inp), args.iters))
+            if label not in ("final_conv", "tor_bond_conv"):  # float32 in the model, as in JAX
+                binp = [a.to(bf16) for a in inp[:4]] + list(inp[4:])
+                got = ft.fused_tp3(tp, *binp)
+                ref = ft.fused_tp3_reference(tp, *binp)
+                torch.cuda.synchronize()
+                err = (got - ref).abs().max().item()
+                scale = max(ref.abs().max().item(), 1.0)
+                if not (bool(torch.isfinite(got).all()) and err <= BF16_KERNEL_RTOL * scale):
+                    raise PhaseError(f"fused_tp3_bf16 disagrees with its plain version at {label} [v1.0]: "
+                                     f"{err:.3e} > {BF16_KERNEL_RTOL:.0e} x {scale:.3g}")
+                ops = ft.prepare(tp, *binp)
+                row.update(bf16_max_abs_err=err, bf16_max_abs_ref=scale,
+                           bf16_ms=cuda_ms(lambda: ft.launch(*ops[1:]), args.iters),
+                           bf16_plain_ms=cuda_ms(lambda: ft.fused_tp3_reference(tp, *binp), args.iters))
+                del binp, got, ref, ops
+            j1[label] = row
+            _log(f"  v1.0 {label}: R={rows} K={K} H+1={Hb + 1} | float32 kernel {row['ms']:.4f} ms, plain "
+                 f"{row['plain_ms']:.4f} ms" + (f" | bf16 err {row['bf16_max_abs_err']:.3e} (tol "
+                                                 f"{BF16_KERNEL_RTOL:.0e} x {row['bf16_max_abs_ref']:.3g}), kernel "
+                                                 f"{row['bf16_ms']:.4f} ms, plain {row['bf16_plain_ms']:.4f} ms"
+                                                 if "bf16_ms" in row else ""))
+            del inp, f32_ops
+    report["kernel"] = j1
+    _log(f"[J1 v1.0 blocks] fused_tp3 float32 at {len(blocks)} blocks, bf16 at "
+         f"{sum('bf16_ms' in r for r in j1.values())} | {card} | {time.perf_counter() - t0:.1f} s")
+
+    # J2: the bfloat16 dock with ranking, from phase 4's draws
+    t0 = time.perf_counter()
+    pipe.dock_complex(data, num_poses=P, seed=1, aa_data=aa)  # pays the first-call costs
+    expected = mode_launches(pipe, data, aa, P)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ft.counts.reset()
+    t1 = time.perf_counter()
+    res = pipe.dock_complex(data, num_poses=P, seed=0, noise=noise, aa_data=aa, return_trajectory=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = ft.counts.as_dict()
+    peak = torch.cuda.max_memory_allocated()
+    _log(f"  launches {launches} (expected {expected}: the v1.0 convs in bf16, the receptor embedded at "
+         f"every step; final_conv, tor_bond_conv and the confidence model in float32)")
+    if launches["fused_tp3_bf16"] != expected["fused_tp3_bf16"] or \
+            launches["fused_tp3"] != expected["fused_tp3"] or launches["fused_tp3_reference"]:
+        raise PhaseError(f"v1.0 dock launch counts {launches} != expected {expected}, 0 plain")
+    if res.poses.shape != (P, data.n_lig, 3) or not np.isfinite(res.poses).all() or \
+            not np.isfinite(res.confidence).all():
+        raise PhaseError("the v1.0 dock gave non-finite poses or confidences")
+    nbr, mask = np.asarray(data.lig_bond_nbr), np.asarray(data.lig_bond_mask)
+    bi, bk = np.nonzero(mask)
+    start = np.asarray(data.lig_pos, np.float64)[: data.n_lig]
+    bond_err = _bond_error((bi, nbr[bi, bk]), start, res.poses.astype(np.float64))
+    if bond_err > BOND_ATOL:
+        raise PhaseError(f"v1.0 dock: bond lengths moved by {bond_err:.2e} A (tol {BOND_ATOL:.0e})")
+    _log(f"[J2 v1.0 dock] bf16, {P} poses, {sampler.num_steps} steps, ranked | {wall:.2f} s | peak "
+         f"{peak / 2**30:.2f} GiB | bond lengths within {bond_err:.2e} A | {card}")
+
+    # the same dock through the plain versions, and nudged
+    ref_pipe = DockingPipeline(bcfg, 0, sampler, so3, torus, device=dev, reference_kernels=True, **models)
+    ref_res = ref_pipe.dock_complex(data, num_poses=P, seed=0, noise=noise, aa_data=aa, return_trajectory=True)
+    init, steps = noise(P, 0, 0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    e = torch.randn(init.tr.shape, generator=gen, device=dev)
+    nudged = (init._replace(tr=init.tr * (1 + BF16_NUDGE * e)), steps)
+    nudge_res = pipe.dock_complex(data, num_poses=P, seed=0, noise=lambda *a: nudged, aa_data=aa,
+                                  return_trajectory=True)
+    torch.cuda.synchronize()
+    step_gap = [float(np.abs(res.trajectory[k] - ref_res.trajectory[k]).max())
+                for k in range(res.trajectory.shape[0])]
+    nudge_gap = [float(np.abs(res.trajectory[k] - nudge_res.trajectory[k]).max())
+                 for k in range(res.trajectory.shape[0])]
+    _log(f"  max |poses(kernel) - poses(plain)| by step: {' '.join(f'{g:.1e}' for g in step_gap)}")
+    _log(f"  max |poses(kernel) - poses(kernel, start nudged by {BF16_NUDGE:.1e})| by step: "
+         f"{' '.join(f'{g:.1e}' for g in nudge_gap)}")
+    # the first step's scores from the same start poses, kernel model against
+    # plain model: the step moves the poses by tens of A at t = 1, so a 1e-3
+    # relative score gap already parts the twins by 0.1 A there
+    nl = bucket[0]
+    start_poses = torch.as_tensor(res.trajectory[0] - np.asarray(data.original_center)[None, None],
+                                  dtype=torch.float32, device=dev)
+    start_poses = _pad_rows(start_poses.transpose(0, 1), nl - data.n_lig).transpose(0, 1)
+    padded = to_device(pad_to(data, *bucket), dev)
+    t1 = torch.tensor(float(sampler.schedule()[0]), device=dev)
+    with torch.inference_mode():
+        s_kernel = pipe.model(padded, start_poses, t1, so3, torus)
+        s_plain = ref_pipe.model(padded, start_poses, t1, so3, torus)
+    first_scores = {}
+    for field in ("tr", "rot", "tor"):
+        a, b = getattr(s_kernel, field), getattr(s_plain, field)
+        scale = max(b.abs().max().item(), 1.0)
+        first_scores[field] = (a - b).abs().max().item() / scale
+    _log(f"  first-step scores, kernel model vs plain model from the same poses: largest error over scale "
+         f"{' '.join(f'{k} {v:.2e}' for k, v in first_scores.items())} (tol {BF16_MODEL_RTOL:.0e})")
+    if step_gap[0] != 0.0 or not all(v <= BF16_MODEL_RTOL for v in first_scores.values()):
+        raise PhaseError(f"v1.0 kernel and plain score models disagree at the first step: {first_scores}")
+    conf_scale = max(float(np.abs(ref_res.confidence).max()), 1.0)
+    conf_nudge = float(np.abs(res.confidence - nudge_res.confidence).max())
+    plain = docks_agree(res, ref_res, pose_tol=max(POSE_ATOL, 2 * nudge_gap[-1]),
+                        conf_tol=max(CONF_RTOL * conf_scale, 2 * conf_nudge))
+    report["dock"] = {"wall_s": wall, "max_memory_allocated": peak, "launches": launches, "expected": expected,
+                      "bond_error": bond_err, "confidence": res.confidence.tolist(), "order": res.order.tolist(),
+                      "plain": dict(plain, step_gap=step_gap, nudge_gap=nudge_gap, conf_nudge=conf_nudge,
+                                    first_step_scores=first_scores),
+                      "s": time.perf_counter() - t0}
+    del ref_pipe
+
+    # J3: warm walls, bfloat16 and float32
+    t0 = time.perf_counter()
+    walls = []
+    for _ in range(V1_TIMED_DOCKS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pipe.dock_complex(data, num_poses=P, seed=0, noise=noise, aa_data=aa)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    fpipe = DockingPipeline(cfg, 0, sampler, so3, torus, device=dev, **models)
+    f_expected = mode_launches(fpipe, data, aa, P)
+    fpipe.dock_complex(data, num_poses=P, seed=1, aa_data=aa)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ft.counts.reset()
+    t1 = time.perf_counter()
+    fres = fpipe.dock_complex(data, num_poses=P, seed=0, noise=noise, aa_data=aa)
+    torch.cuda.synchronize()
+    f_wall = time.perf_counter() - t1
+    f_launches, f_peak = ft.counts.as_dict(), torch.cuda.max_memory_allocated()
+    if f_launches["fused_tp3"] != f_expected["fused_tp3"] or f_launches["fused_tp3_bf16"] or \
+            f_launches["fused_tp3_reference"] or not np.isfinite(fres.poses).all():
+        raise PhaseError(f"v1.0 float32 dock: launches {f_launches} != expected {f_expected}, or poses not finite")
+    med = float(np.median(walls))
+    rmsd_f32 = np.sqrt(((res.poses - fres.poses) ** 2).sum(-1).mean(-1))
+    report["walls"] = {"bf16_wall_s": walls, "bf16_median_s": med, "bf16_poses_per_s": P / med,
+                       "f32_wall_s": f_wall, "f32_poses_per_s": P / f_wall, "f32_launches": f_launches,
+                       "f32_max_memory_allocated": f_peak, "rmsd_bf16_to_f32": rmsd_f32.tolist()}
+    _log(f"[J3 v1.0 walls] bf16: median {med:.4f} s of {V1_TIMED_DOCKS} (min {min(walls):.4f}, max "
+         f"{max(walls):.4f}; {P / med:.3f} poses/s), {sum(launches.values())} launches per dock, peak "
+         f"{peak / 2**30:.2f} GiB | float32: {f_wall:.4f} s ({P / f_wall:.3f} poses/s), {f_launches['fused_tp3']} "
+         f"launches, peak {f_peak / 2**30:.2f} GiB | per-pose RMSD bf16 to float32 (no gate) "
+         f"{' '.join(f'{r:.2f}' for r in rmsd_f32)} A | {card} | {time.perf_counter() - t0:.1f} s")
+    del pipe, fpipe
+
+    # J4: the dock CLI with --old_score_model on reference-format directories
+    # (no LM input: the CLI featurizes without ESM embeddings)
+    t0 = time.perf_counter()
+    root = tmp / "v1_reference"
+    dirs = {}
+    for name, c, build, seed in (("score", dataclasses.replace(cfg, lm_embedding_dim=0), build_model, 0),
+                                 ("confidence", dataclasses.replace(ccfg, lm_embedding_dim=0),
+                                  build_confidence_model, 1)):
+        model = build(c)
+        model.reset_parameters(torch.Generator().manual_seed(seed))
+        d = root / name
+        d.mkdir(parents=True)
+        torch.save(reference_state_dict(model), d / DEFAULT_CKPT)
+        (d / "model_parameters.yml").write_text(simple_yaml.dump(reference_args(c)))
+        dirs[name] = str(d)
+        del model
+    name = CLI_COMPLEXES[0]
+    cd = E2E_SYNTH / name
+    pdb, sdf = cd / f"{name}_protein_processed.pdb", cd / f"{name}_ligand.sdf"
+    argv = ["--model_dir", dirs["score"], "--confidence_model_dir", dirs["confidence"], "--old_score_model",
+            "--inference_steps", str(V1_CLI_STEPS), "--actual_steps", str(V1_CLI_STEPS), "--device", "cuda"]
+    epipe = cli.load_pipeline(cli.get_parser().parse_args(argv))
+    if not (epipe.score_cfg.old_architecture and epipe.score_cfg.compute_dtype == "bfloat16"):
+        raise PhaseError(f"the CLI's score config is {epipe.score_cfg}")
+    mol, protein, _ = InferenceDatasetBuilder().load(InferenceSpec(name, str(pdb), ligand_description=str(sdf)))
+    cli_expected = mode_launches(epipe, *epipe.featurize(mol, protein)[:2], P)
+    del epipe
+    out = tmp / "v1_cli"
+    buf = io.StringIO()
+    ft.counts.reset()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv + ["--protein_path", str(pdb), "--ligand", str(sdf), "--complex_name", name,
+                              "--out_dir", str(out), "--samples_per_complex", str(P)])
+    cli_wall = time.perf_counter() - t1
+    cli_launches = ft.counts.as_dict()
+    for line in buf.getvalue().splitlines():
+        _log(f"  cli: {line}")
+    rank1 = out / name / "rank1.sdf"
+    coords = np.asarray(chem.parse_sdf(rank1.read_text())[0].coords) if rank1.exists() else None
+    if rc != 0 or coords is None or not np.isfinite(coords).all():
+        raise PhaseError(f"the v1.0 CLI dock returned {rc}; rank1.sdf {'finite' if coords is not None else 'missing'}")
+    if cli_launches["fused_tp3_bf16"] != cli_expected["fused_tp3_bf16"] or \
+            cli_launches["fused_tp3"] != cli_expected["fused_tp3"] or cli_launches["fused_tp3_reference"]:
+        raise PhaseError(f"v1.0 CLI launch counts {cli_launches} != expected {cli_expected}, 0 plain")
+    report["cli"] = {"rc": rc, "wall_s": cli_wall, "launches": cli_launches, "expected": cli_expected,
+                     "complex": name}
+    _log(f"[J4 v1.0 CLI] --old_score_model on reference directories, {name}, {V1_CLI_STEPS} steps, bf16 | rc {rc} "
+         f"| launches {cli_launches} (expected {cli_expected}) | {cli_wall:.2f} s | {card} | "
+         f"{time.perf_counter() - t0:.1f} s")
+
+    # J5: DiffDock-L's variants, one pose, on the card and on the CPU
+    t0 = time.perf_counter()
+    nl, nr, nb = bucket
+    padded = pad_to(data, nl, nr, nb)
+    pose = torch.as_tensor(np.asarray(padded.lig_pos)[None], dtype=torch.float32)
+    cpu_tables = (get_so3_tables(device="cpu"), get_torus_tables(device="cpu"))
+    j5 = {}
+    for label, kw in V1_VARIANTS.items():
+        c = dataclasses.replace(PRESETS["diffdock_l"], **kw)
+        model = CGScoreModel(c)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        model.eval()
+        cpu_model = copy.deepcopy(model)
+        model.to(dev)
+        ft.counts.reset()
+        with torch.inference_mode():
+            got = model(to_device(padded, dev), pose.to(dev), torch.tensor(0.5, device=dev), so3, torus)
+            torch.cuda.synchronize()
+            counts = ft.counts.as_dict()
+            ref = cpu_model(to_device(padded, "cpu"), pose, torch.tensor(0.5), *cpu_tables)
+        errs = {}
+        for field in ("tr", "rot", "tor", "sidechain"):
+            a, b = getattr(got, field), getattr(ref, field)
+            if a is None or b is None:
+                if (a is None) != (b is None):
+                    raise PhaseError(f"DiffDock-L {label}: {field} on one device only")
+                continue
+            a = a.cpu()
+            scale = max(b.abs().max().item(), 1.0)
+            err = (a - b).abs().max().item()
+            errs[field] = err / scale
+            if not (bool(torch.isfinite(a).all()) and err <= KERNEL_RTOL * scale):
+                raise PhaseError(f"DiffDock-L {label}: {field} on the card differs from the CPU by {err:.3e} "
+                                 f"(tol {KERNEL_RTOL:.0e} x {scale:.3g})")
+        if ("sidechain" in errs) != (label == "sidechain_pred"):
+            raise PhaseError(f"DiffDock-L {label}: sidechain output {'missing' if label == 'sidechain_pred' else 'present'}")
+        j5[label] = {"err_over_scale": errs, "launches": counts}
+        _log(f"  DiffDock-L {label}: card vs CPU, largest error over scale "
+             f"{' '.join(f'{k} {v:.2e}' for k, v in errs.items())} (tol {KERNEL_RTOL:.0e}) | launches {counts}")
+        del model, cpu_model, got, ref
+    report["variants"] = j5
+    _log(f"[J5 variants] {len(j5)} forwards on the card vs the CPU | {time.perf_counter() - t0:.1f} s")
+    report["s"] = time.perf_counter() - t_start
+    _log(f"[J v1.0] {card} | phase {report['s']:.1f} s")
     return report
 
 

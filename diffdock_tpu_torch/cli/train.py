@@ -32,9 +32,10 @@ implies ``--combined_training``; MOAD reads ``--moad_dir`` (``--chain_cutoff``,
 reads ``--split_val`` only for PDBBind alone) and validation docking docks
 the first items of ``source.epoch_items(10_000 + epoch)``. The JAX CLI
 initializes its flax model from an example batch; the port's model needs
-none. Refused, each naming its ROADMAP queue 1 item: ``--data_parallel``
-(item 8), ``--backbone_loss_weight`` and ``--sidechain_loss_weight`` above
-0 (the sidechain head, item 5).
+none. A ``--backbone_loss_weight`` or ``--sidechain_loss_weight`` above 0
+builds the model with the sidechain head (``sidechain_pred``), as the JAX
+CLI does, and the train step adds the weighted auxiliary losses. Refused,
+naming its ROADMAP queue 1 item: ``--data_parallel`` (item 8).
 
 Deviations from the JAX CLI: the validation set is featurized with the
 ESM embeddings of ``--esm_embeddings_dir`` (the JAX CLI reads it without
@@ -121,9 +122,6 @@ def refuse_unported(args) -> None:
 
     if args.data_parallel:
         raise ConfigError("not ported yet: --data_parallel (ROADMAP queue 1 item 8)")
-    if args.backbone_loss_weight > 0 or args.sidechain_loss_weight > 0:
-        raise ConfigError("not ported yet: --backbone_loss_weight/--sidechain_loss_weight need "
-                          "the sidechain_pred head (ROADMAP queue 1 item 5)")
 
 
 def build_dataset(args, split, esm_dir):
@@ -187,12 +185,17 @@ def main(argv=None):
     cfg = PRESETS[args.model_preset]
     overrides = {k: getattr(args, k) for k in ("ns", "nv", "num_conv_layers", "num_prot_emb_layers")
                  if getattr(args, k) is not None}
+    if args.backbone_loss_weight > 0 or args.sidechain_loss_weight > 0:
+        # the reference enables the head whenever either weight is nonzero
+        # (utils/utils.py:274-275)
+        overrides["sidechain_pred"] = True
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     cfg = training_model_config(cfg)
     tc = TrainConfig(lr=args.lr, w_decay=args.w_decay, ema_rate=args.ema_rate,
                      tr_weight=args.tr_weight, rot_weight=args.rot_weight,
-                     tor_weight=args.tor_weight)
+                     tor_weight=args.tor_weight, backbone_weight=args.backbone_loss_weight,
+                     sidechain_weight=args.sidechain_loss_weight)
 
     dev = torch.device(args.device)
     use_full_fp32()

@@ -268,17 +268,20 @@ bool make_plan(Plan& p, const long long* table, int n_classes, long long n_rows,
   // widest stage (up to 64 neighbours, no wider than K needs; stages of 128
   // fault on the card) that leaves 4, else 3, slots and room for at least 8
   // receivers (2 when the warpgroups split long neighbour lists, and then 4
-  // slots: an odd count hangs on the card there); else 16 or 32 neighbours
-  // and 2 slots
+  // slots: an odd count hangs on the card there; 3 slots also fail on the
+  // card when each block runs every slice, seen at 4480 rows of 64
+  // neighbours); else 16 or 32 neighbours and 2 slots
   const int r_min = p.k_parts == 2 ? 2 : 8;
   int R = 0, S = 0;
   for (int kc = K <= 16 ? 16 : K <= 32 ? 32 : 64; kc >= 16 && R == 0; kc /= 2) {
     stage(kc);
-    for (int s = 4; s >= 2 + p.k_parts && R == 0; --s)
-      if (most(s) >= r_min) {
-        R = most(s);
+    for (int s = 4; s >= 2 + p.k_parts && R == 0; --s) {
+      const int r = most(s);
+      if (r >= r_min && !(s % 2 && (n_rows + r - 1) / r >= n_sm)) {
+        R = r;
         S = s;
       }
+    }
   }
   if (R == 0) {
     stage(K <= 16 ? 16 : 32);

@@ -69,6 +69,20 @@ def _generate_tables(cfg: SO3Config) -> Tuple[np.ndarray, ...]:
             / np.sum(pdf_vals, axis=1)
             / np.pi
         )
+        # Where the true density is below the series' rounding (1e-12 of the
+        # row's peak: the tail of a narrow density), exp_vals and dsigma are
+        # both rounding noise, and their ratio squared, times the noise's
+        # weight, can dominate the sum. Such a row lies above the small-eps
+        # limit sqrt(3 / pi) / eps, which the true value never exceeds: at
+        # the default grid rows with eps in 0.030-0.072 come out up to 1e66
+        # times it (the v1.0 score model's rot_sigma_min of 0.03 reads
+        # them). Those rows leave the terms below the floor out; every other
+        # row stays as it was.
+        floor = 1e-12 * np.abs(exp_vals).max(axis=1, keepdims=True)
+        kept = np.isfinite(terms) & (exp_vals > floor)
+        clean = np.sqrt(np.sum(np.where(kept, terms, 0.0), axis=1) / np.sum(pdf_vals, axis=1) / np.pi)
+        noisy = exp_score_norms > 1.1 * np.sqrt(3.0 / np.pi) / eps_grid
+        exp_score_norms = np.where(noisy, clean, exp_score_norms)
 
     # the truncated series cannot resolve eps < ~10/L: use the exact
     # small-eps limit (IGSO3 -> 3D Gaussian) there, as the JAX package does
@@ -153,8 +167,9 @@ def _so3_arrays(cfg: SO3Config):
         omegas, cdf, sn, esn = _generate_tables(cfg)
         return dict(omegas=omegas, cdf_vals=cdf, score_norms=sn, exp_score_norms=esn)
 
-    # "so3_v2": the E[score^2] rows without the JAX package's NaNs
-    return cached_tables("so3_v2", cfg, generate)
+    # "so3_v3": the E[score^2] rows without the JAX package's NaNs and
+    # without its rounding-noise spikes
+    return cached_tables("so3_v3", cfg, generate)
 
 
 @functools.lru_cache(maxsize=4)

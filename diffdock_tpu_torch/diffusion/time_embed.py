@@ -5,7 +5,10 @@ from __future__ import annotations
 import math
 from typing import Callable
 
+import numpy as np
 import torch
+
+from diffdock_tpu_torch.utils import threefry
 
 
 def sinusoidal_embedding(
@@ -25,11 +28,26 @@ def sinusoidal_embedding(
     return emb
 
 
+def gaussian_fourier_embedding(timesteps: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Gaussian Fourier features; ``w`` is a fixed (embedding_size//2,) draw."""
+    x_proj = timesteps[:, None] * w[None, :] * 2 * math.pi
+    return torch.cat([torch.sin(x_proj), torch.cos(x_proj)], dim=-1)
+
+
+def fourier_frequencies(embedding_dim: int, embedding_scale: float) -> np.ndarray:
+    """The JAX package's frequencies, ``jax.random.normal(PRNGKey(0),
+    (embedding_dim // 2,)) * embedding_scale``, float32, drawn in numpy."""
+    return (threefry.normal(0, embedding_dim // 2) * np.float32(embedding_scale)).astype(np.float32)
+
+
 def get_timestep_embedding(
     embedding_type: str, embedding_dim: int, embedding_scale: float = 10000.0
 ) -> Callable[[torch.Tensor], torch.Tensor]:
-    """Return t -> embedding fn. Only the training default, ``sinusoidal``,
-    is ported: the Fourier variant draws its frequencies from JAX's RNG."""
+    """Return t -> embedding fn (``sinusoidal``, the training default, or
+    ``fourier``)."""
     if embedding_type == "sinusoidal":
         return lambda x: sinusoidal_embedding(embedding_scale * x, embedding_dim)
-    raise NotImplementedError(f"embedding_type {embedding_type!r} is not ported")
+    if embedding_type == "fourier":
+        w = torch.from_numpy(fourier_frequencies(embedding_dim, embedding_scale))
+        return lambda x: gaussian_fourier_embedding(x, w.to(x.device))
+    raise ValueError(f"unknown embedding_type {embedding_type!r}")

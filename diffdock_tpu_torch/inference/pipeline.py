@@ -32,17 +32,21 @@ smaller receptor; the receptor embedding is then computed at every step.
 A confidence model with ``crop_beyond`` keeps the residues within that
 distance of the final poses.
 
-The confidence model is built by ``models/factory.py:build_model``: the
-old (v1.0) family, or a new-architecture model (the coarse-grained model
-in confidence mode, or ``AAScoreModel``), whose receptor embedding runs
-once per pose batch and serves every confidence chunk (per chunk under
-``crop_beyond``, as in the JAX pipeline). A new-architecture model with
-``affinity_prediction`` also gives the pose set's affinity
-(``predict_affinity`` of the outputs after the confidences; a chunked dock
-averages its chunks' affinities, as the JAX pipeline does). Not ported
-yet: the device mesh and the old family's affinity column; a confidence
-model with ``atom_confidence`` is refused, because the JAX pipeline fails
-on it too. Asking for any of them raises.
+The score model is a coarse-grained one of either architecture: the new
+one, or the DiffDock v1.0 model (``old_architecture``), which has no
+receptor cache and embeds the receptor at every step, as in the JAX
+pipeline. The confidence model is built by
+``models/factory.py:build_model``: the old (v1.0) family, or a
+new-architecture model (the coarse-grained model in confidence mode, or
+``AAScoreModel``), whose receptor embedding runs once per pose batch and
+serves every confidence chunk (per chunk under ``crop_beyond``, as in the
+JAX pipeline). With ``affinity_prediction`` it also gives the pose set's
+affinity: for the old family the mean of the outputs' last column, for a
+new-architecture model ``predict_affinity`` of the outputs after the
+confidences (a chunked dock averages its chunks' affinities, as the JAX
+pipeline does). Not ported yet: the device mesh; a confidence model with
+``atom_confidence`` is refused, because the JAX pipeline fails on it too.
+Asking for either raises.
 """
 
 from __future__ import annotations
@@ -258,9 +262,13 @@ class DockingPipeline:
                                + score_cfg.crop_beyond + 10.0)
         self.pre_crop_radius = pre_crop_radius
         self.pocket_capacity = pocket_capacity
-        if score_cfg.confidence_mode or score_cfg.all_atoms or score_cfg.old_architecture:
-            raise ConfigError("the pose generator is a coarse-grained score model of the new "
-                              "architecture, as in the JAX pipeline (inference/pipeline.py:340)")
+        if score_cfg.all_atoms:
+            # the JAX pipeline asserts it (diffdock_tpu/inference/pipeline.py:340)
+            raise ConfigError("the pose generator is a coarse-grained score model, as in the JAX "
+                              "pipeline (inference/pipeline.py:340)")
+        if score_cfg.confidence_mode:
+            # its forward gives confidences, no scores: the JAX sampler fails on them
+            raise ConfigError("the pose generator is a score model: confidence_mode=True gives no scores")
         self.model = _with_weights(build_model(score_cfg, reference_kernels=reference_kernels),
                                    score_weights, self.device)
         self.confidence_cfg = confidence_cfg
@@ -460,7 +468,10 @@ class DockingPipeline:
                   torch.as_tensor(np.asarray(pocket_center, np.float32).reshape(3), device=self.device))
 
         crop = scfg.crop_beyond is not None
-        rec_cache = None if crop else self.model.embed_receptor(padded)
+        # the v1.0 family embeds sigma through its node encoders and
+        # crop_beyond re-embeds the cropped receptor: both embed the
+        # receptor at every step, as in the JAX pipeline
+        rec_cache = None if crop or scfg.old_architecture else self.model.embed_receptor(padded)
         init = randomize_position(
             padded, num_poses,
             sampler.pocket_tr_max if sampler.pocket_tr_max is not None else scfg.sigma.tr_sigma_max,
@@ -475,6 +486,8 @@ class DockingPipeline:
         def score_fn(poses, t):
             if crop:
                 return self._cropped_score(padded, poses, t)
+            if rec_cache is None:
+                return self.model(padded, poses, t, self.so3, self.torus)
             step = self.model.step_cache(padded, t, rec_cache)
             return self.model(padded, poses, t, self.so3, self.torus,
                               rec_cache=rec_cache, step_cache=step)
@@ -500,7 +513,10 @@ class DockingPipeline:
         out = self.confidence_outputs(conf_data, final, rec_keep=keep)
         conf = torch.nan_to_num(out[..., 0], nan=-1000.0).cpu().numpy()
         affinity = None
-        if self.confidence_cfg.affinity_prediction:
+        if self.confidence_cfg.affinity_prediction and self.confidence_cfg.old_architecture:
+            # the old layout: one affinity column per pose, the last
+            affinity = float(out[:, -1].mean())
+        elif self.confidence_cfg.affinity_prediction:
             n = self.confidence_cfg.num_confidence_outputs
             affinity = float(self.confidence_model.predict_affinity(out[:, n:]))
         return DockingResult(poses=poses, confidence=conf, order=np.argsort(-conf),

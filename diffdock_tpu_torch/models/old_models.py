@@ -1,13 +1,19 @@
-"""The v1.0 (ICLR'23) architecture family in confidence mode (port of
+"""The v1.0 (ICLR'23) architecture family (port of
 ``diffdock_tpu/models/old_models.py``).
 
-``OldCGScoreModel`` (coarse-grained) and ``OldAAScoreModel`` (all-atom, the
-architecture of the shipped default confidence model) score a batch of
-final poses: ``lig_pos`` (P, NL, 3) -> (P, num_confidence_outputs). Where
-the JAX model runs one pose and is ``vmap``ped, every block here carries a
-leading pose axis; pose-independent blocks (the receptor and atom graphs
-before the first layer has mixed in ligand messages) keep a batch of 1 and
-are computed once.
+``OldCGScoreModel`` (coarse-grained, the DiffDock v1.0 score model) and
+``OldAAScoreModel`` (all-atom, the architecture of the shipped default
+confidence model) take a batch of poses of one complex, ``lig_pos``
+(P, NL, 3). In confidence mode they give (P, num_confidence_outputs
+[+ 1 affinity column]); in score mode the coarse-grained model's
+translation/rotation and torsion heads on the old ladder's last irreps,
+with the sigmas ``t_to_sigma`` of t (:class:`ScoreOutput`). Where the JAX
+model runs one pose and is ``vmap``ped, every block here carries a leading
+pose axis; pose-independent blocks (the receptor and atom graphs before
+the first layer has mixed in ligand messages) keep a batch of 1 and are
+computed once per forward. The family has no time-independent receptor
+cache: sigma enters through the node encoders, so a dock embeds the
+receptor at every step.
 
 Differences from the 'new' family, kept exactly as the JAX package has
 them:
@@ -25,10 +31,11 @@ them:
 * the AA ligand<-atom edges embed distances with the CROSS distance
   expansion despite their 5 A cutoff.
 
-Only confidence mode is ported; the old family's score mode and the
-affinity column raise ``ConfigError``. ``rec_keep`` crops the receptor
-(the pipeline's ``crop_beyond``), as in the JAX models. Submodule names
-follow the flax tree (see ``utils/convert.py``).
+``use_old_atom_encoder=False`` takes the new encoder, the receptor's
+scalar tail (the LM embedding, then sigma) fused as one block.
+``odd_parity`` is refused, as by the JAX package. ``rec_keep`` crops the
+receptor (the pipeline's ``crop_beyond``), as in the JAX models.
+Submodule names follow the flax tree (see ``utils/convert.py``).
 """
 
 from __future__ import annotations
@@ -44,13 +51,15 @@ from diffdock_tpu_torch.data.complexes import (
     apply_rec_keep,
     apply_rec_keep_aa,
 )
+from diffdock_tpu_torch.diffusion.schedules import t_to_sigma
 from diffdock_tpu_torch.diffusion.time_embed import get_timestep_embedding
 from diffdock_tpu_torch.models.config import ConfigError, ScoreModelConfig
-from diffdock_tpu_torch.models.encoders import GaussianSmearing, MLP2, OldAtomEncoder
+from diffdock_tpu_torch.models.encoders import AtomEncoder, GaussianSmearing, MLP2, OldAtomEncoder
 from diffdock_tpu_torch.models.score_model import (
     CGScoreModel,
     ConfidenceMLP,
     _batched,
+    _check_supported as _check_dtype,
     _pairwise,
     edge_scalars,
 )
@@ -63,31 +72,32 @@ AA_ATOM_CATEGORICAL_DIMS = (38, 119, 23, 38)
 
 
 def _check_supported(cfg: ScoreModelConfig) -> None:
-    unsupported = {
-        "old_architecture=False": not cfg.old_architecture,
-        "confidence_mode=False (the old family's score mode)": not cfg.confidence_mode,
-        "odd_parity": cfg.odd_parity,
-        "use_old_atom_encoder=False": not cfg.use_old_atom_encoder,
-        "affinity_prediction": cfg.affinity_prediction,
-        "depthwise_convolution": cfg.depthwise_convolution,
-        "factored_tp=False": not cfg.factored_tp,
-        f"compute_dtype={cfg.compute_dtype} (float32 or bfloat16)":
-            cfg.compute_dtype not in ("float32", "bfloat16"),
-    }
-    bad = [name for name, on in unsupported.items() if on]
-    if bad:
-        raise ConfigError(f"not ported yet: {', '.join(bad)}")
+    if not cfg.old_architecture:
+        raise ConfigError("the v1.0 family needs old_architecture=True")
+    if cfg.odd_parity:
+        # the JAX package refuses it (diffdock_tpu/models/old_models.py:72-83):
+        # no shipped old-architecture checkpoint sets it
+        raise ConfigError("odd_parity is not supported on the v1.0 (old) architectures; "
+                          "use the current CG/AA score models")
+    _check_dtype(cfg)
 
 
 class OldCGScoreModel(nn.Module):
-    """Reference ``CGOldModel`` (coarse-grained v1.0), confidence mode.
-    ``reference_kernels=True`` routes every merged TP contraction through
-    the kernel's plain version."""
+    """Reference ``CGOldModel`` (coarse-grained v1.0, the DiffDock v1.0
+    score model). ``reference_kernels=True`` routes every merged TP
+    contraction through the kernel's plain version. As in the JAX model,
+    ``depthwise_convolution`` does not reach the old convs, and
+    ``sidechain_pred`` adds no head."""
 
-    # geometry and edge helpers shared with the new family: they read only
-    # cfg, lig_edge_embedding and lig_distance_expansion
+    # geometry, edge and head helpers shared with the new family: they read
+    # cfg, the modules of the score heads, lig_edge_embedding and
+    # lig_distance_expansion
     _edge_weight = CGScoreModel._edge_weight
     reset_parameters = CGScoreModel.reset_parameters
+    set_generator = CGScoreModel.set_generator
+    _setup_score_heads = CGScoreModel._setup_score_heads
+    _center_head = CGScoreModel._center_head
+    _torsion_head = CGScoreModel._torsion_head
 
     # the score model's helpers take a stacked batch and (B,) times; these
     # models take one complex and a 0-d time
@@ -100,20 +110,24 @@ class OldCGScoreModel(nn.Module):
     def _sigma_embedding(self, t: torch.Tensor) -> torch.Tensor:
         return self.timestep_emb(t.reshape(1).to(torch.float32))[0]
 
+    def _score_heads(self, data, lig_pos, lig_attr, sigma_emb, sigmas, so3_tables, torus_tables):
+        return CGScoreModel._heads(self, _batched(data), lig_pos, lig_attr, sigma_emb[None],
+                                   tuple(s.reshape(1) for s in sigmas), so3_tables, torus_tables)
+
     def __init__(self, cfg: ScoreModelConfig, reference_kernels: bool = False):
         super().__init__()
         _check_supported(cfg)
         self.cfg = cfg
         self._setup_old_base(reference_kernels)
         sig = cfg.sigma_embed_dim
-        self.cross_edge_embedding = MLP2(sig + cfg.cross_distance_embed_dim, cfg.ns)
+        self.cross_edge_embedding = MLP2(sig + cfg.cross_distance_embed_dim, cfg.ns, cfg.dropout)
         # the last layer updates only the ligand: it has no receptor-receiver
         # convs (flax creates no parameters for them either)
         L = cfg.num_conv_layers
         for name, n in (("lig_conv", L), ("rec_conv", L - 1), ("lig_to_rec_conv", L - 1),
                         ("rec_to_lig_conv", L)):
             self.add_module(f"{name}_layers", nn.ModuleList(self._old_conv(i) for i in range(n)))
-        self._build_old_confidence_mlp()
+        self._build_heads()
 
     def _ladder(self, i: int) -> str:
         return self.irrep_seq[min(i, len(self.irrep_seq) - 1)]
@@ -123,7 +137,8 @@ class OldCGScoreModel(nn.Module):
         return TPConvLayer(self._ladder(i), self.sh_irreps, self._ladder(i + 1),
                            n_edge_features=3 * cfg.ns, residual=False, batch_norm=cfg.batch_norm,
                            hidden_features=3 * cfg.ns, tp_weights_layers=2,
-                           reference_kernels=self.reference_kernels, dtype=cfg.compute_dtype)
+                           reference_kernels=self.reference_kernels, dropout=cfg.dropout,
+                           dtype=cfg.compute_dtype, factored=cfg.factored_tp)
 
     def _setup_old_base(self, reference_kernels: bool) -> None:
         cfg = self.cfg
@@ -133,24 +148,38 @@ class OldCGScoreModel(nn.Module):
         self.irrep_seq = get_irrep_seq(ns, cfg.nv, cfg.use_second_order_repr, False)
         self.sh_irreps = str(Irreps.spherical_harmonics(cfg.sh_lmax))
         self.timestep_emb = get_timestep_embedding(cfg.embedding_type, sig, cfg.embedding_scale)
-        self.lig_node_embedding = OldAtomEncoder(ns, cfg.lig_node_categorical_dims, scalar_dim=sig)
-        self.rec_node_embedding = OldAtomEncoder(ns, cfg.rec_node_categorical_dims, scalar_dim=sig,
-                                                 lm_dim=cfg.lm_embedding_dim)
-        self.lig_edge_embedding = MLP2(cfg.in_lig_edge_features + sig + dist, ns)
-        self.rec_edge_embedding = MLP2(sig + dist, ns)
+        if cfg.use_old_atom_encoder:
+            self.lig_node_embedding = OldAtomEncoder(ns, cfg.lig_node_categorical_dims, scalar_dim=sig)
+            self.rec_node_embedding = OldAtomEncoder(ns, cfg.rec_node_categorical_dims, scalar_dim=sig,
+                                                     lm_dim=cfg.lm_embedding_dim)
+        else:
+            # the new encoder fuses the receptor's whole (LM, sigma) tail
+            self.lig_node_embedding = AtomEncoder(ns, cfg.lig_node_categorical_dims, sig)
+            self.rec_node_embedding = AtomEncoder(ns, cfg.rec_node_categorical_dims,
+                                                  cfg.lm_embedding_dim + sig)
+        self.lig_edge_embedding = MLP2(cfg.in_lig_edge_features + sig + dist, ns, cfg.dropout)
+        self.rec_edge_embedding = MLP2(sig + dist, ns, cfg.dropout)
         self.lig_distance_expansion = GaussianSmearing(0.0, cfg.lig_max_radius, dist)
         self.rec_distance_expansion = GaussianSmearing(0.0, cfg.rec_max_radius, dist)
         self.cross_distance_expansion = GaussianSmearing(
             0.0, cfg.cross_max_distance, cfg.cross_distance_embed_dim
         )
 
-    def _build_old_confidence_mlp(self) -> None:
-        # the pooled features: the first ns scalars, plus the final ns x0o
-        # block when the ladder is deep enough (old_aa_model.py:284-295)
+    def _build_heads(self) -> None:
+        """The confidence MLP in confidence mode, else the score heads on
+        the old ladder's last irreps."""
         cfg = self.cfg
+        if not cfg.confidence_mode:
+            self._setup_score_heads(self._ladder(cfg.num_conv_layers), self.reference_kernels)
+            return
+        # the pooled features: the first ns scalars, plus the final ns x0o
+        # block when the ladder is deep enough (old_aa_model.py:284-295);
+        # the old layout's affinity is ONE extra output column
         in_dim = 2 * cfg.ns if cfg.num_conv_layers >= 3 else cfg.ns
-        self.confidence_predictor = ConfidenceMLP(in_dim, cfg.ns, cfg.num_confidence_outputs,
-                                                  no_batchnorm=cfg.confidence_no_batchnorm)
+        out_dim = cfg.num_confidence_outputs + (1 if cfg.affinity_prediction else 0)
+        self.confidence_predictor = ConfidenceMLP(in_dim, cfg.ns, out_dim,
+                                                  no_batchnorm=cfg.confidence_no_batchnorm,
+                                                  dropout=cfg.confidence_dropout)
 
     # ------------------------------------------------------------------
     def _embed_nodes(self, data: ComplexData, sigma_emb: torch.Tensor):
@@ -202,15 +231,25 @@ class OldCGScoreModel(nn.Module):
         return self.confidence_predictor(pooled)
 
     def _time(self, lig_pos: torch.Tensor, t):
-        t = torch.as_tensor(t, dtype=torch.float32, device=lig_pos.device)
-        # confidence mode: every sigma is t itself
-        return t, self._sigma_embedding(t)
+        """((tr, rot, tor) sigmas, sigma embedding) of the 0-d time ``t``:
+        in confidence mode every sigma is t itself."""
+        t = torch.as_tensor(t, dtype=torch.float32, device=lig_pos.device).reshape(())
+        sigmas = (t, t, t) if self.cfg.confidence_mode else t_to_sigma(t, t, t, self.cfg.sigma)
+        return sigmas, self._sigma_embedding(t)
+
+    def _output(self, data, lig_pos, lig_attr, sigma_emb, sigmas, so3_tables, torus_tables):
+        if self.cfg.confidence_mode:
+            return self._old_confidence_head(data, lig_attr)
+        return self._score_heads(data, lig_pos, lig_attr, sigma_emb, sigmas, so3_tables, torus_tables)
+
 
     # ------------------------------------------------------------------
-    def forward(self, data: ComplexData, lig_pos: torch.Tensor, t=0.0,
-                rec_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Confidence outputs (P, num_confidence_outputs) for the poses
-        ``lig_pos`` (P, NL, 3) at time ``t`` (the pipeline passes 0);
+    def forward(self, data: ComplexData, lig_pos: torch.Tensor, t=0.0, so3_tables=None,
+                torus_tables=None, rec_keep: Optional[torch.Tensor] = None):
+        """Confidence outputs (P, outputs) in confidence mode (the pipeline
+        passes t = 0), else scores (:class:`ScoreOutput`, with the diffusion
+        tables), for the poses ``lig_pos`` (P, NL, 3) of one complex at the
+        0-d time ``t``; the receptor is embedded in every forward.
         ``rec_keep`` (NR,) bool crops the receptor
         (:func:`~diffdock_tpu_torch.data.complexes.apply_rec_keep`)."""
         if rec_keep is not None:
@@ -220,7 +259,8 @@ class OldCGScoreModel(nn.Module):
         P, nl = lig_pos.shape[:2]
         nr = data.rec_pos.shape[0]
         dev = lig_pos.device
-        tr_sigma, sigma_emb = self._time(lig_pos, t)
+        sigmas, sigma_emb = self._time(lig_pos, t)
+        tr_sigma = sigmas[0]
 
         lig_attr, rec_attr = self._embed_nodes(data, sigma_emb)
         lig_graph = self._ligand_graph(data, lig_pos, sigma_emb)
@@ -264,12 +304,12 @@ class OldCGScoreModel(nn.Module):
             lig_attr = _residual_pad(lig_intra + lig_inter, lig_attr)
             if l < L - 1:
                 rec_attr = _residual_pad(rec_intra + rl, rec_attr)
-        return self._old_confidence_head(data, lig_attr)
+        return self._output(data, lig_pos, lig_attr, sigma_emb, sigmas, so3_tables, torus_tables)
 
 
 class OldAAScoreModel(OldCGScoreModel):
     """Reference ``AAOldModel``, the architecture of the shipped default
-    confidence model, in confidence mode. Conv layers live in one flat list
+    confidence model (either mode). Conv layers live in one flat list
     ``conv_layers`` indexed ``9l + k`` (flax ``conv_{9l+k}``), k in:
 
       0 lig<-lig  1 lig<-rec  2 lig<-atom
@@ -286,23 +326,25 @@ class OldAAScoreModel(OldCGScoreModel):
         self._setup_old_base(reference_kernels)
         ns, sig, dist = cfg.ns, cfg.sigma_embed_dim, cfg.distance_embed_dim
         cross = cfg.cross_distance_embed_dim
-        self.atom_node_embedding = OldAtomEncoder(ns, AA_ATOM_CATEGORICAL_DIMS, scalar_dim=sig)
-        self.atom_edge_embedding = MLP2(sig + dist, ns)
-        self.lr_edge_embedding = MLP2(sig + cross, ns)
-        self.ar_edge_embedding = MLP2(sig + dist, ns)
-        self.la_edge_embedding = MLP2(sig + cross, ns)
+        self.atom_node_embedding = (
+            OldAtomEncoder(ns, AA_ATOM_CATEGORICAL_DIMS, scalar_dim=sig) if cfg.use_old_atom_encoder
+            else AtomEncoder(ns, AA_ATOM_CATEGORICAL_DIMS, sig))
+        drop = cfg.dropout
+        self.atom_edge_embedding = MLP2(sig + dist, ns, drop)
+        self.lr_edge_embedding = MLP2(sig + cross, ns, drop)
+        self.ar_edge_embedding = MLP2(sig + dist, ns, drop)
+        self.la_edge_embedding = MLP2(sig + cross, ns, drop)
         # the last layer has only its ligand-receiver convs (k < 3): the
         # list ends at 9 (L - 1) + 3, as flax's parameter tree does
         L = cfg.num_conv_layers
         self.conv_layers = nn.ModuleList(
             self._old_conv(l) for l in range(L) for _k in range(9 if l < L - 1 else 3)
         )
-        self._build_old_confidence_mlp()
+        self._build_heads()
 
-    def forward(self, data: AAComplexData, lig_pos: torch.Tensor, t=0.0,
-                rec_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Confidence outputs (P, num_confidence_outputs) for the poses
-        ``lig_pos`` (P, NL, 3) at time ``t`` (the pipeline passes 0);
+    def forward(self, data: AAComplexData, lig_pos: torch.Tensor, t=0.0, so3_tables=None,
+                torus_tables=None, rec_keep: Optional[torch.Tensor] = None):
+        """As :meth:`OldCGScoreModel.forward`, on the all-atom tree;
         ``rec_keep`` (NR,) bool crops the receptor and its atoms
         (:func:`~diffdock_tpu_torch.data.complexes.apply_rec_keep_aa`)."""
         if rec_keep is not None:
@@ -313,7 +355,8 @@ class OldAAScoreModel(OldCGScoreModel):
         P, nl = lig_pos.shape[:2]
         nr, na = base.rec_pos.shape[0], data.atom_pos.shape[0]
         dev = lig_pos.device
-        tr_sigma, sigma_emb = self._time(lig_pos, t)
+        sigmas, sigma_emb = self._time(lig_pos, t)
+        tr_sigma = sigmas[0]
 
         lig_attr, rec_attr = self._embed_nodes(base, sigma_emb)
         atom_attr = self.atom_node_embedding(
@@ -429,7 +472,7 @@ class OldAAScoreModel(OldCGScoreModel):
             if l < L - 1:
                 atom_attr = _residual_pad(atom_update + al_update + ar_update, atom_attr)
                 rec_attr = _residual_pad(rec_update + ra_update + rl_update, rec_attr)
-        return self._old_confidence_head(base, lig_attr)
+        return self._output(base, lig_pos, lig_attr, sigma_emb, sigmas, so3_tables, torus_tables)
 
 
 def confidence_launches(cfg: ScoreModelConfig, embed: bool = False) -> int:

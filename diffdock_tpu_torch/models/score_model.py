@@ -9,7 +9,11 @@ over its real atoms into :class:`ConfidenceMLP` (with the per-atom head of
 ``atom_confidence`` and the pose-set head of ``affinity_prediction``,
 :meth:`CGScoreModel.predict_affinity`). The all-atom subclass lives in
 ``models/aa_model.py``; :class:`ConfidenceMLP` also serves the old family's
-confidence models (``models/old_models.py``).
+confidence models (``models/old_models.py``). With ``factored_tp=False``
+or ``depthwise_convolution`` the conv layers take the per-edge path
+(``models/tpconv.py``) and :meth:`CGScoreModel.step_cache` gives None, as
+in the JAX model; ``sidechain_pred`` adds the per-residue sidechain head
+(``ScoreOutput.sidechain``, the auxiliary losses' input).
 
 Where the JAX model runs one pose and is ``vmap``ped, this one takes a
 batch of poses: ``lig_pos`` is (P, NL, 3) and the outputs are (P, 3),
@@ -58,6 +62,7 @@ from diffdock_tpu_torch.models.tpconv import (
 )
 from diffdock_tpu_torch.ops.batch_norm import MOMENTUM, IrrepsBatchNorm
 from diffdock_tpu_torch.ops.irreps import Irreps, get_irrep_seq
+from diffdock_tpu_torch.ops.linear import IrrepsLinear
 from diffdock_tpu_torch.ops.spherical import irrep1_to_vector, spherical_harmonics
 from diffdock_tpu_torch.ops.tensor_product import FullTensorProduct
 
@@ -75,6 +80,9 @@ class ScoreOutput(NamedTuple):
     tr: torch.Tensor  # (P, 3)
     rot: torch.Tensor  # (P, 3)
     tor: torch.Tensor  # (P, n_bonds)
+    # (P, NR, 10) per-residue [4 chi, N-CA, C-CA] predictions of the
+    # sidechain head (``sidechain_pred``); None otherwise
+    sidechain: Optional[torch.Tensor] = None
 
 
 class ScalarBatchNorm(nn.Module):
@@ -140,17 +148,10 @@ def _pairwise(sender_pos: torch.Tensor, receiver_pos: torch.Tensor):
 
 
 def _check_supported(cfg: ScoreModelConfig) -> None:
-    unsupported = {
-        "old_architecture (models/old_models.py)": cfg.old_architecture,
-        "depthwise_convolution": cfg.depthwise_convolution,
-        "sidechain_pred": cfg.sidechain_pred,
-        "factored_tp=False": not cfg.factored_tp,
-        f"compute_dtype={cfg.compute_dtype} (float32 or bfloat16)":
-            cfg.compute_dtype not in ("float32", "bfloat16"),
-    }
-    bad = [name for name, on in unsupported.items() if on]
-    if bad:
-        raise ConfigError(f"not ported yet: {', '.join(bad)}")
+    # the JAX CLIs offer these two compute dtypes only
+    # (diffdock_tpu/cli/dock.py:93-94), and the kernels take no other
+    if cfg.compute_dtype not in ("float32", "bfloat16"):
+        raise ConfigError(f"compute_dtype={cfg.compute_dtype}: float32 or bfloat16")
 
 
 class CGScoreModel(nn.Module):
@@ -182,6 +183,11 @@ class CGScoreModel(nn.Module):
             )
             for i in range(n_joint)
         )
+        if cfg.sidechain_pred and not cfg.confidence_mode:
+            # per-residue head on the final receptor features: even and odd
+            # halves summed in the forward (reference cg_model.py:173-179)
+            self.sidechain_predictor = IrrepsLinear(self._ladder(npe + n_joint),
+                                                    "4x0e + 2x1e + 4x0o + 2x1o")
 
     def _setup_base(self, cfg: ScoreModelConfig, reference_kernels: bool) -> None:
         """The modules the coarse-grained and all-atom models share (the JAX
@@ -215,7 +221,8 @@ class CGScoreModel(nn.Module):
         self._conv = dict(
             n_edge_features=3 * ns, hidden_features=3 * ns, batch_norm=cfg.batch_norm,
             tp_weights_layers=cfg.tp_weights_layers, reference_kernels=reference_kernels,
-            dropout=drop, dtype=cfg.compute_dtype,
+            dropout=drop, dtype=cfg.compute_dtype, factored=cfg.factored_tp,
+            depthwise=cfg.depthwise_convolution,
         )
         npe, n_joint = cfg.num_prot_emb_layers, cfg.num_conv_layers
         if cfg.embed_also_ligand:
@@ -266,7 +273,7 @@ class CGScoreModel(nn.Module):
             final_ladder, sh, "1x1o + 1x1e" if cfg.odd_parity else "2x1o + 2x1e",
             n_edge_features=2 * ns, residual=False, batch_norm=cfg.batch_norm,
             tp_weights_layers=cfg.tp_weights_layers, reference_kernels=reference_kernels,
-            dropout=drop,
+            dropout=drop, factored=cfg.factored_tp,
         )
         self.tr_final_layer = FinalNormLayer(1 + sig, ns, drop)
         self.rot_final_layer = FinalNormLayer(1 + sig, ns, drop)
@@ -278,7 +285,7 @@ class CGScoreModel(nn.Module):
                 final_ladder, str(self.final_tp_tor.irreps_out), tor_out,
                 n_edge_features=3 * ns, residual=False, batch_norm=cfg.batch_norm,
                 tp_weights_layers=cfg.tp_weights_layers, reference_kernels=reference_kernels,
-                dropout=drop,
+                dropout=drop, factored=cfg.factored_tp,
             )
             self.tor_final_dense1 = nn.Linear(Irreps(tor_out).dim, ns, bias=False)
             self.tor_final_dense2 = nn.Linear(ns, 1, bias=False)
@@ -299,7 +306,8 @@ class CGScoreModel(nn.Module):
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """Random weights with the flax initializers' scales: Linear and FC
         output kernels normal(0, 1/fan_in), biases zero, embeddings
-        Glorot-uniform, batch norm at identity statistics."""
+        Glorot-uniform, equivariant linears normal(0, 1), batch norm at
+        identity statistics."""
         for m in self.modules():
             if isinstance(m, nn.Linear):
                 m.weight.normal_(0.0, 1.0 / math.sqrt(m.in_features), generator=generator)
@@ -311,6 +319,9 @@ class CGScoreModel(nn.Module):
             elif isinstance(m, FCBlock):
                 m.out_kernel.normal_(0.0, 1.0 / math.sqrt(m.out_kernel.shape[0]), generator=generator)
                 m.out_bias.zero_()
+            elif isinstance(m, IrrepsLinear):
+                for w in m.parameters(recurse=False):
+                    w.normal_(0.0, 1.0, generator=generator)
             elif isinstance(m, (IrrepsBatchNorm, ScalarBatchNorm)):
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
@@ -378,9 +389,11 @@ class CGScoreModel(nn.Module):
 
     def step_cache(self, data: ComplexData, t: torch.Tensor, rec_cache: RecCache):
         """Pose-independent per-(complex, step) precompute: the joint layer-0
-        rec<-rec factored message, (sum (1, NR, D), counts (1, NR)); None
-        when there is no non-last joint layer."""
-        if self.cfg.num_conv_layers <= 1:
+        rec<-rec factored message, (sum (1, NR, D), counts (1, NR)); None,
+        as in the JAX model, when there is no non-last joint layer or its
+        convs are not factored (``factored_tp=False``, depthwise)."""
+        cfg = self.cfg
+        if cfg.num_conv_layers <= 1 or not cfg.factored_tp or cfg.depthwise_convolution:
             return None
         db, cache = _batched(data), _batched(rec_cache)
         t = torch.as_tensor(t, dtype=torch.float32, device=db.rec_pos.device).reshape(1)
@@ -569,8 +582,12 @@ class CGScoreModel(nn.Module):
                 rec_blocks, rec_groups, rec_extra=rec_extra,
                 lig_mask=db.lig_mask, rec_mask=db.rec_mask,
             )
-        return self._heads(db, lig_pos, lig_node_attr, sigma_emb, (tr_sigma, rot_sigma, tor_sigma),
-                           so3_tables, torus_tables)
+        out = self._heads(db, lig_pos, lig_node_attr, sigma_emb, (tr_sigma, rot_sigma, tor_sigma),
+                          so3_tables, torus_tables)
+        if cfg.sidechain_pred and not cfg.confidence_mode:
+            sc = self.sidechain_predictor(rec_node_attr)
+            out = out._replace(sidechain=sc[..., :10] + sc[..., 10:])
+        return out
 
     def _sigmas(self, t: torch.Tensor):
         """(tr, rot, tor) sigmas of the times ``t`` (B,): in confidence mode

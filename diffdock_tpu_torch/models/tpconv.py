@@ -18,6 +18,17 @@ or, for layers built with ``reference_kernels=True``, through its plain
 version. The per-class branch (``merged=False``) stays as the numeric
 oracle, as in the JAX package.
 
+A layer built with ``factored=False`` or ``depthwise=True`` takes the JAX
+package's per-edge path instead (``_tp_message``): the edge MLP's full
+output gives every edge its own weights, the tensor product runs per edge
+and the messages are averaged over all blocks' valid edges
+(:func:`~diffdock_tpu_torch.ops.segment.multi_group_mean`). The depthwise
+layer's product is the 'uvu'
+:class:`~diffdock_tpu_torch.ops.tensor_product.DepthwiseTensorProduct`,
+followed by the equivariant linear ``linear_2`` before the batch norm. As
+in the JAX package, no kernel runs on that path: its products are plain
+PyTorch.
+
 A layer's ``dtype`` ("float32" or "bfloat16") is the JAX layer's compute
 dtype: in bfloat16 the edge MLP, the gathered senders, the harmonics, the
 coupling and both products run as the JAX layer runs them (see
@@ -37,7 +48,9 @@ from diffdock_tpu_torch.models.encoders import FCBlock
 from diffdock_tpu_torch.ops.batch_norm import IrrepsBatchNorm
 from diffdock_tpu_torch.ops.fused_tp3 import fused_tp3, fused_tp3_reference
 from diffdock_tpu_torch.ops.irreps import Irreps
-from diffdock_tpu_torch.ops.tensor_product import FullyConnectedTensorProduct
+from diffdock_tpu_torch.ops.linear import IrrepsLinear
+from diffdock_tpu_torch.ops.segment import multi_group_mean
+from diffdock_tpu_torch.ops.tensor_product import DepthwiseTensorProduct, FullyConnectedTensorProduct
 
 
 class NeighborBlock(NamedTuple):
@@ -72,6 +85,18 @@ def gather_nodes(attr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 Contraction = Callable[..., torch.Tensor]
+
+
+def _tp_message(tp, fc: FCBlock, blk: NeighborBlock, dtype: str = "float32") -> torch.Tensor:
+    """Per-edge messages (B, R, K, D): the edge MLP's weights for every
+    edge, ``tp`` of the gathered senders and the harmonics. As in the JAX
+    function, only the MLP's hidden layers run in ``dtype``; its last layer,
+    the edge weights and the product are float32."""
+    h = fc.hidden(blk.edge_attr.to(getattr(torch, dtype)))
+    w = h.float() @ fc.out_kernel + fc.out_bias
+    if blk.edge_weight is not None:
+        w = w * blk.edge_weight[..., None]
+    return tp(gather_nodes(blk.sender_attr, blk.nbr_idx), blk.edge_sh, w)
 
 
 def _tp_message_reduced(tp: FullyConnectedTensorProduct, fc: FCBlock, blk: NeighborBlock,
@@ -148,10 +173,21 @@ class _ConvBase(nn.Module):
     def __init__(self, in_irreps, sh_irreps, out_irreps, n_edge_features: int,
                  hidden_features: Optional[int], tp_weights_layers: int,
                  batch_norm: bool, residual: bool, reference_kernels: bool,
-                 dropout: float = 0.0, dtype: str = "float32"):
+                 dropout: float = 0.0, dtype: str = "float32", factored: bool = True,
+                 depthwise: bool = False):
         super().__init__()
         self.dtype = dtype
-        self.tp = FullyConnectedTensorProduct(in_irreps, sh_irreps, out_irreps)
+        # the merged contraction (the kernel's) serves the factored,
+        # fully connected layer only
+        self.merged = factored and not depthwise
+        if depthwise:
+            self.tp = DepthwiseTensorProduct(in_irreps, sh_irreps, out_irreps)
+            self.linear_2 = IrrepsLinear(str(self.tp.irreps_mid), out_irreps)
+            self.mid_dim = self.tp.irreps_mid.dim
+        else:
+            self.tp = FullyConnectedTensorProduct(in_irreps, sh_irreps, out_irreps)
+            self.linear_2 = None
+            self.mid_dim = Irreps(out_irreps).dim
         self.out_irreps = Irreps(out_irreps)
         self._fc_args = dict(
             in_dim=n_edge_features,
@@ -171,8 +207,19 @@ class _ConvBase(nn.Module):
         return _tp_message_reduced(self.tp, fc, blk, contraction=self.contraction,
                                    dtype=self.dtype)
 
+    def _mean(self, fcs: Sequence[FCBlock], blocks: Sequence[NeighborBlock]) -> torch.Tensor:
+        """The receivers' mean message over every valid edge of ``blocks``
+        (block ``i`` through ``fcs[i]``): merged contractions, or per-edge
+        messages on the per-edge path."""
+        if self.merged:
+            return _combine_reduced([self._message(fc, blk) for fc, blk in zip(fcs, blocks)])
+        return multi_group_mean([_tp_message(self.tp, fc, blk, self.dtype) for fc, blk in zip(fcs, blocks)],
+                                [blk.nbr_mask for blk in blocks])
+
     def _finish(self, out: torch.Tensor, receiver_attr: Optional[torch.Tensor],
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.linear_2 is not None:
+            out = self.linear_2(out)
         if self.bn is not None:
             out = self.bn(out, mask)
         if self.residual:
@@ -189,16 +236,16 @@ class TPConvLayer(_ConvBase):
                  residual: bool = True, batch_norm: bool = True,
                  hidden_features: Optional[int] = None, tp_weights_layers: int = 2,
                  reference_kernels: bool = False, dropout: float = 0.0,
-                 dtype: str = "float32"):
+                 dtype: str = "float32", factored: bool = True, depthwise: bool = False):
         super().__init__(in_irreps, sh_irreps, out_irreps, n_edge_features,
                          hidden_features, tp_weights_layers, batch_norm, residual,
-                         reference_kernels, dropout, dtype)
+                         reference_kernels, dropout, dtype, factored, depthwise)
         self.fc = self._make_fc()
 
     def forward(self, receiver_attr: Optional[torch.Tensor], blocks: Sequence[NeighborBlock],
                 receiver_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``receiver_mask`` (B, R): the rows the training batch norm counts."""
-        out = _combine_reduced([self._message(self.fc, blk) for blk in blocks])
+        out = self._mean([self.fc] * len(blocks), blocks)
         return self._finish(out, receiver_attr, receiver_mask)
 
 
@@ -217,10 +264,10 @@ class MultiTPConvLayer(_ConvBase):
                  residual: bool = True, batch_norm: bool = True,
                  hidden_features: Optional[int] = None, tp_weights_layers: int = 2,
                  reference_kernels: bool = False, dropout: float = 0.0,
-                 dtype: str = "float32"):
+                 dtype: str = "float32", factored: bool = True, depthwise: bool = False):
         super().__init__(in_irreps, sh_irreps, out_irreps, n_edge_features,
                          hidden_features, tp_weights_layers, batch_norm, residual,
-                         reference_kernels, dropout, dtype)
+                         reference_kernels, dropout, dtype, factored, depthwise)
         self.differentiate_convolutions = differentiate_convolutions
         if differentiate_convolutions:
             for g in groups:
@@ -236,11 +283,11 @@ class MultiTPConvLayer(_ConvBase):
         (B or 1, R)) per set; returns each set's new features (B, R, F_out),
         B the widest batch among the sets and their messages. The masks are
         the rows the training batch norm counts."""
-        outs = [_combine_reduced([self._message(self.get_fc(g), blk) for g, blk in zip(groups, blocks)])
+        outs = [self._mean([self.get_fc(g) for g in groups], blocks)
                 if blocks else None for _attr, blocks, groups, _mask in receiver_sets]
         B = max([o.shape[0] for o in outs if o is not None]
                 + [attr.shape[0] for attr, *_ in receiver_sets])
-        D = self.out_irreps.dim
+        D = self.mid_dim
         sizes = [attr.shape[1] for attr, *_ in receiver_sets]
         out = torch.cat([
             o.expand(B, R, D) if o is not None else attr.new_zeros(B, R, D)
@@ -263,10 +310,10 @@ class JointTPConvLayer(_ConvBase):
                  residual: bool = True, batch_norm: bool = True,
                  hidden_features: Optional[int] = None, tp_weights_layers: int = 2,
                  reference_kernels: bool = False, dropout: float = 0.0,
-                 dtype: str = "float32"):
+                 dtype: str = "float32", factored: bool = True, depthwise: bool = False):
         super().__init__(in_irreps, sh_irreps, out_irreps, n_edge_features,
                          hidden_features, tp_weights_layers, batch_norm, residual,
-                         reference_kernels, dropout, dtype)
+                         reference_kernels, dropout, dtype, factored, depthwise)
         self.last_layer = last_layer
         self.differentiate_convolutions = differentiate_convolutions
         if differentiate_convolutions:
@@ -279,7 +326,10 @@ class JointTPConvLayer(_ConvBase):
         return getattr(self, f"fc_{g}") if self.differentiate_convolutions else self.fc_shared
 
     def rec_messages(self, rec_blocks: Sequence[NeighborBlock], rec_groups: Sequence[int]):
-        """Receptor factored message parts only (the per-step precompute)."""
+        """Receptor factored message parts only (the per-step precompute of
+        a merged layer)."""
+        if not self.merged:
+            raise ValueError("precomputed receptor messages need the factored, fully connected layer")
         return [self._message(self.get_fc(g), blk) for g, blk in zip(rec_groups, rec_blocks)]
 
     def forward(self, lig_attr: torch.Tensor, rec_attr: torch.Tensor,
@@ -293,14 +343,17 @@ class JointTPConvLayer(_ConvBase):
         receptor mean (the pose-independent layer-0 rec<-rec messages).
         ``lig_mask`` (B or 1, NL) and ``rec_mask`` (B or 1, NR): the rows the
         training batch norm counts, ligand and receptor together."""
-        lig_out = _combine_reduced(
-            [self._message(self.get_fc(g), blk) for g, blk in zip(lig_groups, lig_blocks)]
-        )
+        lig_out = self._mean([self.get_fc(g) for g in lig_groups], lig_blocks)
         B = lig_out.shape[0]
         if self.last_layer:
             if rec_blocks:
                 raise ValueError("the last joint layer takes no receptor blocks")
             rec_out = lig_out.new_zeros((B,) + rec_attr.shape[1:-1] + (lig_out.shape[-1],))
+        elif not self.merged:
+            if rec_extra is not None:
+                raise ValueError("rec_extra needs the factored, fully connected layer")
+            rec_out = self._mean([self.get_fc(g) for g in rec_groups], rec_blocks)
+            rec_out = rec_out.expand((B,) + rec_attr.shape[1:-1] + (lig_out.shape[-1],))
         else:
             rec_parts = self.rec_messages(rec_blocks, rec_groups)
             if rec_extra is not None:

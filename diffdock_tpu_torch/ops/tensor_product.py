@@ -1,7 +1,8 @@
 """Clebsch-Gordan tensor products over fixed irrep layouts.
 
 Port of ``diffdock_tpu/ops/tensor_product.py``: e3nn's
-``o3.FullyConnectedTensorProduct`` and ``o3.FullTensorProduct`` as explicit
+``o3.FullyConnectedTensorProduct``, the depthwise 'uvu' product of the
+depthwise convolution and ``o3.FullTensorProduct`` as explicit
 contractions against precomputed real Wigner-3j constants, with e3nn's
 'component' irrep normalization and 'element' path normalization.
 
@@ -198,6 +199,54 @@ class FullyConnectedTensorProduct:
             w = w.reshape(w.shape[:-1] + (fan, mul)) / math.sqrt(fan)
             out_k = torch.einsum("...uk,...uw->...wk", coupled, w)
             outs.append(out_k.reshape(out_k.shape[:-2] + (ek.dim,)))
+        return torch.cat(outs, dim=-1)
+
+
+class DepthwiseTensorProduct:
+    """'uvu' depthwise TP (the depthwise convolution's): each input channel
+    couples with the edge harmonics on its own, one weight per channel per
+    path; channels mix afterwards in an
+    :class:`~diffdock_tpu_torch.ops.linear.IrrepsLinear`.
+
+    ``irreps_out`` only selects which output irrep types are kept; the
+    output layout is ``irreps_mid``: per path the multiplicity of its in1
+    entry, the paths sorted stably by output irrep (l, then parity), as
+    e3nn's ``irreps_mid.sort()`` orders them. The weights are laid out path
+    by path in that order, one per channel.
+    """
+
+    def __init__(self, irreps_in1, irreps_in2, irreps_out):
+        self.irreps_in1 = Irreps(irreps_in1)
+        self.irreps_in2 = Irreps(irreps_in2)
+        keep = {(e.ir.l, e.ir.p) for e in Irreps(irreps_out)}
+        self._sl1 = self.irreps_in1.slices()
+        self._sl2 = self.irreps_in2.slices()
+        self._consts = _ConstCache()
+        paths = []  # (i, j, ir3, cg)
+        for i, e1 in enumerate(self.irreps_in1):
+            for j, e2 in enumerate(self.irreps_in2):
+                for ir3 in e1.ir * e2.ir:
+                    if (ir3.l, ir3.p) in keep:
+                        cg = real_wigner_3j(e1.ir.l, e2.ir.l, ir3.l) * math.sqrt(ir3.dim)
+                        paths.append((i, j, ir3, cg.astype(np.float32)))
+        order = sorted(range(len(paths)), key=lambda k: (paths[k][2].l, paths[k][2].p, k))
+        self.paths = [paths[k] for k in order]
+        self.irreps_mid = Irreps([(self.irreps_in1[i].mul, ir3) for i, _, ir3, _ in self.paths])
+        self.weight_numel = sum(self.irreps_in1[i].mul for i, _, _, _ in self.paths)
+
+    def __call__(self, x1: torch.Tensor, x2: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+        """x1 (..., dim_in1), x2 (..., dim_in2), weights (..., weight_numel)
+        -> (..., irreps_mid.dim)."""
+        outs, off = [], 0
+        for n, (i, j, ir3, cg) in enumerate(self.paths):
+            mul = self.irreps_in1[i].mul
+            a = _reshape_entry(x1, self.irreps_in1, i, self._sl1[i])
+            b = _reshape_entry(x2, self.irreps_in2, j, self._sl2[j])
+            # 'uvu': the harmonics' entries have multiplicity 1
+            seg = torch.einsum("...ui,...vj,ijk->...uk", a, b, self._consts.get(f"cg{n}", cg, x1))
+            seg = seg * weights[..., off : off + mul, None]
+            off += mul
+            outs.append(seg.reshape(seg.shape[:-2] + (mul * ir3.dim,)))
         return torch.cat(outs, dim=-1)
 
 

@@ -55,10 +55,13 @@ class TrainConfig:
     tr_weight: float = 0.33
     rot_weight: float = 0.33
     tor_weight: float = 0.33
-    # (the JAX config's backbone/sidechain loss weights need the sidechain
-    # head, which is not ported: ROADMAP queue 1 item 5; its sampling_alpha
-    # and sampling_beta stay at the 1, 1 every caller uses: t is uniform,
-    # train/noise.py:draw_noise)
+    # the auxiliary flexible-sidechain losses (reference
+    # backbone_loss_weight / sidechain_loss_weight): they need the model's
+    # sidechain head (cfg.sidechain_pred) and rec_scv targets in the data.
+    # (The JAX config's sampling_alpha and sampling_beta stay at the 1, 1
+    # every caller uses: t is uniform, train/noise.py:draw_noise.)
+    backbone_weight: float = 0.0
+    sidechain_weight: float = 0.0
     grad_clip: Optional[float] = None
     warmup_steps: int = 0
     # per-sigma-interval loss breakdown (reference 10-bucket logging)
@@ -178,15 +181,21 @@ def train_rec_keep(cfg: ScoreModelConfig, batch: ComplexData, sample) -> torch.T
 
 
 def _forward_losses(model, batch: ComplexData, draws: NoiseDraws, train_cfg: TrainConfig,
-                    so3: SO3Tables, torus: TorusTables, crop: bool = False):
+                    so3: SO3Tables, torus: TorusTables, train: bool = False):
+    """Loss and metrics of a stacked batch. ``train``: the train step's
+    receptor crop and auxiliary sidechain losses, which the JAX eval step
+    leaves out."""
     cfg = model.cfg
     with torch.no_grad():
         sample = apply_noise(batch, draws, cfg.sigma, so3, torus, no_torsion=cfg.no_torsion)
-        rec_keep = train_rec_keep(cfg, batch, sample) if crop and cfg.crop_beyond is not None else None
+        rec_keep = train_rec_keep(cfg, batch, sample) if train and cfg.crop_beyond is not None else None
     out = model(batch, sample.pos, sample.t, so3, torus, rec_keep=rec_keep)
-    parts = per_complex_losses(out, sample, batch.rot_mask, cfg.sigma, so3, torus)
+    aux = dict(rec_scv=batch.rec_scv, rec_mask=batch.rec_mask) if train else {}
+    parts = per_complex_losses(out, sample, batch.rot_mask, cfg.sigma, so3, torus, **aux)
+    weights = dict(backbone_weight=train_cfg.backbone_weight,
+                   sidechain_weight=train_cfg.sidechain_weight) if train else {}
     loss, metrics = total_loss(parts, train_cfg.tr_weight, train_cfg.rot_weight,
-                               train_cfg.tor_weight)
+                               train_cfg.tor_weight, **weights)
     if train_cfg.log_sigma_intervals:
         metrics.update(sigma_interval_metrics(parts))
     return loss, metrics
@@ -212,7 +221,8 @@ def make_train_step(model: CGScoreModel, train_cfg: TrainConfig, so3: SO3Tables,
                     torus: TorusTables) -> Callable:
     """``train_step(state, batch, draws) -> (state, metrics)`` over a
     stacked batch (one bucket): the forward in training mode, gradients of
-    the loss, the optimizer update, ``lr_scale`` and ``param_mask``, the EMA;
+    the loss (with the auxiliary sidechain losses of a nonzero backbone or
+    sidechain weight), the optimizer update, ``lr_scale`` and ``param_mask``, the EMA;
     under the model config's ``crop_beyond``, each complex's receptor crop
     (:func:`train_rec_keep`). The model's parameters and running statistics
     (``state.params``, ``state.batch_stats``) move in place; ``state.grads``
@@ -222,7 +232,7 @@ def make_train_step(model: CGScoreModel, train_cfg: TrainConfig, so3: SO3Tables,
     def train_step(state: TrainState, batch: ComplexData, draws: NoiseDraws):
         model.train()
         names = list(state.params)
-        loss, metrics = _forward_losses(model, batch, draws, train_cfg, so3, torus, crop=True)
+        loss, metrics = _forward_losses(model, batch, draws, train_cfg, so3, torus, train=True)
         grads = torch.autograd.grad(loss, [state.params[k] for k in names], allow_unused=True)
         grads = {k: torch.zeros_like(state.params[k]) if g is None else g
                  for k, g in zip(names, grads)}

@@ -13,7 +13,10 @@ The port's module tree mirrors the flax one, so conversion is a name map:
   old family's ``lig_conv_{i}``, ``rec_conv_{i}``, ``lig_to_rec_conv_{i}``,
   ``rec_to_lig_conv_{i}`` -> ``<name>_layers.{i}``; inside a module
   ``Dense_{i}`` -> ``layers.{i}``, ``BatchNorm_{i}`` -> ``norms.{i}`` and
-  ``cat_{i}`` -> ``embeddings.{i}``.
+  ``cat_{i}`` -> ``embeddings.{i}``;
+* an equivariant linear's ``w_{k}`` (the sidechain head
+  ``sidechain_predictor``, a depthwise conv's ``linear_2``) keeps its name
+  and layout, and so do the per-edge and depthwise convs' FCs.
 
 :func:`state_dict_from_flax` takes the tree as nested dicts of numpy
 arrays (what ``CGScoreModel.init`` returns, or what
@@ -65,8 +68,8 @@ def _module_path(parts: Tuple[str, ...]) -> list:
 
 def state_dict_from_flax(variables: Mapping, cfg: ScoreModelConfig) -> Dict[str, torch.Tensor]:
     """``variables``: {'params': ..., 'batch_stats': ...} from the JAX
-    model's ``init`` (``CGScoreModel`` or ``AAScoreModel`` in either mode,
-    or ``OldCGScoreModel`` / ``OldAAScoreModel`` in confidence mode);
+    model's ``init`` (``CGScoreModel``, ``AAScoreModel``, ``OldCGScoreModel``
+    or ``OldAAScoreModel``, in either mode);
     returns a ``state_dict`` for the port's model of the same config. The
     confidence heads (``confidence_predictor``,
     ``atom_confidence_predictor``, ``affinity_predictor``) map through the

@@ -170,15 +170,20 @@ def test_unported_confidence_configurations_are_refused():
         DockingPipeline(ScoreModelConfig(ns=8, nv=2), 0, device="cpu",
                         confidence_cfg=dataclasses.replace(new, atom_confidence=True),
                         confidence_weights=0, so3_tables=object(), torus_tables=object())
-    for kw in (dict(confidence_mode=False), dict(affinity_prediction=True),
-               dict(odd_parity=True), dict(use_old_atom_encoder=False),
-               dict(compute_dtype="float16")):
+    # what stays refused: a confidence model needs confidence_mode, odd_parity
+    # as the JAX package refuses it on the old family, and float16
+    for kw in (dict(confidence_mode=False), dict(odd_parity=True), dict(compute_dtype="float16")):
         cfg = dataclasses.replace(ScoreModelConfig(**_conf_kw(True, 0, 2)), **kw)
         with pytest.raises(ConfigError):
             build_confidence_model(cfg)
         with pytest.raises(ConfigError):
             DockingPipeline(ScoreModelConfig(ns=8, nv=2), 0, device="cpu", confidence_cfg=cfg,
                             confidence_weights=0, so3_tables=object(), torus_tables=object())
+    # the affinity column and the new encoder are ported
+    # (tests/test_torch_port_old_score.py)
+    for kw in (dict(affinity_prediction=True), dict(use_old_atom_encoder=False)):
+        cfg = dataclasses.replace(ScoreModelConfig(**_conf_kw(True, 0, 2)), **kw)
+        assert isinstance(build_confidence_model(cfg), OldAAScoreModel)
     with pytest.raises(ConfigError):
         OldAAScoreModel(ScoreModelConfig(**_conf_kw(False, 0, 2)))
     # bfloat16 is ported (tests/test_torch_port_bf16.py): every conv takes it

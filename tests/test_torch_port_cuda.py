@@ -347,6 +347,22 @@ def test_fused_tp3_bf16_at_the_tma_edges(edge, ladder, rows, K, H1):
     assert (out - ref).abs().max().item() <= 1e-3 * max(ref.abs().max().item(), 1.0)
 
 
+def test_fused_tp3_bf16_at_the_v1_score_models_first_tp():
+    """The v1.0 score model's first TP (48x0e -> 48x0e + 10x1o) at its
+    rec<-lig block of a (64, 448) bucket, 10 poses: with every slice in one
+    block, a ring of 3 slots failed there (cudaError 719); the plan now
+    takes an even ring."""
+    dev = _card()
+    tp = FullyConnectedTensorProduct("48x0e", SH, "48x0e + 10x1o")
+    plan = ft.bf16_plan(ft.bf16_class_table(tp.live_classes(), 145), 4480, 64, 144)
+    assert plan.whole and plan.S % 2 == 0
+    args = _bf16_args(tp, 4480, 64, 145, dev)
+    out = ft.fused_tp3(tp, *args)
+    ref = ft.fused_tp3_reference(tp, *args)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 1e-3 * max(ref.abs().max().item(), 1.0)
+
+
 @pytest.mark.parametrize("rows,K,H1", [(3200, 32, 145), (320, 320, 145), (320, 2560, 73)])
 def test_fused_tp3_bf16_two_launches_are_bit_identical(rows, K, H1):
     """Every sum runs in a fixed order: all slices in one block (3200 x

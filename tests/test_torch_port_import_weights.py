@@ -348,14 +348,15 @@ def test_dock_cli_on_a_reference_run_dir_matches_the_jax_cli(ref_dirs, tables, m
         assert ours[r][0] == pytest.approx(ref[r][0], abs=2e-4)
 
 
-@pytest.mark.parametrize("arch", ["diffdock_l", "shipped_confidence"])
+@pytest.mark.parametrize("arch", ["diffdock_l", "shipped_confidence", "v1_score"])
 def test_chip_smoke_reference_state_dict_round_trips(arch, tmp_path):
-    """``chip_smoke.py`` phase F writes reference checkpoints from the
+    """``chip_smoke.py`` phases F and J write reference checkpoints from the
     port's random weights with its own inverse key map and args dump: at
-    small width (the preset's and the shipped confidence model's layout,
-    ns=8, nv=2) both packages' converters take them back to the weights
-    exactly, every reference key consumed, and the args dump derives the
-    config the weights were made for."""
+    small width (the preset's, the shipped confidence model's and the v1.0
+    score model's layout, ns=8, nv=2) both packages' converters take them
+    back to the weights exactly, every reference key consumed (the v1.0
+    model's never-called last-layer receptor convs among them), and the
+    args dump derives the config the weights were made for."""
     import chip_smoke
     from diffdock_tpu_torch.models.config import PRESETS
     from diffdock_tpu_torch.utils import simple_yaml
@@ -364,6 +365,8 @@ def test_chip_smoke_reference_state_dict_round_trips(arch, tmp_path):
 
     if arch == "diffdock_l":
         cfg, kw = dataclasses.replace(PRESETS["diffdock_l"], ns=8, nv=2), {}
+    elif arch == "v1_score":
+        cfg, kw = dataclasses.replace(chip_smoke.v1_config(), ns=8, nv=2, num_conv_layers=3), dict(old=True)
     else:
         cfg = dataclasses.replace(PRESETS["diffdock_s"], **dict(chip_smoke.SHIPPED_CONFIDENCE, ns=8, nv=2,
                                                                 num_conv_layers=3))
@@ -371,6 +374,8 @@ def test_chip_smoke_reference_state_dict_round_trips(arch, tmp_path):
     model = build_model(cfg)
     model.reset_parameters(torch.Generator().manual_seed(3))
     sd = chip_smoke.reference_state_dict(model)
+    if arch == "v1_score":
+        assert "rec_conv_layers.2.fc.0.weight" in sd and "lig_to_rec_conv_layers.2.fc.0.weight" in sd
     args = simple_yaml.load(simple_yaml.dump(chip_smoke.reference_args(cfg)))
     assert args == yaml.safe_load(simple_yaml.dump(chip_smoke.reference_args(cfg)))
     derived = torch_import.config_from_reference_args(args, **kw)

@@ -130,17 +130,25 @@ def test_score_model_per_class_oracle_matches_merged_path(tables, monkeypatch):
                             orig(tp, fc, blk, merged=False, dtype=dtype))
         per_class = model(data, poses, torch.tensor(0.4), ps, pt)
     for a, b in zip(merged, per_class):
+        if a is None:  # ScoreOutput.sidechain without the sidechain head
+            assert b is None
+            continue
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4, atol=1e-5)
 
 
 def test_unported_configurations_are_refused():
-    # all_atoms is the all-atom model's (models/aa_model.py), old_architecture
-    # the old family's (models/old_models.py); confidence mode is ported
-    # (tests/test_torch_port_confidence_head.py)
-    for kw in (dict(all_atoms=True), dict(old_architecture=True),
-               dict(depthwise_convolution=True), dict(compute_dtype="float16")):
+    # all_atoms is the all-atom model's (models/aa_model.py); confidence mode
+    # is ported (tests/test_torch_port_confidence_head.py). The coarse-grained
+    # class builds what JAX's class builds from the same config: the
+    # depthwise variant (tests/test_torch_port_variants.py), and its own
+    # architecture for old_architecture, which models/factory.py sends to the
+    # old family (tests/test_torch_port_old_score.py). float16 stays refused,
+    # as by the JAX CLIs' compute_dtype choices.
+    for kw in (dict(all_atoms=True), dict(compute_dtype="float16")):
         with pytest.raises(ConfigError):
             CGScoreModel(ScoreModelConfig(**kw))
+    for kw in (dict(old_architecture=True), dict(depthwise_convolution=True)):
+        assert hasattr(CGScoreModel(ScoreModelConfig(**kw)), "conv_layers")
     # bfloat16 is ported (tests/test_torch_port_bf16.py): the conv layers take
     # it, the score heads stay float32 as in the JAX model
     bf = CGScoreModel(ScoreModelConfig(compute_dtype="bfloat16"))

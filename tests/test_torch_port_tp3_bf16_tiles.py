@@ -273,3 +273,18 @@ def test_plan_covers_every_receiver_column_and_hidden_row_once():
     assert len(lig_atom.slices) == 6 and [sl.nu for sl in lig_atom.slices] == [30, 21, 21, 21, 21, 30]
     assert lig_atom.k_parts == 2 and lig_atom.KC == 64 and lig_atom.h0 == 20 and not lig_atom.whole
     assert lig_atom.n_blocks == -(-320 // lig_atom.R) * 6 >= 2 * ft.SM_COUNT
+
+
+def test_plan_takes_no_odd_ring_when_each_block_runs_every_slice():
+    """Three ring slots failed on the card with every slice in one block
+    (the v1.0 score model's first TP, 48x0e -> 48x0e + 10x1o, at its
+    rec<-lig block of 4480 rows and 64 neighbours). Such a plan now takes
+    the next stage width with an even ring; with one slice per block the
+    three slots stay (DiffDock-L's ligand embedding at 640 rows)."""
+    tp = FullyConnectedTensorProduct("48x0e", "1x0e + 1x1o + 1x2e", "48x0e + 10x1o")
+    table = ft.bf16_class_table(tp.live_classes(), 145)
+    for rows in (4480, 20480):
+        plan = ft.bf16_plan(table, rows, 64, 144)
+        assert plan.whole and plan.S % 2 == 0 and (plan.KC, plan.S) == (32, 4)
+    few = ft.bf16_plan(table, 640, 64, 144)
+    assert not few.whole and (few.KC, few.S) == (64, 3)

@@ -8,8 +8,9 @@
 back to the weights), ``--pretrain_dir`` loads weights, the PDBBind path
 runs with a validation split, ``--dataset moad``, ``--combined_training``
 and ``--triple_training`` train from MOAD and PDBSidechain layouts (those of
-``tests/test_torch_port_loaders.py``), and the options that are not ported
-raise ``ConfigError`` naming their ROADMAP item.
+``tests/test_torch_port_loaders.py``), the option that is not ported raises
+``ConfigError`` naming its ROADMAP item, and the sidechain loss weights,
+once refused, build the sidechain head and add their losses.
 """
 
 import dataclasses
@@ -169,12 +170,23 @@ def test_pdbbind_path_with_a_validation_split(tmp_path):
 
 @pytest.mark.parametrize("flags,item", [
     pytest.param(["--data_parallel"], "item 8", id="flags4-item 8"),
-    pytest.param(["--backbone_loss_weight", "0.5"], "item 5", id="flags5-item 5"),
-    pytest.param(["--sidechain_loss_weight", "0.5"], "item 5", id="flags6-item 5"),
+    # ROADMAP queue 1 item 5 is ported: these two now train the sidechain head
+    pytest.param(["--backbone_loss_weight", "0.5"], None, id="flags5-item 5"),
+    pytest.param(["--sidechain_loss_weight", "0.5"], None, id="flags6-item 5"),
 ])
 def test_unported_options_raise_and_name_their_item(tmp_path, flags, item):
-    with pytest.raises(ConfigError, match=f"ROADMAP queue 1 {item}"):
-        train_cli.main(["--synthetic", "2", "--log_dir", str(tmp_path), *flags, *SMALL])
+    argv = ["--synthetic", "2", "--log_dir", str(tmp_path), *flags, *SMALL]
+    if item is not None:
+        with pytest.raises(ConfigError, match=f"ROADMAP queue 1 {item}"):
+            train_cli.main(argv)
+        return
+    assert train_cli.main(argv + ["--n_epochs", "1", "--num_workers", "0"]) == 0
+    from diffdock_tpu_torch.train.checkpoints import load_checkpoint
+
+    params, cfg, _ = load_checkpoint(str(tmp_path))
+    assert cfg.sidechain_pred and "sidechain_predictor" in params["params"]
+    records = [json.loads(line) for line in (tmp_path / "metrics.jsonl").read_text().splitlines()]
+    assert [r["phase"] for r in records] == ["train"] and np.isfinite(records[0]["loss"])
 
 
 @pytest.mark.parametrize("flags,sources", [

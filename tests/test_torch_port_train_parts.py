@@ -340,15 +340,25 @@ def test_so3_score_norm_rows_are_finite_where_the_jax_table_is_not(default_so3_r
     (eps 0.10-0.35) and inf in 42 (eps 0.073-0.100): the series' density
     vanishes at two angles, where the score is 0/0 or x/0, so a training
     draw in the NaN rows gives a NaN loss. The port leaves those terms out:
-    finite rows everywhere, the other rows bit-identical to JAX's."""
+    finite rows everywhere. In 87 finite rows (eps 0.030-0.072) JAX's value
+    is 2.4 to 1e66 times the small-eps limit sqrt(3/pi)/eps, which the true
+    value never exceeds: rounding noise in the tail of a narrow density,
+    divided by noise. The port leaves the terms below the series' rounding
+    out there (within 0.1 % of the limit, where JAX's rows around them lie).
+    Every other row is bit-identical to JAX's."""
     ours, ref = default_so3_rows
     bad = ~np.isfinite(ref)
+    eps = 10 ** np.linspace(np.log10(5e-4), np.log10(4.0), 2000)
+    limit = np.sqrt(3.0 / np.pi) / eps
+    with np.errstate(invalid="ignore"):
+        noisy = np.isfinite(ref) & (ref > 1.1 * limit)
     assert np.isnan(ref).sum() == 143 and np.isinf(ref).sum() == 42 and np.isfinite(ours).all()
-    np.testing.assert_array_equal(ours[~bad], ref[~bad])
-    eps = 10 ** np.linspace(np.log10(5e-4), np.log10(4.0), 2000)[bad]
-    assert eps.min() > 0.07 and eps.max() < 0.35
+    assert noisy.sum() == 87 and eps[noisy].min() > 0.03 and eps[noisy].max() < 0.072
+    np.testing.assert_array_equal(ours[~bad & ~noisy], ref[~bad & ~noisy])
+    assert eps[bad].min() > 0.07 and eps[bad].max() < 0.35
+    np.testing.assert_allclose(ours[noisy], limit[noisy], rtol=1e-3)
     # the repaired rows continue their neighbours smoothly
-    i = np.flatnonzero(bad)
+    i = np.flatnonzero(bad | noisy)
     assert np.all(np.abs(ours[i] - ours[i - 1]) < 0.05 * ours[i - 1])
 
 
