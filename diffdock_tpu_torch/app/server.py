@@ -133,7 +133,7 @@ class DockingService:
         pipeline.sampler_cfg = dataclasses.replace(
             pipeline.sampler_cfg, inference_steps=steps, actual_steps=max(steps - 1, 1))
         out_dir = os.path.join(self.args.out_dir, job.id)
-        builder = InferenceDatasetBuilder(workdir=out_dir)
+        builder = InferenceDatasetBuilder(workdir=out_dir, device=self.args.device)
         mol, protein, lm = builder.load(InferenceSpec(job.id, p["protein_path"], None, p["ligand"]))
         result = pipeline.dock_mol_protein(mol, protein, out_dir, num_poses=int(p.get("samples", 10)),
                                            lm_embeddings=lm)

@@ -124,7 +124,7 @@ def get_parser() -> argparse.ArgumentParser:
                    help="with --crop_beyond: compact the receptor to this "
                         "many nearest residues per step instead of masking")
     p.add_argument("--device", default="cuda",
-                   help="torch device to dock on ('cuda' or 'cpu')")
+                   help="torch device to dock, and fold a protein_sequence, on ('cuda' or 'cpu')")
     return p
 
 
@@ -285,7 +285,7 @@ def main(argv=None):
         specs = [InferenceSpec(name, args.protein_path, args.protein_sequence, args.ligand)]
 
     pipeline = load_pipeline(args)
-    builder = InferenceDatasetBuilder(workdir=args.out_dir)
+    builder = InferenceDatasetBuilder(workdir=args.out_dir, device=args.device)
 
     failures = 0
     for i, spec in enumerate(specs):

@@ -3,9 +3,7 @@ the port's CLIs (port of ``diffdock_tpu/cli/main.py``, with its command
 names).
 
 Each subcommand imports its module only when it runs, so ``--help`` stays
-instant and torch is paid for only by the command run. ``esm-prep`` and
-``prewarm`` are not ported (ROADMAP queue 1, items 7 and 9): they exit 2
-with a message.
+instant and torch is paid for only by the command run.
 """
 
 from __future__ import annotations
@@ -22,22 +20,15 @@ _COMMANDS = {
     "confidence-train": ("diffdock_tpu_torch.cli.confidence_train",
                          "generate poses + train the confidence model "
                          "(reference confidence/confidence_train.py)"),
-    "esm-prep": (None,
+    "esm-prep": ("diffdock_tpu_torch.cli.esm_prep",
                  "precompute ESM2 language-model embeddings (reference "
-                 "datasets/esm_embedding_preparation.py); not ported"),
+                 "datasets/esm_embedding_preparation.py)"),
     "import-weights": ("diffdock_tpu_torch.cli.import_weights",
                        "convert a reference torch checkpoint to native "
                        "params (no reference analogue)"),
-    "prewarm": (None, "warm the kernel builds ahead of a sweep (no reference "
-                      "analogue); not ported"),
-}
-
-# why a command without a module is refused
-_NOT_PORTED = {
-    "esm-prep": "cli/esm_prep.py is not ported (ROADMAP queue 1 items 7 and 9: "
-                "it needs the ESM2 model and its weights)",
-    "prewarm": "cli/prewarm.py is not ported (ROADMAP queue 1 item 9: a GPU warm-up "
-               "of the kernel builds and the allocator over the ladder)",
+    "prewarm": ("diffdock_tpu_torch.cli.prewarm",
+                "build the kernels and run the eval bucket ladder once "
+                "ahead of a sweep (no reference analogue)"),
 }
 
 
@@ -84,9 +75,6 @@ def main(argv=None) -> int:
             print(f"diffdock-tpu-torch: unknown command {cmd!r}\n", file=sys.stderr)
             print(_usage(), file=sys.stderr)
             return 2
-    if cmd in _NOT_PORTED:
-        print(f"diffdock-tpu-torch {cmd}: {_NOT_PORTED[cmd]}", file=sys.stderr)
-        return 2
     _apply_restrict_cpu(argv)
 
     import importlib

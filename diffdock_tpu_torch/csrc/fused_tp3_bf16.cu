@@ -134,7 +134,17 @@ struct Plan {
 int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 // a position in the ring of S slots: the slot, and the parity of the times
-// the ring has wrapped (the mbarrier phase a wait names)
+// the ring has wrapped (the mbarrier phase a wait names). A wait tells two
+// phases apart by parity only, so each wait on a slot's `full` barrier must
+// come from a waiter that has itself waited on the slot's previous stage, or
+// that a named barrier holds behind it. The P items alternate between the
+// two consumer warpgroups, so S must be even: with S odd, consecutive uses
+// of a slot go to different warpgroups, and a warpgroup a lap ahead of the
+// other passes its wait while the other's stage is still in flight (the
+// phase before counts as complete), reads the stage early, releases the
+// slot a phase early, and the ring hangs until the waits trap (cudaError
+// 719). tests/test_torch_port_tp3_bf16_tiles.py searches every
+// interleaving of this protocol for such a wait.
 struct RingPos {
   int slot;
   uint32_t phase;
@@ -266,21 +276,19 @@ bool make_plan(Plan& p, const long long* table, int n_classes, long long n_rows,
   };
   // a TMA copy holds its issuing thread long whatever its size: the
   // widest stage (up to 64 neighbours, no wider than K needs; stages of 128
-  // fault on the card) that leaves 4, else 3, slots and room for at least 8
-  // receivers (2 when the warpgroups split long neighbour lists, and then 4
-  // slots: an odd count hangs on the card there; 3 slots also fail on the
-  // card when each block runs every slice, seen at 4480 rows of 64
-  // neighbours); else 16 or 32 neighbours and 2 slots
+  // fault on the card) that leaves 4 slots and room for at least 8
+  // receivers (2 when the warpgroups split long neighbour lists); else 16
+  // or 32 neighbours and 2 slots. The ring is even (see RingPos): 3 slots
+  // hung on the card now and then, at 4480 rows of 64 neighbours with every
+  // slice in one block and at 768 rows of 96 with one slice per block
   const int r_min = p.k_parts == 2 ? 2 : 8;
   int R = 0, S = 0;
   for (int kc = K <= 16 ? 16 : K <= 32 ? 32 : 64; kc >= 16 && R == 0; kc /= 2) {
     stage(kc);
-    for (int s = 4; s >= 2 + p.k_parts && R == 0; --s) {
-      const int r = most(s);
-      if (r >= r_min && !(s % 2 && (n_rows + r - 1) / r >= n_sm)) {
-        R = r;
-        S = s;
-      }
+    const int r = most(4);
+    if (r >= r_min) {
+      R = r;
+      S = 4;
     }
   }
   if (R == 0) {

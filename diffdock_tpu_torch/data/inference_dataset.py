@@ -4,12 +4,15 @@ reference ``utils/inference_utils.py:118-242``).
 Builds featurized complexes directly from user inputs at docking time:
 
 * protein: a PDB path, or an amino-acid sequence passed to an injectable
-  ``folder(sequence, out_path) -> pdb_path``; the default folder raises, as
-  the JAX package's does without ESMFold weights (ESMFold is not ported);
+  ``folder(sequence, out_path) -> pdb_path``; the default
+  (:func:`make_esmfold_folder`) runs ESMFold on the builder's ``device``
+  through ``transformers`` from locally cached weights and raises without
+  them, as the JAX package's does;
 * ligand: a structure file (.sdf/.mol/.pdb). SMILES needs RDKit for its 3D
   embedding and raises, as in the JAX package without RDKit;
 * per-residue ESM2 embeddings from a precomputed table
-  (:class:`~diffdock_tpu_torch.data.esm.LazyNpyTable`) or an embedder;
+  (:class:`~diffdock_tpu_torch.data.esm.LazyNpyTable`) or computed live by
+  an embedder (:func:`~diffdock_tpu_torch.data.esm.make_embedder`);
 * a per-complex ``success`` flag instead of exceptions: failed inputs are
   reported, not fatal.
 """
@@ -23,6 +26,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from diffdock_tpu_torch import DEFAULT_DEVICE
 from diffdock_tpu_torch.data.chem import (
     Molecule,
     ProteinStructure,
@@ -62,14 +66,83 @@ def mol_from_smiles(smiles: str, seed: int = 0) -> Molecule:
     )
 
 
-def fold_sequence(sequence: str, out_path: str) -> str:
-    """The default sequence -> structure hook: ESMFold is not ported, so
-    this raises as the JAX package's does without ESMFold weights."""
-    raise RuntimeError(
-        "ESMFold weights not in local HF cache; provide "
-        "--protein_path with a PDB structure instead of a bare "
-        "sequence"
+def fold_sequence(sequence: str, out_path: str, model=None, device=DEFAULT_DEVICE) -> str:
+    """Sequence -> structure via ESMFold (reference
+    ``generate_ESM_structure``, ``utils/inference_utils.py:87-115``).
+
+    ``model`` is any ``EsmForProteinFolding`` instance (injectable: a fake
+    in tests); when absent, loads ``facebook/esmfold_v1`` from the local HF
+    cache only (nothing is downloaded) onto ``device`` and raises an
+    actionable error otherwise. ``infer_pdbs`` tokenizes internally.
+    """
+    import torch
+
+    if model is None:
+        model = load_esmfold(device)
+    # OOM degradation mirroring the reference (utils/inference_utils.py:
+    # 87-115): on a memory error, halve the axial-attention chunk size
+    # (256 -> 128 -> ... -> 1) and retry
+    chunk = None  # model default first (full attention)
+    while True:
+        try:
+            with torch.no_grad():
+                pdb_text = model.infer_pdbs([sequence])[0]
+            break
+        except (MemoryError, RuntimeError) as e:
+            if not _is_oom(e):
+                raise
+            chunk = 256 if chunk is None else chunk // 2
+            if chunk < 1:
+                raise RuntimeError(
+                    "ESMFold out of memory even at chunk_size=1; fold the "
+                    "sequence on a larger host or provide --protein_path"
+                ) from e
+            print(f"ESMFold OOM; retrying with chunk_size {chunk}")
+            model.trunk.set_chunk_size(chunk)
+    with open(out_path, "w") as f:
+        f.write(pdb_text)
+    return out_path
+
+
+def load_esmfold(device=DEFAULT_DEVICE):
+    """``facebook/esmfold_v1`` from the local HF cache, in eval mode on
+    ``device``; RuntimeError without ``transformers`` or the weights."""
+    try:
+        from transformers import EsmForProteinFolding
+    except Exception as e:
+        raise RuntimeError(f"transformers unavailable for ESMFold: {e}") from e
+    try:
+        model = EsmForProteinFolding.from_pretrained("facebook/esmfold_v1", local_files_only=True)
+    except Exception as e:
+        raise RuntimeError(
+            "ESMFold weights not in local HF cache; provide "
+            "--protein_path with a PDB structure instead of a bare "
+            "sequence"
+        ) from e
+    return model.eval().to(device)
+
+
+def _is_oom(e: BaseException) -> bool:
+    if isinstance(e, MemoryError):
+        return True
+    msg = str(e).lower()
+    return "out of memory" in msg or "can't allocate" in msg or (
+        "cannot allocate" in msg
     )
+
+
+def make_esmfold_folder(model=None, device=DEFAULT_DEVICE):
+    """A folder callable for :class:`InferenceDatasetBuilder` bound to one
+    ESMFold instance: ``model``, else the local weights loaded onto
+    ``device`` at the first call, reused across specs."""
+    held = [model]
+
+    def _folder(sequence: str, out_path: str) -> str:
+        if held[0] is None:
+            held[0] = load_esmfold(device)
+        return fold_sequence(sequence, out_path, model=held[0])
+
+    return _folder
 
 
 def read_ligand_description(desc: str, seed: int = 0) -> Molecule:
@@ -91,14 +164,16 @@ class InferenceDatasetBuilder:
         esm_table: Optional[Dict[str, np.ndarray]] = None,
         workdir: str = ".",
         folder=None,
+        device=DEFAULT_DEVICE,
     ):
         self.c_alpha_max_neighbors = c_alpha_max_neighbors
         self.remove_hs = remove_hs
         self.esm_embedder = esm_embedder
         self.esm_table = esm_table
         self.workdir = workdir
-        # sequence -> structure hook: callable(sequence, out_path) -> path
-        self.folder = folder or fold_sequence
+        # sequence -> structure hook: callable(sequence, out_path) -> path;
+        # the default folds with ESMFold on ``device``
+        self.folder = folder or make_esmfold_folder(device=device)
 
     def _protein(self, spec: InferenceSpec) -> ProteinStructure:
         path = spec.protein_path

@@ -454,6 +454,15 @@ class DockingPipeline:
                                   pocket_center=pk, batch_size=batch_size)
                 for i, (d, aa, pk) in enumerate(zip(datas, aa_list, pk_list))]
 
+    @torch.inference_mode()
+    def dock_program(self, data: ComplexData, bucket: Tuple[int, int, int], num_poses: int,
+                     seed: int = 0) -> DockingResult:
+        """One batch of ``num_poses`` poses of ``data`` padded to ``bucket``
+        = (nl, nr, nb), from :meth:`draw_noise`: the program that
+        :meth:`dock_complex` runs per pose chunk, without its pre-crop,
+        chunking or guard (``prewarm`` runs it once per job)."""
+        return self._dock_program(data, bucket, num_poses, seed, self.draw_noise, None, False, None)
+
     def _dock_program(self, data: ComplexData, bucket: Tuple[int, int, int], num_poses: int, seed: int,
                       noise, aa_data: Optional[AAComplexData], return_trajectory: bool,
                       pocket_center: Optional[np.ndarray]) -> DockingResult:

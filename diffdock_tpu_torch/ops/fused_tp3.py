@@ -425,23 +425,15 @@ def _bf16_plan(table, n_rows, K, H, n_sm):
 
     # a TMA copy holds its issuing thread long whatever its size: the
     # widest stage (up to 64 neighbours, no wider than K needs; stages of
-    # 128 fault on the card) that leaves 4, else 3, slots and room for at
-    # least 8 receivers (2 when the warpgroups split long neighbour lists,
-    # and then 4 slots: an odd count hangs on the card there; 3 slots also
-    # fail on the card when each block runs every slice, seen at 4480 rows
-    # of 64 neighbours); else 16 or 32 neighbours and 2 slots
+    # 128 fault on the card) that leaves 4 slots and room for at least 8
+    # receivers (2 when the warpgroups split long neighbour lists); else 16
+    # or 32 neighbours and 2 slots. The ring is even: with an odd one, a
+    # consumer warpgroup a lap ahead passes its wait on a stage still in
+    # flight, and the kernel hangs (the kernel source's RingPos says why)
     r_min = 2 if k_parts == 2 else 8
     top = 16 if K <= 16 else 32 if K <= 32 else 64
-    slots = (4,) if k_parts == 2 else (4, 3)
-
-    def fits(KC, S):
-        r = most(KC, S)
-        return r >= r_min and not (S % 2 and -(-n_rows // r) >= n_sm)
-
-    choice = next(((KC, S) for KC in (64, 32, 16) if KC <= top for S in slots if fits(KC, S)), None)
-    if choice is None:
-        choice = (16 if K <= 16 else 32, 2)
-    KC, S = choice
+    KC = next((KC for KC in (64, 32, 16) if KC <= top and most(KC, 4) >= r_min), None)
+    KC, S = (KC, 4) if KC is not None else (16 if K <= 16 else 32, 2)
     R = most(KC, S)
     if R == 0:
         raise ValueError(f"fused_tp3: the class table {table.tolist()} does not fit the "

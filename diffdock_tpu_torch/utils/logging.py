@@ -1,10 +1,40 @@
-"""Structured run metrics (port of ``MetricsWriter`` in ``diffdock_tpu/utils/logging.py``)."""
+"""Logging utilities (port of ``diffdock_tpu/utils/logging.py``; reference
+``utils/logging_utils.py``).
+
+A named logger with env-var level control (``DIFFDOCK_TPU_LOGLEVEL``), a
+per-PID child logger for subprocess safety, an optional file handler, and
+structured run metrics as JSON lines.
+"""
 
 from __future__ import annotations
 
 import json
+import logging
 import os
+import sys
 from typing import Optional
+
+_FMT = "[%(asctime)s] [%(name)s %(levelname)s] %(message)s"
+
+
+def get_logger(name: str = "diffdock_tpu") -> logging.Logger:
+    """The process's ``{name}.{pid}`` logger, writing to stderr at the level
+    ``DIFFDOCK_TPU_LOGLEVEL`` gives (INFO by default)."""
+    logger = logging.getLogger(f"{name}.{os.getpid()}")
+    if not logger.handlers:
+        logger.setLevel(os.environ.get("DIFFDOCK_TPU_LOGLEVEL", "INFO").upper())
+        h = logging.StreamHandler(sys.stderr)
+        h.setFormatter(logging.Formatter(_FMT))
+        logger.addHandler(h)
+        logger.propagate = False
+    return logger
+
+
+def add_file_handler(path: str, name: str = "diffdock_tpu") -> None:
+    """Also write :func:`get_logger`'s records to ``path``."""
+    h = logging.FileHandler(path)
+    h.setFormatter(logging.Formatter(_FMT))
+    get_logger(name).addHandler(h)
 
 
 class MetricsWriter:

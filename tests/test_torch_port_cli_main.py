@@ -45,12 +45,13 @@ def test_entry_point_matches_pyproject():
     assert getattr(importlib.import_module(mod), fn) is main
 
 
-@pytest.mark.parametrize("cmd,item", [("esm-prep", "items 7 and 9"), ("prewarm", "item 9"),
-                                      ("esm_prep", "items 7 and 9")])
-def test_unported_commands_are_refused_with_their_item(capsys, cmd, item):
-    assert main([cmd, "--help"]) == 2
-    err = capsys.readouterr().err
-    assert "not ported" in err and f"ROADMAP queue 1 {item}" in err
+@pytest.mark.parametrize("cmd", ["esm-prep", "prewarm", "esm_prep"])
+def test_unported_commands_are_refused_with_their_item(cmd):
+    """esm-prep (either spelling) and prewarm dispatch to their modules:
+    --help reaches the module's parser, which exits 0."""
+    with pytest.raises(SystemExit) as e:
+        main([cmd, "--help"])
+    assert e.value.code == 0
 
 
 def test_restrict_cpu_caps_pools_before_import(monkeypatch):

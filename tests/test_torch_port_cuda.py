@@ -363,6 +363,28 @@ def test_fused_tp3_bf16_at_the_v1_score_models_first_tp():
     assert (out - ref).abs().max().item() <= 1e-3 * max(ref.abs().max().item(), 1.0)
 
 
+def test_fused_tp3_bf16_at_the_ligand_embeddings_first_tp_with_one_slice_per_block():
+    """DiffDock-L's first ligand-embedding TP (48x0e -> 48x0e + 10x1o) at 8
+    poses of the cover ladder's (96, 2304) bucket: 768 rows of 96
+    neighbours, one slice per block. A ring of 3 slots hung here now and
+    then inside a dock (cudaError 719), rarely enough that launches of this
+    TP alone did not show it; so this test checks the plan (an even ring)
+    and that 50 launches give the same bits, not the hang itself (the CPU
+    search of the ring protocol in test_torch_port_tp3_bf16_tiles.py shows
+    why an odd ring hangs)."""
+    dev = _card()
+    tp = FullyConnectedTensorProduct("48x0e", SH, "48x0e + 10x1o")
+    plan = ft.bf16_plan(ft.bf16_class_table(tp.live_classes(), 145), 768, 96, 144)
+    assert not plan.whole and plan.S % 2 == 0
+    args = _bf16_args(tp, 768, 96, 145, dev)
+    ref = ft.fused_tp3_reference(tp, *args)
+    first = ft.fused_tp3(tp, *args)
+    for _ in range(49):
+        assert torch.equal(ft.fused_tp3(tp, *args), first)
+    torch.cuda.synchronize()
+    assert (first - ref).abs().max().item() <= 1e-3 * max(ref.abs().max().item(), 1.0)
+
+
 @pytest.mark.parametrize("rows,K,H1", [(3200, 32, 145), (320, 320, 145), (320, 2560, 73)])
 def test_fused_tp3_bf16_two_launches_are_bit_identical(rows, K, H1):
     """Every sum runs in a fixed order: all slices in one block (3200 x
@@ -428,3 +450,40 @@ def test_factored_bf16_kernel_at_its_plan_edges(gen, model, rows, K, H1):
         assert m.counts[f"factored_tp{gen}_bf16"] == before + 2
         assert out.dtype == torch.float32 and torch.equal(out, again)
         assert (out - ref).abs().max().item() <= 1e-3 * max(ref.abs().max().item(), 1.0)
+
+
+# ESM2 at its published width (1280 wide, 20 heads, FFN 5120) cut to two
+# layers: the card against the CPU on the same random weights, every row
+# within 1e-4 of the output's scale (float32 with TF32 off on both), and the
+# same bits whatever the process's TF32 setting (the forward turns it off
+# for itself and restores it)
+def test_esm2_forward_on_the_card_matches_the_cpu():
+    import copy
+
+    from diffdock_tpu_torch.models.esm2 import ESM2, ESM2Config, MASK_ID, PAD_ID
+
+    dev = _card()
+    cfg = ESM2Config(num_layers=2)
+    cpu = ESM2(cfg)
+    cpu.reset_parameters(torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to(dev).eval()
+    g = torch.Generator().manual_seed(1)
+    tokens = torch.randint(4, 24, (2, 384), generator=g)
+    tokens[:, 0] = 0
+    tokens[0, 370], tokens[1, 383] = 2, 2
+    tokens[0, 371:] = PAD_ID
+    tokens[1, 17] = MASK_ID
+    mask = (tokens != PAD_ID).long()
+    with torch.inference_mode():
+        ref = cpu(tokens, mask)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            got_tf32 = card(tokens.to(dev), mask.to(dev))
+            assert torch.backends.cuda.matmul.allow_tf32
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        got = card(tokens.to(dev), mask.to(dev))
+    assert torch.equal(got, got_tf32)
+    scale = max(ref.abs().max().item(), 1.0)
+    err = (got.cpu() - ref).abs().max().item()
+    assert torch.isfinite(got).all() and err <= 1e-4 * scale, (err, scale)

@@ -68,7 +68,8 @@ def test_port_imports_nothing_missing_on_the_card_machine():
     "train/schedulers.py", "train/validation.py", "data/loaders.py", "utils/logging.py",
     "cli/train.py", "models/aa_model.py", "models/factory.py", "models/tpconv.py",
     "train/confidence.py", "cli/confidence_train.py", "app/__init__.py", "app/server.py",
-    "cli/main.py", "data/pdb_sidechain.py",
+    "cli/main.py", "data/pdb_sidechain.py", "models/esm2.py", "cli/esm_prep.py", "cli/prewarm.py",
+    "data/conformers.py", "utils/profiling.py", "geometry/rotations.py",
 ])
 def test_port_modules_are_in_the_checked_set(module):
     assert REPO / "diffdock_tpu_torch" / module in _port_files()

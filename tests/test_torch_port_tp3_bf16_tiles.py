@@ -278,13 +278,135 @@ def test_plan_covers_every_receiver_column_and_hidden_row_once():
 def test_plan_takes_no_odd_ring_when_each_block_runs_every_slice():
     """Three ring slots failed on the card with every slice in one block
     (the v1.0 score model's first TP, 48x0e -> 48x0e + 10x1o, at its
-    rec<-lig block of 4480 rows and 64 neighbours). Such a plan now takes
-    the next stage width with an even ring; with one slice per block the
-    three slots stay (DiffDock-L's ligand embedding at 640 rows)."""
+    rec<-lig block of 4480 rows and 64 neighbours), and with one slice per
+    block too (the same TP as DiffDock-L's ligand embedding, 768 rows of
+    96 neighbours: 8 poses of the cover ladder's (96, 2304) bucket). Such
+    plans take the next stage width with an even ring, in either mode
+    (DiffDock-L's ligand embedding at 640 and 768 rows)."""
     tp = FullyConnectedTensorProduct("48x0e", "1x0e + 1x1o + 1x2e", "48x0e + 10x1o")
     table = ft.bf16_class_table(tp.live_classes(), 145)
     for rows in (4480, 20480):
         plan = ft.bf16_plan(table, rows, 64, 144)
         assert plan.whole and plan.S % 2 == 0 and (plan.KC, plan.S) == (32, 4)
-    few = ft.bf16_plan(table, 640, 64, 144)
-    assert not few.whole and (few.KC, few.S) == (64, 3)
+    for rows, K in ((640, 64), (768, 96)):
+        few = ft.bf16_plan(table, rows, K, 144)
+        assert not few.whole and (few.KC, few.S) == (32, 4)
+
+
+def ring_hazard(S: int, k_parts: int, n_q: int, h0: int, n_w: int, n_slices: int):
+    """Search every interleaving of the bf16 kernel's ring protocol for a
+    wait that passes before its stage has landed; return the first such
+    (slot, use, fills landed) or None.
+
+    The model is the kernel's: ``S`` producers, one per slot, each issuing
+    the items of its slot in ring order after ``mbar_wait(empty, phase ^ 1)``;
+    a stage lands (completes a ``full`` phase) at any later moment; per
+    slice, ``2 n_q`` P items that alternate between the two consumer
+    warpgroups (with ``k_parts`` 2, both meet at a named barrier after every
+    ``h0`` of their items), a named barrier, then ``n_w`` weight items that
+    both wait on, and a barrier. A consumer waits ``mbar_wait(full, phase)``,
+    which passes whenever the barrier's completed phases differ in parity
+    from ``phase``, and releases the slot (a P item's warpgroup gives all
+    eight arrivals, each warpgroup four of a weight item's)."""
+    items, progs = [], ([], [])
+    for _ in range(n_slices):
+        for w in range(2 * n_q):
+            g = w & 1
+            progs[g].append(("wait", len(items)))
+            items.append((g,))
+            if k_parts == 2 and (w >> 1) % h0 == h0 - 1:
+                progs[g].append(("bar",))
+        for prog in progs:
+            prog.append(("bar",))
+        for _ in range(n_w):
+            for prog in progs:
+                prog.append(("wait", len(items)))
+            items.append((0, 1))
+        for prog in progs:
+            prog.append(("bar",))
+    bars = [[sum(op == ("bar",) for op in prog[:pc]) for pc in range(len(prog) + 1)] for prog in progs]
+
+    def arrived(g, pc):  # barriers consumer g has reached
+        return bars[g][pc] + (pc < len(progs[g]) and progs[g][pc] == ("bar",))
+
+    start = (tuple(range(S)), (0,) * S, (0,) * S, (0,) * S, ((),) * S, 0, 0)
+    seen, todo = {start}, [start]
+    while todo:
+        nxt, full, empty, arr, flight, *pcs = todo.pop()
+        moves = []
+        for s in range(S):
+            i = nxt[s]
+            if i < len(items) and (empty[s] & 1) == (i // S & 1):
+                if empty[s] != i // S:
+                    return ("producer", s, i // S, empty[s])
+                moves.append(((s,), nxt[:s] + (i + S,) + nxt[s + 1:], full, empty, arr,
+                              flight[:s] + (flight[s] + (i,),) + flight[s + 1:], *pcs))
+            if flight[s]:
+                moves.append(((), nxt, full[:s] + (full[s] + 1,) + full[s + 1:], empty, arr,
+                              flight[:s] + (flight[s][1:],) + flight[s + 1:], *pcs))
+        for g in (0, 1):
+            pc = pcs[g]
+            if pc == len(progs[g]):
+                continue
+            new_pcs = list(pcs)
+            new_pcs[g] = pc + 1
+            if progs[g][pc] == ("bar",):
+                if arrived(1 - g, pcs[1 - g]) > bars[g][pc]:
+                    moves.append(((), nxt, full, empty, arr, flight, *new_pcs))
+                continue
+            i = progs[g][pc][1]
+            s, use = i % S, i // S
+            if (full[s] & 1) == (use & 1):
+                continue
+            if full[s] != use + 1:
+                return ("consumer", s, use, full[s])
+            a = arr[s] + (2 if len(items[i]) == 1 else 1)
+            e, a = (empty[s] + 1, 0) if a == 2 else (empty[s], a)
+            moves.append(((), nxt, full, empty[:s] + (e,) + empty[s + 1:], arr[:s] + (a,) + arr[s + 1:],
+                          flight, *new_pcs))
+        for _, *state in moves:
+            state = tuple(state)
+            if state not in seen:
+                seen.add(state)
+                todo.append(state)
+    return None
+
+
+@pytest.mark.parametrize("k_parts,h0", [(1, 1), (2, 3)])
+@pytest.mark.parametrize("S", [2, 3, 4])
+def test_ring_protocol_holds_only_with_an_even_slot_count(S, k_parts, h0):
+    """Why an odd ring hung on the card (cudaError 719, the wait's trap):
+    with S odd, consecutive uses of one slot go to different warpgroups, so
+    a warpgroup one lap ahead of the other waits on its slot while the
+    other's stage is still in flight; ``mbar_wait`` tells phases apart by
+    parity only, sees the phase before that one complete and passes, reads
+    the stage early and releases the slot a phase early, and the ring's
+    counts never meet again. With S even, every slot's P items go to one
+    warpgroup, which waits on each of its stages in order, and weight items
+    follow a barrier that every earlier item has passed: no wait can pass
+    early. The search covers every interleaving of two slices."""
+    found = ring_hazard(S, k_parts, n_q=S + 1, h0=h0, n_w=2, n_slices=2)
+    if S % 2:
+        assert found is not None and found[0] == "consumer"
+        _, slot, use, landed = found
+        assert landed == use - 1  # the stage before is still in flight
+    else:
+        assert found is None
+
+
+@pytest.mark.parametrize("model", ["diffdock_l", "diffdock_s"])
+def test_plans_take_an_even_ring_at_every_block(model):
+    """The plan never takes an odd ring (see the protocol test above): at
+    every layer's TP of the model, over row counts from 8 to 40000 and
+    neighbour counts from 1 to 2560."""
+    from diffdock_tpu_torch.models.config import PRESETS
+
+    cfg = PRESETS[model]
+    seq = get_irrep_seq(cfg.ns, cfg.nv, False, cfg.reduce_pseudoscalars)
+    for a, b in [(0, 1), (1, 2), (2, 3), (3, 3)]:
+        tp = FullyConnectedTensorProduct(seq[a], SH, seq[b])
+        table = ft.bf16_class_table(tp.live_classes(), 3 * cfg.ns + 1)
+        for rows in (8, 320, 768, 4480, 40000):
+            for K in (1, 16, 32, 48, 64, 96, 128, 320, 2560):
+                plan = ft.bf16_plan(table, rows, K, 3 * cfg.ns)
+                assert plan.S in (2, 4), (a, b, rows, K, plan.S)
