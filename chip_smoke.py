@@ -256,6 +256,31 @@ K. protein inputs: K1 ESM2-650M (``models/esm2.py`` at its published size:
    over the cover ladder (2 steps, 1 run, a diffdock_s confidence model) in
    a process of its own, one line per job, then again on one bucket: it
    compiles nothing.
+L. the device mesh (``diffdock_tpu_torch/parallel/mesh.py``): MESH_RANKS
+   ranks started by ``mesh.launch`` share cuda:0 over gloo (NCCL refuses
+   two ranks on one device; the arrangement is printed first), each with
+   its own process, models and kernel launches, rank 0 building the
+   kernels before the others load them. L1 phase 4's dock pose-sharded (5
+   poses a rank), each shard from this process's draws for its rank: in
+   float32 the gathered poses, confidences and ranking as phase 5 holds
+   them to the single-process dock of the joined draws, each rank's
+   launches exactly ``mode_launches`` of 5 poses, no plain version; then in
+   bfloat16 gated as H2 (counts by mode, bond lengths, ranking; the RMSD to
+   the single-process bf16 dock reported). L2 ``dock_batch`` of three of
+   phase D's complexes, one per rank, each held to the single-process
+   program of its group (``DockingPipeline.dock_program`` at the group's
+   bucket and widths, its draws) within 5e-3 A or twice a nudged start's
+   spread. L3 data-parallel steps from phase E's train state (DiffDock-L,
+   four (48, 320) complexes whose halves hold as many rotatable bonds) and
+   from phase G's CG confidence weights, two each, against the
+   single-process step of the whole batch from the same start and draws,
+   ReLU ties pinned: within phase E3's limits, params bit-identical across
+   the ranks, the time in collectives per step. L4 ``python -m
+   torch.distributed.run --standalone --nproc_per_node 2 -m
+   diffdock_tpu_torch.cli.dock ... --pose_devices 2``: rc 0, the ranked
+   SDFs written once. Each sub-phase's wall, each rank's launches and peak
+   memory are logged; they are two processes sharing one card, not a
+   multi-GPU scaling figure.
 
 It then prints the card line (``nvidia-smi --query-gpu=name,power.limit``),
 one JSON line with the kernels' numbers (fused_tp3's bfloat16 mode as
@@ -886,6 +911,7 @@ def run(args) -> dict:
         report["combined_train"] = combined_training_phase(Path(tmp), kernels, card, dev)
         report["v1"] = v1_phase(args, Path(tmp), ccfg, data, aa, noise, so3, torus, card, dev)
         report["esm"] = esm_phase(args, Path(tmp), ccfg, so3, torus, kernels, card, dev)
+        report["mesh"] = mesh_phase(args, Path(tmp), cfg, ccfg, data, aa, so3, torus, card, dev)
 
     sources = {"fused_tp3": "diffdock_tpu/ops/pallas_tpconv3.py:57",
                "fused_tp3_bf16": "diffdock_tpu/ops/pallas_tpconv3.py:57",
@@ -2688,8 +2714,8 @@ def confidence_phase(args, tmp: Path, kernels, card: str, dev) -> dict:
         gen_calls.append({**{k: after[k] - before[k] for k in after}, "expected": want})
         return out
 
-    def counted_make_step(model, cfg):
-        step = make_step(model, cfg)
+    def counted_make_step(model, cfg, **kw):
+        step = make_step(model, cfg, **kw)
 
         def counted(state, batch, poses, labels, generator=None):
             before = ft.counts.as_dict()
@@ -4317,6 +4343,535 @@ def esm_phase(args, tmp: Path, ccfg, so3, torus, kernels, card: str, dev) -> dic
          f"{runs[1]['kernels']} | {card}")
     report["s"] = time.perf_counter() - t_start
     _log(f"[K protein inputs] {card} | phase {report['s']:.1f} s")
+    return report
+
+
+# phase L: the device mesh (diffdock_tpu_torch/parallel/mesh.py) on this one
+# card. MESH_RANKS ranks share cuda:0 over gloo (NCCL refuses two ranks on
+# one device; one rank per card, over NCCL, needs a machine with more cards):
+# every time and size below is two processes sharing one card, not a
+# multi-GPU scaling figure. L1 docks phase 4's complex pose-sharded, L2
+# three of phase D's complexes one per rank, L3 takes data-parallel train
+# steps, L4 runs the dock CLI under torchrun.
+MESH_RANKS = 2
+MESH_DOCK_COMPLEXES = EVAL_COMPLEXES[:3]
+MESH_TWIN_SEEDS = (7, 8)
+# L3's batch: four of phase E's (48, 320) complexes, each rank's two holding
+# as many rotatable bonds (20): the torsion loss is a mean over a batch's
+# bonds, so the ranks' mean of their losses is the whole batch's only then
+# (in the JAX package's sharded step too)
+MESH_TRAIN_COMPLEXES = ("syn016_l36r224", "syn073_l47r311", "syn077_l38r217", "syn087_l45r286")
+MESH_CLI_COMPLEX = "syn001_l24r104"
+
+
+def _np_noise(draws) -> tuple:
+    """(InitNoise, StepNoise) as numpy fields, to send to a rank."""
+    return tuple(tuple(t.detach().cpu().numpy() for t in part) for part in draws)
+
+
+def _torch_noise(fields, dev):
+    import torch
+
+    from diffdock_tpu_torch.inference.sampler import InitNoise, StepNoise
+
+    return (InitNoise(*[torch.as_tensor(a, device=dev) for a in fields[0]]),
+            StepNoise(*[torch.as_tensor(a, device=dev) for a in fields[1]]))
+
+
+def _cat_noise(parts):
+    """The draws of several shards joined on the pose axis (axis 1 of the
+    per-step draws), as one pose batch's."""
+    import numpy as np
+
+    init = tuple(np.concatenate([p[0][k] for p in parts]) for k in range(len(parts[0][0])))
+    steps = tuple(np.concatenate([p[1][k] for p in parts], axis=1) for k in range(len(parts[0][1])))
+    return init, steps
+
+
+def _params_digest(named) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(named):
+        h.update(k.encode())
+        h.update(named[k].detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _snapshot(model, state) -> dict:
+    """A train state and its model's tensors, cloned."""
+    from diffdock_tpu_torch.train.trainer import AdamState
+
+    o = state.opt_state
+    return {"model": {k: v.detach().clone() for k, v in model.state_dict().items()},
+            "opt": AdamState(o.count.clone(), {k: v.clone() for k, v in o.mu.items()},
+                             {k: v.clone() for k, v in o.nu.items()}),
+            "ema": {k: v.detach().clone() for k, v in state.ema_params.items()}, "step": state.step}
+
+
+def _restore(model, tc, snap):
+    from diffdock_tpu_torch.train import trainer
+
+    model.load_state_dict(snap["model"], strict=True)
+    state = trainer.create_train_state(model, tc)
+    o = snap["opt"]
+    state.opt_state = type(o)(o.count.clone(), {k: v.clone() for k, v in o.mu.items()},
+                              {k: v.clone() for k, v in o.nu.items()})
+    state.ema_params = {k: v.clone() for k, v in snap["ema"].items()}
+    state.step = snap["step"]
+    return state
+
+
+def _shard_acts(acts: dict, mesh) -> dict:
+    """A whole batch's pre-ReLU outputs (:func:`record_pre_relu`), each
+    call's leading (complex-major) axis cut to this rank's shard."""
+    return {n: [t.chunk(mesh.size)[mesh.rank] for t in calls] for n, calls in acts.items()}
+
+
+def _twin_record(model, state, metrics, acts, counts) -> dict:
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": _flat_leaves(model, state.grads), "params": _flat_leaves(model, state.params),
+            "stats": {k: v.detach().cpu().numpy() for k, v in state.batch_stats.items()},
+            "counts": counts, "acts": acts}
+
+
+def _mesh_pose_docks(mesh, p: dict, so3, torus) -> dict:
+    """L1 on one rank: the pose-sharded dock of phase 4's complex in float32
+    and in bfloat16, each shard from the parent's draws for its rank; each
+    dock run twice (the second, warm, is counted and timed) and its poses
+    equal to the first's."""
+    import numpy as np
+    import torch
+
+    from diffdock_tpu_torch.inference.pipeline import DockingPipeline
+    from diffdock_tpu_torch.inference.sampler import SamplerConfig
+    from diffdock_tpu_torch.ops import fused_tp3 as ft
+
+    dev, out = mesh.device, {}
+    draws = {r: _torch_noise(f, dev) for r, f in p["l1_draws"].items()}
+
+    def noise(num_poses, n_bonds, seed, fold=None):
+        return draws[fold]
+
+    for mode, (cfg, ccfg) in p["l1_models"].items():
+        pipe = DockingPipeline(cfg, 0, SamplerConfig(), so3, torus, device=dev, confidence_cfg=ccfg,
+                               confidence_weights=1, mesh=mesh)
+        first = pipe.dock_complex(p["data"], num_poses=p["poses"], seed=0, noise=noise, aa_data=p["aa"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ft.counts.reset()
+        mesh.barrier()
+        t0 = time.perf_counter()
+        res = pipe.dock_complex(p["data"], num_poses=p["poses"], seed=0, noise=noise, aa_data=p["aa"])
+        torch.cuda.synchronize()
+        out[mode] = {"result": res, "wall_s": time.perf_counter() - t0, "launches": ft.counts.as_dict(),
+                     "peak_bytes": torch.cuda.max_memory_allocated(),
+                     "repeat_identical": bool(np.array_equal(first.poses, res.poses))}
+        del pipe
+    return out
+
+
+def _mesh_dock_batch(mesh, p: dict, so3, torus) -> dict:
+    """L2 on one rank: ``dock_batch`` of three complexes, one per rank."""
+    import torch
+
+    from diffdock_tpu_torch.inference.pipeline import DockingPipeline
+    from diffdock_tpu_torch.inference.sampler import SamplerConfig
+    from diffdock_tpu_torch.ops import fused_tp3 as ft
+
+    cfg, ccfg = p["l1_models"]["float32"]
+    pipe = DockingPipeline(cfg, 0, SamplerConfig(), so3, torus, device=mesh.device, confidence_cfg=ccfg,
+                           confidence_weights=1, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ft.counts.reset()
+    mesh.barrier()
+    t0 = time.perf_counter()
+    res = pipe.dock_batch(p["l2_datas"], num_poses=p["poses"], seed=0, aa_datas=p["l2_aas"])
+    torch.cuda.synchronize()
+    return {"results": res, "wall_s": time.perf_counter() - t0, "launches": ft.counts.as_dict(),
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def _mesh_train_twins(mesh, p: dict, so3, torus) -> dict:
+    """L3 on one rank: for each of MESH_TWIN_SEEDS, the single-process step
+    of the whole batch (4 complexes) and the data-parallel step of this
+    rank's half from the same start and draws, its ReLU ties pinned to the
+    single step's (its shard of them). The data-parallel steps run on as one
+    chain and each case starts from its state, the same bits on every rank
+    (a single-process step's atomic backward differs from rank to rank).
+    First the DiffDock-L score model from phase E's saved train state at
+    (48, 320), then the coarse-grained confidence model at phase G's width
+    from G's weights."""
+    import torch
+
+    from diffdock_tpu_torch.data.complexes import to_device
+    from diffdock_tpu_torch.models.factory import build_model
+    from diffdock_tpu_torch.models.score_model import CGScoreModel
+    from diffdock_tpu_torch.ops import fused_tp3 as ft
+    from diffdock_tpu_torch.parallel import mesh as mesh_mod
+    from diffdock_tpu_torch.train import checkpoints as ckpt
+    from diffdock_tpu_torch.train import confidence as tconf
+    from diffdock_tpu_torch.train import trainer
+    from diffdock_tpu_torch.train.noise import draw_noise
+
+    dev, out = mesh.device, {"score": [], "confidence": []}
+    # the score model
+    cfg = p["l3_cfg"]
+    tc = trainer.TrainConfig()
+    single = CGScoreModel(cfg).to(dev)
+    dp = CGScoreModel(trainer.training_model_config(cfg, data_parallel=True)).to(dev)
+    batch = to_device(p["l3_batch"], dev)
+    state = trainer.create_train_state(single, tc)
+    ckpt.load_train_state(p["l3_log_dir"], single, state)
+    dstate = _restore(dp, tc, _snapshot(single, state))
+    dp_step = mesh_mod.shard_train_step(trainer.make_train_step(dp, tc, so3, torus, mesh=mesh), mesh)
+    single_step = trainer.make_train_step(single, tc, so3, torus)
+    for seed in MESH_TWIN_SEEDS:
+        snap = _snapshot(dp, dstate)
+        draws = draw_noise(torch.Generator(device=dev).manual_seed(seed), batch.rot_u.shape[0],
+                           batch.rot_u.shape[1], device=dev)
+        acts: dict = {}
+        hooks = record_pre_relu(single, acts)
+        ft.counts.reset()
+        state, metrics = single_step(_restore(single, tc, snap), batch, draws)
+        torch.cuda.synchronize()
+        for h in hooks:
+            h.remove()
+        ref = _twin_record(single, state, metrics, _shard_acts(acts, mesh), ft.counts.as_dict())
+        dacts: dict = {}
+        hooks = record_pre_relu(dp, dacts, ref["acts"])
+        own = draws._replace(**{f: getattr(draws, f)[mesh.shard(batch.rot_u.shape[0])] for f in draws._fields})
+        ft.counts.reset()
+        mesh.collective_s = 0.0
+        mesh.barrier()
+        t0 = time.perf_counter()
+        dstate, dmetrics = dp_step(dstate, batch, own)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for h in hooks:
+            h.remove()
+        rec = _twin_record(dp, dstate, dmetrics, dacts, ft.counts.as_dict())
+        out["score"].append({"seed": seed, "compare": compare_twins(dp, ref, rec, tc.lr),
+                             "counts": rec["counts"], "single_counts": ref["counts"], "wall_s": wall,
+                             "collective_s": mesh.collective_s, "digest": _params_digest(dstate.params)})
+    del single, dp, state, dstate
+
+    # the confidence model
+    ccfg, ctc = p["l3_conf_cfg"], tconf.ConfidenceTrainConfig()
+    single = build_model(ccfg).to(dev)
+    dp = build_model(trainer.training_model_config(ccfg, data_parallel=True)).to(dev)
+    dp.load_state_dict(p["l3_conf_sd"], strict=True)
+    batch = to_device(p["l3_conf_batch"], dev)
+    poses = torch.as_tensor(p["l3_conf_poses"], device=dev)
+    labels = torch.as_tensor(ctc.labels_from_rmsds(p["l3_conf_rmsds"]), device=dev)
+    dstate = tconf.create_confidence_train_state(dp, ctc)
+    single_step = tconf.make_confidence_train_step(single, ctc)
+    dp_step = mesh_mod.shard_confidence_train_step(tconf.make_confidence_train_step(dp, ctc, mesh=mesh), mesh)
+    for seed in MESH_TWIN_SEEDS:
+        opt = dstate.opt_state
+        single.load_state_dict(dp.state_dict(), strict=True)
+        state = tconf.create_confidence_train_state(single, ctc)
+        state.opt_state = type(opt)(opt.count.clone(), {k: v.clone() for k, v in opt.mu.items()},
+                                    {k: v.clone() for k, v in opt.nu.items()})
+        acts = {}
+        hooks = record_pre_relu(single, acts)
+        ft.counts.reset()
+        state, metrics = single_step(state, batch, poses, labels, torch.Generator(device=dev).manual_seed(seed))
+        torch.cuda.synchronize()
+        for h in hooks:
+            h.remove()
+        ref = _twin_record(single, state, metrics, _shard_acts(acts, mesh), ft.counts.as_dict())
+        dacts = {}
+        hooks = record_pre_relu(dp, dacts, ref["acts"])
+        ft.counts.reset()
+        mesh.collective_s = 0.0
+        mesh.barrier()
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(mesh_mod.fold_seed(seed, mesh.rank))
+        dstate, dmetrics = dp_step(dstate, batch, poses, labels, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for h in hooks:
+            h.remove()
+        rec = _twin_record(dp, dstate, dmetrics, dacts, ft.counts.as_dict())
+        out["confidence"].append({"seed": seed, "compare": compare_conf_twins(dp, ref, rec, ctc.lr),
+                                  "counts": rec["counts"], "single_counts": ref["counts"], "wall_s": wall,
+                                  "collective_s": mesh.collective_s,
+                                  "digest": _params_digest(dstate.params)})
+    return out
+
+
+def mesh_rank_jobs(out_dir: str, p: dict) -> int:
+    """Phase L's work on one rank of the mesh (started by
+    ``parallel/mesh.py:launch``): L1, L2 and L3, each sub-phase's result,
+    launches, wall and peak memory pickled to ``out_dir/rank<r>.pkl``."""
+    import pickle
+
+    import torch
+
+    from diffdock_tpu_torch.diffusion.so3 import get_so3_tables
+    from diffdock_tpu_torch.diffusion.torus import get_torus_tables
+    from diffdock_tpu_torch.geometry import use_full_fp32
+    from diffdock_tpu_torch.parallel import mesh as mesh_mod
+
+    mesh = mesh_mod.make_mesh(device="cuda")
+    use_full_fp32()
+    so3, torus = get_so3_tables(device=mesh.device), get_torus_tables(device=mesh.device)
+    report = {"rank": mesh.rank, "device": str(mesh.device), "backend": mesh.backend, "walls": {}}
+    for key, job in (("L1", _mesh_pose_docks), ("L2", _mesh_dock_batch), ("L3", _mesh_train_twins)):
+        mesh.barrier()
+        t0 = time.perf_counter()
+        report[key] = job(mesh, p, so3, torus)
+        report["walls"][key] = time.perf_counter() - t0
+    report["peak_bytes"] = torch.cuda.max_memory_allocated()
+    with open(Path(out_dir) / f"rank{mesh.rank}.pkl", "wb") as f:
+        pickle.dump(report, f)
+    return 0
+
+
+def mesh_phase(args, tmp: Path, cfg, ccfg, data, aa, so3, torus, card: str, dev) -> dict:
+    """Phase L: the device mesh on this card (see the module docstring). The
+    references run in this process; the ranks are MESH_RANKS processes that
+    ``parallel/mesh.py:launch`` starts on cuda:0."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from diffdock_tpu_torch.cli import confidence_train as conf_cli
+    from diffdock_tpu_torch.data.complexes import bucket_sizes
+    from diffdock_tpu_torch.data.datasets import ComplexDataset, DatasetConfig, pdbbind_specs
+    from diffdock_tpu_torch.data.inference_dataset import InferenceDatasetBuilder, InferenceSpec
+    from diffdock_tpu_torch.data.esm import LazyNpyTable
+    from diffdock_tpu_torch.data.loaders import stack_batch, stack_padded
+    from diffdock_tpu_torch.inference.pipeline import DockingPipeline
+    from diffdock_tpu_torch.inference.sampler import SamplerConfig
+    from diffdock_tpu_torch.parallel import mesh as mesh_mod
+    from diffdock_tpu_torch.train import checkpoints as ckpt
+    from diffdock_tpu_torch.train import confidence as tconf
+    from diffdock_tpu_torch.utils.convert import state_dict_from_flax
+
+    t_start = time.perf_counter()
+    report: dict = {"ranks": MESH_RANKS, "backend": mesh_mod.backend_for(MESH_RANKS, "cuda"),
+                    "arrangement": f"{MESH_RANKS} ranks sharing cuda:0 ({card})"}
+    if report["backend"] != "gloo":
+        raise PhaseError(f"{MESH_RANKS} ranks on {torch.cuda.device_count()} card(s) would take "
+                         f"{report['backend']}; this phase is written for ranks sharing one card")
+    _log(f"  L arrangement: {MESH_RANKS} ranks on cuda:0, backend gloo, rank r on cuda:r mod "
+         f"{torch.cuda.device_count()} (two processes sharing one card, not a scaling figure)")
+    P = args.poses
+    nb = bucket_sizes(data.n_lig, data.n_rec, data.n_bonds)[2]
+    models = {"float32": (cfg, ccfg),
+              "bfloat16": (dataclasses.replace(cfg, compute_dtype="bfloat16"),
+                           dataclasses.replace(ccfg, compute_dtype="bfloat16"))}
+
+    # L1 references: the single-process docks of the concatenated shard draws
+    t0 = time.perf_counter()
+    singles = {m: DockingPipeline(c, 0, SamplerConfig(), so3, torus, device=dev, confidence_cfg=cc,
+                                  confidence_weights=1) for m, (c, cc) in models.items()}
+    per_rank = -(-P // MESH_RANKS)
+    shard_draws = {r: _np_noise(singles["float32"].draw_noise(per_rank, nb, 0, fold=r)) for r in range(MESH_RANKS)}
+    joined = _torch_noise(_cat_noise([shard_draws[r] for r in range(MESH_RANKS)]), dev)
+    refs = {m: s.dock_complex(data, num_poses=P, seed=0, aa_data=aa, noise=lambda n, b, s_: joined)
+            for m, s in singles.items()}
+    expected = {m: mode_launches(s, data, aa, per_rank) for m, s in singles.items()}
+
+    # L2: three of phase D's complexes, featurized here; the references run
+    # each rank's program for its complex in this process
+    builder = InferenceDatasetBuilder(esm_table=LazyNpyTable(str(E2E_SYNTH / "_esm")))
+    l2_datas, l2_aas = [], []
+    for name in MESH_DOCK_COMPLEXES:
+        d = E2E_SYNTH / name
+        mol, protein, lm = builder.load(InferenceSpec(name, str(d / f"{name}_protein_processed.pdb"),
+                                                      ligand_description=str(d / f"{name}_ligand.sdf")))
+        c_data, c_aa, _ = singles["float32"].featurize(mol, protein, lm)
+        l2_datas.append(c_data)
+        l2_aas.append(c_aa)
+    l2_refs, l2_nudged = {}, {}
+    single = singles["float32"]
+    for g in single.batch_groups(l2_datas, l2_aas, P, size=MESH_RANKS):
+        if g.pose_chunk != P:
+            raise PhaseError(f"L2 group {g.idxs} runs {g.pose_chunk}-pose chunks; this phase docks {P} at once")
+        for j, i in enumerate(g.idxs):
+            c_data, c_aa = g.members[j]
+            l2_refs[i] = single.dock_program(c_data, g.bucket, P, 0, aa_data=c_aa, fold=i, widths=g.widths)
+            # how far float32 rounding moves this dock: its start translations nudged
+            init, steps = single.draw_noise(P, g.bucket[2], 0, fold=i)
+            e = torch.randn(init.tr.shape, generator=torch.Generator(device=dev).manual_seed(i + 1), device=dev)
+            with torch.inference_mode():
+                l2_nudged[i] = single._dock_program(
+                    c_data, g.bucket, P, 0, lambda *a, **k: (init._replace(tr=init.tr * (1 + NUDGE * e)), steps),
+                    c_aa, False, None, widths=g.widths)
+    ref_s = time.perf_counter() - t0
+
+    # L3: phase E's (48, 320) batch and train state, phase G's confidence
+    # model and pose caches
+    root = tmp / "train"
+    train_ds = ComplexDataset(pdbbind_specs(str(E2E_SYNTH), str(root / "train.txt"),
+                                            esm_embeddings_dir=str(E2E_SYNTH / "_esm")),
+                              DatasetConfig(cache_dir=str(root / "cache")))
+    train_ds.preprocess(verbose=False)
+    members = [(n, train_ds.get(n)) for n in MESH_TRAIN_COMPLEXES]
+    bonds = [int(np.asarray(m.rot_mask).sum()) for _, m in members]
+    half = len(members) // MESH_RANKS
+    if len({sum(bonds[r * half:(r + 1) * half]) for r in range(MESH_RANKS)}) != 1:
+        raise PhaseError(f"L3: the ranks' halves of {MESH_TRAIN_COMPLEXES} hold {bonds} rotatable bonds")
+    l3_batch = stack_batch(members, bucket_sizes(48, 320, max(m.n_bonds for _, m in members)))[1]
+    _, run_cfg, _ = ckpt.load_checkpoint(str(root / "run"), "last_model.msgpack")
+    croot = tmp / "confidence"
+    cargs = conf_cli.get_parser().parse_args(
+        ["--data_dir", str(E2E_SYNTH), "--split_train", str(croot / "train.txt"), "--cache_path",
+         str(croot / "cache"), "--log_dir", str(croot / "cg"), "--device", str(dev)] + CONF_CG_ARGS)
+    cdatas, _ = conf_cli.load_complexes(cargs)
+    cnames = list(cdatas)[:TRAIN_BATCH]
+    cached = [tconf.load_pose_cache(croot / "poses", n, [0]) for n in cnames]
+    cparams, conf_cfg, _ = ckpt.load_checkpoint(str(croot / "cg"), "last_model.msgpack")
+    payload = {"poses": P, "data": data, "aa": aa, "l1_models": models, "l1_draws": shard_draws,
+               "l2_datas": l2_datas, "l2_aas": l2_aas,
+               "l3_cfg": run_cfg, "l3_batch": l3_batch, "l3_log_dir": str(root / "run"),
+               "l3_conf_cfg": conf_cfg, "l3_conf_sd": state_dict_from_flax(cparams, conf_cfg),
+               "l3_conf_batch": stack_padded([cdatas[n] for n in cnames]),
+               "l3_conf_poses": np.stack([c[0][0] - np.asarray(cdatas[n].original_center)
+                                          for n, c in zip(cnames, cached)]).astype(np.float32),
+               "l3_conf_rmsds": [float(c[1][0]) for c in cached]}
+
+    # the ranks
+    out = tmp / "mesh"
+    out.mkdir(parents=True, exist_ok=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mesh_mod.launch(mesh_rank_jobs, (str(out), payload), MESH_RANKS, "cuda")
+    spawn_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(MESH_RANKS):
+        with open(out / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    report.update(references_s=ref_s, ranks_s=spawn_s,
+                  rank_walls={r["rank"]: r["walls"] for r in ranks},
+                  rank_peak_bytes={r["rank"]: r["peak_bytes"] for r in ranks})
+
+    # L1 gates
+    report["L1"] = {}
+    for mode in models:
+        got = [r["L1"][mode] for r in ranks]
+        res = got[0]["result"]
+        for r, g in enumerate(got):
+            if not np.array_equal(g["result"].poses, res.poses) or not g["repeat_identical"]:
+                raise PhaseError(f"L1 {mode}: rank {r}'s gathered poses differ from rank 0's or from its "
+                                 "first dock")
+            want = expected[mode]
+            if g["launches"]["fused_tp3"] != want["fused_tp3"] or \
+                    g["launches"]["fused_tp3_bf16"] != want["fused_tp3_bf16"] or \
+                    g["launches"]["fused_tp3_reference"]:
+                raise PhaseError(f"L1 {mode}: rank {r} launched {g['launches']}, expected {want} for "
+                                 f"{per_rank} poses and no plain version")
+        if res.poses.shape != (P, data.n_lig, 3) or not np.isfinite(res.poses).all() or \
+                not np.isfinite(res.confidence).all():
+            raise PhaseError(f"L1 {mode}: non-finite or misshapen poses {res.poses.shape}")
+        entry = {"launches_per_rank": [g["launches"] for g in got], "expected_per_rank": expected[mode],
+                 "wall_s_per_rank": [g["wall_s"] for g in got], "peak_bytes_per_rank": [g["peak_bytes"] for g in got]}
+        if mode == "float32":
+            entry["agree"] = docks_agree(res, refs[mode])
+        else:
+            # as phase H2: bond lengths and the ranking, no pose-for-pose gate
+            nbr, mask = np.asarray(data.lig_bond_nbr), np.asarray(data.lig_bond_mask)
+            bi, bk = np.nonzero(mask)
+            start = np.asarray(data.lig_pos, np.float64)[: data.n_lig]
+            entry["bond_err"] = _bond_error((bi, nbr[bi, bk]), start, res.poses.astype(np.float64))
+            if entry["bond_err"] > BOND_ATOL or np.any(np.diff(res.confidence[res.order]) > 0):
+                raise PhaseError(f"L1 bf16: bond lengths moved by {entry['bond_err']:.2e} A or the order "
+                                 "does not rank the confidences")
+            entry["rmsd_to_single"] = np.sqrt(((res.poses - refs[mode].poses) ** 2).sum(-1).mean(-1)).tolist()
+        report["L1"][mode] = entry
+        _log(f"[L1 pose-sharded dock, {mode}] {P} poses over {MESH_RANKS} ranks, {per_rank} each | rank walls "
+             f"{' '.join(f'{w:.3f}' for w in entry['wall_s_per_rank'])} s | per-rank launches "
+             f"{[{k: v for k, v in g.items() if v} for g in entry['launches_per_rank']]} (expected "
+             f"{ {k: v for k, v in expected[mode].items() if v} }) | peak "
+             f"{' '.join(f'{b / 2**30:.2f}' for b in entry['peak_bytes_per_rank'])} GiB | "
+             + (f"max |poses - single process| {entry['agree']['max_abs_pose_diff']:.3e} A"
+                if mode == "float32" else f"bond lengths within {entry['bond_err']:.2e} A, RMSD to the "
+                f"single-process bf16 dock {max(entry['rmsd_to_single']):.3f} A at most (no gate)")
+             + f" | {card}")
+
+    # L2 gates
+    got = [r["L2"] for r in ranks]
+    report["L2"] = {"wall_s_per_rank": [g["wall_s"] for g in got], "launches_per_rank": [g["launches"] for g in got],
+                    "peak_bytes_per_rank": [g["peak_bytes"] for g in got], "complexes": {}}
+    for i, name in enumerate(MESH_DOCK_COMPLEXES):
+        res = got[0]["results"][i]
+        if any(not np.array_equal(g["results"][i].poses, res.poses) for g in got):
+            raise PhaseError(f"L2 {name}: the ranks returned other poses")
+        gap = float(np.abs(l2_nudged[i].poses - l2_refs[i].poses).max())
+        agree = docks_agree(res, l2_refs[i], pose_tol=max(POSE_ATOL, 2 * gap))
+        report["L2"]["complexes"][name] = dict(agree, nudge_gap=gap)
+    if any(g["launches"]["fused_tp3_reference"] for g in got):
+        raise PhaseError(f"L2: a plain version ran: {[g['launches'] for g in got]}")
+    _log(f"[L2 complex-sharded dock_batch] {len(MESH_DOCK_COMPLEXES)} complexes, {P} poses, one per rank | "
+         f"rank walls {' '.join(f'{w:.3f}' for w in report['L2']['wall_s_per_rank'])} s | launches "
+         f"{[g['launches']['fused_tp3'] for g in got]} | peak "
+         f"{' '.join(f'{b / 2**30:.2f}' for b in report['L2']['peak_bytes_per_rank'])} GiB | max |poses - "
+         f"single process| {max(c['max_abs_pose_diff'] for c in report['L2']['complexes'].values()):.3e} A | {card}")
+
+    # L3 gates
+    report["L3"] = {}
+    for model_key in ("score", "confidence"):
+        cases = [r["L3"][model_key] for r in ranks]
+        for k, case in enumerate(cases[0]):
+            digests = {c[k]["digest"] for c in cases}
+            c = case["compare"]
+            _log(f"  L3 {model_key} seed {case['seed']}: loss {c['loss']:.6f} (worst metric "
+                 f"{c['metric_rel_err']:.3e}) | worst leaf {c['grad_worst_leaf']} {c['grad_norm_rel_err']:.3e} in "
+                 f"norm, all {c['grad_all_rel_err']:.3e} | params {c['param_solid_err_lr']:.3e} lr solid, "
+                 f"{c['param_err_lr']:.3e} lr anywhere | stats {c['batch_stat_rel_err']:.3e} | pinned ReLU units "
+                 f"{c['relu_switched']['total']} | step {max(x[k]['wall_s'] for x in cases):.3f} s of which "
+                 f"collectives {' '.join(format(x[k]['collective_s'], '.3f') for x in cases)} s by rank | "
+                 f"{'ok' if c['ok'] else 'OUTSIDE ' + str(c['outside'])}")
+            if len(digests) != 1:
+                raise PhaseError(f"L3 {model_key} seed {case['seed']}: parameters differ across ranks")
+            if not all(x[k]["compare"]["ok"] for x in cases):
+                raise PhaseError(f"L3 {model_key} seed {case['seed']}: the data-parallel step is outside phase "
+                                 f"E3's limits: {[x[k]['compare']['outside'] for x in cases]}")
+            if case["counts"]["fused_tp3_reference"] or case["counts"]["fused_tp3"] != case["counts"]["fused_tp3_vjp"]:
+                raise PhaseError(f"L3 {model_key}: step counts {case['counts']}")
+        report["L3"][model_key] = [[{k: v for k, v in x.items()} for x in c] for c in cases]
+    _log(f"[L3 data-parallel steps] DiffDock-L at (48, 320) and the CG confidence model, batch "
+         f"{TRAIN_BATCH} ({TRAIN_BATCH // MESH_RANKS} per rank), {len(MESH_TWIN_SEEDS)} steps each: within "
+         f"phase E3's limits, params bit-identical across ranks | {card}")
+
+    # L4: the dock CLI under torchrun, both ranks on this card
+    t0 = time.perf_counter()
+    cli_out = tmp / "mesh_cli"
+    d = E2E_SYNTH / MESH_CLI_COMPLEX
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(MESH_RANKS),
+         "-m", "diffdock_tpu_torch.cli.dock", "--protein_path", str(d / f"{MESH_CLI_COMPLEX}_protein_processed.pdb"),
+         "--ligand", str(d / f"{MESH_CLI_COMPLEX}_ligand.sdf"), "--complex_name", MESH_CLI_COMPLEX,
+         "--model_dir", str(tmp / "runs_no_lm" / "score"), "--confidence_model_dir",
+         str(tmp / "runs_no_lm" / "confidence"), "--samples_per_complex", str(P), "--out_dir", str(cli_out),
+         "--pose_devices", str(MESH_RANKS), "--device", "cuda"],
+        cwd=str(Path(__file__).resolve().parent), env=env, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    for line in (proc.stdout + proc.stderr).splitlines()[-12:]:
+        _log(f"  L4 torchrun: {line}")
+    files = sorted(p_.name for p_ in (cli_out / MESH_CLI_COMPLEX).glob("*")) if (cli_out / MESH_CLI_COMPLEX).is_dir() else []
+    if proc.returncode != 0 or len(files) != P or "rank1.sdf" not in files or \
+            proc.stdout.count("mesh: 2 ranks over gloo") != 1:
+        raise PhaseError(f"L4: torchrun returned {proc.returncode} and wrote {files}")
+    from diffdock_tpu_torch.data.chem import parse_sdf
+
+    with open(cli_out / MESH_CLI_COMPLEX / "rank1.sdf") as f:
+        coords = parse_sdf(f.read())[0].coords
+    if not np.isfinite(coords).all():
+        raise PhaseError("L4: rank1.sdf holds non-finite coordinates")
+    report["L4"] = {"rc": proc.returncode, "files": len(files), "wall_s": cli_s}
+    report["total_s"] = time.perf_counter() - t_start
+    _log(f"[L4 dock CLI under torchrun] {MESH_RANKS} ranks on cuda:0, {P} poses of {MESH_CLI_COMPLEX}: rc 0, "
+         f"{len(files)} ranked SDFs written once | {cli_s:.1f} s | {card}")
+    _log(f"[L mesh] references {ref_s:.1f} s | ranks {spawn_s:.1f} s (per rank: "
+         f"{'; '.join('L1 %.1f L2 %.1f L3 %.1f' % (w['L1'], w['L2'], w['L3']) for w in report['rank_walls'].values())}) "
+         f"| L4 {cli_s:.1f} s | phase {report['total_s']:.1f} s | {card}")
     return report
 
 

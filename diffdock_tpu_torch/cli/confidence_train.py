@@ -32,8 +32,18 @@ Two phases:
 Every complex is padded to one shared bucket with normalized bonded,
 receptor-kNN (and, all-atom, atom-kNN and atoms-per-residue) widths, as
 the JAX CLI pads them. The flags and defaults are the JAX CLI's, plus
-``--device`` (default ``cuda``). ``--data_parallel`` and ``--pose_devices``
-above 1 are refused (ROADMAP queue 1 item 8).
+``--device`` (default ``cuda``).
+
+``--pose_devices N`` shards the generation docks' poses over N ranks and
+``--data_parallel N`` the training batches (0: every visible card; the
+batch is rounded up to a multiple of N by wrapping its indices, as in the
+JAX CLI, and each rank's dropout masks come from the step's seed folded
+with its rank). The CLI starts the ranks as the dock CLI does, or joins a
+``torchrun`` group. The port runs one group for both phases, so two counts
+above 1 must be equal; a phase asked to run on one rank runs on rank 0
+(the generated poses are then sent to the other ranks, and a group that
+only generates ends after it). Rank 0 alone writes the caches, the run
+directory and ``metrics.jsonl``.
 """
 
 from __future__ import annotations
@@ -78,24 +88,31 @@ def get_parser():
     p.add_argument("--synthetic", type=int, default=0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--data_parallel", type=int, default=1,
-                   help="cards to shard the training batches over (0 = all); only 1 is ported")
+                   help="ranks to shard the training batches over, one per card "
+                        "(0 = every visible card)")
     p.add_argument("--pose_devices", type=int, default=1,
-                   help="cards to shard pose generation over (0 = all); only 1 is ported")
+                   help="ranks to shard the generation docks' poses over, one per card "
+                        "(0 = every visible card)")
     p.add_argument("--device", default="cuda", help="torch device to train on ('cuda' or 'cpu')")
     return p
 
 
-def refuse_unported(args) -> None:
-    """``ConfigError`` for more than one card (0 means every visible card)."""
-    import torch
-
+def phase_ranks(args):
+    """(ranks of the generation docks, ranks of training): each flag's
+    count (0: every visible card; inside a ``torchrun`` group, its size).
+    ``ConfigError`` when both exceed 1 and differ: the port runs one
+    process group for both phases."""
     from diffdock_tpu_torch.models.config import ConfigError
+    from diffdock_tpu_torch.parallel.mesh import ranks_for
 
-    visible = torch.cuda.device_count() if str(args.device).startswith("cuda") else 1
-    for flag in ("data_parallel", "pose_devices"):
-        n = getattr(args, flag) or visible
-        if n > 1:
-            raise ConfigError(f"not ported yet: --{flag} {getattr(args, flag)} (ROADMAP queue 1 item 8)")
+    pose, dp = (ranks_for(args.pose_devices, args.device, allow_one=True),
+                ranks_for(args.data_parallel, args.device, allow_one=True))
+    if pose > 1 and dp > 1 and pose != dp:
+        raise ConfigError(f"--pose_devices {args.pose_devices} gives {pose} ranks and --data_parallel "
+                          f"{args.data_parallel} {dp}: the two phases share one process group")
+    if max(pose, dp) == 1:
+        ranks_for(1, args.device)  # refused inside a larger group
+    return pose, dp
 
 
 def load_complexes(args):
@@ -154,9 +171,10 @@ def load_complexes(args):
     return datas, topo
 
 
-def score_pipeline(args):
+def score_pipeline(args, mesh=None):
     """The pose generator: the score model of ``--score_model_dir``, or
-    random weights at the CLI's widths (the JAX CLI's warning)."""
+    random weights at the CLI's widths (the JAX CLI's warning); ``mesh``
+    shards its poses."""
     from diffdock_tpu_torch.inference.pipeline import DockingPipeline
     from diffdock_tpu_torch.inference.sampler import SamplerConfig
     from diffdock_tpu_torch.models.config import ScoreModelConfig
@@ -174,14 +192,16 @@ def score_pipeline(args):
     return DockingPipeline(
         score_cfg, weights,
         SamplerConfig(inference_steps=args.inference_steps, actual_steps=args.inference_steps),
-        device=args.device,
+        device=args.device, mesh=mesh,
     )
 
 
-def generate_poses(args, datas, topo, pipeline_factory=score_pipeline):
+def generate_poses(args, datas, topo, pipeline_factory=score_pipeline, mesh=None):
     """Phase 1: {name: (poses, rmsds)} from the pose caches, generating (and
     caching) what ``--cache_id`` lacks; ``--cache_ids_to_combine`` reads
-    only. The pipeline is built only when something is generated."""
+    only. The pipeline is built only when something is generated. On a
+    pose mesh (``mesh``) every rank takes part in each dock, and rank 0
+    writes the caches."""
     from diffdock_tpu_torch.data.complexes import AAComplexData
     from diffdock_tpu_torch.train.confidence import (
         generate_poses_for_complex,
@@ -190,7 +210,9 @@ def generate_poses(args, datas, topo, pipeline_factory=score_pipeline):
     )
 
     pose_cache = Path(args.pose_cache)
-    pose_cache.mkdir(parents=True, exist_ok=True)
+    main_rank = mesh is None or mesh.is_main
+    if main_rank:
+        pose_cache.mkdir(parents=True, exist_ok=True)
     samples, pipeline = {}, None
     for i, (name, data) in enumerate(datas.items()):
         if args.cache_ids_to_combine is not None:
@@ -206,7 +228,7 @@ def generate_poses(args, datas, topo, pipeline_factory=score_pipeline):
             samples[name] = got
             continue
         if pipeline is None:
-            pipeline = pipeline_factory(args)
+            pipeline = pipeline_factory(args) if mesh is None else pipeline_factory(args, mesh)
         el_bonds = topo.get(name)
         gen_data = data.base if isinstance(data, AAComplexData) else data
         # cache_id folds into the seed so each accumulation run generates new poses
@@ -216,14 +238,17 @@ def generate_poses(args, datas, topo, pipeline_factory=score_pipeline):
             elements=None if el_bonds is None else el_bonds[0],
             bonds=None if el_bonds is None else el_bonds[1],
         )
-        np.savez_compressed(pose_cache_file(pose_cache, name, args.cache_id), poses=poses, rmsds=rmsds)
+        if main_rank:
+            np.savez_compressed(pose_cache_file(pose_cache, name, args.cache_id), poses=poses, rmsds=rmsds)
         samples[name] = (poses, rmsds)
-        print(f"[{name}] generated {len(rmsds)} poses, min rmsd {rmsds.min():.2f}")
+        if main_rank:
+            print(f"[{name}] generated {len(rmsds)} poses, min rmsd {rmsds.min():.2f}")
     return samples
 
 
-def confidence_config(args, num_outputs: int):
-    """The confidence model's config as the JAX CLI builds and records it."""
+def confidence_config(args, num_outputs: int, data_parallel: bool = False):
+    """The confidence model's config as the JAX CLI builds and records it
+    (``data_parallel``: batch statistics over the ranks too)."""
     from diffdock_tpu_torch.models.config import ScoreModelConfig
     from diffdock_tpu_torch.train.trainer import training_model_config
 
@@ -231,12 +256,22 @@ def confidence_config(args, num_outputs: int):
         ns=args.ns, nv=args.nv, num_conv_layers=args.num_conv_layers,
         num_prot_emb_layers=args.num_prot_emb_layers, confidence_mode=True,
         all_atoms=args.all_atoms, num_confidence_outputs=num_outputs,
-    ))
+    ), data_parallel=data_parallel)
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = get_parser().parse_args(argv)
     import torch
+
+    from diffdock_tpu_torch.parallel import mesh as mesh_mod
+
+    pose_ranks, dp_ranks = phase_ranks(args)
+    world = max(pose_ranks, dp_ranks)
+    if world > 1 and not mesh_mod.in_rank():
+        return mesh_mod.launch(main, (argv,), world, args.device)
+    mesh = mesh_mod.make_mesh(device=args.device) if world > 1 else None
+    main_rank = mesh is None or mesh.is_main
 
     from diffdock_tpu_torch.data.complexes import AAComplexData, to_device
     from diffdock_tpu_torch.data.loaders import stack_padded
@@ -251,14 +286,23 @@ def main(argv=None):
     from diffdock_tpu_torch.utils.convert import flax_from_model
     from diffdock_tpu_torch.utils.logging import MetricsWriter
 
-    refuse_unported(args)
     use_full_fp32()
-    dev = torch.device(args.device)
-    datas, topo = load_complexes(args)
+    dev = mesh.device if mesh is not None else torch.device(args.device)
+    with mesh_mod.main_first(mesh):  # rank 0 writes the dataset cache
+        datas, topo = load_complexes(args)
     if not datas:
         print("no training complexes", file=sys.stderr)
         return 1
-    samples = generate_poses(args, datas, topo)
+    if mesh is None:
+        samples = generate_poses(args, datas, topo)
+    elif pose_ranks > 1:
+        samples = generate_poses(args, datas, topo, mesh=mesh)
+    else:
+        # generation on one rank: rank 0's poses for every rank
+        samples = mesh.broadcast(generate_poses(args, datas, topo) if main_rank else None)
+    if dp_ranks == 1 and not main_rank:
+        return 0  # a group that only generated: rank 0 trains alone
+    train_mesh = mesh if dp_ranks > 1 else None
 
     # --- phase 2: train the confidence model ---
     tcfg = ConfidenceTrainConfig(
@@ -266,44 +310,58 @@ def main(argv=None):
         rmsd_prediction=args.rmsd_prediction,
         samples_per_complex=args.samples_per_complex, lr=args.lr,
     )
-    conf_cfg = confidence_config(args, tcfg.num_outputs)
+    conf_cfg = confidence_config(args, tcfg.num_outputs, data_parallel=dp_ranks > 1)
     model = build_model(conf_cfg)
     model.reset_parameters(torch.Generator().manual_seed(args.seed))
     model.to(dev)
     state = create_confidence_train_state(model, tcfg)
-    train_step = make_confidence_train_step(model, tcfg)
+    train_step = make_confidence_train_step(model, tcfg, mesh=train_mesh)
+    if train_mesh is not None:
+        train_step = mesh_mod.shard_confidence_train_step(train_step, train_mesh)
+    # a sharded batch's leading axis is a multiple of the ranks: the last
+    # partial batch wraps its indices (duplicates are harmless), as in the
+    # JAX CLI
+    step_bs = -(-args.batch_size // dp_ranks) * dp_ranks
 
     def center_of(d):
         return np.asarray((d.base if isinstance(d, AAComplexData) else d).original_center)
 
     names = list(datas)
     rng_np = np.random.RandomState(args.seed)
-    os.makedirs(args.log_dir, exist_ok=True)
-    metrics_log = MetricsWriter(os.path.join(args.log_dir, "metrics.jsonl"))
+    if main_rank:
+        os.makedirs(args.log_dir, exist_ok=True)
+        metrics_log = MetricsWriter(os.path.join(args.log_dir, "metrics.jsonl"))
     kind = "mse" if tcfg.rmsd_prediction else ("bce" if tcfg.num_outputs == 1 else "ce")
     try:
         for epoch in range(args.n_epochs):
             order = rng_np.permutation(len(names))
             losses, accs = [], []
-            for start in range(0, len(order), args.batch_size):
-                batch_names = [names[j] for j in order[start : start + args.batch_size]]
+            for start in range(0, len(order), step_bs):
+                idx = order[start : start + step_bs]
+                if len(idx) % dp_ranks:
+                    idx = np.resize(idx, step_bs)
+                batch_names = [names[j] for j in idx]
                 batch = to_device(stack_padded([datas[n] for n in batch_names]), dev)
                 pose_sel = [rng_np.randint(samples[n][0].shape[0]) for n in batch_names]
                 poses = np.stack([samples[n][0][k] - center_of(datas[n])
                                   for n, k in zip(batch_names, pose_sel)]).astype(np.float32)
                 labels = tcfg.labels_from_rmsds([samples[n][1][k] for n, k in zip(batch_names, pose_sel)])
-                gen = torch.Generator(device=dev).manual_seed(epoch * 1000 + start)
+                seed = epoch * 1000 + start
+                gen = torch.Generator(device=dev).manual_seed(
+                    seed if train_mesh is None else mesh_mod.fold_seed(seed, train_mesh.rank))
                 state, m = train_step(state, batch, torch.as_tensor(poses, device=dev),
                                       torch.as_tensor(labels, device=dev), gen)
                 losses.append(float(m["loss"]))
                 accs.append(float(m["accuracy"]))
             print(f"epoch {epoch}: {kind} {np.mean(losses):.4f} acc {np.mean(accs):.3f}")
-            metrics_log.log(epoch, "train", loss=float(np.mean(losses)),
-                            accuracy=float(np.mean(accs)), kind=kind)
-            save_checkpoint(args.log_dir, flax_from_model(model), conf_cfg, extra={"epoch": epoch},
-                            weights_name="last_model.msgpack")
+            if main_rank:
+                metrics_log.log(epoch, "train", loss=float(np.mean(losses)),
+                                accuracy=float(np.mean(accs)), kind=kind)
+                save_checkpoint(args.log_dir, flax_from_model(model), conf_cfg, extra={"epoch": epoch},
+                                weights_name="last_model.msgpack")
     finally:
-        metrics_log.close()
+        if main_rank:
+            metrics_log.close()
     return 0
 
 

@@ -25,7 +25,17 @@ architectures (a native run directory says which; a reference ``.pt``
 directory of a new-architecture model needs ``--no-old_confidence_model``),
 coarse-grained or all-atom, as ``models/factory.py:build_model`` builds it.
 ``--crop_beyond`` crops the receptor per step and ``--pocket_capacity``
-compacts it to that many residues. ``--pose_devices`` above 1 raises.
+compacts it to that many residues.
+
+``--pose_devices N`` shards each complex's poses over N ranks
+(``parallel/mesh.py``; 0: every visible card): the CLI starts one rank per
+card up to N (``--device cpu``: N CPU ranks), or joins the group that
+``torchrun`` describes::
+
+    python -m torch.distributed.run --standalone --nproc_per_node 2 \
+        -m diffdock_tpu_torch.cli.dock ... --pose_devices 2
+
+Every rank docks its share of the poses; rank 0 alone writes the files.
 """
 
 from __future__ import annotations
@@ -118,8 +128,10 @@ def get_parser() -> argparse.ArgumentParser:
                         "'fine_dense' = ~1.2x-spaced rungs; 'cover' = the "
                         "evaluation sweeps' cover ladder (inference/ladder.py)")
     p.add_argument("--pose_devices", type=int, default=1,
-                   help="cards to shard each complex's poses over; only 1 "
-                        "is ported")
+                   help="shard each complex's pose batch over this many "
+                        "ranks, one per card (0 = every visible card; "
+                        "parallel/mesh.py); the pose count is rounded up to "
+                        "a multiple of it and the surplus dropped")
     p.add_argument("--pocket_capacity", type=int, default=None,
                    help="with --crop_beyond: compact the receptor to this "
                         "many nearest residues per step instead of masking")
@@ -175,15 +187,21 @@ def _run_dir(model_dir: str, ckpt, confidence_mode: bool, old: bool):
 def load_pipeline(args):
     """The DockingPipeline the parsed ``args`` ask for, on ``args.device``.
     ``--compute_dtype`` replaces the score model's config's, as in the JAX
-    CLI. ``--pose_devices`` above 1 is not ported and is refused here, where
-    the JAX CLI builds its mesh."""
+    CLI. With ``--pose_devices`` asking for more than one rank the pipeline
+    gets this process group's mesh (the process must be one of its ranks:
+    see :func:`main`)."""
     from diffdock_tpu_torch.inference.pipeline import DockingPipeline
     from diffdock_tpu_torch.models.config import PRESETS
+    from diffdock_tpu_torch.parallel import mesh as mesh_mod
     from diffdock_tpu_torch.train.checkpoints import load_checkpoint
     from diffdock_tpu_torch.utils.convert import state_dict_from_flax
 
-    if args.pose_devices != 1:
-        raise ConfigError(f"not ported yet: --pose_devices {args.pose_devices} (ROADMAP queue 1 item 8)")
+    mesh = None
+    if mesh_mod.ranks_for(args.pose_devices, args.device) > 1:
+        if not mesh_mod.in_rank():
+            raise ConfigError(f"--pose_devices {args.pose_devices}: the pipeline's mesh needs the "
+                              "ranks of a process group (the CLI's main starts them)")
+        mesh = mesh_mod.make_mesh(device=args.device)
     sampler_cfg = sampler_config_from_args(args)
     if args.model_dir:
         params, cfg, _ = load_checkpoint(*_run_dir(
@@ -224,6 +242,7 @@ def load_pipeline(args):
         confidence_weights=conf_weights,
         pocket_capacity=args.pocket_capacity,
         bucket_ladder=args.bucket_ladder,
+        mesh=mesh,
     )
 
 
@@ -257,12 +276,19 @@ def apply_config_overrides(args, overrides):
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = get_parser().parse_args(argv)
     if args.config:
         from diffdock_tpu_torch.utils import simple_yaml
 
         with open(args.config) as f:
             apply_config_overrides(args, simple_yaml.load(f.read()))
+    from diffdock_tpu_torch.parallel import mesh as mesh_mod
+
+    ranks = mesh_mod.ranks_for(args.pose_devices, args.device)
+    if ranks > 1 and not mesh_mod.in_rank():
+        # one rank per card (or CPU rank), each running this main
+        return mesh_mod.launch(main, (argv,), ranks, args.device)
 
     from diffdock_tpu_torch.data.inference_dataset import (
         InferenceDatasetBuilder, InferenceSpec, specs_from_csv,

@@ -23,8 +23,14 @@ under ``--out_dir``, as the JAX CLI writes them: ``rmsds.npy``,
 The flags and defaults are the JAX CLI's, with one addition, as in
 ``cli/dock.py``: ``--device`` (default ``cuda``). ``--compute_dtype``
 defaults to ``bfloat16``, as in the JAX CLI, and reaches the score model
-(see ``cli/dock.py``). ``--complex_devices`` and ``--pose_devices`` other than 1
-raise (item 8). ``--crop_beyond`` and ``--pocket_capacity`` crop the
+(see ``cli/dock.py``). ``--pose_devices N`` shards each complex's poses
+over N ranks, as the dock CLI does; ``--complex_devices N`` (exclusive with
+it) docks N complexes at once, one per rank, grouped by size
+(``DockingPipeline.dock_batch``; each complex's run time is its group's
+wall over the group's size), and a group that fails falls back to the
+sequential docks with retries. Either starts its ranks as the dock CLI
+does (one per card up to N, 0 for every card; or under ``torchrun``);
+rank 0 alone writes the artifacts. ``--crop_beyond`` and ``--pocket_capacity`` crop the
 receptor as in the dock CLI, and ``--model_dir`` and
 ``--confidence_model_dir`` may be reference ``.pt`` run directories; the
 confidence model may be of either family, as in the dock CLI (the run
@@ -46,8 +52,6 @@ import os
 import time
 
 import numpy as np
-
-from diffdock_tpu_torch.models.config import ConfigError
 
 
 def get_parser():
@@ -142,11 +146,14 @@ def get_parser():
                         "minimal-padding geometric buckets; 'fine_dense' = "
                         "~1.2x-spaced rungs")
     p.add_argument("--pose_devices", type=int, default=1,
-                   help="cards to shard each complex's poses over; only 1 "
-                        "is ported")
+                   help="shard each complex's pose batch over this many "
+                        "ranks (0 = every visible card; see cli.dock)")
     p.add_argument("--complex_devices", type=int, default=1,
-                   help="cards to dock complexes on concurrently; only 1 "
-                        "is ported")
+                   help="dock this many complexes concurrently, one per "
+                        "rank (DockingPipeline.dock_batch; 0 = every "
+                        "visible card), grouped by size; per-complex "
+                        "run_times are the group's wall over its size. "
+                        "Mutually exclusive with --pose_devices.")
     p.add_argument("--max_retries", type=int, default=3,
                    help="dock retries with halved pose batches before a "
                         "complex is recorded as a penalty row")
@@ -200,8 +207,9 @@ def dock_with_retry(pipeline, data, num_poses, seed, max_retries=3,
                     batch_size=None, pocket_center=None, aa_data=None):
     """Dock with batch-halving recovery (reference ``evaluate.py:523-527``):
     on a failure, retry the same number of poses with half the poses in
-    flight that actually ran (``pipeline.effective_pose_chunk``), down to
-    one."""
+    flight that actually ran (``pipeline.effective_pose_chunk``), until
+    halving no longer shrinks the program (one pose, or one per rank of a
+    pose mesh)."""
     chunk = batch_size
     for attempt in range(max_retries):
         try:
@@ -211,9 +219,9 @@ def dock_with_retry(pipeline, data, num_poses, seed, max_retries=3,
             )
         except Exception as e:  # noqa: BLE001 — reference-style halving
             ran = pipeline.effective_pose_chunk(data, num_poses, chunk)
-            if ran <= 1 or attempt == max_retries - 1:
-                raise
             chunk = max(1, ran // 2)
+            if attempt == max_retries - 1 or pipeline.effective_pose_chunk(data, num_poses, chunk) >= ran:
+                raise
             print(f"  retry with pose chunks of {chunk}: "
                   f"{type(e).__name__}: {e}")
     raise RuntimeError("unreachable")
@@ -246,7 +254,9 @@ def build_pipeline(args):
         pocket_capacity=args.pocket_capacity,
         bucket_ladder=args.bucket_ladder,
         esm_embeddings_path=args.esm_embeddings_path,
-        pose_devices=args.pose_devices,
+        # one mesh serves either layout: poses within a complex
+        # (--pose_devices) or one complex per rank (--complex_devices)
+        pose_devices=devices_flag(args),
         device=args.device,
         **{
             f"{pre}_{c}": getattr(args, f"{pre}_{c}")
@@ -276,7 +286,49 @@ def build_pipeline(args):
     return pipeline
 
 
+def devices_flag(args) -> int:
+    """The rank count the run asks for: ``--complex_devices`` when set,
+    else ``--pose_devices``."""
+    return args.complex_devices if args.complex_devices != 1 else args.pose_devices
+
+
+def predock_groups(pipeline, entries, num_poses, seed, batch_size, pocket_of):
+    """The complex-parallel pre-dock: ``entries`` ((name, data) pairs) by
+    ascending bucket in groups of one complex per rank, each docked by
+    ``pipeline.dock_batch``; {name: (result, the group's wall over its
+    size)}. A group that fails is left out (its complexes fall back to
+    the sequential docks)."""
+    from diffdock_tpu_torch.data.complexes import AAComplexData, bucket_sizes
+
+    def base(d):
+        return d.base if isinstance(d, AAComplexData) else d
+
+    entries = sorted(entries, key=lambda e: bucket_sizes(base(e[1]).n_lig, base(e[1]).n_rec,
+                                                         base(e[1]).n_bonds))
+    done = {}
+    for s in range(0, len(entries), pipeline.mesh_size):
+        grp = entries[s : s + pipeline.mesh_size]
+        aa = [d if isinstance(d, AAComplexData) else None for _, d in grp]
+        t0 = time.time()
+        try:
+            rs = pipeline.dock_batch([base(d) for _, d in grp], num_poses=num_poses, seed=seed,
+                                     aa_datas=aa if any(a is not None for a in aa) else None,
+                                     pocket_centers=[pocket_of(base(d)) for _, d in grp],
+                                     batch_size=batch_size)
+        except Exception as e:  # noqa: BLE001 — the group falls back to sequential docks
+            print(f"batch dock failed ({type(e).__name__}: {e}); "
+                  f"{len(grp)} complexes fall back to sequential")
+            continue
+        dt = (time.time() - t0) / len(grp)
+        for (n, _), r in zip(grp, rs):
+            done[n] = (r, dt)
+    return done
+
+
 def main(argv=None):
+    import sys
+
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = get_parser().parse_args(argv)
     if args.restrict_cpu:
         restrict_cpu_threads(args.num_cpu)
@@ -285,9 +337,11 @@ def main(argv=None):
             "--complex_devices and --pose_devices are mutually exclusive "
             "(both shard the same 1-axis mesh)"
         )
-    if args.complex_devices != 1:
-        raise ConfigError(f"not ported yet: --complex_devices {args.complex_devices} "
-                          "(ROADMAP queue 1 item 8)")
+    from diffdock_tpu_torch.parallel import mesh as mesh_mod
+
+    ranks = mesh_mod.ranks_for(devices_flag(args), args.device)
+    if ranks > 1 and not mesh_mod.in_rank():
+        return mesh_mod.launch(main, (argv,), ranks, args.device)
 
     from diffdock_tpu_torch.data.chem import read_molecule_file
     from diffdock_tpu_torch.data.complexes import AAComplexData
@@ -302,6 +356,8 @@ def main(argv=None):
         raise SystemExit(f"--no_rec_overlap_names file not found: {args.no_rec_overlap_names}")
 
     pipeline = build_pipeline(args)
+    mesh = pipeline.mesh
+    main_rank = mesh is None or mesh.is_main
 
     protein_stem = args.protein_file or (
         "protein" if args.dataset == "posebusters" else "protein_processed"
@@ -320,7 +376,8 @@ def main(argv=None):
             moad_dir=args.data_dir, cache_dir=args.cache_path,
             split="test", limit_complexes=args.limit_complexes,
         ))
-        moad.preprocess()
+        with mesh_mod.main_first(mesh):
+            moad.preprocess()
         eval_names = moad.names
         get_data = moad.get_by_name
         get_mol = lambda name: read_molecule_file(  # noqa: E731
@@ -339,8 +396,9 @@ def main(argv=None):
         if args.limit_complexes:
             specs = specs[: args.limit_complexes]
         ds = ComplexDataset(specs, DatasetConfig(cache_dir=args.cache_path, all_atoms=all_atoms))
-        ds.preprocess()
-        if args.dataset_statistics:
+        with mesh_mod.main_first(mesh):
+            ds.preprocess()
+        if args.dataset_statistics and main_rank:
             ds.print_statistics()
         spec_by_name = {s.name: s for s in specs}
         eval_names = ds.names
@@ -369,12 +427,24 @@ def main(argv=None):
     print(f"evaluating {len(eval_names)} complexes")
 
     P = args.samples_per_complex
+
+    def pocket_of(data):
+        return true_pocket_center(data, args.pocket_cutoff) if args.pocket_knowledge else None
+
+    pre_docked, data_cache = {}, {}
+    if args.complex_devices != 1 and pipeline.mesh_size > 1:
+        # the complexes loaded here serve the loop below once each
+        t_load = time.perf_counter()
+        data_cache = {n: d for n, d in ((n, get_data(n)) for n in eval_names) if d is not None}
+        timings["preprocess_s"] += time.perf_counter() - t_load
+        pre_docked = predock_groups(pipeline, list(data_cache.items()), P, args.seed,
+                                    args.batch_size, pocket_of)
     names, rmsd_rows, centroid_rows, run_times, clash_rows = [], [], [], [], []
     conf_rows, gnina_rmsd_rows, gnina_score_rows = [], [], []
     failures = 0
     for name in eval_names:
         t_load = time.perf_counter()
-        data = get_data(name)
+        data = data_cache.pop(name) if name in data_cache else get_data(name)
         timings["preprocess_s"] += time.perf_counter() - t_load
         if data is None:
             continue
@@ -383,17 +453,16 @@ def main(argv=None):
             data = aa_data.base
         t0 = time.time()
         try:
-            pocket_center = (
-                true_pocket_center(data, args.pocket_cutoff)
-                if args.pocket_knowledge else None
-            )
-            result = dock_with_retry(
-                pipeline, data, P, args.seed,
-                max_retries=args.max_retries,
-                batch_size=args.batch_size, pocket_center=pocket_center,
-                aa_data=aa_data,
-            )
-            amortized = time.time() - t0
+            if name in pre_docked:
+                result, amortized = pre_docked[name]
+            else:
+                result = dock_with_retry(
+                    pipeline, data, P, args.seed,
+                    max_retries=args.max_retries,
+                    batch_size=args.batch_size, pocket_center=pocket_of(data),
+                    aa_data=aa_data,
+                )
+                amortized = time.time() - t0
         except Exception as e:  # noqa: BLE001 — penalty row, keep counts
             timings["dock_s"] += time.time() - t0
             print(f"[{name}] failed: {type(e).__name__}: {e}")
@@ -465,6 +534,8 @@ def main(argv=None):
         print(f"[{name}] top-1 rmsd {rmsds[0]:.2f} A ({run_times[-1]:.1f}s)")
 
     print(f"{failures} failures due to exceptions")
+    if not main_rank:  # rank 0 writes the artifacts
+        return 0
     t_tables = time.perf_counter()
     table = emit_metric_tables(
         args.out_dir, names, rmsd_rows, centroid_rows, run_times,

@@ -34,8 +34,19 @@ the first items of ``source.epoch_items(10_000 + epoch)``. The JAX CLI
 initializes its flax model from an example batch; the port's model needs
 none. A ``--backbone_loss_weight`` or ``--sidechain_loss_weight`` above 0
 builds the model with the sidechain head (``sidechain_pred``), as the JAX
-CLI does, and the train step adds the weighted auxiliary losses. Refused,
-naming its ROADMAP queue 1 item: ``--data_parallel`` (item 8).
+CLI does, and the train step adds the weighted auxiliary losses.
+
+``--data_parallel`` trains on every visible card, one rank each
+(``parallel/mesh.py``; ``--device cpu``: ``DIFFDOCK_TPU_CPU_DEVICES`` CPU
+ranks), or on the ranks of the group that ``torchrun`` describes: every
+rank builds the same batches, takes its shard (``shard_train_step``) with
+noise and dropout from its own generator (the run's seed folded with the
+rank), the batch norms aggregate over the ranks (the run directory records
+``bn_axis_names`` ``("batch", "dp")``, as the JAX CLI's does), and the
+gradients and metrics are averaged before the update. A batch that does
+not split evenly over the ranks is skipped, as the JAX CLI's failing
+sharded step skips it; the validation loss is rank 0's, and rank 0 alone
+docks for validation and writes the run directory.
 
 Deviations from the JAX CLI: the validation set is featurized with the
 ESM embeddings of ``--esm_embeddings_dir`` (the JAX CLI reads it without
@@ -43,7 +54,9 @@ them, so a DiffDock-L model with LM features cannot take its validation
 batches), validation docking docks the validation set when there is one
 (the JAX CLI docks the first training complexes), and a failed step
 raises unless it ran out of device memory (the JAX CLI skips any failed
-batch; here a kernel that fails to build or launch must stop the run).
+batch; here a kernel that fails to build or launch must stop the run), and
+under ``--data_parallel`` an out-of-memory step stops the run too (the
+other ranks would wait for it).
 """
 
 from __future__ import annotations
@@ -53,6 +66,7 @@ import dataclasses
 import itertools
 import json
 import os
+import sys
 import time
 
 import numpy as np
@@ -116,22 +130,17 @@ def get_parser():
     return p
 
 
-def refuse_unported(args) -> None:
-    """``ConfigError`` for the options this port does not have yet."""
-    from diffdock_tpu_torch.models.config import ConfigError
-
-    if args.data_parallel:
-        raise ConfigError("not ported yet: --data_parallel (ROADMAP queue 1 item 8)")
-
-
-def build_dataset(args, split, esm_dir):
+def build_dataset(args, split, esm_dir, mesh=None):
     from diffdock_tpu_torch.data.datasets import ComplexDataset, DatasetConfig, pdbbind_specs
 
     specs = pdbbind_specs(args.data_dir, split, esm_embeddings_dir=esm_dir)
     if args.limit_complexes:
         specs = specs[: args.limit_complexes]
     ds = ComplexDataset(specs, DatasetConfig(cache_dir=args.cache_path))
-    ds.preprocess(num_workers=args.num_workers)
+    from diffdock_tpu_torch.parallel.mesh import main_first
+
+    with main_first(mesh):  # rank 0 writes the cache, the others read it
+        ds.preprocess(num_workers=args.num_workers)
     return ds
 
 
@@ -152,6 +161,7 @@ def _synthetic_batches(args, lm_dim: int):
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = get_parser().parse_args(argv)
     if args.config:
         from diffdock_tpu_torch.utils import simple_yaml
@@ -160,9 +170,17 @@ def main(argv=None):
             for k, v in (simple_yaml.load(f.read()) or {}).items():
                 if hasattr(args, k):
                     setattr(args, k, v)
-    refuse_unported(args)
 
     import torch
+
+    from diffdock_tpu_torch.parallel import mesh as mesh_mod
+
+    # --data_parallel: every visible card (0), or the torchrun group
+    ranks = mesh_mod.ranks_for(0 if args.data_parallel else 1, args.device)
+    if ranks > 1 and not mesh_mod.in_rank():
+        return mesh_mod.launch(main, (argv,), ranks, args.device)
+    mesh = mesh_mod.make_mesh(device=args.device) if ranks > 1 else None
+    main_rank = mesh is None or mesh.is_main
 
     from diffdock_tpu_torch.data.complexes import to_device
     from diffdock_tpu_torch.diffusion.so3 import get_so3_tables
@@ -191,7 +209,7 @@ def main(argv=None):
         overrides["sidechain_pred"] = True
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
-    cfg = training_model_config(cfg)
+    cfg = training_model_config(cfg, data_parallel=args.data_parallel)
     tc = TrainConfig(lr=args.lr, w_decay=args.w_decay, ema_rate=args.ema_rate,
                      tr_weight=args.tr_weight, rot_weight=args.rot_weight,
                      tor_weight=args.tor_weight, backbone_weight=args.backbone_loss_weight,
@@ -204,8 +222,10 @@ def main(argv=None):
     model = CGScoreModel(cfg)
     model.reset_parameters(torch.Generator().manual_seed(args.seed))
     model.to(dev)
-    # one generator on the device for the noise and the dropout masks
-    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    # one generator on the device for the noise and the dropout masks; a
+    # rank's own stream of the seed on a mesh
+    gen = torch.Generator(device=dev).manual_seed(
+        args.seed + 1 if mesh is None else mesh_mod.fold_seed(args.seed + 1, mesh.rank))
     model.set_generator(gen)
 
     val_ds = None
@@ -229,14 +249,14 @@ def main(argv=None):
     else:
         if not args.data_dir:
             raise ValueError("need --data_dir or --synthetic")
-        ds = build_dataset(args, args.split_train, args.esm_embeddings_dir)
+        ds = build_dataset(args, args.split_train, args.esm_embeddings_dir, mesh)
         print(f"dataset: {len(ds)} complexes ready")
 
         def batches(epoch):
             yield from ds.bucketed_batches(args.batch_size, shuffle_seed=epoch)
 
         if args.split_val:
-            val_ds = build_dataset(args, args.split_val, args.esm_embeddings_dir)
+            val_ds = build_dataset(args, args.split_val, args.esm_embeddings_dir, mesh)
             print(f"val dataset: {len(val_ds)} complexes ready")
         inf_ds = val_ds if val_ds is not None and len(val_ds) else ds
         val_items = lambda n, epoch: [(nm, inf_ds.get(nm)) for nm in inf_ds.names[:n]]  # noqa: E731
@@ -264,11 +284,14 @@ def main(argv=None):
         load_weights(args.pretrain_dir)
         print(f"pretrained weights loaded from {args.pretrain_dir}")
 
-    step = make_train_step(model, tc, so3, torus)
+    step = make_train_step(model, tc, so3, torus, mesh=mesh)
+    if mesh is not None:
+        step = mesh_mod.shard_train_step(step, mesh)
     eval_step = make_eval_step(model, tc, so3, torus)
 
-    os.makedirs(args.log_dir, exist_ok=True)
-    metrics_log = MetricsWriter(os.path.join(args.log_dir, "metrics.jsonl"))
+    if main_rank:
+        os.makedirs(args.log_dir, exist_ok=True)
+        metrics_log = MetricsWriter(os.path.join(args.log_dir, "metrics.jsonl"))
     best_loss, best_inf_metric, best_secondary = float("inf"), -1.0, -1.0
     history = []
     plateau = (PlateauScheduler(patience=args.scheduler_patience)
@@ -283,6 +306,8 @@ def main(argv=None):
         print(f"layer_linear_warmup: frozen stages until epoch {layer_warmup.total_warmup_epochs}")
 
     def save(name, params, extra):
+        if not main_rank:
+            return
         tree = flax_from_model(model, params=params)
         save_checkpoint(args.log_dir, tree, cfg, extra=extra, weights_name=name)
 
@@ -312,8 +337,17 @@ def main(argv=None):
 
         losses = []
         for names, batch in batches(epoch):
+            n_batch = batch.lig_cat.shape[0]
+            if mesh is not None and n_batch % mesh.size:
+                # the JAX CLI's sharded step fails on it and skips it
+                print(f"  batch {names[:2]}... of {n_batch} does not split over {mesh.size} ranks: skipped")
+                continue
             batch = to_device(batch, dev)
-            draws = draw_noise(gen, batch.lig_cat.shape[0], batch.rot_u.shape[1], dev)
+            draws = draw_noise(gen, n_batch // (mesh.size if mesh else 1), batch.rot_u.shape[1], dev)
+            if mesh is not None:
+                state, metrics = step(state, batch, draws)
+                losses.append(float(metrics["loss"]))
+                continue
             try:
                 state, metrics = step(state, batch, draws)
             except torch.cuda.OutOfMemoryError as e:
@@ -325,8 +359,9 @@ def main(argv=None):
         mean_loss = float(np.mean(losses)) if losses else float("nan")
         history.append(mean_loss)
         print(f"epoch {epoch}: loss {mean_loss:.4f} ({len(losses)} steps, {time.time() - t0:.1f}s)")
-        metrics_log.log(epoch, "train", loss=mean_loss, steps=len(losses),
-                        wall_s=time.time() - t0, lr_scale=state.lr_scale)
+        if main_rank:
+            metrics_log.log(epoch, "train", loss=mean_loss, steps=len(losses),
+                            wall_s=time.time() - t0, lr_scale=state.lr_scale)
 
         # held-out validation loss (reference test_epoch + best-by-val-loss)
         if val_ds is not None and len(val_ds):
@@ -338,8 +373,13 @@ def main(argv=None):
                 val_losses.append(float(eval_step(state, vbatch, vdraws)["loss"]))
             if val_losses:
                 mean_loss = float(np.mean(val_losses))
+                if mesh is not None:
+                    # rank 0's, so that every rank's scheduler takes the
+                    # same decisions
+                    mean_loss = mesh.broadcast(mean_loss)
                 print(f"  val loss {mean_loss:.4f} ({len(val_losses)} batches)")
-                metrics_log.log(epoch, "val", loss=mean_loss, batches=len(val_losses))
+                if main_rank:
+                    metrics_log.log(epoch, "val", loss=mean_loss, batches=len(val_losses))
 
         in_warmup = layer_warmup is not None and epoch < layer_warmup.total_warmup_epochs
         if plateau is not None and not in_warmup:
@@ -349,7 +389,7 @@ def main(argv=None):
                 state.lr_scale = plateau.scale
                 print(f"  plateau lr scale -> {plateau.scale:.4f}")
 
-        if args.val_inference_freq and (epoch + 1) % args.val_inference_freq == 0:
+        if main_rank and args.val_inference_freq and (epoch + 1) % args.val_inference_freq == 0:
             from diffdock_tpu_torch.inference.pipeline import DockingPipeline
             from diffdock_tpu_torch.inference.sampler import SamplerConfig
 
@@ -379,16 +419,18 @@ def main(argv=None):
                     save("best_ema_secondary_epoch_model.msgpack", state.ema_params,
                          {"epoch": epoch, args.inference_secondary_metric: m2})
 
-        save_train_state(args.log_dir, model, state, cfg, tc, extra={"epoch": epoch})
+        if main_rank:
+            save_train_state(args.log_dir, model, state, cfg, tc, extra={"epoch": epoch})
         save("last_model.msgpack", None, {"epoch": epoch})
         save("last_ema_model.msgpack", state.ema_params, {"epoch": epoch})
         if mean_loss < best_loss:
             best_loss = mean_loss
             save("best_ema_model.msgpack", state.ema_params, {"epoch": epoch, "loss": mean_loss})
             save("best_model.msgpack", None, {"epoch": epoch, "loss": mean_loss})
-    metrics_log.close()
-    with open(os.path.join(args.log_dir, "history.json"), "w") as f:
-        json.dump(history, f)
+    if main_rank:
+        metrics_log.close()
+        with open(os.path.join(args.log_dir, "history.json"), "w") as f:
+            json.dump(history, f)
     return 0
 
 

@@ -110,6 +110,14 @@ def stack_batch(members: Sequence[Tuple[str, ComplexData]], bucket: Tuple[int, i
     return [n for n, _ in members], stack_padded([pad_to(d, nl, nr, nb, kb=kb, kr=kr) for _, d in members])
 
 
+def take_rows(batch, rows):
+    """The complexes ``rows`` (a slice or index) of a stacked ComplexData or
+    AAComplexData, numpy or torch; None fields stay None."""
+    if isinstance(batch, AAComplexData):
+        return AAComplexData(take_rows(batch.base, rows), *[a[rows] for a in batch[1:]])
+    return ComplexData(*[None if a is None else a[rows] for a in batch])
+
+
 def stack_padded(datas: Sequence):
     """One numpy ComplexData or AAComplexData with a leading batch axis from
     complexes already padded to one bucket and one set of widths. A field

@@ -21,7 +21,25 @@ cover ladder an anomaly guard times each pose chunk against the ladder's
 H100 cost model and quarantines an entry that runs far slower than it;
 each entry's first chunk, which pays the one-time costs (the kernels'
 build, the allocator's growth to the entry's shapes), is not judged.
-``dock_batch`` docks several complexes one after the other.
+``dock_batch`` docks several complexes one after the other or, on a
+mesh, one complex per rank.
+
+On a device mesh (``mesh=``, a ``parallel/mesh.py:Mesh``: one process per
+rank, each holding the same pipeline) ``dock_complex`` shards each pose
+batch as the JAX pipeline's ``_sharded_program`` does: the pose count is
+rounded up to a multiple of the mesh size (the surplus poses are sampled
+and dropped), each rank docks its share with its rank folded into the
+chunk's seed, the poses, confidences and step-major trajectory are
+gathered in rank order on every rank, and the pose-set affinity is the
+mean over the ranks. The per-card caps (:func:`auto_pose_chunk`, a cover
+entry's pose count) scale with the mesh size. ``dock_batch`` shards
+complexes instead (the JAX pipeline's ``_batch_program``): groups of one
+complex per rank, by ascending bucket, the last group padded with its last
+member, one bucket per group with the data-dependent widths normalized
+across its members, complex ``i`` drawn from ``seed * 100003 + c`` folded
+with ``i``, results in input order. A failure on any rank raises on every
+rank (``Mesh.run``), and the anomaly guard judges each chunk by the
+slowest rank, so every rank quarantines the same entries.
 
 With ``crop_beyond`` in the score model's config, the receptor is cropped
 as in the JAX pipeline: on the host before bucketing (``pre_crop_radius``,
@@ -44,9 +62,8 @@ JAX pipeline). With ``affinity_prediction`` it also gives the pose set's
 affinity: for the old family the mean of the outputs' last column, for a
 new-architecture model ``predict_affinity`` of the outputs after the
 confidences (a chunked dock averages its chunks' affinities, as the JAX
-pipeline does). Not ported yet: the device mesh; a confidence model with
-``atom_confidence`` is refused, because the JAX pipeline fails on it too.
-Asking for either raises.
+pipeline does). A confidence model with ``atom_confidence`` is refused,
+because the JAX pipeline fails on it too.
 """
 
 from __future__ import annotations
@@ -55,7 +72,7 @@ import dataclasses
 import os
 import time
 import warnings
-from typing import List, Optional, Set, Tuple, Union
+from typing import Iterator, List, NamedTuple, Optional, Set, Tuple, Union
 
 import numpy as np
 import torch
@@ -92,6 +109,7 @@ from diffdock_tpu_torch.data.featurize import build_aa_complex_data, build_compl
 from diffdock_tpu_torch.models.config import ConfigError, ScoreModelConfig
 from diffdock_tpu_torch.models.factory import build_model
 from diffdock_tpu_torch.models.old_models import build_confidence_model
+from diffdock_tpu_torch.parallel.mesh import Mesh, fold_seed
 
 # Device bytes one pose adds to the confidence forward's peak,
 # CONF_BYTES_PER_EDGE * nl * n_nodes + CONF_BYTES_PER_NODE * n_nodes
@@ -182,6 +200,22 @@ class DockingResult:
     trajectory: Optional[np.ndarray] = None  # (steps+1, P, NL, 3) input frame
 
 
+class BatchGroup(NamedTuple):
+    """One group of :meth:`DockingPipeline.batch_groups`: the input indices
+    of its complexes, the same padded to the group's size with the last
+    one, the members ((data, aa_data) after the pre-crop), the padded
+    (nl, nr, nb), the cover entry (or None), the poses per chunk and the
+    padded widths (``kb``, ``kr`` and, all-atom, ``na``, ``ka``, ``ar``)."""
+
+    idxs: List[int]
+    pad_idxs: List[int]
+    members: list
+    bucket: Tuple[int, int, int]
+    cover: Optional[Tuple[int, int, int, int]]
+    pose_chunk: int
+    widths: dict
+
+
 def _with_weights(model: torch.nn.Module, weights: Union[dict, int], device) -> torch.nn.Module:
     """A ``state_dict``, or an ``int`` seed for random weights."""
     if isinstance(weights, int):
@@ -222,8 +256,10 @@ class DockingPipeline:
     when the score config sets ``crop_beyond``, a radius that covers every
     step's crop, as the JAX pipeline does. ``pocket_capacity``: with
     ``crop_beyond``, each step gathers at most this many nearest residues
-    into a smaller receptor instead of masking. ``mesh`` is not ported;
-    setting it raises.
+    into a smaller receptor instead of masking. ``mesh``: a
+    ``parallel/mesh.py:Mesh`` to shard the poses (``dock_complex``) or the
+    complexes (``dock_batch``) over; every rank builds the same pipeline
+    and makes the same calls.
     """
 
     def __init__(
@@ -244,12 +280,13 @@ class DockingPipeline:
         mesh=None,
         anomaly_guard: Optional[float] = None,
     ):
-        if mesh is not None:
-            raise ConfigError("not ported yet: a device mesh (ROADMAP queue 1 item 8)")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, not {type(mesh).__name__}")
         if bucket_ladder not in ("fine", "fine_dense", "cover"):
             raise ValueError(f"unknown bucket_ladder {bucket_ladder!r}")
         use_full_fp32()
         self.device = torch.device(device)
+        self.mesh = mesh
         self.bucket_ladder = bucket_ladder
         self.anomaly_guard = resolve_anomaly_guard(anomaly_guard, bucket_ladder, self.device)
         self._quarantined: Set[Tuple[int, int, int, int]] = set()
@@ -292,7 +329,18 @@ class DockingPipeline:
         self.so3 = so3_tables if so3_tables is not None else get_so3_tables(device=self.device)
         self.torus = torus_tables if torus_tables is not None else get_torus_tables(device=self.device)
 
-    def draw_noise(self, num_poses: int, n_bonds: int, seed: int) -> Tuple[InitNoise, StepNoise]:
+    @property
+    def mesh_size(self) -> int:
+        return self.mesh.size if self.mesh is not None else 1
+
+    def draw_noise(self, num_poses: int, n_bonds: int, seed: int,
+                   fold: Optional[int] = None) -> Tuple[InitNoise, StepNoise]:
+        """The draws of one pose batch from ``seed``, or from stream ``fold``
+        of it (``parallel/mesh.py:fold_seed``, JAX's ``fold_in``): a shard
+        of a pose mesh folds its rank, a complex of a complex mesh its
+        input index."""
+        if fold is not None:
+            seed = fold_seed(seed, fold)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         init = InitNoise.draw(num_poses, n_bonds, gen, self.device)
         steps = StepNoise.draw(self.sampler_cfg.num_steps, num_poses, n_bonds, gen, self.device)
@@ -348,16 +396,20 @@ class DockingPipeline:
         of its bucket, and an explicit ``batch_size`` capped there.
         Otherwise ``batch_size`` (all poses when None), capped at
         :func:`auto_pose_chunk` of the bucket. The bucket is that of the
-        complex after :meth:`pre_crop`."""
+        complex after :meth:`pre_crop`. On a pose mesh the caps, which are
+        per card, scale with its size, and the count is rounded up to a
+        multiple of it (the program's pose count, as in the JAX pipeline)."""
         (nl, nr, _), cov = self.dock_bucket(data)
+        nd = self.mesh_size
         chunk = batch_size
-        cap = auto_pose_chunk(nl, nr)
+        cap = auto_pose_chunk(nl, nr) * nd
         if cov is not None:
-            cap = min(cov[3], cap)
+            cap = min(cov[3] * nd, cap)
             chunk = min(chunk, cap) if chunk else cap
         elif (chunk or num_poses) > cap:
             chunk = min(chunk, cap) if chunk else cap
-        return min(chunk, num_poses) if chunk else num_poses
+        chunk = min(chunk, num_poses) if chunk else num_poses
+        return -(-chunk // nd) * nd
 
     @torch.inference_mode()
     def dock_complex(
@@ -378,7 +430,9 @@ class DockingPipeline:
         (InitNoise, StepNoise)`` for the padded bond count, called once per
         pose batch; :meth:`draw_noise` when None. The poses run in one batch
         from ``seed`` or, in chunks (see :meth:`effective_pose_chunk`), chunk
-        ``c`` from seed ``seed * 100003 + c`` as in the JAX pipeline.
+        ``c`` from seed ``seed * 100003 + c`` as in the JAX pipeline. On a
+        pose mesh each rank calls it with its share of the poses and
+        ``fold=rank`` (so a caller can hand each shard its own draws).
         ``aa_data``: the same complex with its receptor atoms, for an
         all-atom confidence model.
         ``pocket_center``: (3,) start-pose center in the complex's centered
@@ -398,34 +452,34 @@ class DockingPipeline:
                                   pocket_center=pocket_center)
                 for c in range(-(-num_poses // chunk))
             ]
-            poses = np.concatenate([r.poses for r in results])[:num_poses]
-            conf = (np.concatenate([r.confidence for r in results])[:num_poses]
-                    if results[0].confidence is not None else None)
-            # the trajectory is step-major (S, P, NL, 3): poses on axis 1
-            traj = (np.concatenate([r.trajectory for r in results], axis=1)[:, :num_poses]
-                    if return_trajectory else None)
-            order = np.argsort(-conf) if conf is not None else np.arange(num_poses)
             # every chunk runs `chunk` poses: the mean of the chunks'
             # affinities weighs every sampled pose alike
-            affs = [r.affinity for r in results if r.affinity is not None]
-            return DockingResult(poses=poses, confidence=conf, order=order, trajectory=traj,
-                                 affinity=float(np.mean(affs)) if affs else None)
+            return _concat_results(results, num_poses, return_trajectory)
         bucket, cov = self.dock_bucket(data)
         guard = self.anomaly_guard if cov is not None else 0.0
         if guard and cov not in self._warm_entries:
             self._warm_entries.add(cov)
             guard = 0.0
         if not guard:
-            return self._dock_program(data, bucket, num_poses, seed, noise, aa_data,
-                                      return_trajectory, pocket_center)
+            return self._run_program(data, bucket, num_poses, seed, noise, aa_data,
+                                     return_trajectory, pocket_center)
         self._sync()
         t0 = time.perf_counter()
-        result = self._dock_program(data, bucket, num_poses, seed, noise, aa_data,
-                                    return_trajectory, pocket_center)
+        result = self._run_program(data, bucket, num_poses, seed, noise, aa_data,
+                                   return_trajectory, pocket_center)
         self._sync()
-        dt = time.perf_counter() - t0
-        model_s = ladder.modeled_batch_seconds(bucket[0], bucket[1], num_poses)
-        if dt > guard * model_s:
+        self._judge(cov, bucket, -(-num_poses // self.mesh_size), time.perf_counter() - t0)
+        return result
+
+    def _judge(self, cov, bucket, poses_per_device: int, dt: float) -> None:
+        """The anomaly guard: quarantine ``cov`` when a chunk of
+        ``poses_per_device`` poses per card took more than the guard's
+        factor times the cost model. On a mesh the slowest rank's time
+        decides, the same on every rank."""
+        if self.mesh_size > 1:
+            dt = max(self.mesh.gather(dt))
+        model_s = ladder.modeled_batch_seconds(bucket[0], bucket[1], poses_per_device)
+        if dt > self.anomaly_guard * model_s:
             self._quarantined.add(cov)
             warnings.warn(
                 f"cover bucket {cov[:3]} ran {dt:.1f}s/batch, {dt / model_s:.0f}x its cost model "
@@ -433,46 +487,164 @@ class DockingPipeline:
                 f"entry (results of this batch are kept: slow, not wrong)",
                 RuntimeWarning,
             )
-        return result
+
+    def _run_program(self, data: ComplexData, bucket, num_poses: int, seed: int, noise, aa_data,
+                     return_trajectory: bool, pocket_center) -> DockingResult:
+        """One pose batch: :meth:`_dock_program` on this device or, on a pose
+        mesh, ``num_poses`` rounded up to a multiple of the mesh size and
+        sharded over its ranks (the JAX pipeline's ``_sharded_program``),
+        each rank's share drawn with its rank folded in; the gathered poses,
+        confidences and trajectory are cut back to ``num_poses``, and the
+        affinity is the mean of the ranks'."""
+        if self.mesh_size == 1:
+            return self._dock_program(data, bucket, num_poses, seed, noise, aa_data,
+                                      return_trajectory, pocket_center)
+        mesh = self.mesh
+        n_local = -(-num_poses // mesh.size)
+        parts = mesh.run(lambda: self._dock_program(data, bucket, n_local, seed, noise, aa_data,
+                                                     return_trajectory, pocket_center, fold=mesh.rank))
+        return _concat_results(parts, num_poses, return_trajectory)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     def dock_batch(self, datas, num_poses: int = 10, seed: int = 0, aa_datas=None,
-                   pocket_centers=None, batch_size: Optional[int] = None) -> List[DockingResult]:
-        """Dock several complexes on this pipeline's one device: a
+                   pocket_centers=None, batch_size: Optional[int] = None,
+                   noise=None) -> List[DockingResult]:
+        """Dock several complexes. Without a mesh (or on a mesh of one) a
         :meth:`dock_complex` loop with complex ``i`` from seed ``seed + i``,
-        as the JAX pipeline does without a mesh (its complex-sharded mesh
-        path waits for ROADMAP queue 1 item 8)."""
+        as the JAX pipeline does. On a mesh, one complex per rank (see the
+        module docstring): each group's pose chunk ``c`` of complex ``i``
+        from ``noise(pchunk, n_bonds, seed * 100003 + c, fold=i)``
+        (:meth:`draw_noise` when None); results in input order on every
+        rank."""
         n = len(datas)
         aa_list = aa_datas if aa_datas is not None else [None] * n
         pk_list = pocket_centers if pocket_centers is not None else [None] * n
         if len(aa_list) != n or len(pk_list) != n:
             raise ValueError(f"{n} complexes, {len(aa_list)} all-atom trees, {len(pk_list)} pocket centers")
+        if self.mesh_size > 1:
+            return self._dock_batch_sharded(datas, num_poses, seed, aa_list, pk_list, batch_size,
+                                            noise if noise is not None else self.draw_noise)
         return [self.dock_complex(d, num_poses=num_poses, seed=seed + i, aa_data=aa,
-                                  pocket_center=pk, batch_size=batch_size)
+                                  pocket_center=pk, batch_size=batch_size, noise=noise)
                 for i, (d, aa, pk) in enumerate(zip(datas, aa_list, pk_list))]
+
+    def batch_groups(self, datas, aa_datas=None, num_poses: int = 10, batch_size: Optional[int] = None,
+                     size: Optional[int] = None) -> Iterator[BatchGroup]:
+        """The groups that ``dock_batch`` docks on a mesh of ``size`` ranks
+        (this pipeline's mesh by default), one at a time: the complexes
+        after :meth:`pre_crop` by ascending fine bucket, ``size`` to a group
+        (the last one padded with its last member), each group with the
+        bucket that covers its largest member (the cover ladder's entry for
+        it, skipping the entries quarantined so far), the pose chunk (the
+        per-card caps of one complex) and the data-dependent widths
+        normalized across its members."""
+        size = size or self.mesh_size
+        aa_list = aa_datas if aa_datas is not None else [None] * len(datas)
+        dense = self.bucket_ladder == "fine_dense"
+
+        def fine(d):
+            return bucket_sizes(d.n_lig, d.n_rec, d.n_bonds, dense=dense)
+
+        cropped = [self.pre_crop(d, a) for d, a in zip(datas, aa_list)]
+        order = sorted(range(len(datas)), key=lambda i: fine(cropped[i][0]))
+        for start in range(0, len(order), size):
+            idxs = order[start : start + size]
+            pad_idxs = idxs + [idxs[-1]] * (size - len(idxs))
+            members = [cropped[i] for i in pad_idxs]
+            nl, nr, nb = (max(fine(d)[k] for d, _ in members) for k in range(3))
+            cov = (ladder.cover_bucket(nl, nr, nb, exclude=self._quarantined)
+                   if self.bucket_ladder == "cover" else None)
+            chunk, cap = batch_size, auto_pose_chunk(nl, nr)
+            if cov is not None:
+                nl, nr, nb = cov[:3]
+                cap = min(cov[3], auto_pose_chunk(nl, nr))
+                chunk = min(chunk, cap) if chunk else cap
+            elif (chunk or num_poses) > cap:
+                chunk = min(chunk, cap) if chunk else cap
+            widths = dict(kb=max(4, *(d.lig_bond_nbr.shape[1] for d, _ in members)),
+                          kr=max(d.rec_nbr.shape[1] for d, _ in members))
+            if members[0][1] is not None:
+                widths.update(na=max(atom_bucket(a.n_atoms) for _, a in members),
+                              ka=max(np.asarray(a.atom_nbr).shape[1] for _, a in members),
+                              ar=max(np.asarray(a.res_atom_idx).shape[1] for _, a in members))
+            yield BatchGroup(idxs, pad_idxs, members, (nl, nr, nb), cov,
+                             min(chunk, num_poses) if chunk else num_poses, widths)
+
+    @torch.inference_mode()
+    def _dock_batch_sharded(self, datas, num_poses: int, seed: int, aa_list, pk_list,
+                            batch_size: Optional[int], noise) -> List[DockingResult]:
+        """``dock_batch`` on a mesh: the JAX pipeline's complex-sharded path,
+        group by group (:meth:`batch_groups`); rank ``r`` docks member ``r``
+        of each group."""
+        mesh = self.mesh
+        if self.confidence_cfg is not None and self.confidence_cfg.all_atoms and None in aa_list:
+            raise ValueError("an all-atom confidence model needs aa_datas")
+        results: List[Optional[DockingResult]] = [None] * len(datas)
+        for g in self.batch_groups(datas, aa_list, num_poses, batch_size):
+            i = g.pad_idxs[mesh.rank]
+            data, aa = g.members[mesh.rank]
+
+            def mine():
+                parts, walls = [], []
+                for c in range(-(-num_poses // g.pose_chunk)):
+                    self._sync()
+                    t0 = time.perf_counter()
+                    parts.append(self._dock_program(data, g.bucket, g.pose_chunk, seed * 100003 + c, noise,
+                                                    aa, False, pk_list[i], fold=i, widths=g.widths))
+                    self._sync()
+                    walls.append(time.perf_counter() - t0)
+                return _concat_results(parts, num_poses, False), walls
+
+            gathered = mesh.run(mine)
+            if g.cover is not None and self.anomaly_guard:
+                # each chunk judged by the slowest rank; an entry's first
+                # chunk pays its one-time costs and is not judged
+                for c in range(len(gathered[0][1])):
+                    if g.cover not in self._warm_entries:
+                        self._warm_entries.add(g.cover)
+                        continue
+                    self._judge(g.cover, g.bucket, g.pose_chunk, max(r[1][c] for r in gathered))
+                    if g.cover in self._quarantined:
+                        break
+            for j, i in enumerate(g.idxs):
+                results[i] = gathered[j][0]
+        return results
 
     @torch.inference_mode()
     def dock_program(self, data: ComplexData, bucket: Tuple[int, int, int], num_poses: int,
-                     seed: int = 0) -> DockingResult:
+                     seed: int = 0, aa_data: Optional[AAComplexData] = None, fold: Optional[int] = None,
+                     widths: Optional[dict] = None) -> DockingResult:
         """One batch of ``num_poses`` poses of ``data`` padded to ``bucket``
-        = (nl, nr, nb), from :meth:`draw_noise`: the program that
+        = (nl, nr, nb), from :meth:`draw_noise` (of stream ``fold`` of
+        ``seed`` when given), on this device: the program that
         :meth:`dock_complex` runs per pose chunk, without its pre-crop,
-        chunking or guard (``prewarm`` runs it once per job)."""
-        return self._dock_program(data, bucket, num_poses, seed, self.draw_noise, None, False, None)
+        chunking or guard (``prewarm`` runs it once per job), and that a
+        rank of :meth:`dock_batch`'s mesh runs for a member of a
+        :meth:`batch_groups` group (``fold`` its input index, ``widths``
+        the group's)."""
+        return self._dock_program(data, bucket, num_poses, seed, self.draw_noise, aa_data, False, None,
+                                  fold=fold, widths=widths)
 
     def _dock_program(self, data: ComplexData, bucket: Tuple[int, int, int], num_poses: int, seed: int,
                       noise, aa_data: Optional[AAComplexData], return_trajectory: bool,
-                      pocket_center: Optional[np.ndarray]) -> DockingResult:
+                      pocket_center: Optional[np.ndarray], fold: Optional[int] = None,
+                      widths: Optional[dict] = None) -> DockingResult:
         """One pose batch at the padded ``bucket``: the body of the JAX
-        package's ``_make_run``."""
+        package's ``_make_run``. ``fold`` reaches the ``noise`` function
+        when given; ``widths`` (``kb``, ``kr`` and, all-atom, ``na``, ``ka``,
+        ``ar``) pads the data-dependent widths as a complex mesh's group
+        shares them."""
         scfg, sampler = self.score_cfg, self.sampler_cfg
         nl, nr, nb = bucket
-        padded = to_device(pad_to(data, nl, nr, nb), self.device)
-        conf_data = self.confidence_input(data, aa_data, padded, bucket)
-        init_noise, step_noise = noise(num_poses, nb, seed)
+        widths = widths or {}
+        padded = to_device(pad_to(data, nl, nr, nb, **{k: widths[k] for k in ("kb", "kr") if k in widths}),
+                           self.device)
+        conf_data = self.confidence_input(data, aa_data, padded, bucket, widths)
+        init_noise, step_noise = (noise(num_poses, nb, seed) if fold is None
+                                  else noise(num_poses, nb, seed, fold=fold))
         pocket = (None if pocket_center is None else
                   torch.as_tensor(np.asarray(pocket_center, np.float32).reshape(3), device=self.device))
 
@@ -548,11 +720,13 @@ class DockingPipeline:
         return self.model(padded, poses, t, self.so3, self.torus, rec_keep=keep)
 
     def confidence_input(self, data: ComplexData, aa_data: Optional[AAComplexData] = None,
-                         padded: Optional[ComplexData] = None, bucket=None):
+                         padded: Optional[ComplexData] = None, bucket=None, widths=None):
         """The confidence model's padded input on the device (None without a
         confidence model): the all-atom tree padded to the complex's bucket
         (``bucket``, or :meth:`dock_bucket`'s) and its atom bucket, or the
-        padded coarse-grained complex; of the complex after :meth:`pre_crop`."""
+        padded coarse-grained complex; of the complex after :meth:`pre_crop`.
+        ``widths``: the atom bucket and padded widths of a complex mesh's
+        group (see :meth:`_dock_program`)."""
         if self.confidence_model is None:
             return None
         data, aa_data = self.pre_crop(data, aa_data)
@@ -561,7 +735,9 @@ class DockingPipeline:
             return padded if padded is not None else to_device(pad_to(data, nl, nr, nb), self.device)
         if aa_data is None:
             raise ValueError("an all-atom confidence model needs aa_data")
-        return to_device(pad_aa_to(aa_data, nl, nr, nb, atom_bucket(aa_data.n_atoms)), self.device)
+        widths = dict(widths or {})
+        na = widths.pop("na", atom_bucket(aa_data.n_atoms))
+        return to_device(pad_aa_to(aa_data, nl, nr, nb, na, **widths), self.device)
 
     def confidence_chunk_for(self, conf_data, num_poses: int) -> int:
         """Poses per confidence forward for this padded complex."""
@@ -648,7 +824,8 @@ class DockingPipeline:
         :meth:`dock_complex`. Afterwards ``last_timings`` holds the wall
         seconds of the host's featurization (``featurize_s``), of the dock
         until its poses are back on the host (``dock_s``) and of writing
-        the files (``write_s``)."""
+        the files (``write_s``). On a mesh every rank docks and returns
+        the result, and rank 0 alone writes the files."""
         t0 = time.perf_counter()
         data, aa_data, heavy_mol = self.featurize(mol, protein, lm_embeddings)
         t1 = time.perf_counter()
@@ -657,10 +834,26 @@ class DockingPipeline:
             return_trajectory=save_trajectory, batch_size=batch_size,
         )
         t2 = time.perf_counter()  # the poses are on the host: the device is done
-        write_ranked_poses(out_dir, heavy_mol, result)
+        if self.mesh is None or self.mesh.is_main:  # on a mesh, rank 0 writes
+            write_ranked_poses(out_dir, heavy_mol, result)
         self.last_timings = {"featurize_s": t1 - t0, "dock_s": t2 - t1,
                              "write_s": time.perf_counter() - t2}
         return result
+
+
+def _concat_results(parts: List[DockingResult], num_poses: int, with_trajectory: bool) -> DockingResult:
+    """Pose batches joined on the pose axis (the trajectory's axis 1) and
+    cut to ``num_poses``, ranked jointly; the affinity is the mean of the
+    parts' (each ran as many poses)."""
+    poses = np.concatenate([r.poses for r in parts])[:num_poses]
+    conf = (np.concatenate([r.confidence for r in parts])[:num_poses]
+            if parts[0].confidence is not None else None)
+    traj = (np.concatenate([r.trajectory for r in parts], axis=1)[:, :num_poses]
+            if with_trajectory else None)
+    order = np.argsort(-conf) if conf is not None else np.arange(num_poses)
+    affs = [r.affinity for r in parts if r.affinity is not None]
+    return DockingResult(poses=poses, confidence=conf, order=order, trajectory=traj,
+                         affinity=float(np.mean(affs)) if affs else None)
 
 
 def write_ranked_poses(out_dir: str, heavy_mol, result: DockingResult) -> List[str]:

@@ -92,7 +92,10 @@ class ScalarBatchNorm(nn.Module):
     all leading axes together (the JAX module's ``pmean`` over its vmapped
     batch axis), with flax's fast variance ``E[x^2] - E[x]^2`` clipped at
     zero, and the running statistics move 0.1 of the way to them. The
-    module starts in evaluation mode."""
+    module starts in evaluation mode. With ``mesh`` set
+    (``parallel/mesh.py:bind_batch_norms``) the two means are averaged over
+    the mesh's ranks, with their gradient (flax's ``pmean`` over ``"dp"``;
+    every rank holds as many rows)."""
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -102,14 +105,17 @@ class ScalarBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(dim))
         self.register_buffer("running_var", torch.ones(dim))
         self.train(False)
+        self.mesh = None  # a parallel.mesh.Mesh to average the statistics over
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             inv = torch.rsqrt(self.running_var + self.eps)
             return (x - self.running_mean) * inv * self.weight + self.bias
         flat = x.reshape(-1, x.shape[-1])
-        mean = flat.mean(0)
-        var = torch.clamp((flat * flat).mean(0) - mean * mean, min=0.0)
+        mean, mean2 = flat.mean(0), (flat * flat).mean(0)
+        if self.mesh is not None:
+            mean, mean2 = self.mesh.mean(torch.cat([mean, mean2])).chunk(2)
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
         with torch.no_grad():
             self.running_mean.mul_(1 - MOMENTUM).add_(MOMENTUM * mean)
             self.running_var.mul_(1 - MOMENTUM).add_(MOMENTUM * var)

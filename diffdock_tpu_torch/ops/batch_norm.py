@@ -8,6 +8,13 @@ statistics come from the batch, over every valid row of every complex
 (the JAX module's ``psum`` over the vmapped batch axis), and the running
 statistics move by momentum 0.1. The module starts in evaluation mode
 (the port serves unless a trainer calls ``.train()``).
+
+With ``mesh`` set (``parallel/mesh.py:bind_batch_norms``, for a config
+whose ``bn_axis_names`` holds the mesh's axis) the training branch also
+sums the mean's numerator and denominator over the mesh's ranks, and then
+the variance's: the JAX module's ``psum`` over ``"dp"``. The sum carries
+the gradient, so the statistics, the running statistics and the gradient
+do not depend on the number of ranks.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ class IrrepsBatchNorm(nn.Module):
         self.irreps = Irreps(irreps)
         self.eps = eps
         self.train(False)
+        self.mesh = None  # a parallel.mesh.Mesh to sum the statistics over
         num_features = self.irreps.num_irreps
         num_scalar = sum(e.mul for e in self.irreps if e.ir.l == 0 and e.ir.p == 1)
         self.register_buffer("running_mean", torch.zeros(num_scalar))
@@ -73,11 +81,18 @@ class IrrepsBatchNorm(nn.Module):
         # each complex counts at least one row, as in the JAX module
         den = torch.clamp(m.sum(1), min=1.0).sum()
         w = m[..., None]
-        batch_mean = (flat[..., self._scalar_cols] * w).sum((0, 1)) / den
+        num = (flat[..., self._scalar_cols] * w).sum((0, 1))
+        if self.mesh is not None:
+            tot = self.mesh.all_reduce_sum(torch.cat([num, den.reshape(1).to(num.dtype)]))
+            num, den = tot[:-1], tot[-1]
+        batch_mean = num / den
         centred = flat - self._per_column(batch_mean, self._mean_col)
         sq = flat.new_zeros(flat.shape[:2] + (self.weight.shape[0],)).index_add_(
             2, self._feat_col, centred * centred) / self._comp_dim  # component mean per irrep
-        batch_var = (sq * w).sum((0, 1)) / den
+        num = (sq * w).sum((0, 1))
+        if self.mesh is not None:
+            num = self.mesh.all_reduce_sum(num)
+        batch_var = num / den
         scale = ((batch_var + self.eps) ** (-0.5) * self.weight)[self._feat_col]
         out = centred * scale + self._per_column(self.bias, self._mean_col)
         with torch.no_grad():

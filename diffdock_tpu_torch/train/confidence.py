@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from diffdock_tpu_torch.data.complexes import ComplexData
 from diffdock_tpu_torch.eval.rmsd import molecular_automorphisms, symmetry_rmsd
+from diffdock_tpu_torch.parallel.mesh import bind_batch_norms
 from diffdock_tpu_torch.train.trainer import AdamState, TrainConfig, batch_stat_names, make_optimizer
 
 
@@ -157,7 +158,8 @@ def confidence_loss(logits: torch.Tensor, labels: torch.Tensor, cfg: ConfidenceT
     return loss, torch.mean((torch.argmax(logits, -1) == idx).to(logits.dtype))
 
 
-def make_confidence_train_step(model: torch.nn.Module, cfg: ConfidenceTrainConfig) -> Callable:
+def make_confidence_train_step(model: torch.nn.Module, cfg: ConfidenceTrainConfig,
+                               mesh=None) -> Callable:
     """``train_step(state, batch, poses, labels, generator) -> (state,
     metrics)``: ``batch`` a stacked ComplexData or AAComplexData of B
     complexes (tensors), ``poses`` (B, NL, 3) one pose each relative to its
@@ -166,9 +168,18 @@ def make_confidence_train_step(model: torch.nn.Module, cfg: ConfidenceTrainConfi
     dropout masks' source. The forward runs in training mode at t = 0, the
     gradients of the loss go through Adam at ``cfg.lr``, and the model's
     parameters and running statistics move in place; ``state.grads`` keeps
-    the step's gradients; metrics ``loss`` and ``accuracy`` (0-d tensors)."""
+    the step's gradients; metrics ``loss`` and ``accuracy`` (0-d tensors).
+
+    ``mesh`` (a ``parallel/mesh.py:Mesh``): this rank's step of a
+    data-parallel run (wrap it in ``shard_confidence_train_step``), with
+    its own shard and its own dropout generator (the JAX step folds the
+    mesh index into its key); the batch norms aggregate over the mesh when
+    the config says so, and the gradients, loss and accuracy are averaged
+    over the ranks before Adam (the JAX step's ``pmean``)."""
     tx = make_optimizer(TrainConfig(lr=cfg.lr))
     n_out = cfg.num_outputs
+    if mesh is not None:
+        bind_batch_norms(model, mesh)
 
     def train_step(state: ConfidenceTrainState, batch, poses: torch.Tensor, labels: torch.Tensor,
                    generator: Optional[torch.Generator] = None):
@@ -180,12 +191,16 @@ def make_confidence_train_step(model: torch.nn.Module, cfg: ConfidenceTrainConfi
         loss, acc = confidence_loss(logits, labels, cfg)
         grads = torch.autograd.grad(loss, [state.params[k] for k in names], allow_unused=True)
         grads = {k: torch.zeros_like(state.params[k]) if g is None else g for k, g in zip(names, grads)}
+        metrics = {"loss": loss.detach(), "accuracy": acc.detach()}
+        if mesh is not None:
+            grads = mesh.mean_tree(grads)
+            metrics = mesh.mean_tree(metrics)
         with torch.no_grad():
             params = {k: p.detach() for k, p in state.params.items()}
             updates, state.opt_state = tx.update(grads, state.opt_state, params)
             for k in names:
                 params[k].add_(updates[k])
         state.grads = grads
-        return state, {"loss": loss.detach(), "accuracy": acc.detach()}
+        return state, metrics
 
     return train_step

@@ -41,6 +41,7 @@ from diffdock_tpu_torch.diffusion.torus import TorusTables
 from diffdock_tpu_torch.models.config import ScoreModelConfig
 from diffdock_tpu_torch.models.score_model import CGScoreModel
 from diffdock_tpu_torch.train.losses import per_complex_losses, sigma_interval_metrics, total_loss
+from diffdock_tpu_torch.parallel.mesh import DP_AXIS, bind_batch_norms
 from diffdock_tpu_torch.train.noise import NoiseDraws, apply_noise
 
 BATCH_AXIS = "batch"
@@ -144,10 +145,12 @@ def make_optimizer(cfg: TrainConfig) -> Optimizer:
     return Optimizer(init, update)
 
 
-def training_model_config(cfg: ScoreModelConfig) -> ScoreModelConfig:
+def training_model_config(cfg: ScoreModelConfig, data_parallel: bool = False) -> ScoreModelConfig:
     """The config a run directory records: batch statistics over the batch
-    axis, as the JAX CLI writes it (``data_parallel`` is not ported)."""
-    return dataclasses.replace(cfg, bn_axis_names=(BATCH_AXIS,))
+    axis and, under ``data_parallel``, over the mesh's ``"dp"`` axis too,
+    as the JAX CLI writes it."""
+    axes = (BATCH_AXIS, DP_AXIS) if data_parallel else (BATCH_AXIS,)
+    return dataclasses.replace(cfg, bn_axis_names=axes)
 
 
 def batch_stat_names(model: torch.nn.Module):
@@ -218,7 +221,7 @@ def make_eval_step(model: CGScoreModel, train_cfg: TrainConfig, so3: SO3Tables,
 
 
 def make_train_step(model: CGScoreModel, train_cfg: TrainConfig, so3: SO3Tables,
-                    torus: TorusTables) -> Callable:
+                    torus: TorusTables, mesh=None) -> Callable:
     """``train_step(state, batch, draws) -> (state, metrics)`` over a
     stacked batch (one bucket): the forward in training mode, gradients of
     the loss (with the auxiliary sidechain losses of a nonzero backbone or
@@ -226,8 +229,18 @@ def make_train_step(model: CGScoreModel, train_cfg: TrainConfig, so3: SO3Tables,
     under the model config's ``crop_beyond``, each complex's receptor crop
     (:func:`train_rec_keep`). The model's parameters and running statistics
     (``state.params``, ``state.batch_stats``) move in place; ``state.grads``
-    keeps the step's gradients by parameter name."""
+    keeps the step's gradients by parameter name.
+
+    ``mesh`` (a ``parallel/mesh.py:Mesh``): this rank's step of a
+    data-parallel run (wrap it in ``shard_train_step``). The batch is this
+    rank's shard and ``draws`` its own; the batch norms aggregate over the
+    mesh when the config says so (``training_model_config(cfg,
+    data_parallel=True)``), and the gradients and metrics are averaged over
+    the ranks before clipping, Adam and the EMA, so the parameters stay the
+    same on every rank (the JAX step's ``pmean``)."""
     tx = make_optimizer(train_cfg)
+    if mesh is not None:
+        bind_batch_norms(model, mesh)
 
     def train_step(state: TrainState, batch: ComplexData, draws: NoiseDraws):
         model.train()
@@ -236,6 +249,9 @@ def make_train_step(model: CGScoreModel, train_cfg: TrainConfig, so3: SO3Tables,
         grads = torch.autograd.grad(loss, [state.params[k] for k in names], allow_unused=True)
         grads = {k: torch.zeros_like(state.params[k]) if g is None else g
                  for k, g in zip(names, grads)}
+        if mesh is not None:
+            grads = mesh.mean_tree(grads)
+            metrics = mesh.mean_tree(metrics)
         with torch.no_grad():
             params = {k: p.detach() for k, p in state.params.items()}
             updates, state.opt_state = tx.update(grads, state.opt_state, params)

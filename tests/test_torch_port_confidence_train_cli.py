@@ -164,11 +164,19 @@ def test_pdbbind_layout_pads_to_one_bucket(tmp_path):
             assert np.isfinite(z["rmsds"]).all()
 
 
-def test_refusals(tmp_path):
-    for flag in ("--data_parallel", "--pose_devices"):
-        with pytest.raises(ConfigError, match="queue 1 item 8"):
-            cli.main(["--synthetic", "2", flag, "2", "--log_dir", str(tmp_path / "r")] + SMALL)
+def test_refusals(tmp_path, monkeypatch):
+    """ROADMAP queue 1 item 8 is ported (the multi-rank runs are in
+    test_torch_port_parallel_cli_train.py): what is refused now is two
+    counts above 1 that differ, since both phases share one process group."""
+    from diffdock_tpu_torch.parallel.mesh import CPU_DEVICES_ENV
+
+    monkeypatch.delenv(CPU_DEVICES_ENV, raising=False)
+    with pytest.raises(ConfigError, match="share one process group"):
+        cli.main(["--synthetic", "2", "--data_parallel", "2", "--pose_devices", "3",
+                  "--log_dir", str(tmp_path / "r")] + SMALL)
     # 0 means every visible device: one on the CPU
     args = cli.get_parser().parse_args(["--data_parallel", "0", "--pose_devices", "0", "--device", "cpu"])
-    cli.refuse_unported(args)
+    assert cli.phase_ranks(args) == (1, 1)
+    args = cli.get_parser().parse_args(["--data_parallel", "2", "--device", "cpu"])
+    assert cli.phase_ranks(args) == (1, 2)
     assert not (tmp_path / "r").exists()

@@ -355,7 +355,9 @@ def test_cli_config_overrides_and_refusals(setup, tables, monkeypatch, tmp_path,
     assert "unknown config key 'bogus'" in capsys.readouterr().err
     score_dir, conf_dir = _write_run_dirs(setup, tmp_path)
     base = ["--model_dir", str(score_dir), "--device", "cpu"]
-    with pytest.raises(ConfigError, match="item 8"):
+    # --pose_devices is ported (ROADMAP queue 1 item 8): the pipeline's mesh
+    # needs the ranks that the CLI's main starts
+    with pytest.raises(ConfigError, match="process group"):
         dock.load_pipeline(dock.get_parser().parse_args(base + ["--pose_devices", "2"]))
     # --compute_dtype (default bfloat16, as in the JAX CLI) sets the score
     # model's conv layers, not its heads, and not the confidence model's
@@ -393,8 +395,14 @@ def test_cli_config_overrides_and_refusals(setup, tables, monkeypatch, tmp_path,
     monkeypatch.setattr(download, "_default_opener", no_network)
     with pytest.raises(RuntimeError, match="failed to download"):
         dock.load_pipeline(dock.get_parser().parse_args(["--model_dir", str(tmp_path / "nope")]))
-    with pytest.raises(ConfigError, match="not ported"):
+    # the mesh is ported (ROADMAP queue 1 item 8): a parallel.mesh.Mesh, and
+    # nothing else, is taken
+    from diffdock_tpu_torch.parallel.mesh import Mesh
+
+    with pytest.raises(TypeError, match="Mesh"):
         DockingPipeline(ScoreModelConfig(**SKW), 0, device="cpu", mesh=object())
+    assert DockingPipeline(ScoreModelConfig(**SKW), 0, device="cpu", so3_tables=tables[2], torus_tables=tables[3],
+                           mesh=Mesh(1, 0, "cpu", "gloo")).mesh_size == 1
     for kw in (dict(pre_crop_radius=10.0), dict(pocket_capacity=5)):
         assert DockingPipeline(ScoreModelConfig(**SKW), 0, device="cpu", so3_tables=tables[2],
                                torus_tables=tables[3], **kw).pre_crop_radius == kw.get("pre_crop_radius")

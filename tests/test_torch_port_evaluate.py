@@ -41,7 +41,6 @@ from diffdock_tpu_torch.cli import evaluate
 from diffdock_tpu_torch.data.chem import write_sdf
 from diffdock_tpu_torch.inference import pipeline as pipeline_mod
 from diffdock_tpu_torch.inference.pipeline import DockingPipeline
-from diffdock_tpu_torch.models.config import ConfigError
 from tests.test_torch_port_confidence import _conf_kw, _init_confidence, _perturbed, tables  # noqa: F401
 from tests.test_torch_port_dock import _jax_draws, _to_f64
 
@@ -209,9 +208,15 @@ def test_unported_options_raise(run_dirs, tables, monkeypatch, tmp_path):  # noq
     _, _, _, score_dir, conf_dir = run_dirs
     base = argv(tmp_path, score_dir, conf_dir, "--device", "cpu", "--out_dir", str(tmp_path / "o"),
                 "--cache_path", str(tmp_path / "c"))
-    with pytest.raises(ConfigError, match="item 8"):
-        evaluate.main(base + ["--complex_devices", "0"])
+    # ROADMAP queue 1 item 8 is ported: 0 means every visible device, one
+    # on the CPU, so the pipeline has no mesh (test_torch_port_parallel_cli.py
+    # runs the multi-rank sweep)
+    from diffdock_tpu_torch.parallel.mesh import CPU_DEVICES_ENV
+
+    monkeypatch.delenv(CPU_DEVICES_ENV, raising=False)
     patch_tables_and_draws(monkeypatch, tables)
+    pipe = evaluate.build_pipeline(evaluate.get_parser().parse_args(base + ["--complex_devices", "0"]))
+    assert pipe.mesh is None and pipe.mesh_size == 1
     # --compute_dtype (default bfloat16, as in the JAX CLI) reaches the score
     # model's conv layers; the confidence model keeps its run directory's
     for extra, dtype in (([], "bfloat16"), (["--compute_dtype", "float32"], "float32")):

@@ -70,6 +70,7 @@ def test_port_imports_nothing_missing_on_the_card_machine():
     "train/confidence.py", "cli/confidence_train.py", "app/__init__.py", "app/server.py",
     "cli/main.py", "data/pdb_sidechain.py", "models/esm2.py", "cli/esm_prep.py", "cli/prewarm.py",
     "data/conformers.py", "utils/profiling.py", "geometry/rotations.py",
+    "parallel/__init__.py", "parallel/mesh.py",
 ])
 def test_port_modules_are_in_the_checked_set(module):
     assert REPO / "diffdock_tpu_torch" / module in _port_files()

@@ -27,6 +27,7 @@ from diffdock_tpu_torch.inference import pipeline as pipeline_mod
 from diffdock_tpu_torch.inference.pipeline import DockingPipeline, auto_pose_chunk, resolve_anomaly_guard
 from diffdock_tpu_torch.inference.sampler import SamplerConfig
 from diffdock_tpu_torch.models.config import ConfigError, ScoreModelConfig
+from diffdock_tpu_torch.parallel import mesh as mesh_mod
 from tests.test_torch_port_confidence import SO3_SMALL, TORUS_SMALL
 
 # a two-entry ladder: entry 0 covers the test complex, entry 1 is the
@@ -310,16 +311,23 @@ def test_dock_batch_equals_the_dock_complex_loop(tables, data):
         pipe.dock_batch([data], pocket_centers=[None, None])
 
 
-def test_a_mesh_or_several_devices_raise(tables, tmp_path):
-    with pytest.raises(ConfigError, match="item 8"):
-        _pipeline(tables, mesh=object())
+def test_a_mesh_or_several_devices_raise(tables, tmp_path, monkeypatch):
+    """The mesh is ported (ROADMAP queue 1 item 8; the multi-rank docks are
+    in test_torch_port_parallel_dock.py): the pipeline takes one, and what
+    the JAX CLI refuses is still refused: both sharding flags at once. A
+    count that a ``torchrun`` group of another size cannot give is refused
+    too."""
+    pipe = _pipeline(tables, mesh=mesh_mod.Mesh(1, 0, "cpu", "gloo"))
+    assert pipe.mesh_size == 1
     base = ["--data_dir", str(tmp_path), "--device", "cpu"]
-    with pytest.raises(ConfigError, match="--complex_devices 2.*item 8"):
-        evaluate.main(base + ["--complex_devices", "2"])
-    with pytest.raises(ConfigError, match="--pose_devices 2.*item 8"):
-        evaluate.main(base + ["--pose_devices", "2"])
     with pytest.raises(SystemExit, match="mutually exclusive"):
         evaluate.main(base + ["--pose_devices", "2", "--complex_devices", "2"])
+    for k, v in (("RANK", "0"), ("WORLD_SIZE", "2"), ("MASTER_ADDR", "localhost"), ("MASTER_PORT", "1")):
+        monkeypatch.setenv(k, v)
+    with pytest.raises(ConfigError, match="3 in a process group of 2"):
+        evaluate.main(base + ["--complex_devices", "3"])
+    with pytest.raises(ConfigError, match="1 in a process group of 2"):
+        evaluate.main(base)
 
 
 class _Result:

@@ -8,9 +8,10 @@
 back to the weights), ``--pretrain_dir`` loads weights, the PDBBind path
 runs with a validation split, ``--dataset moad``, ``--combined_training``
 and ``--triple_training`` train from MOAD and PDBSidechain layouts (those of
-``tests/test_torch_port_loaders.py``), the option that is not ported raises
-``ConfigError`` naming its ROADMAP item, and the sidechain loss weights,
-once refused, build the sidechain head and add their losses.
+``tests/test_torch_port_loaders.py``), and the options once refused
+naming their ROADMAP items run: ``--data_parallel`` on one CPU rank, and
+the sidechain loss weights, which build the sidechain head and add their
+losses.
 """
 
 import dataclasses
@@ -31,7 +32,6 @@ from diffdock_tpu.train import trainer as jtrainer
 from diffdock_tpu_torch.cli import dock as dock_cli
 from diffdock_tpu_torch.cli import train as train_cli
 from diffdock_tpu_torch.data.complexes import synthetic_complex
-from diffdock_tpu_torch.models.config import ConfigError
 from tests.test_torch_port_datasets import SYNTH
 from tests.test_torch_port_moad import layout  # noqa: F401
 from tests.test_torch_port_pdb_sidechain import sc_dir  # noqa: F401
@@ -169,22 +169,28 @@ def test_pdbbind_path_with_a_validation_split(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    pytest.param(["--data_parallel"], "item 8", id="flags4-item 8"),
+    # ROADMAP queue 1 item 8 is ported: --data_parallel trains on every
+    # visible device, one rank each (one CPU rank here; the multi-rank runs
+    # are in test_torch_port_parallel_cli_train.py), and the run directory
+    # records the batch norms' "dp" axis, as the JAX CLI's does
+    pytest.param(["--data_parallel"], 8, id="flags4-item 8"),
     # ROADMAP queue 1 item 5 is ported: these two now train the sidechain head
-    pytest.param(["--backbone_loss_weight", "0.5"], None, id="flags5-item 5"),
-    pytest.param(["--sidechain_loss_weight", "0.5"], None, id="flags6-item 5"),
+    pytest.param(["--backbone_loss_weight", "0.5"], 5, id="flags5-item 5"),
+    pytest.param(["--sidechain_loss_weight", "0.5"], 5, id="flags6-item 5"),
 ])
-def test_unported_options_raise_and_name_their_item(tmp_path, flags, item):
+def test_unported_options_raise_and_name_their_item(tmp_path, monkeypatch, flags, item):
+    from diffdock_tpu_torch.parallel.mesh import CPU_DEVICES_ENV
+
+    monkeypatch.delenv(CPU_DEVICES_ENV, raising=False)
     argv = ["--synthetic", "2", "--log_dir", str(tmp_path), *flags, *SMALL]
-    if item is not None:
-        with pytest.raises(ConfigError, match=f"ROADMAP queue 1 {item}"):
-            train_cli.main(argv)
-        return
     assert train_cli.main(argv + ["--n_epochs", "1", "--num_workers", "0"]) == 0
     from diffdock_tpu_torch.train.checkpoints import load_checkpoint
 
     params, cfg, _ = load_checkpoint(str(tmp_path))
-    assert cfg.sidechain_pred and "sidechain_predictor" in params["params"]
+    if item == 8:
+        assert tuple(cfg.bn_axis_names) == ("batch", "dp") and not cfg.sidechain_pred
+    else:
+        assert cfg.sidechain_pred and "sidechain_predictor" in params["params"]
     records = [json.loads(line) for line in (tmp_path / "metrics.jsonl").read_text().splitlines()]
     assert [r["phase"] for r in records] == ["train"] and np.isfinite(records[0]["loss"])
 
