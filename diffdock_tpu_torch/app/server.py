@@ -10,7 +10,11 @@ not served; the results are the ranked SDF files.
 Routes: ``/`` (the form and the job table), ``POST /submit`` (multipart: a
 protein file or server path and a ligand file or server path; 400 without
 both), ``/status/<id>`` (JSON), ``/results/<id>`` (the file list) and
-``/results/<id>/<file>``.
+``/results/<id>/<file>``. A job's status JSON also gives ``queue_s``
+(seconds from submission to the worker's start) and, once docked,
+``timings``: its dock's record (``DockingResult.timings``) as host
+seconds per phase (``featurize``, ``prep``, ``steps``, ``confidence``,
+``write``) and the record's counts.
 
 Run::
 
@@ -76,9 +80,11 @@ class Job:
         self.status = "queued"
         self.error: Optional[str] = None
         self.t_submit = time.time()
+        self.t_start: Optional[float] = None  # the worker's start
         self.t_done: Optional[float] = None
         self.result_dir: Optional[str] = None
         self.confidences = None
+        self.timings: Optional[Dict] = None
 
 
 class DockingService:
@@ -114,6 +120,7 @@ class DockingService:
     def _run(self):
         while True:
             job = self.queue.get()
+            job.t_start = time.time()
             job.status = "running"
             try:
                 self._dock(job)
@@ -140,6 +147,19 @@ class DockingService:
         job.result_dir = out_dir
         if result.confidence is not None:
             job.confidences = [float(result.confidence[i]) for i in result.order]
+        job.timings = timings_json(result.timings)
+
+
+# a dock record's phases in the status JSON -> the spans each sums
+PHASES = {"featurize": ("featurize",), "prep": ("prep", "embed_receptor"), "steps": ("step",),
+          "confidence": ("confidence", "rank"), "write": ("write",)}
+
+
+def timings_json(rec) -> Dict:
+    """A dock's record reduced for ``/status``: host seconds per phase
+    (:data:`PHASES`) and the record's counts."""
+    return {"seconds": {k: sum(rec.host_seconds(n) for n in names) for k, names in PHASES.items()},
+            "counts": dict(rec.counts)}
 
 
 def parse_multipart(handler) -> Dict:
@@ -198,6 +218,8 @@ def make_handler(service: DockingService):
                 self._send(200, json.dumps({
                     "id": job.id, "status": job.status, "error": job.error,
                     "confidences": job.confidences,
+                    "queue_s": None if job.t_start is None else job.t_start - job.t_submit,
+                    "timings": job.timings,
                 }), "application/json")
             elif parsed.path.startswith("/results/"):
                 parts = parsed.path.split("/")

@@ -50,6 +50,23 @@ smaller receptor; the receptor embedding is then computed at every step.
 A confidence model with ``crop_beyond`` keeps the residues within that
 distance of the final poses.
 
+Every dock keeps a record of its spans and counts
+(``utils/profiling.py:DockTimings``, handed back as
+``DockingResult.timings``): ``dock`` from the call to the ranked result;
+``prep`` (pre-crop, bucket, padding and the copies to the device, the
+confidence input, the noise draw and the start poses; each ``pre_crop``
+call a child span); ``embed_receptor`` (the receptor cache);
+``diffusion`` with one ``step`` per reverse-diffusion step, each with its
+``score`` and ``update``; ``to_host`` (the poses' synchronising copy);
+``confidence`` with a ``confidence_chunk`` per chunk; ``rank``;
+``diffusion``, ``confidence`` and ``rank`` also on the device's stream;
+a chunked dock's batches each
+under a ``pose_batch``; and ``featurize`` and ``write`` in
+:meth:`DockingPipeline.dock_mol_protein`. Its counts: ``score_forwards``,
+``pose_batches``, ``confidence_chunks``, ``pair_real`` and ``pair_slots``
+(ligand atoms x residues per pose, real and in the padded bucket, over
+the poses of each batch) and ``quarantines`` (the anomaly guard's).
+
 The score model is a coarse-grained one of either architecture: the new
 one, or the DiffDock v1.0 model (``old_architecture``), which has no
 receptor cache and embeds the receptor at every step, as in the JAX
@@ -110,6 +127,7 @@ from diffdock_tpu_torch.models.config import ConfigError, ScoreModelConfig
 from diffdock_tpu_torch.models.factory import build_model
 from diffdock_tpu_torch.models.old_models import build_confidence_model
 from diffdock_tpu_torch.parallel.mesh import Mesh, fold_seed
+from diffdock_tpu_torch.utils.profiling import DockTimings, Recorder, count, span
 
 # Device bytes one pose adds to the confidence forward's peak,
 # CONF_BYTES_PER_EDGE * nl * n_nodes + CONF_BYTES_PER_NODE * n_nodes
@@ -198,6 +216,8 @@ class DockingResult:
     order: np.ndarray  # (P,) indices sorted by confidence (best first)
     affinity: Optional[float] = None  # pose-set aggregated affinity (affinity_prediction)
     trajectory: Optional[np.ndarray] = None  # (steps+1, P, NL, 3) input frame
+    # the dock's record: dock_id, spans and counts (utils/profiling.py:DockTimings)
+    timings: Optional[DockTimings] = None
 
 
 class BatchGroup(NamedTuple):
@@ -325,7 +345,7 @@ class DockingPipeline:
             raise ValueError(f"confidence_chunk must be >= 1 (got {confidence_chunk}); "
                              "use None for the automatic chunk")
         self.confidence_chunk = confidence_chunk
-        self.last_timings: dict = {}
+        self.recorder = Recorder()
         self.so3 = so3_tables if so3_tables is not None else get_so3_tables(device=self.device)
         self.torus = torus_tables if torus_tables is not None else get_torus_tables(device=self.device)
 
@@ -362,18 +382,19 @@ class DockingPipeline:
         atom of the input ligand: the JAX pipeline's host crop before
         bucketing. A complex it keeps whole comes back as it was, so a
         second call changes nothing."""
-        data, aa_data = self._normalize_inference_data(data, aa_data)
-        if self.pre_crop_radius is None:
+        with span("pre_crop"):
+            data, aa_data = self._normalize_inference_data(data, aa_data)
+            if self.pre_crop_radius is None:
+                return data, aa_data
+            keep = rec_keep_mask(np.asarray(data.rec_pos), np.asarray(data.rec_mask),
+                                 np.asarray(data.lig_pos)[None], np.asarray(data.lig_mask),
+                                 self.pre_crop_radius)
+            if keep.all():
+                return data, aa_data
+            data = crop_complex(data, keep)
+            if aa_data is not None:
+                aa_data = crop_aa_complex(aa_data, keep)._replace(base=data)
             return data, aa_data
-        keep = rec_keep_mask(np.asarray(data.rec_pos), np.asarray(data.rec_mask),
-                             np.asarray(data.lig_pos)[None], np.asarray(data.lig_mask),
-                             self.pre_crop_radius)
-        if keep.all():
-            return data, aa_data
-        data = crop_complex(data, keep)
-        if aa_data is not None:
-            aa_data = crop_aa_complex(aa_data, keep)._replace(base=data)
-        return data, aa_data
 
     def dock_bucket(self, data: ComplexData):
         """((nl, nr, nb), cover entry or None): the padded bucket this
@@ -422,6 +443,7 @@ class DockingPipeline:
         return_trajectory: bool = False,
         pocket_center: Optional[np.ndarray] = None,
         batch_size: Optional[int] = None,
+        on_step=None,
     ) -> DockingResult:
         """Dock one numpy :class:`ComplexData` and, with a confidence model,
         rank the poses.
@@ -441,32 +463,51 @@ class DockingPipeline:
         (steps+1, P, NL, 3) in the input frame.
         Each chunk resolves its bucket anew, as in the JAX pipeline, so a
         chunk after one that tripped the anomaly guard runs in the next
-        cover entry."""
-        data, aa_data = self.pre_crop(data, aa_data)
+        cover entry.
+        ``on_step(step, poses, scores)``: called on the host after each
+        reverse-diffusion step of each pose batch is issued (see
+        :func:`~diffdock_tpu_torch.inference.sampler.reverse_diffusion`;
+        on a pose mesh, with this rank's share).
+        The result's ``timings`` holds the dock's record (see the module
+        docstring), or the record of an enclosing call on this thread
+        (:meth:`dock_mol_protein`'s)."""
         noise = noise if noise is not None else self.draw_noise
-        chunk = self.effective_pose_chunk(data, num_poses, batch_size)
+        with self.recorder.record(self.device) as rec, span("dock"):
+            result = self._dock(data, num_poses, seed, noise, aa_data, return_trajectory, pocket_center,
+                                batch_size, on_step)
+        result.timings = rec
+        return result
+
+    def _dock(self, data, num_poses, seed, noise, aa_data, return_trajectory, pocket_center,
+              batch_size, on_step) -> DockingResult:
+        """:meth:`dock_complex`'s body: the pose chunks, each a
+        ``pose_batch`` span docked by this method again, or one batch."""
+        with span("prep"):
+            data, aa_data = self.pre_crop(data, aa_data)
+            chunk = self.effective_pose_chunk(data, num_poses, batch_size)
+            if chunk >= num_poses:
+                bucket, cov = self.dock_bucket(data)
         if chunk < num_poses:
-            results = [
-                self.dock_complex(data, num_poses=chunk, seed=seed * 100003 + c, noise=noise,
-                                  aa_data=aa_data, return_trajectory=return_trajectory,
-                                  pocket_center=pocket_center)
-                for c in range(-(-num_poses // chunk))
-            ]
+            results = []
+            for c in range(-(-num_poses // chunk)):
+                with span("pose_batch"):
+                    results.append(self._dock(data, chunk, seed * 100003 + c, noise, aa_data,
+                                              return_trajectory, pocket_center, None, on_step))
             # every chunk runs `chunk` poses: the mean of the chunks'
             # affinities weighs every sampled pose alike
-            return _concat_results(results, num_poses, return_trajectory)
-        bucket, cov = self.dock_bucket(data)
+            with span("rank", device=True):
+                return _concat_results(results, num_poses, return_trajectory)
         guard = self.anomaly_guard if cov is not None else 0.0
         if guard and cov not in self._warm_entries:
             self._warm_entries.add(cov)
             guard = 0.0
         if not guard:
             return self._run_program(data, bucket, num_poses, seed, noise, aa_data,
-                                     return_trajectory, pocket_center)
+                                     return_trajectory, pocket_center, on_step)
         self._sync()
         t0 = time.perf_counter()
         result = self._run_program(data, bucket, num_poses, seed, noise, aa_data,
-                                   return_trajectory, pocket_center)
+                                   return_trajectory, pocket_center, on_step)
         self._sync()
         self._judge(cov, bucket, -(-num_poses // self.mesh_size), time.perf_counter() - t0)
         return result
@@ -481,6 +522,7 @@ class DockingPipeline:
         model_s = ladder.modeled_batch_seconds(bucket[0], bucket[1], poses_per_device)
         if dt > self.anomaly_guard * model_s:
             self._quarantined.add(cov)
+            count("quarantines")
             warnings.warn(
                 f"cover bucket {cov[:3]} ran {dt:.1f}s/batch, {dt / model_s:.0f}x its cost model "
                 f"({model_s:.2f}s) — quarantined; subsequent complexes re-route to the next covering "
@@ -489,7 +531,7 @@ class DockingPipeline:
             )
 
     def _run_program(self, data: ComplexData, bucket, num_poses: int, seed: int, noise, aa_data,
-                     return_trajectory: bool, pocket_center) -> DockingResult:
+                     return_trajectory: bool, pocket_center, on_step=None) -> DockingResult:
         """One pose batch: :meth:`_dock_program` on this device or, on a pose
         mesh, ``num_poses`` rounded up to a multiple of the mesh size and
         sharded over its ranks (the JAX pipeline's ``_sharded_program``),
@@ -498,11 +540,12 @@ class DockingPipeline:
         affinity is the mean of the ranks'."""
         if self.mesh_size == 1:
             return self._dock_program(data, bucket, num_poses, seed, noise, aa_data,
-                                      return_trajectory, pocket_center)
+                                      return_trajectory, pocket_center, on_step=on_step)
         mesh = self.mesh
         n_local = -(-num_poses // mesh.size)
         parts = mesh.run(lambda: self._dock_program(data, bucket, n_local, seed, noise, aa_data,
-                                                     return_trajectory, pocket_center, fold=mesh.rank))
+                                                     return_trajectory, pocket_center, fold=mesh.rank,
+                                                     on_step=on_step))
         return _concat_results(parts, num_poses, return_trajectory)
 
     def _sync(self) -> None:
@@ -578,7 +621,9 @@ class DockingPipeline:
                             batch_size: Optional[int], noise) -> List[DockingResult]:
         """``dock_batch`` on a mesh: the JAX pipeline's complex-sharded path,
         group by group (:meth:`batch_groups`); rank ``r`` docks member ``r``
-        of each group."""
+        of each group. Each rank's own member's result carries that rank's
+        record of the group (a ``dock`` span over its chunks and the
+        guard)."""
         mesh = self.mesh
         if self.confidence_cfg is not None and self.confidence_cfg.all_atoms and None in aa_list:
             raise ValueError("an all-atom confidence model needs aa_datas")
@@ -598,19 +643,22 @@ class DockingPipeline:
                     walls.append(time.perf_counter() - t0)
                 return _concat_results(parts, num_poses, False), walls
 
-            gathered = mesh.run(mine)
-            if g.cover is not None and self.anomaly_guard:
-                # each chunk judged by the slowest rank; an entry's first
-                # chunk pays its one-time costs and is not judged
-                for c in range(len(gathered[0][1])):
-                    if g.cover not in self._warm_entries:
-                        self._warm_entries.add(g.cover)
-                        continue
-                    self._judge(g.cover, g.bucket, g.pose_chunk, max(r[1][c] for r in gathered))
-                    if g.cover in self._quarantined:
-                        break
+            with self.recorder.record(self.device) as rec, span("dock"):
+                gathered = mesh.run(mine)
+                if g.cover is not None and self.anomaly_guard:
+                    # each chunk judged by the slowest rank; an entry's first
+                    # chunk pays its one-time costs and is not judged
+                    for c in range(len(gathered[0][1])):
+                        if g.cover not in self._warm_entries:
+                            self._warm_entries.add(g.cover)
+                            continue
+                        self._judge(g.cover, g.bucket, g.pose_chunk, max(r[1][c] for r in gathered))
+                        if g.cover in self._quarantined:
+                            break
             for j, i in enumerate(g.idxs):
                 results[i] = gathered[j][0]
+                if j == mesh.rank:
+                    results[i].timings = rec
         return results
 
     @torch.inference_mode()
@@ -631,38 +679,45 @@ class DockingPipeline:
     def _dock_program(self, data: ComplexData, bucket: Tuple[int, int, int], num_poses: int, seed: int,
                       noise, aa_data: Optional[AAComplexData], return_trajectory: bool,
                       pocket_center: Optional[np.ndarray], fold: Optional[int] = None,
-                      widths: Optional[dict] = None) -> DockingResult:
+                      widths: Optional[dict] = None, on_step=None) -> DockingResult:
         """One pose batch at the padded ``bucket``: the body of the JAX
         package's ``_make_run``. ``fold`` reaches the ``noise`` function
         when given; ``widths`` (``kb``, ``kr`` and, all-atom, ``na``, ``ka``,
         ``ar``) pads the data-dependent widths as a complex mesh's group
-        shares them."""
+        shares them; ``on_step`` as for :meth:`dock_complex`."""
         scfg, sampler = self.score_cfg, self.sampler_cfg
         nl, nr, nb = bucket
-        widths = widths or {}
-        padded = to_device(pad_to(data, nl, nr, nb, **{k: widths[k] for k in ("kb", "kr") if k in widths}),
-                           self.device)
-        conf_data = self.confidence_input(data, aa_data, padded, bucket, widths)
-        init_noise, step_noise = (noise(num_poses, nb, seed) if fold is None
-                                  else noise(num_poses, nb, seed, fold=fold))
-        pocket = (None if pocket_center is None else
-                  torch.as_tensor(np.asarray(pocket_center, np.float32).reshape(3), device=self.device))
+        count("pose_batches")
+        count("pair_real", data.n_lig * data.n_rec * num_poses)
+        count("pair_slots", nl * nr * num_poses)
+        with span("prep"):
+            widths = widths or {}
+            kw = {k: widths[k] for k in ("kb", "kr") if k in widths}
+            padded = to_device(pad_to(data, nl, nr, nb, **kw), self.device)
+            conf_data = self.confidence_input(data, aa_data, padded, bucket, widths)
+            init_noise, step_noise = (noise(num_poses, nb, seed) if fold is None
+                                      else noise(num_poses, nb, seed, fold=fold))
+            pocket = (None if pocket_center is None else
+                      torch.as_tensor(np.asarray(pocket_center, np.float32).reshape(3), device=self.device))
+            init = randomize_position(
+                padded, num_poses,
+                sampler.pocket_tr_max if sampler.pocket_tr_max is not None else scfg.sigma.tr_sigma_max,
+                init_noise,
+                sampler.initial_noise_std_proportion,
+                no_random=sampler.no_random or sampler.no_random_pocket,
+                no_torsion=scfg.no_torsion,
+                choose_residue=sampler.choose_residue,
+                pocket_center=pocket,
+            )
 
         crop = scfg.crop_beyond is not None
         # the v1.0 family embeds sigma through its node encoders and
         # crop_beyond re-embeds the cropped receptor: both embed the
         # receptor at every step, as in the JAX pipeline
-        rec_cache = None if crop or scfg.old_architecture else self.model.embed_receptor(padded)
-        init = randomize_position(
-            padded, num_poses,
-            sampler.pocket_tr_max if sampler.pocket_tr_max is not None else scfg.sigma.tr_sigma_max,
-            init_noise,
-            sampler.initial_noise_std_proportion,
-            no_random=sampler.no_random or sampler.no_random_pocket,
-            no_torsion=scfg.no_torsion,
-            choose_residue=sampler.choose_residue,
-            pocket_center=pocket,
-        )
+        rec_cache = None
+        if not (crop or scfg.old_architecture):
+            with span("embed_receptor"):
+                rec_cache = self.model.embed_receptor(padded)
 
         def score_fn(poses, t):
             if crop:
@@ -675,33 +730,37 @@ class DockingPipeline:
 
         final = reverse_diffusion(
             score_fn, padded, init, sampler, scfg.sigma, step_noise,
-            no_torsion=scfg.no_torsion, return_trajectory=return_trajectory,
+            no_torsion=scfg.no_torsion, return_trajectory=return_trajectory, on_step=on_step,
         )
-        center = np.asarray(data.original_center)
-        traj = None
-        if return_trajectory:
-            final, frames = final
-            traj = frames[:, :, : data.n_lig].cpu().numpy() + center[None, None, None]
-        poses = final[:, : data.n_lig].cpu().numpy() + center[None, None]
+        with span("to_host"):
+            center = np.asarray(data.original_center)
+            traj = None
+            if return_trajectory:
+                final, frames = final
+                traj = frames[:, :, : data.n_lig].cpu().numpy() + center[None, None, None]
+            poses = final[:, : data.n_lig].cpu().numpy() + center[None, None]
         if conf_data is None:
             return DockingResult(poses=poses, confidence=None, order=np.arange(num_poses),
                                  trajectory=traj)
-        keep = None
-        if self.confidence_cfg.crop_beyond is not None:
-            # plain crop_beyond, no sigma term, over the final pose batch
-            keep = rec_keep_mask(padded.rec_pos, padded.rec_mask, final, padded.lig_mask,
-                                 self.confidence_cfg.crop_beyond)
-        out = self.confidence_outputs(conf_data, final, rec_keep=keep)
-        conf = torch.nan_to_num(out[..., 0], nan=-1000.0).cpu().numpy()
-        affinity = None
-        if self.confidence_cfg.affinity_prediction and self.confidence_cfg.old_architecture:
-            # the old layout: one affinity column per pose, the last
-            affinity = float(out[:, -1].mean())
-        elif self.confidence_cfg.affinity_prediction:
-            n = self.confidence_cfg.num_confidence_outputs
-            affinity = float(self.confidence_model.predict_affinity(out[:, n:]))
-        return DockingResult(poses=poses, confidence=conf, order=np.argsort(-conf),
-                             trajectory=traj, affinity=affinity)
+        with span("confidence", device=True):
+            keep = None
+            if self.confidence_cfg.crop_beyond is not None:
+                # plain crop_beyond, no sigma term, over the final pose batch
+                keep = rec_keep_mask(padded.rec_pos, padded.rec_mask, final, padded.lig_mask,
+                                     self.confidence_cfg.crop_beyond)
+            out = self.confidence_outputs(conf_data, final, rec_keep=keep)
+        with span("rank", device=True):
+            conf = torch.nan_to_num(out[..., 0], nan=-1000.0).cpu().numpy()
+            affinity = None
+            if self.confidence_cfg.affinity_prediction and self.confidence_cfg.old_architecture:
+                # the old layout: one affinity column per pose, the last
+                affinity = float(out[:, -1].mean())
+            elif self.confidence_cfg.affinity_prediction:
+                n = self.confidence_cfg.num_confidence_outputs
+                affinity = float(self.confidence_model.predict_affinity(out[:, n:]))
+            order = np.argsort(-conf)
+        return DockingResult(poses=poses, confidence=conf, order=order, trajectory=traj,
+                             affinity=affinity)
 
     def _cropped_score(self, padded: ComplexData, poses: torch.Tensor, t: torch.Tensor):
         """The score forward under ``crop_beyond``: the residues within
@@ -774,7 +833,12 @@ class DockingPipeline:
 
             def forward(p):
                 return model(conf_data, p, 0.0, self.so3, self.torus, rec_cache=cache, rec_keep=rec_keep)
-        return torch.cat([forward(poses[i : i + c]) for i in range(0, poses.shape[0], c)])
+        outs = []
+        for i in range(0, poses.shape[0], c):
+            count("confidence_chunks")
+            with span("confidence_chunk"):
+                outs.append(forward(poses[i : i + c]))
+        return torch.cat(outs)
 
     # ------------------------------------------------------------------
     def featurize(self, mol, protein, lm_embeddings: Optional[np.ndarray] = None):
@@ -821,23 +885,21 @@ class DockingPipeline:
         ``rank1.sdf``, ``rank{r}_confidence{c:.2f}.sdf`` (with a
         ``confidence`` property) and, with ``save_trajectory``,
         ``rank{r}_reverseprocess.pdb`` into ``out_dir``. ``noise`` as for
-        :meth:`dock_complex`. Afterwards ``last_timings`` holds the wall
-        seconds of the host's featurization (``featurize_s``), of the dock
-        until its poses are back on the host (``dock_s``) and of writing
-        the files (``write_s``). On a mesh every rank docks and returns
-        the result, and rank 0 alone writes the files."""
-        t0 = time.perf_counter()
-        data, aa_data, heavy_mol = self.featurize(mol, protein, lm_embeddings)
-        t1 = time.perf_counter()
-        result = self.dock_complex(
-            data, num_poses=num_poses, seed=seed, noise=noise, aa_data=aa_data,
-            return_trajectory=save_trajectory, batch_size=batch_size,
-        )
-        t2 = time.perf_counter()  # the poses are on the host: the device is done
-        if self.mesh is None or self.mesh.is_main:  # on a mesh, rank 0 writes
-            write_ranked_poses(out_dir, heavy_mol, result)
-        self.last_timings = {"featurize_s": t1 - t0, "dock_s": t2 - t1,
-                             "write_s": time.perf_counter() - t2}
+        :meth:`dock_complex`. The result's record (``timings``) holds the
+        dock's spans and, beside its ``dock`` span, a ``featurize`` span
+        (the host's featurization) and a ``write`` span (the files). On a
+        mesh every rank docks and returns the result, and rank 0 alone
+        writes the files."""
+        with self.recorder.record(self.device):
+            with span("featurize"):
+                data, aa_data, heavy_mol = self.featurize(mol, protein, lm_embeddings)
+            result = self.dock_complex(
+                data, num_poses=num_poses, seed=seed, noise=noise, aa_data=aa_data,
+                return_trajectory=save_trajectory, batch_size=batch_size,
+            )
+            with span("write"):
+                if self.mesh is None or self.mesh.is_main:  # on a mesh, rank 0 writes
+                    write_ranked_poses(out_dir, heavy_mol, result)
         return result
 
 

@@ -21,6 +21,7 @@ from diffdock_tpu_torch.diffusion.schedules import get_t_schedule, t_to_sigma
 from diffdock_tpu_torch.geometry.rigid import modify_conformer
 from diffdock_tpu_torch.geometry.rotations import random_rotation_matrix
 from diffdock_tpu_torch.geometry.torsion import apply_torsion_updates
+from diffdock_tpu_torch.utils.profiling import count, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -198,6 +199,7 @@ def reverse_diffusion(
     noise: StepNoise,
     no_torsion: bool = False,
     return_trajectory: bool = False,
+    on_step: Optional[Callable] = None,
 ):
     """Run the reverse diffusion from ``init_poses`` (P, NL, 3).
 
@@ -208,6 +210,21 @@ def reverse_diffusion(
     ``return_trajectory`` also the trajectory (steps+1, P, NL, 3): the
     start poses, then the poses after each step (reference
     ``utils/sampling.py:96-101,139-151``).
+
+    ``on_step(step, poses, scores)`` is called on the host after step
+    ``step`` (from 0) is issued, with the poses the step started from and
+    ``score_fn``'s output for them (its ``tr``, ``rot`` and ``tor``), as
+    device tensors the sampler does not change again; the device may not
+    have computed them yet, and a caller clones what it keeps past the
+    dock. The trajectory is built through it.
+
+    The steps run in a ``diffusion`` span of the open dock record
+    (``utils/profiling.py``), timed on the device's stream too (the steps
+    tile it, so its stream time over the steps is their mean); each step
+    is a ``step`` span with a ``score`` span (``score_fn``) and an
+    ``update`` span (the NaN guard, the perturbations and
+    ``modify_conformer``), ``on_step`` last inside it; ``score_forwards``
+    counts the ``score_fn`` calls.
     """
     device = init_poses.device
     sched = sampler_cfg.schedule()
@@ -228,39 +245,51 @@ def reverse_diffusion(
         (sigma_cfg.tor_sigma_min, sigma_cfg.tor_sigma_max),
     ]
     nb = data.rot_u.shape[0]
-    poses = init_poses
-    frames = [init_poses]
-    for s in range(n):
-        t, t_nxt = t_curr[s], t_next[s]
-        dt = t - t_nxt
-        sigmas = t_to_sigma(t, t, t, sigma_cfg)
-        out = score_fn(poses, t)
-        scores = (_nan_guard(out.tr), _nan_guard(out.rot), _nan_guard(out.tor))
-        gs = [sig * scale for sig, scale in zip(sigmas, g_scale)]
+    frames = []
 
-        zero_noise = sampler_cfg.no_random or (sampler_cfg.no_final_step_noise and s == n - 1)
-        scale = 0.0 if zero_noise else 1.0
-        zs = (noise.tr[s] * scale, noise.rot[s] * scale, noise.tor[s] * scale)
-
-        if sampler_cfg.ode:
-            perturbs = [0.5 * g**2 * dt * sc for g, sc in zip(gs, scores)]
-        else:
-            perturbs = [
-                _low_temp(sampler_cfg, i, sigmas[i], bounds[i][0], bounds[i][1],
-                          gs[i], dt, scores[i], zs[i])
-                for i in range(3)
-            ]
-        tr_perturb, rot_perturb, tor_perturb = perturbs
-        if no_torsion or nb == 0:
-            poses = modify_conformer(poses, tr_perturb, rot_perturb, atom_mask=data.lig_mask)
-        else:
-            poses = modify_conformer(
-                poses, tr_perturb, rot_perturb, tor_perturb * data.rot_mask,
-                data.rot_u, data.rot_v, data.mask_rotate, data.rot_mask,
-                atom_mask=data.lig_mask,
-            )
+    def step_done(s, start, scores):
         if return_trajectory:
-            frames.append(poses)
+            frames.append(start)
+        if on_step is not None:
+            on_step(s, start, scores)
+
+    poses = init_poses
+    with span("diffusion", device=True):
+        for s in range(n):
+            with span("step"):
+                t, t_nxt = t_curr[s], t_next[s]
+                dt = t - t_nxt
+                sigmas = t_to_sigma(t, t, t, sigma_cfg)
+                with span("score"):
+                    out = score_fn(poses, t)
+                count("score_forwards")
+                with span("update"):
+                    scores = (_nan_guard(out.tr), _nan_guard(out.rot), _nan_guard(out.tor))
+                    gs = [sig * scale for sig, scale in zip(sigmas, g_scale)]
+
+                    zero_noise = sampler_cfg.no_random or (sampler_cfg.no_final_step_noise and s == n - 1)
+                    scale = 0.0 if zero_noise else 1.0
+                    zs = (noise.tr[s] * scale, noise.rot[s] * scale, noise.tor[s] * scale)
+
+                    if sampler_cfg.ode:
+                        perturbs = [0.5 * g**2 * dt * sc for g, sc in zip(gs, scores)]
+                    else:
+                        perturbs = [
+                            _low_temp(sampler_cfg, i, sigmas[i], bounds[i][0], bounds[i][1],
+                                      gs[i], dt, scores[i], zs[i])
+                            for i in range(3)
+                        ]
+                    tr_perturb, rot_perturb, tor_perturb = perturbs
+                    if no_torsion or nb == 0:
+                        new = modify_conformer(poses, tr_perturb, rot_perturb, atom_mask=data.lig_mask)
+                    else:
+                        new = modify_conformer(
+                            poses, tr_perturb, rot_perturb, tor_perturb * data.rot_mask,
+                            data.rot_u, data.rot_v, data.mask_rotate, data.rot_mask,
+                            atom_mask=data.lig_mask,
+                        )
+                step_done(s, poses, out)
+            poses = new
     if return_trajectory:
-        return poses, torch.stack(frames)
+        return poses, torch.stack(frames + [poses])
     return poses

@@ -36,6 +36,12 @@ scalar tail (the LM embedding, then sigma) fused as one block.
 ``odd_parity`` is refused, as by the JAX package. ``rec_keep`` crops the
 receptor (the pipeline's ``crop_beyond``), as in the JAX models.
 Submodule names follow the flax tree (see ``utils/convert.py``).
+
+While a ``torch.profiler`` session runs, a forward opens ranges
+(``utils/profiling.py:profiler_range``): ``embed``, ``conv{l}`` per layer
+and ``heads``; each conv's block messages are ranges named by its edge
+type (``lig<-lig``, ``lig<-rec``, ..., receiver<-sender; the convs'
+``range_name``).
 """
 
 from __future__ import annotations
@@ -66,9 +72,13 @@ from diffdock_tpu_torch.models.score_model import (
 from diffdock_tpu_torch.models.tpconv import NeighborBlock, TPConvLayer, _residual_pad
 from diffdock_tpu_torch.ops.irreps import Irreps, get_irrep_seq
 from diffdock_tpu_torch.ops.spherical import spherical_harmonics
+from diffdock_tpu_torch.utils.profiling import profiler_range
 
 # reference rec_atom_feature_dims (copied from diffdock_tpu/models/aa_model.py)
 AA_ATOM_CATEGORICAL_DIMS = (38, 119, 23, 38)
+# the all-atom model's conv k of each layer by edge type (receiver<-sender)
+AA_EDGE_TYPES = ("lig<-lig", "lig<-rec", "lig<-atom", "atom<-atom", "atom<-lig", "atom<-rec",
+                 "rec<-rec", "rec<-lig", "rec<-atom")
 
 
 def _check_supported(cfg: ScoreModelConfig) -> None:
@@ -124,9 +134,11 @@ class OldCGScoreModel(nn.Module):
         # the last layer updates only the ligand: it has no receptor-receiver
         # convs (flax creates no parameters for them either)
         L = cfg.num_conv_layers
-        for name, n in (("lig_conv", L), ("rec_conv", L - 1), ("lig_to_rec_conv", L - 1),
-                        ("rec_to_lig_conv", L)):
+        for name, n, edge in (("lig_conv", L, "lig<-lig"), ("rec_conv", L - 1, "rec<-rec"),
+                              ("lig_to_rec_conv", L - 1, "rec<-lig"), ("rec_to_lig_conv", L, "lig<-rec")):
             self.add_module(f"{name}_layers", nn.ModuleList(self._old_conv(i) for i in range(n)))
+            for layer in getattr(self, f"{name}_layers"):
+                layer.range_name = edge
         self._build_heads()
 
     def _ladder(self, i: int) -> str:
@@ -252,59 +264,62 @@ class OldCGScoreModel(nn.Module):
         0-d time ``t``; the receptor is embedded in every forward.
         ``rec_keep`` (NR,) bool crops the receptor
         (:func:`~diffdock_tpu_torch.data.complexes.apply_rec_keep`)."""
-        if rec_keep is not None:
-            data = apply_rec_keep(data, rec_keep)
-        cfg = self.cfg
-        ns = cfg.ns
-        P, nl = lig_pos.shape[:2]
-        nr = data.rec_pos.shape[0]
-        dev = lig_pos.device
-        sigmas, sigma_emb = self._time(lig_pos, t)
-        tr_sigma = sigmas[0]
+        with profiler_range("embed"):
+            if rec_keep is not None:
+                data = apply_rec_keep(data, rec_keep)
+            cfg = self.cfg
+            ns = cfg.ns
+            P, nl = lig_pos.shape[:2]
+            nr = data.rec_pos.shape[0]
+            dev = lig_pos.device
+            sigmas, sigma_emb = self._time(lig_pos, t)
+            tr_sigma = sigmas[0]
 
-        lig_attr, rec_attr = self._embed_nodes(data, sigma_emb)
-        lig_graph = self._ligand_graph(data, lig_pos, sigma_emb)
-        rec_edge_attr, rec_edge_sh, rec_edge_w = self._rec_graph(data, sigma_emb)
-        cmask, cross_attr, cross_sh, rev_cross_sh, cross_w = self._cross_graph(
-            data.rec_pos, data.rec_mask, lig_pos, sigma_emb, tr_sigma,
-            self.cross_edge_embedding, self.cross_distance_expansion,
-        )
-        cmask = cmask & data.lig_mask[:, None]
-        rev_cross_w = None if cross_w is None else cross_w.transpose(1, 2)
-        rec_idx_all = torch.arange(nr, device=dev).expand(P, nl, nr)
-        lig_idx_all = torch.arange(nl, device=dev).expand(P, nr, nl)
-        rec_nbr = data.rec_nbr[None]
+            lig_attr, rec_attr = self._embed_nodes(data, sigma_emb)
+            lig_graph = self._ligand_graph(data, lig_pos, sigma_emb)
+            rec_edge_attr, rec_edge_sh, rec_edge_w = self._rec_graph(data, sigma_emb)
+            cmask, cross_attr, cross_sh, rev_cross_sh, cross_w = self._cross_graph(
+                data.rec_pos, data.rec_mask, lig_pos, sigma_emb, tr_sigma,
+                self.cross_edge_embedding, self.cross_distance_expansion,
+            )
+            cmask = cmask & data.lig_mask[:, None]
+            rev_cross_w = None if cross_w is None else cross_w.transpose(1, 2)
+            rec_idx_all = torch.arange(nr, device=dev).expand(P, nl, nr)
+            lig_idx_all = torch.arange(nl, device=dev).expand(P, nr, nl)
+            rec_nbr = data.rec_nbr[None]
 
         L = cfg.num_conv_layers
         for l in range(L):
-            bond_block, radius_block = self._lig_blocks_from_graph(data, lig_graph, lig_attr)
-            lig_intra = self.lig_conv_layers[l](None, [bond_block, radius_block])
-            r2l_block = NeighborBlock(
-                sender_attr=rec_attr, nbr_idx=rec_idx_all, nbr_mask=cmask,
-                edge_attr=edge_scalars(ns, lig_attr, rec_attr, cross_attr, rec_idx_all),
-                edge_sh=cross_sh, edge_weight=cross_w,
-            )
-            lig_inter = self.rec_to_lig_conv_layers[l](None, [r2l_block])
-            if l < L - 1:
-                rec_rec_block = NeighborBlock(
-                    sender_attr=rec_attr, nbr_idx=rec_nbr, nbr_mask=data.rec_nbr_mask[None],
-                    edge_attr=edge_scalars(ns, rec_attr, rec_attr, rec_edge_attr[None], rec_nbr),
-                    edge_sh=rec_edge_sh[None],
-                    edge_weight=None if rec_edge_w is None else rec_edge_w[None],
+            with profiler_range(f"conv{l}"):
+                bond_block, radius_block = self._lig_blocks_from_graph(data, lig_graph, lig_attr)
+                lig_intra = self.lig_conv_layers[l](None, [bond_block, radius_block])
+                r2l_block = NeighborBlock(
+                    sender_attr=rec_attr, nbr_idx=rec_idx_all, nbr_mask=cmask,
+                    edge_attr=edge_scalars(ns, lig_attr, rec_attr, cross_attr, rec_idx_all),
+                    edge_sh=cross_sh, edge_weight=cross_w,
                 )
-                rec_intra = self.rec_conv_layers[l](None, [rec_rec_block])
-                # lig->rec: edge features (base, SENDER lig, RECEIVER rec)
-                l2r_block = NeighborBlock(
-                    sender_attr=lig_attr, nbr_idx=lig_idx_all, nbr_mask=cmask.transpose(1, 2),
-                    edge_attr=edge_scalars(ns, rec_attr, lig_attr, cross_attr.transpose(1, 2),
-                                          lig_idx_all, swap=True),
-                    edge_sh=rev_cross_sh, edge_weight=rev_cross_w,
-                )
-                rl = self.lig_to_rec_conv_layers[l](None, [l2r_block])
-            lig_attr = _residual_pad(lig_intra + lig_inter, lig_attr)
-            if l < L - 1:
-                rec_attr = _residual_pad(rec_intra + rl, rec_attr)
-        return self._output(data, lig_pos, lig_attr, sigma_emb, sigmas, so3_tables, torus_tables)
+                lig_inter = self.rec_to_lig_conv_layers[l](None, [r2l_block])
+                if l < L - 1:
+                    rec_rec_block = NeighborBlock(
+                        sender_attr=rec_attr, nbr_idx=rec_nbr, nbr_mask=data.rec_nbr_mask[None],
+                        edge_attr=edge_scalars(ns, rec_attr, rec_attr, rec_edge_attr[None], rec_nbr),
+                        edge_sh=rec_edge_sh[None],
+                        edge_weight=None if rec_edge_w is None else rec_edge_w[None],
+                    )
+                    rec_intra = self.rec_conv_layers[l](None, [rec_rec_block])
+                    # lig->rec: edge features (base, SENDER lig, RECEIVER rec)
+                    l2r_block = NeighborBlock(
+                        sender_attr=lig_attr, nbr_idx=lig_idx_all, nbr_mask=cmask.transpose(1, 2),
+                        edge_attr=edge_scalars(ns, rec_attr, lig_attr, cross_attr.transpose(1, 2),
+                                              lig_idx_all, swap=True),
+                        edge_sh=rev_cross_sh, edge_weight=rev_cross_w,
+                    )
+                    rl = self.lig_to_rec_conv_layers[l](None, [l2r_block])
+                lig_attr = _residual_pad(lig_intra + lig_inter, lig_attr)
+                if l < L - 1:
+                    rec_attr = _residual_pad(rec_intra + rl, rec_attr)
+        with profiler_range("heads"):
+            return self._output(data, lig_pos, lig_attr, sigma_emb, sigmas, so3_tables, torus_tables)
 
 
 class OldAAScoreModel(OldCGScoreModel):
@@ -340,6 +355,8 @@ class OldAAScoreModel(OldCGScoreModel):
         self.conv_layers = nn.ModuleList(
             self._old_conv(l) for l in range(L) for _k in range(9 if l < L - 1 else 3)
         )
+        for i, layer in enumerate(self.conv_layers):
+            layer.range_name = AA_EDGE_TYPES[i % 9]
         self._build_heads()
 
     def forward(self, data: AAComplexData, lig_pos: torch.Tensor, t=0.0, so3_tables=None,
@@ -347,132 +364,135 @@ class OldAAScoreModel(OldCGScoreModel):
         """As :meth:`OldCGScoreModel.forward`, on the all-atom tree;
         ``rec_keep`` (NR,) bool crops the receptor and its atoms
         (:func:`~diffdock_tpu_torch.data.complexes.apply_rec_keep_aa`)."""
-        if rec_keep is not None:
-            data = apply_rec_keep_aa(data, rec_keep)
-        cfg = self.cfg
-        ns = cfg.ns
-        base = data.base
-        P, nl = lig_pos.shape[:2]
-        nr, na = base.rec_pos.shape[0], data.atom_pos.shape[0]
-        dev = lig_pos.device
-        sigmas, sigma_emb = self._time(lig_pos, t)
-        tr_sigma = sigmas[0]
+        with profiler_range("embed"):
+            if rec_keep is not None:
+                data = apply_rec_keep_aa(data, rec_keep)
+            cfg = self.cfg
+            ns = cfg.ns
+            base = data.base
+            P, nl = lig_pos.shape[:2]
+            nr, na = base.rec_pos.shape[0], data.atom_pos.shape[0]
+            dev = lig_pos.device
+            sigmas, sigma_emb = self._time(lig_pos, t)
+            tr_sigma = sigmas[0]
 
-        lig_attr, rec_attr = self._embed_nodes(base, sigma_emb)
-        atom_attr = self.atom_node_embedding(
-            data.atom_cat, sigma_emb.expand(na, sigma_emb.shape[-1]))[None]
+            lig_attr, rec_attr = self._embed_nodes(base, sigma_emb)
+            atom_attr = self.atom_node_embedding(
+                data.atom_cat, sigma_emb.expand(na, sigma_emb.shape[-1]))[None]
 
-        lig_graph = self._ligand_graph(base, lig_pos, sigma_emb)
-        rec_edge_attr, rec_edge_sh, rec_edge_w = self._rec_graph(base, sigma_emb)
-        # atom-atom kNN: ligand-scale distance expansion
-        avec = data.atom_pos[data.atom_nbr] - data.atom_pos[:, None, :]
-        adist = torch.linalg.norm(avec, dim=-1)
-        atom_edge_attr = self.atom_edge_embedding(torch.cat(
-            [sigma_emb.expand(adist.shape + sigma_emb.shape[-1:]),
-             self.lig_distance_expansion(adist)], dim=-1))
-        atom_edge_sh = spherical_harmonics(avec, cfg.sh_lmax)
-        atom_edge_w = self._edge_weight(adist, cfg.lig_max_radius)
+            lig_graph = self._ligand_graph(base, lig_pos, sigma_emb)
+            rec_edge_attr, rec_edge_sh, rec_edge_w = self._rec_graph(base, sigma_emb)
+            # atom-atom kNN: ligand-scale distance expansion
+            avec = data.atom_pos[data.atom_nbr] - data.atom_pos[:, None, :]
+            adist = torch.linalg.norm(avec, dim=-1)
+            atom_edge_attr = self.atom_edge_embedding(torch.cat(
+                [sigma_emb.expand(adist.shape + sigma_emb.shape[-1:]),
+                 self.lig_distance_expansion(adist)], dim=-1))
+            atom_edge_sh = spherical_harmonics(avec, cfg.sh_lmax)
+            atom_edge_w = self._edge_weight(adist, cfg.lig_max_radius)
 
-        # lig <-> rec (dynamic cutoff)
-        cmask, lr_attr, lr_sh, rl_sh, lr_w = self._cross_graph(
-            base.rec_pos, base.rec_mask, lig_pos, sigma_emb, tr_sigma,
-            self.lr_edge_embedding, self.cross_distance_expansion,
-        )
-        cmask = cmask & base.lig_mask[:, None]
-        rl_w = None if lr_w is None else lr_w.transpose(1, 2)
-        # lig <-> atom: 5 A cutoff, CROSS distance expansion
-        lamask, la_attr, la_sh, al_sh, la_w = self._cross_graph(
-            data.atom_pos, data.atom_mask, lig_pos, sigma_emb, tr_sigma,
-            self.la_edge_embedding, self.cross_distance_expansion, cutoff=cfg.lig_max_radius,
-        )
-        lamask = lamask & base.lig_mask[:, None]
-        al_w = None if la_w is None else la_w.transpose(1, 2)
+            # lig <-> rec (dynamic cutoff)
+            cmask, lr_attr, lr_sh, rl_sh, lr_w = self._cross_graph(
+                base.rec_pos, base.rec_mask, lig_pos, sigma_emb, tr_sigma,
+                self.lr_edge_embedding, self.cross_distance_expansion,
+            )
+            cmask = cmask & base.lig_mask[:, None]
+            rl_w = None if lr_w is None else lr_w.transpose(1, 2)
+            # lig <-> atom: 5 A cutoff, CROSS distance expansion
+            lamask, la_attr, la_sh, al_sh, la_w = self._cross_graph(
+                data.atom_pos, data.atom_mask, lig_pos, sigma_emb, tr_sigma,
+                self.la_edge_embedding, self.cross_distance_expansion, cutoff=cfg.lig_max_radius,
+            )
+            lamask = lamask & base.lig_mask[:, None]
+            al_w = None if la_w is None else la_w.transpose(1, 2)
 
-        # atom <-> parent residue (weight 1)
-        arvec = base.rec_pos[data.atom_res][:, None, :] - data.atom_pos[:, None, :]
-        ardist = torch.linalg.norm(arvec, dim=-1)
-        ar_attr = self.ar_edge_embedding(torch.cat(
-            [sigma_emb.expand(ardist.shape + sigma_emb.shape[-1:]),
-             self.rec_distance_expansion(ardist)], dim=-1))  # (NA, 1, ns)
-        ar_sh = spherical_harmonics(arvec, cfg.sh_lmax)
-        # rec <- member atoms reuses the unflipped atom->rec direction
-        ra_sh = spherical_harmonics(
-            base.rec_pos[:, None, :] - data.atom_pos[data.res_atom_idx], cfg.sh_lmax)
-        ra_attr = ar_attr[data.res_atom_idx][..., 0, :]  # (NR, KRA, ns)
+            # atom <-> parent residue (weight 1)
+            arvec = base.rec_pos[data.atom_res][:, None, :] - data.atom_pos[:, None, :]
+            ardist = torch.linalg.norm(arvec, dim=-1)
+            ar_attr = self.ar_edge_embedding(torch.cat(
+                [sigma_emb.expand(ardist.shape + sigma_emb.shape[-1:]),
+                 self.rec_distance_expansion(ardist)], dim=-1))  # (NA, 1, ns)
+            ar_sh = spherical_harmonics(arvec, cfg.sh_lmax)
+            # rec <- member atoms reuses the unflipped atom->rec direction
+            ra_sh = spherical_harmonics(
+                base.rec_pos[:, None, :] - data.atom_pos[data.res_atom_idx], cfg.sh_lmax)
+            ra_attr = ar_attr[data.res_atom_idx][..., 0, :]  # (NR, KRA, ns)
 
-        rec_idx_all = torch.arange(nr, device=dev).expand(P, nl, nr)
-        atom_idx_all = torch.arange(na, device=dev).expand(P, nl, na)
-        lig_idx_r = torch.arange(nl, device=dev).expand(P, nr, nl)
-        lig_idx_a = torch.arange(nl, device=dev).expand(P, na, nl)
-        atom_nbr, rec_nbr = data.atom_nbr[None], base.rec_nbr[None]
-        atom_res, res_atom_idx = data.atom_res[None, :, None], data.res_atom_idx[None]
+            rec_idx_all = torch.arange(nr, device=dev).expand(P, nl, nr)
+            atom_idx_all = torch.arange(na, device=dev).expand(P, nl, na)
+            lig_idx_r = torch.arange(nl, device=dev).expand(P, nr, nl)
+            lig_idx_a = torch.arange(nl, device=dev).expand(P, na, nl)
+            atom_nbr, rec_nbr = data.atom_nbr[None], base.rec_nbr[None]
+            atom_res, res_atom_idx = data.atom_res[None, :, None], data.res_atom_idx[None]
 
         L = cfg.num_conv_layers
         for l in range(L):
-            conv = lambda k: self.conv_layers[9 * l + k]  # noqa: E731
-            bond_block, radius_block = self._lig_blocks_from_graph(base, lig_graph, lig_attr)
-            lig_update = conv(0)(None, [bond_block, radius_block])
-            lr_block = NeighborBlock(
-                sender_attr=rec_attr, nbr_idx=rec_idx_all, nbr_mask=cmask,
-                edge_attr=edge_scalars(ns, lig_attr, rec_attr, lr_attr, rec_idx_all),
-                edge_sh=lr_sh, edge_weight=lr_w,
-            )
-            lr_update = conv(1)(None, [lr_block])
-            la_block = NeighborBlock(
-                sender_attr=atom_attr, nbr_idx=atom_idx_all, nbr_mask=lamask,
-                edge_attr=edge_scalars(ns, lig_attr, atom_attr, la_attr, atom_idx_all),
-                edge_sh=la_sh, edge_weight=la_w,
-            )
-            la_update = conv(2)(None, [la_block])
+            with profiler_range(f"conv{l}"):
+                conv = lambda k: self.conv_layers[9 * l + k]  # noqa: E731
+                bond_block, radius_block = self._lig_blocks_from_graph(base, lig_graph, lig_attr)
+                lig_update = conv(0)(None, [bond_block, radius_block])
+                lr_block = NeighborBlock(
+                    sender_attr=rec_attr, nbr_idx=rec_idx_all, nbr_mask=cmask,
+                    edge_attr=edge_scalars(ns, lig_attr, rec_attr, lr_attr, rec_idx_all),
+                    edge_sh=lr_sh, edge_weight=lr_w,
+                )
+                lr_update = conv(1)(None, [lr_block])
+                la_block = NeighborBlock(
+                    sender_attr=atom_attr, nbr_idx=atom_idx_all, nbr_mask=lamask,
+                    edge_attr=edge_scalars(ns, lig_attr, atom_attr, la_attr, atom_idx_all),
+                    edge_sh=la_sh, edge_weight=la_w,
+                )
+                la_update = conv(2)(None, [la_block])
 
-            if l < L - 1:
-                atom_block = NeighborBlock(
-                    sender_attr=atom_attr, nbr_idx=atom_nbr, nbr_mask=data.atom_nbr_mask[None],
-                    edge_attr=edge_scalars(ns, atom_attr, atom_attr, atom_edge_attr[None], atom_nbr),
-                    edge_sh=atom_edge_sh[None],
-                    edge_weight=None if atom_edge_w is None else atom_edge_w[None],
-                )
-                atom_update = conv(3)(None, [atom_block])
-                al_block = NeighborBlock(
-                    sender_attr=lig_attr, nbr_idx=lig_idx_a, nbr_mask=lamask.transpose(1, 2),
-                    edge_attr=edge_scalars(ns, atom_attr, lig_attr, la_attr.transpose(1, 2),
-                                          lig_idx_a),
-                    edge_sh=al_sh, edge_weight=al_w,
-                )
-                al_update = conv(4)(None, [al_block])
-                ar_block = NeighborBlock(
-                    sender_attr=rec_attr, nbr_idx=atom_res, nbr_mask=data.atom_mask[None, :, None],
-                    edge_attr=edge_scalars(ns, atom_attr, rec_attr, ar_attr[None], atom_res),
-                    edge_sh=ar_sh[None],
-                )
-                ar_update = conv(5)(None, [ar_block])
-                rec_block = NeighborBlock(
-                    sender_attr=rec_attr, nbr_idx=rec_nbr, nbr_mask=base.rec_nbr_mask[None],
-                    edge_attr=edge_scalars(ns, rec_attr, rec_attr, rec_edge_attr[None], rec_nbr),
-                    edge_sh=rec_edge_sh[None],
-                    edge_weight=None if rec_edge_w is None else rec_edge_w[None],
-                )
-                rec_update = conv(6)(None, [rec_block])
-                rl_block = NeighborBlock(
-                    sender_attr=lig_attr, nbr_idx=lig_idx_r, nbr_mask=cmask.transpose(1, 2),
-                    edge_attr=edge_scalars(ns, rec_attr, lig_attr, lr_attr.transpose(1, 2),
-                                          lig_idx_r),
-                    edge_sh=rl_sh, edge_weight=rl_w,
-                )
-                rl_update = conv(7)(None, [rl_block])
-                ra_block = NeighborBlock(
-                    sender_attr=atom_attr, nbr_idx=res_atom_idx,
-                    nbr_mask=data.res_atom_mask[None],
-                    edge_attr=edge_scalars(ns, rec_attr, atom_attr, ra_attr[None], res_atom_idx),
-                    edge_sh=ra_sh[None],
-                )
-                ra_update = conv(8)(None, [ra_block])
+                if l < L - 1:
+                    atom_block = NeighborBlock(
+                        sender_attr=atom_attr, nbr_idx=atom_nbr, nbr_mask=data.atom_nbr_mask[None],
+                        edge_attr=edge_scalars(ns, atom_attr, atom_attr, atom_edge_attr[None], atom_nbr),
+                        edge_sh=atom_edge_sh[None],
+                        edge_weight=None if atom_edge_w is None else atom_edge_w[None],
+                    )
+                    atom_update = conv(3)(None, [atom_block])
+                    al_block = NeighborBlock(
+                        sender_attr=lig_attr, nbr_idx=lig_idx_a, nbr_mask=lamask.transpose(1, 2),
+                        edge_attr=edge_scalars(ns, atom_attr, lig_attr, la_attr.transpose(1, 2),
+                                              lig_idx_a),
+                        edge_sh=al_sh, edge_weight=al_w,
+                    )
+                    al_update = conv(4)(None, [al_block])
+                    ar_block = NeighborBlock(
+                        sender_attr=rec_attr, nbr_idx=atom_res, nbr_mask=data.atom_mask[None, :, None],
+                        edge_attr=edge_scalars(ns, atom_attr, rec_attr, ar_attr[None], atom_res),
+                        edge_sh=ar_sh[None],
+                    )
+                    ar_update = conv(5)(None, [ar_block])
+                    rec_block = NeighborBlock(
+                        sender_attr=rec_attr, nbr_idx=rec_nbr, nbr_mask=base.rec_nbr_mask[None],
+                        edge_attr=edge_scalars(ns, rec_attr, rec_attr, rec_edge_attr[None], rec_nbr),
+                        edge_sh=rec_edge_sh[None],
+                        edge_weight=None if rec_edge_w is None else rec_edge_w[None],
+                    )
+                    rec_update = conv(6)(None, [rec_block])
+                    rl_block = NeighborBlock(
+                        sender_attr=lig_attr, nbr_idx=lig_idx_r, nbr_mask=cmask.transpose(1, 2),
+                        edge_attr=edge_scalars(ns, rec_attr, lig_attr, lr_attr.transpose(1, 2),
+                                              lig_idx_r),
+                        edge_sh=rl_sh, edge_weight=rl_w,
+                    )
+                    rl_update = conv(7)(None, [rl_block])
+                    ra_block = NeighborBlock(
+                        sender_attr=atom_attr, nbr_idx=res_atom_idx,
+                        nbr_mask=data.res_atom_mask[None],
+                        edge_attr=edge_scalars(ns, rec_attr, atom_attr, ra_attr[None], res_atom_idx),
+                        edge_sh=ra_sh[None],
+                    )
+                    ra_update = conv(8)(None, [ra_block])
 
-            lig_attr = _residual_pad(lig_update + la_update + lr_update, lig_attr)
-            if l < L - 1:
-                atom_attr = _residual_pad(atom_update + al_update + ar_update, atom_attr)
-                rec_attr = _residual_pad(rec_update + ra_update + rl_update, rec_attr)
-        return self._output(base, lig_pos, lig_attr, sigma_emb, sigmas, so3_tables, torus_tables)
+                lig_attr = _residual_pad(lig_update + la_update + lr_update, lig_attr)
+                if l < L - 1:
+                    atom_attr = _residual_pad(atom_update + al_update + ar_update, atom_attr)
+                    rec_attr = _residual_pad(rec_update + ra_update + rl_update, rec_attr)
+        with profiler_range("heads"):
+            return self._output(base, lig_pos, lig_attr, sigma_emb, sigmas, so3_tables, torus_tables)
 
 
 def confidence_launches(cfg: ScoreModelConfig, embed: bool = False) -> int:

@@ -30,6 +30,12 @@ given to :meth:`CGScoreModel.set_generator`.
 Submodule names follow the flax module tree (``rec_emb_{i}`` ->
 ``rec_emb_layers.{i}``, ``lig_emb_{i}`` -> ``lig_emb_layers.{i}``,
 ``conv_{i}`` -> ``conv_layers.{i}``); see ``utils/convert.py``.
+
+While a ``torch.profiler`` session runs, the forward opens ranges
+(``utils/profiling.py:profiler_range``): ``embed``, ``conv{i}`` for each
+joint layer (with a range per neighbour block, ``models/tpconv.py``) and
+``heads`` (its convs' blocks as ``center`` and ``torsion``);
+:meth:`CGScoreModel.step_cache` opens ``step_cache``.
 """
 
 from __future__ import annotations
@@ -65,6 +71,7 @@ from diffdock_tpu_torch.ops.irreps import Irreps, get_irrep_seq
 from diffdock_tpu_torch.ops.linear import IrrepsLinear
 from diffdock_tpu_torch.ops.spherical import irrep1_to_vector, spherical_harmonics
 from diffdock_tpu_torch.ops.tensor_product import FullTensorProduct
+from diffdock_tpu_torch.utils.profiling import profiler_range
 
 
 class RecCache(NamedTuple):
@@ -281,6 +288,7 @@ class CGScoreModel(nn.Module):
             tp_weights_layers=cfg.tp_weights_layers, reference_kernels=reference_kernels,
             dropout=drop, factored=cfg.factored_tp,
         )
+        self.final_conv.range_name = "center"
         self.tr_final_layer = FinalNormLayer(1 + sig, ns, drop)
         self.rot_final_layer = FinalNormLayer(1 + sig, ns, drop)
         if not cfg.no_torsion:
@@ -293,6 +301,7 @@ class CGScoreModel(nn.Module):
                 tp_weights_layers=cfg.tp_weights_layers, reference_kernels=reference_kernels,
                 dropout=drop, factored=cfg.factored_tp,
             )
+            self.tor_bond_conv.range_name = "torsion"
             self.tor_final_dense1 = nn.Linear(Irreps(tor_out).dim, ns, bias=False)
             self.tor_final_dense2 = nn.Linear(ns, 1, bias=False)
             self.tor_dropout = Dropout(drop)
@@ -401,11 +410,12 @@ class CGScoreModel(nn.Module):
         cfg = self.cfg
         if cfg.num_conv_layers <= 1 or not cfg.factored_tp or cfg.depthwise_convolution:
             return None
-        db, cache = _batched(data), _batched(rec_cache)
-        t = torch.as_tensor(t, dtype=torch.float32, device=db.rec_pos.device).reshape(1)
-        rec_node_attr, rec_edge_attr_base = self._rec_step_attr(cache, self._sigma_embedding(t))
-        block = self._rec_rec_block(db, rec_node_attr, rec_edge_attr_base, cache)
-        (part,) = self.conv_layers[0].rec_messages([block], (2,))
+        with profiler_range("step_cache"):
+            db, cache = _batched(data), _batched(rec_cache)
+            t = torch.as_tensor(t, dtype=torch.float32, device=db.rec_pos.device).reshape(1)
+            rec_node_attr, rec_edge_attr_base = self._rec_step_attr(cache, self._sigma_embedding(t))
+            block = self._rec_rec_block(db, rec_node_attr, rec_edge_attr_base, cache)
+            (part,) = self.conv_layers[0].rec_messages([block], (2,))
         return part
 
     # ------------------------------------------------------------------
@@ -518,81 +528,85 @@ class CGScoreModel(nn.Module):
         cfg = self.cfg
         ns = cfg.ns
         P, nl = lig_pos.shape[:2]
-        if rec_keep is not None:
-            if rec_cache is not None or step_cache is not None:
-                raise ValueError("rec_keep recomputes the receptor embedding: pass no rec_cache or step_cache")
-            data = apply_rec_keep(data, rec_keep)
-        batched = _is_batched(data)
-        db = data if batched else _batched(data)
-        nr = db.rec_pos.shape[1]
-        t = torch.as_tensor(t, dtype=torch.float32, device=lig_pos.device).reshape(-1)
-        tr_sigma, rot_sigma, tor_sigma = self._sigmas(t)
-        sigma_emb = self._sigma_embedding(t)  # (B, sig)
+        with profiler_range("embed"):
+            if rec_keep is not None:
+                if rec_cache is not None or step_cache is not None:
+                    raise ValueError("rec_keep recomputes the receptor embedding: "
+                                     "pass no rec_cache or step_cache")
+                data = apply_rec_keep(data, rec_keep)
+            batched = _is_batched(data)
+            db = data if batched else _batched(data)
+            nr = db.rec_pos.shape[1]
+            t = torch.as_tensor(t, dtype=torch.float32, device=lig_pos.device).reshape(-1)
+            tr_sigma, rot_sigma, tor_sigma = self._sigmas(t)
+            sigma_emb = self._sigma_embedding(t)  # (B, sig)
 
-        if rec_cache is None:
-            rec_cache = self._embed_receptor(db)
-        elif not batched:
-            rec_cache = _batched(rec_cache)
-        rec_node_attr, rec_edge_attr_base = self._rec_step_attr(rec_cache, sigma_emb)
+            if rec_cache is None:
+                rec_cache = self._embed_receptor(db)
+            elif not batched:
+                rec_cache = _batched(rec_cache)
+            rec_node_attr, rec_edge_attr_base = self._rec_step_attr(rec_cache, sigma_emb)
 
-        lig_graph = self._ligand_graph(db, lig_pos, sigma_emb)
-        lig_node_attr = self._embed_ligand(db, lig_graph, sigma_emb, P)
+            lig_graph = self._ligand_graph(db, lig_pos, sigma_emb)
+            lig_node_attr = self._embed_ligand(db, lig_graph, sigma_emb, P)
 
-        # cross graph (dynamic cutoff, reference cg_model.py:321-324)
-        cross_cutoff = ((tr_sigma * 3.0 + 20.0)[:, None, None] if cfg.dynamic_max_cross
-                        else cfg.cross_max_distance)
-        cvec, cdist = _pairwise(db.rec_pos, lig_pos)  # (P, NL, NR, ...)
-        cmask = (cdist <= cross_cutoff) & db.lig_mask[:, :, None] & db.rec_mask[:, None, :]
-        cross_raw = torch.cat(
-            [_per_edge(sigma_emb, cdist.shape), self.cross_distance_expansion(cdist)], dim=-1
-        )
-        cross_attr = self.cross_edge_embedding(cross_raw)
-        cross_sh = spherical_harmonics(cvec, cfg.sh_lmax)
-        rev_cross_sh = spherical_harmonics(-cvec.transpose(1, 2), cfg.sh_lmax)
-        cross_w = self._edge_weight(cdist, cross_cutoff)
-        rev_cross_w = None if cross_w is None else cross_w.transpose(1, 2)
-        rec_idx_all = torch.arange(nr, device=lig_pos.device).expand(P, nl, nr)
-        lig_idx_all = torch.arange(nl, device=lig_pos.device).expand(P, nr, nl)
+            # cross graph (dynamic cutoff, reference cg_model.py:321-324)
+            cross_cutoff = ((tr_sigma * 3.0 + 20.0)[:, None, None] if cfg.dynamic_max_cross
+                            else cfg.cross_max_distance)
+            cvec, cdist = _pairwise(db.rec_pos, lig_pos)  # (P, NL, NR, ...)
+            cmask = (cdist <= cross_cutoff) & db.lig_mask[:, :, None] & db.rec_mask[:, None, :]
+            cross_raw = torch.cat(
+                [_per_edge(sigma_emb, cdist.shape), self.cross_distance_expansion(cdist)], dim=-1
+            )
+            cross_attr = self.cross_edge_embedding(cross_raw)
+            cross_sh = spherical_harmonics(cvec, cfg.sh_lmax)
+            rev_cross_sh = spherical_harmonics(-cvec.transpose(1, 2), cfg.sh_lmax)
+            cross_w = self._edge_weight(cdist, cross_cutoff)
+            rev_cross_w = None if cross_w is None else cross_w.transpose(1, 2)
+            rec_idx_all = torch.arange(nr, device=lig_pos.device).expand(P, nl, nr)
+            lig_idx_all = torch.arange(nl, device=lig_pos.device).expand(P, nr, nl)
 
         for li, layer in enumerate(self.conv_layers):
-            bond_block, radius_block = self._lig_blocks_from_graph(db, lig_graph, lig_node_attr)
-            lig_cross_block = NeighborBlock(
-                sender_attr=rec_node_attr, nbr_idx=rec_idx_all, nbr_mask=cmask,
-                edge_attr=edge_scalars(ns, lig_node_attr, rec_node_attr, cross_attr, rec_idx_all),
-                edge_sh=cross_sh, edge_weight=cross_w,
-            )
-            lig_blocks = [bond_block, radius_block, lig_cross_block]
-            lig_groups = (0, 0, 1)
-
-            rec_extra = None
-            if li < len(self.conv_layers) - 1:
-                rec_cross_block = NeighborBlock(
-                    sender_attr=lig_node_attr, nbr_idx=lig_idx_all,
-                    nbr_mask=cmask.transpose(1, 2),
-                    edge_attr=edge_scalars(ns, rec_node_attr, lig_node_attr,
-                                           cross_attr.transpose(1, 2), lig_idx_all),
-                    edge_sh=rev_cross_sh, edge_weight=rev_cross_w,
+            with profiler_range(f"conv{li}"):
+                bond_block, radius_block = self._lig_blocks_from_graph(db, lig_graph, lig_node_attr)
+                lig_cross_block = NeighborBlock(
+                    sender_attr=rec_node_attr, nbr_idx=rec_idx_all, nbr_mask=cmask,
+                    edge_attr=edge_scalars(ns, lig_node_attr, rec_node_attr, cross_attr, rec_idx_all),
+                    edge_sh=cross_sh, edge_weight=cross_w,
                 )
-                if li == 0 and step_cache is not None:
-                    rec_blocks, rec_groups, rec_extra = [rec_cross_block], (3,), step_cache
-                else:
-                    rec_rec_block = self._rec_rec_block(
-                        db, rec_node_attr, rec_edge_attr_base, rec_cache
-                    )
-                    rec_blocks, rec_groups = [rec_rec_block, rec_cross_block], (2, 3)
-            else:
-                rec_blocks, rec_groups = [], ()
+                lig_blocks = [bond_block, radius_block, lig_cross_block]
+                lig_groups = (0, 0, 1)
 
-            lig_node_attr, rec_node_attr = layer(
-                lig_node_attr, rec_node_attr, lig_blocks, lig_groups,
-                rec_blocks, rec_groups, rec_extra=rec_extra,
-                lig_mask=db.lig_mask, rec_mask=db.rec_mask,
-            )
-        out = self._heads(db, lig_pos, lig_node_attr, sigma_emb, (tr_sigma, rot_sigma, tor_sigma),
-                          so3_tables, torus_tables)
-        if cfg.sidechain_pred and not cfg.confidence_mode:
-            sc = self.sidechain_predictor(rec_node_attr)
-            out = out._replace(sidechain=sc[..., :10] + sc[..., 10:])
+                rec_extra = None
+                if li < len(self.conv_layers) - 1:
+                    rec_cross_block = NeighborBlock(
+                        sender_attr=lig_node_attr, nbr_idx=lig_idx_all,
+                        nbr_mask=cmask.transpose(1, 2),
+                        edge_attr=edge_scalars(ns, rec_node_attr, lig_node_attr,
+                                               cross_attr.transpose(1, 2), lig_idx_all),
+                        edge_sh=rev_cross_sh, edge_weight=rev_cross_w,
+                    )
+                    if li == 0 and step_cache is not None:
+                        rec_blocks, rec_groups, rec_extra = [rec_cross_block], (3,), step_cache
+                    else:
+                        rec_rec_block = self._rec_rec_block(
+                            db, rec_node_attr, rec_edge_attr_base, rec_cache
+                        )
+                        rec_blocks, rec_groups = [rec_rec_block, rec_cross_block], (2, 3)
+                else:
+                    rec_blocks, rec_groups = [], ()
+
+                lig_node_attr, rec_node_attr = layer(
+                    lig_node_attr, rec_node_attr, lig_blocks, lig_groups,
+                    rec_blocks, rec_groups, rec_extra=rec_extra,
+                    lig_mask=db.lig_mask, rec_mask=db.rec_mask,
+                )
+        with profiler_range("heads"):
+            out = self._heads(db, lig_pos, lig_node_attr, sigma_emb, (tr_sigma, rot_sigma, tor_sigma),
+                              so3_tables, torus_tables)
+            if cfg.sidechain_pred and not cfg.confidence_mode:
+                sc = self.sidechain_predictor(rec_node_attr)
+                out = out._replace(sidechain=sc[..., :10] + sc[..., 10:])
         return out
 
     def _sigmas(self, t: torch.Tensor):

@@ -34,6 +34,14 @@ dtype: in bfloat16 the edge MLP, the gathered senders, the harmonics, the
 coupling and both products run as the JAX layer runs them (see
 ``_tp_message_reduced``); the summed messages, the counts, the mean, the
 batch norm and the residual stay float32.
+
+While a ``torch.profiler`` session runs, the merged contraction's call is a
+``tp_contract`` range, so the rest of its block's range is the
+contraction's torch side (gathers, the FC hidden layer, casts, expands and
+reshapes); each neighbour block's message is a range named by its edge
+type: the joint layer's (``lig<-lig``, ``lig<-rec``, ``rec<-rec``,
+``rec<-lig``), or a layer's ``range_name``. Without a profiler each costs
+one check (``utils/profiling.py:profiler_on``).
 """
 
 from __future__ import annotations
@@ -51,6 +59,8 @@ from diffdock_tpu_torch.ops.irreps import Irreps
 from diffdock_tpu_torch.ops.linear import IrrepsLinear
 from diffdock_tpu_torch.ops.segment import multi_group_mean
 from diffdock_tpu_torch.ops.tensor_product import DepthwiseTensorProduct, FullyConnectedTensorProduct
+from diffdock_tpu_torch.utils import profiling
+from diffdock_tpu_torch.utils.profiling import profiler_on
 
 
 class NeighborBlock(NamedTuple):
@@ -85,6 +95,8 @@ def gather_nodes(attr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 Contraction = Callable[..., torch.Tensor]
+# the joint layer's FC groups by edge type (receiver<-sender)
+EDGE_TYPES = ("lig<-lig", "lig<-rec", "rec<-rec", "rec<-lig")
 
 
 def _tp_message(tp, fc: FCBlock, blk: NeighborBlock, dtype: str = "float32") -> torch.Tensor:
@@ -131,7 +143,11 @@ def _tp_message_reduced(tp: FullyConnectedTensorProduct, fc: FCBlock, blk: Neigh
     mw = mw.expand(lead + (K,)).reshape(rows, K)
 
     if merged:
-        out = contraction(tp, x_nbr, edge_sh, h, mw, fc.out_kernel, fc.out_bias)
+        if profiler_on():
+            with profiling.record_function("tp_contract"):
+                out = contraction(tp, x_nbr, edge_sh, h, mw, fc.out_kernel, fc.out_bias)
+        else:
+            out = contraction(tp, x_nbr, edge_sh, h, mw, fc.out_kernel, fc.out_bias)
         return out.reshape(lead + (out.shape[-1],)), counts
 
     # per-class reference path (the merged layout's numeric oracle): float32
@@ -199,6 +215,9 @@ class _ConvBase(nn.Module):
         self.residual = residual
         self.bn = IrrepsBatchNorm(out_irreps) if batch_norm else None
         self.contraction = fused_tp3_reference if reference_kernels else fused_tp3
+        # the profiler range of each block's message (set by the model that
+        # names this layer's edge type; the joint layer names its groups)
+        self.range_name: Optional[str] = None
 
     def _make_fc(self) -> FCBlock:
         return FCBlock(**self._fc_args)
@@ -207,14 +226,28 @@ class _ConvBase(nn.Module):
         return _tp_message_reduced(self.tp, fc, blk, contraction=self.contraction,
                                    dtype=self.dtype)
 
-    def _mean(self, fcs: Sequence[FCBlock], blocks: Sequence[NeighborBlock]) -> torch.Tensor:
-        """The receivers' mean message over every valid edge of ``blocks``
-        (block ``i`` through ``fcs[i]``): merged contractions, or per-edge
-        messages on the per-edge path."""
+    def _block_message(self, fc: FCBlock, blk: NeighborBlock, name: Optional[str]):
+        """One block's message: its (sum, count) on the merged path, its
+        per-edge messages otherwise; in a profiler range ``name`` while a
+        profiler runs."""
+        if name is not None and profiler_on():
+            with profiling.record_function(name):
+                return self._block_message(fc, blk, None)
         if self.merged:
-            return _combine_reduced([self._message(fc, blk) for fc, blk in zip(fcs, blocks)])
-        return multi_group_mean([_tp_message(self.tp, fc, blk, self.dtype) for fc, blk in zip(fcs, blocks)],
-                                [blk.nbr_mask for blk in blocks])
+            return self._message(fc, blk)
+        return _tp_message(self.tp, fc, blk, self.dtype)
+
+    def _mean(self, fcs: Sequence[FCBlock], blocks: Sequence[NeighborBlock],
+              names: Optional[Sequence[str]] = None) -> torch.Tensor:
+        """The receivers' mean message over every valid edge of ``blocks``
+        (block ``i`` through ``fcs[i]``, its range named ``names[i]``, or
+        :attr:`range_name`): merged contractions, or per-edge messages on
+        the per-edge path."""
+        names = names or [self.range_name] * len(blocks)
+        msgs = [self._block_message(fc, blk, name) for fc, blk, name in zip(fcs, blocks, names)]
+        if self.merged:
+            return _combine_reduced(msgs)
+        return multi_group_mean(msgs, [blk.nbr_mask for blk in blocks])
 
     def _finish(self, out: torch.Tensor, receiver_attr: Optional[torch.Tensor],
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -330,7 +363,8 @@ class JointTPConvLayer(_ConvBase):
         a merged layer)."""
         if not self.merged:
             raise ValueError("precomputed receptor messages need the factored, fully connected layer")
-        return [self._message(self.get_fc(g), blk) for g, blk in zip(rec_groups, rec_blocks)]
+        return [self._block_message(self.get_fc(g), blk, EDGE_TYPES[g])
+                for g, blk in zip(rec_groups, rec_blocks)]
 
     def forward(self, lig_attr: torch.Tensor, rec_attr: torch.Tensor,
                 lig_blocks: Sequence[NeighborBlock], lig_groups: Sequence[int],
@@ -343,7 +377,8 @@ class JointTPConvLayer(_ConvBase):
         receptor mean (the pose-independent layer-0 rec<-rec messages).
         ``lig_mask`` (B or 1, NL) and ``rec_mask`` (B or 1, NR): the rows the
         training batch norm counts, ligand and receptor together."""
-        lig_out = self._mean([self.get_fc(g) for g in lig_groups], lig_blocks)
+        lig_out = self._mean([self.get_fc(g) for g in lig_groups], lig_blocks,
+                             [EDGE_TYPES[g] for g in lig_groups])
         B = lig_out.shape[0]
         if self.last_layer:
             if rec_blocks:
@@ -352,7 +387,8 @@ class JointTPConvLayer(_ConvBase):
         elif not self.merged:
             if rec_extra is not None:
                 raise ValueError("rec_extra needs the factored, fully connected layer")
-            rec_out = self._mean([self.get_fc(g) for g in rec_groups], rec_blocks)
+            rec_out = self._mean([self.get_fc(g) for g in rec_groups], rec_blocks,
+                                 [EDGE_TYPES[g] for g in rec_groups])
             rec_out = rec_out.expand((B,) + rec_attr.shape[1:-1] + (lig_out.shape[-1],))
         else:
             rec_parts = self.rec_messages(rec_blocks, rec_groups)

@@ -4,8 +4,8 @@
 ``fold_sequence``'s OOM halving with a fake ESMFold, the conformer functions
 bit for bit on e2e_synth ligands without RDKit, the three rotation
 conversions (within 2e-6: the same float32 formulas, different sqrt/atan2
-last bits) with rotations near and at 180 degrees, the logging and
-profiling helpers, ``prewarm --device cpu`` with a narrow preset, and one
+last bits) with rotations near and at 180 degrees, the logging
+helpers, ``prewarm --device cpu`` with a narrow preset, and one
 small dock whose receptor is embedded live by the port's ESM2 (tiny
 config) through ``InferenceDatasetBuilder(esm_embedder=...)``: the same
 poses, bit for bit, as the dock from a ``LazyNpyTable`` of those
@@ -16,7 +16,6 @@ within 1e-3 A (the bounds of ``tests/test_torch_port_dock_files.py``).
 
 import contextlib
 import io
-import json
 import logging
 import os
 import sys
@@ -52,7 +51,6 @@ from diffdock_tpu_torch.models import esm2
 from diffdock_tpu_torch.models.config import ScoreModelConfig
 from diffdock_tpu_torch.utils import logging as plog
 from diffdock_tpu_torch.utils.convert import state_dict_from_flax
-from diffdock_tpu_torch.utils.profiling import PhaseTimer, device_trace
 from tests.test_torch_port_confidence import _conf_kw, _init_confidence, _perturbed, tables  # noqa: F401
 from tests.test_torch_port_dock import _jax_noise
 from tests.test_torch_port_esm2 import HEADS, HID, SYNTH, hf_dir, random_params, two_chain_pdb  # noqa: F401
@@ -366,24 +364,6 @@ def test_logger_and_file_handler(tmp_path, monkeypatch):
         for h in list(log.handlers):
             h.close()
             log.removeHandler(h)
-
-
-def test_phase_timer_and_device_trace_on_the_cpu(tmp_path):
-    timer = PhaseTimer()
-    a = torch.randn(64, 64)
-    with device_trace(str(tmp_path / "trace")) as prof:
-        for _ in range(2):
-            out = []
-            with timer.phase("matmul", block_on=out):
-                out.append(a @ a)
-        with timer.phase("other", block_on={"x": [a]}):
-            pass
-    s = timer.summary()
-    assert set(s) == {"matmul", "other"} and s["matmul"]["count"] == 2
-    assert s["matmul"]["mean_s"] == pytest.approx(s["matmul"]["total_s"] / 2)
-    assert any(e.key == "aten::mm" for e in prof.key_averages())
-    events = json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
-    assert any(e.get("name") == "aten::mm" for e in events)
 
 
 def test_prewarm_on_the_cpu_with_a_narrow_preset():

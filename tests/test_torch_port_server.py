@@ -139,3 +139,31 @@ def test_a_job_is_docked_and_its_rank1_sdf_served(served):
     assert time.monotonic() - t0 < DEADLINE_S
     status, page = _get(url + "/")
     assert job_id.encode() in page and b"done" in page
+
+
+def test_status_gives_the_queue_wait_and_the_docks_record(served):
+    """``/status`` reports the wait in the job queue and the dock's record
+    as host seconds per phase and its counts."""
+    url, service = served
+    t0 = time.monotonic()
+    known = set(service.jobs)
+    status = _post(url, {"protein_path": str(COMPLEX / f"{NAME}_protein_processed.pdb"),
+                         "ligand": str(COMPLEX / f"{NAME}_ligand.sdf"), "samples": 2, "steps": 3})
+    assert status == 303
+    (job_id,) = set(service.jobs) - known
+    while True:
+        info = json.loads(_get(f"{url}/status/{job_id}")[1])
+        if info["status"] in ("done", "failed") or time.monotonic() - t0 > DEADLINE_S:
+            break
+        time.sleep(0.2)
+    assert info["status"] == "done", info
+    job = service.jobs[job_id]
+    assert info["queue_s"] == pytest.approx(job.t_start - job.t_submit) and info["queue_s"] >= 0
+    seconds, counts = info["timings"]["seconds"], info["timings"]["counts"]
+    assert set(seconds) == {"featurize", "prep", "steps", "confidence", "write"}
+    assert all(v > 0 for v in seconds.values()), seconds
+    assert sum(seconds.values()) <= job.t_done - job.t_start
+    # 3 steps of the schedule, of which 2 run, in one pose batch
+    assert counts["score_forwards"] == 2 and counts["pose_batches"] == 1
+    assert counts["confidence_chunks"] >= 1 and 0 < counts["pair_real"] <= counts["pair_slots"]
+    assert time.monotonic() - t0 < DEADLINE_S
