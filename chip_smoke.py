@@ -25,15 +25,16 @@ Phases, each timed on its own line:
    ligand buckets, the measurement behind the pipeline's chunk rule;
 5. the same dock through the plain versions with the same noise: poses,
    confidences and ranking must agree;
-6. timings at the six blocks: each kernel, its plain version and its
-   library route, with CUDA events, beside the least time the card could
-   take: bytes over 3.35 TB/s, or FLOPs over the peak of the unit that does
-   them (the two products of every kernel run on the tensor cores in
-   3xTF32, 495 / 3 = 165 TFLOP/s; the coupling that gens 2 and 1 build
-   inside on the CUDA cores in float32, 67 TFLOP/s), the all-float32 bound
-   kept beside. The library route of gen 3 is the einsum pair on the
+6. timings at the six blocks: each kernel (gen 3's float32 kernel as its
+   whole call, ``fused_tp3.forward_f32``: it has no torch side), its plain
+   version and its library route, with CUDA events, beside the least time
+   the card could take: bytes over 3.35 TB/s, or FLOPs over the peak of
+   the unit that does them (the two products of every kernel run on the
+   tensor cores in 3xTF32, 495 / 3 = 165 TFLOP/s; the coupling that all
+   three build inside on the CUDA cores in float32, 67 TFLOP/s), the
+   all-float32 bound kept beside. The library route of gen 3 is the einsum pair on the
    coupled operands; that of gens 2 and 1 builds the coupling in PyTorch
-   first (the gen-3 wrapper's ``merged_coupled`` and the ``h_aug`` concat),
+   first (the plain version's ``merged_coupled`` and the ``h_aug`` concat),
    with the einsum pair alone beside it;
 7. profile: ``torch.profiler`` over a warm 2-step dock with ranking — device
    time by kernel, the hand-written kernels' share and the device's busy
@@ -48,14 +49,18 @@ A. dock from files at full width: random-weight run directories of the
    Gates: 10 ranked SDFs and 10 trajectory PDBs; every SDF parses back with
    finite coordinates in the input's atom order, its bond lengths within
    1e-3 A of the input's and its confidence in rank order; the gen-3 kernel
-   launched exactly as often as the code says, no plain version. The same
-   dock (same featurized complex, each chunk's same draws) through the
-   plain versions: the same start poses, the poses after the first step
-   within 1e-3 A, the final poses within 5e-3 A or twice the spread that a
-   1e-6 nudge of the start translations gives the kernel dock (the sampler
-   amplifies float32 rounding on this complex), confidences and ranking as
-   in phase 5, and the plain confidence model on the kernel dock's own
-   poses within phase 5's confidence tolerance. The wall time is split
+   launched exactly as often as the code says, no plain version. The plain
+   versions follow the kernel dock step by step from its own state (same
+   featurized complex, each chunk's same draws): the same start poses, and
+   at every step the plain update of the kernel dock's poses within 1e-3 A
+   of the kernel dock's next poses (the final poses after the last step);
+   the plain confidence model on the kernel dock's own poses within phase
+   5's confidence tolerance, and the kernel dock's ranking theirs wherever
+   neighbouring confidences differ by more than twice it. The whole plain
+   dock from the same draws, and the kernel dock with its start
+   translations nudged by 1e-6, are logged beside it without a gate: the
+   sampler amplifies float32 rounding on this complex, so that two whole
+   docks part by up to 1e-2 A whatever the rounding's source. The wall time is split
    into host (parse, featurize, write) and the dock (its wall until the
    poses are on the host, the host's launch overhead included), with the
    peak memory;
@@ -394,16 +399,15 @@ def _class_sums(tp):
 
 
 def tp3_work(tp, rows: int, K: int, H: int):
-    """(product FLOPs, 0, bytes) the gen-3 contraction must do at least: the
-    neighbour reduction P = h_aug^T coupled over every live class, the
-    weight contraction over the compact (H+1, fan, mul) blocks, each input
-    (h_aug, the coupled tensor built outside the kernel, the weights) read
-    once and the output written once (float32)."""
-    f_tot, weight, w_len = _class_sums(tp)
-    Ha = H + 1
-    products = 2.0 * rows * Ha * K * f_tot + 2.0 * rows * Ha * weight
-    nbytes = 4.0 * (rows * K * Ha + rows * K * f_tot + Ha * w_len + rows * tp.irreps_out.dim)
-    return products, 0.0, nbytes
+    """(product FLOPs, coupling FLOPs, bytes) the float32 gen-3 contraction
+    must do at least. Its kernel builds the coupling from the inputs as they
+    are, as gen 1's does, so its work is :func:`tp1_work`'s: both products,
+    each path's CG dot and the coupled columns, each input (x_nbr, edge_sh,
+    h, mw, the CG matrix, the weights and bias) read once and the output
+    written once. (The benchmark's frozen copy, ``benchmark/work/tp3.py``,
+    keeps the earlier count: the coupled tensor read as input, no coupling
+    operations.)"""
+    return tp1_work(tp, rows, K, H)
 
 
 def _coupling_flops(tp) -> float:
@@ -836,7 +840,10 @@ def run(args) -> dict:
     with torch.inference_mode():
         for i, (label, (tp, rows, K, Hb)) in enumerate(blocks_all.items()):
             inp = tp_inputs(tp, rows, K, Hb, seed=i, device=dev)
-            classes, h_aug, coupled, weights, table = ft.prepare(tp, *inp)
+            # the einsum pair's operands: the coupled tensor and h_aug, built
+            # in PyTorch (gen 3 reads the inputs as they are)
+            classes, coupled = ft.merged_coupled(tp, inp[0], inp[1])
+            h_aug = torch.cat([inp[2], inp[3][..., None]], dim=-1)
             t3 = _block_diag_t3(tp, classes, inp[4], inp[5])
 
             def einsum_pair(h_aug, coupled):
@@ -851,7 +858,7 @@ def run(args) -> dict:
             pair_ms = cuda_ms(lambda: einsum_pair(h_aug, coupled), args.iters)
             route_ms = cuda_ms(coupled_route, args.iters)
             op2, op1 = f2.prepare(tp, *inp), f1.prepare(tp, *inp)
-            launchers = {"fused_tp3": lambda: ft.launch(h_aug, coupled, weights, table),
+            launchers = {"fused_tp3": lambda: ft.forward_f32(tp, *inp),
                          "factored_tp2": lambda: f2.launch(*op2, tp.irreps_out.dim),
                          "factored_tp1": lambda: f1.launch(*op1, tp.irreps_out.dim)}
             for kname, launch in launchers.items():
@@ -876,7 +883,7 @@ def run(args) -> dict:
                      f"{b_ms:.4f} ms ({b_by}; {products / 1e9:.2f} + {coupling / 1e9:.2f} GFLOP, "
                      f"{nbytes / 1e6:.1f} MB; float32 bound {f32_ms:.4f} ms) | "
                      f"{flops / kernel_ms / 1e9:.2f} TFLOP/s")
-            del inp, h_aug, coupled, weights, t3, launchers, op2, op1
+            del inp, h_aug, coupled, t3, launchers, op2, op1
     report["timings"] = timings
     _log(f"[6 timings] {time.perf_counter() - t0:.1f} s")
 
@@ -966,14 +973,15 @@ E2E_SYNTH = Path(__file__).resolve().parent / "data" / "e2e_synth"
 FILE_DOCK_COMPLEX = "syn000_l50r368"  # 50 ligand atoms, 368 residues
 CLI_COMPLEXES = ("syn000_l50r368", "syn001_l24r104", "syn045_l8r1547")
 BOND_ATOL = 1e-3  # Angstrom: rigid moves and torsions keep bond lengths
-# max |pose difference| in Angstrom after the first of 19 steps, kernel path
-# vs plain path from the same draws (the bound of the CPU file-dock tests):
-# one step of float32 reordering, before the sampler amplifies it
-FIRST_STEP_ATOL = 1e-3
+# max |pose difference| in Angstrom after one step from the same state,
+# kernel path vs plain path with the same draws (the bound of the CPU
+# file-dock tests on the first step): one step of float32 reordering,
+# before the sampler amplifies it
+STEP_ATOL = 1e-3
 # relative nudge of the start translations that measures how far float32
 # rounding moves this dock's final poses: on this real complex the sampler
 # amplifies a difference of 1e-4 A to 1e-2 A in one pose, whatever its
-# source, so the final poses are held to POSE_ATOL or to twice that spread
+# source (phase D's twin tolerance reads it)
 NUDGE = 1e-6
 
 
@@ -1020,6 +1028,52 @@ def _leaves(tree):
             yield from _leaves(v)
         else:
             yield v
+
+
+def follow_steps(pipe, ref_pipe, data, noise, kw: dict):
+    """The plain pipeline ``ref_pipe`` held to ``pipe``'s dock step by step,
+    from ``pipe``'s own state, as the benchmark's check holds a dock: ``pipe``
+    docks ``data`` with ``noise`` (``kw`` as for ``dock_complex``) keeping
+    the poses each score forward starts from; ``ref_pipe`` then docks from
+    the same draws with its poses set to those before each forward, so that
+    each of its steps starts where ``pipe``'s did. Returns the start gap
+    (the largest distance, Angstrom, between the two docks' start poses)
+    and, per step, the largest distance between ``pipe``'s poses after the
+    step (the final poses after the last) and ``ref_pipe``'s update of the
+    same state, the worst over the pose chunks (real ligand atoms)."""
+    import numpy as np
+
+    if pipe.score_cfg.crop_beyond is not None:
+        raise PhaseError("follow_steps: a cropped score forward reads the poses before the model")
+    n, states, gaps = data.n_lig, [], []
+
+    def keep(_module, args):
+        states.append(args[1].clone())
+
+    hook = pipe.model.register_forward_pre_hook(keep)
+    try:
+        res = pipe.dock_complex(data, noise=noise, **kw)
+    finally:
+        hook.remove()
+
+    def follow(_module, args):
+        i, poses = len(gaps), args[1]
+        if i >= len(states) or poses.shape != states[i].shape:
+            raise PhaseError(f"follow_steps: the plain dock's forward {i} does not match the kernel dock's")
+        gaps.append(float((poses[:, :n] - states[i][:, :n]).abs().max()))
+        poses.copy_(states[i])
+
+    hook = ref_pipe.model.register_forward_pre_hook(follow)
+    try:
+        ref_res = ref_pipe.dock_complex(data, noise=noise, **kw)
+    finally:
+        hook.remove()
+    steps = pipe.sampler_cfg.num_steps
+    if len(gaps) != len(states) or len(states) % steps:
+        raise PhaseError(f"follow_steps: {len(states)} kernel forwards, {len(gaps)} plain, {steps} steps")
+    per_chunk = np.asarray(gaps).reshape(-1, steps)
+    held = per_chunk[:, 1:].max(axis=0).tolist() + [float(np.abs(res.poses - ref_res.poses).max())]
+    return float(per_chunk[:, 0].max()), held
 
 
 def file_dock(args, tmp: Path, cfg, ccfg, kernels, card: str):
@@ -1144,25 +1198,41 @@ def file_dock(args, tmp: Path, cfg, ccfg, kernels, card: str):
                 for k in range(res.trajectory.shape[0])]
     nudge_gap = [float(np.abs(res.trajectory[k] - nudge_res.trajectory[k]).max())
                  for k in range(res.trajectory.shape[0])]
-    _log(f"  max |poses(kernel) - poses(plain)| by step: {' '.join(f'{g:.1e}' for g in step_gap)}")
-    _log(f"  max |poses(kernel) - poses(kernel, start nudged by {NUDGE:.0e})| by step: "
+    _log(f"  max |poses(kernel) - poses(plain)| by step, whole docks (no gate): "
+         f"{' '.join(f'{g:.1e}' for g in step_gap)}")
+    _log(f"  max |poses(kernel) - poses(kernel, start nudged by {NUDGE:.0e})| by step (no gate): "
          f"{' '.join(f'{g:.1e}' for g in nudge_gap)}")
-    if not (step_gap[0] == 0.0 and step_gap[1] <= FIRST_STEP_ATOL):
-        raise PhaseError(f"kernel-path and plain-path poses part by {step_gap[1]:.3e} A after the first "
-                         f"step (tol {FIRST_STEP_ATOL:.0e}; start {step_gap[0]:.1e})")
-    plain = docks_agree(res, ref_res, pose_tol=max(POSE_ATOL, 2 * nudge_gap[-1]))
+
+    # the gate: the plain versions step by step from the kernel dock's state
+    start_gap, held = follow_steps(pipe, ref_pipe, data, lambda num_poses, n_bonds, seed: drawn[seed],
+                                   dict(kw, return_trajectory=False))
+    _log(f"  max |poses(kernel) - plain step from the kernel dock's state| by step: "
+         f"{' '.join(f'{g:.1e}' for g in held)} (tol {STEP_ATOL:.0e}; start {start_gap:.1e})")
+    if not (start_gap == 0.0 and max(held) <= STEP_ATOL):
+        raise PhaseError(f"a plain step from the kernel dock's state parts from the kernel's by "
+                         f"{max(held):.3e} A (tol {STEP_ATOL:.0e}; start {start_gap:.1e})")
     # the confidence model's plain version on the kernel dock's own poses
     final = torch.as_tensor(res.poses - np.asarray(data.original_center)[None, None],
                             dtype=torch.float32, device=pipe.device)
     final = _pad_rows(final.transpose(0, 1), bucket[0] - data.n_lig).transpose(0, 1)
     conf_same = ref_pipe.confidence(ref_pipe.confidence_input(data, aa), final).cpu().numpy()
     conf_same_err = float(np.abs(conf_same - res.confidence).max())
+    conf_tol = CONF_RTOL * max(float(np.abs(conf_same).max()), 1.0)
+    order_same = np.argsort(-conf_same)
+    rank_ok = all(res.confidence[a] > res.confidence[b] for a, b in zip(order_same[:-1], order_same[1:])
+                  if conf_same[a] - conf_same[b] > 2 * conf_tol)
     _log(f"  confidence plain vs kernel on the kernel dock's poses: max diff {conf_same_err:.3e} "
-         f"(tol {plain['conf_tol']:.3e})")
-    if not conf_same_err <= plain["conf_tol"]:
+         f"(tol {conf_tol:.3e}); order {res.order.tolist()} vs {order_same.tolist()}; whole plain dock "
+         f"(no gate): max |poses| diff {float(np.abs(res.poses - ref_res.poses).max()):.3e} A, order "
+         f"{ref_res.order.tolist()}")
+    if not conf_same_err <= conf_tol:
         raise PhaseError("the confidence model's plain version disagrees on the kernel dock's poses")
-    plain.update(wall_s=plain_wall, step_gap=step_gap, nudge_gap=nudge_gap,
-                 conf_same_poses_diff=conf_same_err)
+    if not rank_ok:
+        raise PhaseError("the kernel dock's ranking is not the plain confidences' on its poses")
+    plain = {"wall_s": plain_wall, "step_gap": step_gap, "nudge_gap": nudge_gap, "start_gap": start_gap,
+             "held_step_gap": held, "step_tol": STEP_ATOL, "conf_same_poses_diff": conf_same_err,
+             "conf_tol": conf_tol, "order": order_same.tolist(), "ranking_agrees": rank_ok,
+             "whole_dock_pose_diff": float(np.abs(res.poses - ref_res.poses).max())}
     del ref_pipe
 
     report = {"complex": name, "n_lig": data.n_lig, "n_rec": data.n_rec, "n_atoms": aa.n_atoms,
@@ -2323,8 +2393,10 @@ def reference_state_dict(model) -> dict:
 
 
 def time_tp3_blocks(blocks: dict, dev, iters: int) -> dict:
-    """fused_tp3's kernel, its plain version and the einsum pair at each
-    block, with CUDA events, beside the block's bound."""
+    """fused_tp3's whole float32 call, ``fused_tp3(tp, ...)`` as a dock
+    makes it, its plain version and the einsum pair (on the coupled tensor
+    and h_aug built beforehand) at each block, with CUDA events, beside the
+    block's bound. Block i's inputs are ``tp_inputs``'s from seed i."""
     import torch
 
     from diffdock_tpu_torch.ops import fused_tp3 as ft
@@ -2333,9 +2405,10 @@ def time_tp3_blocks(blocks: dict, dev, iters: int) -> dict:
     with torch.inference_mode():
         for i, (label, (tp, rows, K, Hb)) in enumerate(blocks.items()):
             inp = tp_inputs(tp, rows, K, Hb, seed=i, device=dev)
-            classes, h_aug, coupled, weights, table = ft.prepare(tp, *inp)
+            classes, coupled = ft.merged_coupled(tp, inp[0], inp[1])
+            h_aug = torch.cat([inp[2], inp[3][..., None]], dim=-1)
             t3 = _block_diag_t3(tp, classes, inp[4], inp[5])
-            kernel_ms = cuda_ms(lambda: ft.launch(h_aug, coupled, weights, table), iters)
+            kernel_ms = cuda_ms(lambda: ft.fused_tp3(tp, *inp), iters)
             plain_ms = cuda_ms(lambda: ft.fused_tp3_reference(tp, *inp), iters)
             pair_ms = cuda_ms(lambda: torch.einsum(
                 "rhF,hFW->rW", torch.einsum("rkh,rkF->rhF", h_aug, coupled), t3), iters)
@@ -2343,9 +2416,9 @@ def time_tp3_blocks(blocks: dict, dev, iters: int) -> dict:
             b_ms, b_by = bound_ms(products, coupling, nbytes)
             out[label] = {"rows": rows, "K": K, "ms": kernel_ms, "plain_ms": plain_ms,
                           "library_ms": pair_ms, "bound_ms": b_ms, "bound_by": b_by}
-            _log(f"  fused_tp3 {label} at R={rows} K={K}: kernel {kernel_ms:.4f} ms | plain "
+            _log(f"  fused_tp3 {label} at R={rows} K={K}: whole call {kernel_ms:.4f} ms | plain "
                  f"{plain_ms:.4f} ms | einsum pair {pair_ms:.4f} ms | bound {b_ms:.4f} ms ({b_by})")
-            del inp, h_aug, coupled, weights, t3
+            del inp, h_aug, coupled, t3
     return out
 
 
@@ -3033,9 +3106,8 @@ def bf16_phase(args, tmp: Path, cfg, ccfg, blocks: dict, f32_dock: dict, f32_res
             h_aug = torch.cat([binp[2], binp[3][..., None]], dim=-1)
             coupled = ft.merged_coupled(tp, binp[0], binp[1])[1]
             t3 = _block_diag_t3(tp, classes, inp[4], inp[5], bf16)
-            f32_ops = ft.prepare(tp, *inp)
             ms = cuda_ms(lambda: ft.launch(*ops[1:]), args.iters)
-            f32_ms = cuda_ms(lambda: ft.launch(*f32_ops[1:]), args.iters)
+            f32_ms = cuda_ms(lambda: ft.forward_f32(tp, *inp), args.iters)
             plain_ms = cuda_ms(lambda: ft.fused_tp3_reference(tp, *binp), args.iters)
             # the library pair in the same types: cuBLAS bfloat16 products
             library_ms = cuda_ms(lambda: torch.einsum(
@@ -3056,7 +3128,7 @@ def bf16_phase(args, tmp: Path, cfg, ccfg, blocks: dict, f32_dock: dict, f32_res
                  f"{100 * b_ms / ms:.1f} % of bound | {flops / ms / 1e9:.2f} TFLOP/s | plan R={plan.R} "
                  f"{'all slices' if plan.whole else 'one slice'} per block, {plan.k_parts} neighbour "
                  f"part(s), {plan.n_blocks} blocks")
-            del inp, binp, got, again, ref, ops, coupled, h_aug, t3, f32_ops
+            del inp, binp, got, again, ref, ops, coupled, h_aug, t3
     report["kernel"] = h1
     _log(f"[H1 bf16 kernel vs plain] worst {max(v['max_abs_err'] / v['max_abs_ref'] for v in h1.values()):.2e} "
          f"of scale | {card} | {time.perf_counter() - t_start:.1f} s")
@@ -3742,6 +3814,31 @@ def v1_config():
     return ScoreModelConfig(**V1_SCORE, sigma=SigmaConfig(**V1_SIGMA))
 
 
+def model_tps():
+    """Every merged TP contraction of the benchmark's models, once per
+    irreps and hidden width: [(where it is built, (irreps_in1, irreps_in2,
+    irreps_out, H))], DiffDock-L's and v1.0's score models and the all-atom
+    confidence model (SHIPPED_CONFIDENCE), built on the CPU."""
+    from diffdock_tpu_torch.models.config import PRESETS
+    from diffdock_tpu_torch.models.factory import build_model
+    from diffdock_tpu_torch.models.old_models import build_confidence_model
+    from diffdock_tpu_torch.ops.tensor_product import FullyConnectedTensorProduct
+
+    cfgs = {"diffdock_l": (build_model, PRESETS["diffdock_l"]),
+            "diffdock_v1": (build_model, v1_config()),
+            "confidence": (build_confidence_model,
+                           dataclasses.replace(PRESETS["diffdock_s"], **SHIPPED_CONFIDENCE))}
+    seen = {}
+    for name, (builder, cfg) in cfgs.items():
+        for mod_name, mod in builder(cfg).named_modules():
+            tp = getattr(mod, "tp", None)
+            if isinstance(tp, FullyConnectedTensorProduct) and getattr(mod, "merged", False):
+                key = (str(tp.irreps_in1), str(tp.irreps_in2), str(tp.irreps_out),
+                       mod._fc_args["hidden_dim"])
+                seen.setdefault(key, f"{name}.{mod_name}")
+    return sorted((where, key) for key, where in seen.items())
+
+
 def v1_blocks(model, cfg, data, P: int, bucket) -> dict:
     """The v1.0 score model's merged contractions at a padded bucket for P
     poses in flight: label -> (tp, rows, K, H). The convs are the widest
@@ -3811,8 +3908,7 @@ def v1_phase(args, tmp: Path, ccfg, data, aa, noise, so3, torus, card: str, dev)
     with torch.inference_mode():
         for i, (label, (tp, rows, K, Hb)) in enumerate(blocks.items()):
             inp = tp_inputs(tp, rows, K, Hb, seed=i, device=dev)
-            f32_ops = ft.prepare(tp, *inp)
-            row = dict(checks[label], ms=cuda_ms(lambda: ft.launch(*f32_ops[1:]), args.iters),
+            row = dict(checks[label], ms=cuda_ms(lambda: ft.forward_f32(tp, *inp), args.iters),
                        plain_ms=cuda_ms(lambda: ft.fused_tp3_reference(tp, *inp), args.iters))
             if label not in ("final_conv", "tor_bond_conv"):  # float32 in the model, as in JAX
                 binp = [a.to(bf16) for a in inp[:4]] + list(inp[4:])
@@ -3835,7 +3931,7 @@ def v1_phase(args, tmp: Path, ccfg, data, aa, noise, so3, torus, card: str, dev)
                                                  f"{BF16_KERNEL_RTOL:.0e} x {row['bf16_max_abs_ref']:.3g}), kernel "
                                                  f"{row['bf16_ms']:.4f} ms, plain {row['bf16_plain_ms']:.4f} ms"
                                                  if "bf16_ms" in row else ""))
-            del inp, f32_ops
+            del inp
     report["kernel"] = j1
     _log(f"[J1 v1.0 blocks] fused_tp3 float32 at {len(blocks)} blocks, bf16 at "
          f"{sum('bf16_ms' in r for r in j1.values())} | {card} | {time.perf_counter() - t0:.1f} s")

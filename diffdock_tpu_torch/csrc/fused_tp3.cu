@@ -1,56 +1,74 @@
-// Gen-3 fused factored tensor-product contraction on Hopper's tensor cores.
+// Gen-3 fused factored tensor-product contraction on Hopper's tensor cores,
+// float32 operands, the Clebsch-Gordan coupling built inside the kernel.
 //
-// Replaces diffdock_tpu/ops/pallas_tpconv3.py:_kernel (the body of
-// _forward_pallas). Per receiver row r and live output class c it computes
+// Replaces diffdock_tpu/ops/pallas_tpconv3.py:_forward_pallas: the body
+// (_kernel) and the coupled tensor and weight blocks its wrapper builds.
+// Per receiver row r, output class c (fan, d3, mul) and path p of c (an
+// input entry of d1 components from x_p, a harmonic entry of d2 components
+// from sh_p, the path's u from u_p):
 //
-//     P_c[h, u*d3+d] = sum_k h_aug[r, k, h] * coupled[r, k, f_off_c + u*d3+d]
-//     out[r, o_off_c + w*d3+d] = sum_h sum_u P_c[h, u*d3+d] * W_c[h, u, w]
+//     W_p[k, i*d3+d] = sum_{t < d2} sh[r, k, sh_p + t] * CG_p[t, i*d3+d]
+//     C[k, u*d3+d]   = sum_i x[r, k, x_p + (u - u_p)*d1 + i] * W_p[k, i*d3+d]
+//     P[h, u*d3+d]   = sum_k A[r, k, h] * C[k, u*d3+d]
+//     out[r, o_c + w*d3+d] = sum_h sum_u P[h, u*d3+d] * s_c*T_c[h, u, w]
 //
-// where h runs over the H hidden channels plus the bias row (h = H, whose
-// activation is mask*edge_weight), and W_c (H+1, fan_c, mul_c) carries the
-// class's last-layer weights and bias with 1/sqrt(fan_c) folded in (the
-// TPU kernel's block-diagonal T3, read in its compact form).
+// A is the edge MLP's hidden activations h (N, K, H), already scaled by
+// mask*edge_weight, with mw (N, K) = mask*edge_weight as row H; T_c[h, u,
+// w] is out_kernel[h, w_c + u*mul + w] for h < H and out_bias[w_c + u*mul +
+// w] for h = H (the class's columns of the edge MLP's last layer, as the
+// parameters hold them); s_c = 1/sqrt(fan) in float32, multiplied into
+// each weight as it is read. Every operand is read where the caller has
+// it: x_nbr (e3nn layout), edge_sh, h and mw through their row strides
+// (the last axis contiguous), the CG blocks of every path from one small
+// (max d2, columns) matrix uploaded once per tensor product. The output is
+// the e3nn layout, with zeros in output classes that have no path.
 //
-// What bounds it on an H100: operations. Both products are GEMM-shaped
-// (P: M = hidden rows, N = class columns, depth = neighbours; the weight
-// product: M = w, N = (receiver, d), depth = (u, h)) and do 30-80 FLOP per
-// byte they must read. They run on the tensor cores as mma.sync m16n8k8
-// TF32 products in 3xTF32: each float32 operand is split into a TF32 head
-// (rounded to nearest) and a TF32 remainder, and rem*head + head*rem +
-// head*head is accumulated in float32 registers, which keeps float32
-// accuracy at a third of the TF32 rate (495 / 3 = 165 TFLOP/s against 67
-// on the CUDA cores). The design:
+// What bounds it on an H100: operations. The two products (P: M = hidden
+// rows, N = one class's columns, depth = neighbours; the weight product:
+// M = w, N = (receiver, d), depth = (u, h)) run on the tensor cores as
+// mma.sync m16n8k8 TF32 in 3xTF32 (tp_mma.cuh): each float32 operand split
+// into a TF32 head (rounded to nearest) and a TF32 remainder, rem*head +
+// head*rem + head*head accumulated in float32, float32 accuracy at 165
+// TFLOP/s. The coupling (CG weights, then d1 FMAs per coupled column) is a
+// few per cent of P's FLOPs on the CUDA cores in float32, and it is rebuilt
+// for every hidden-row group, so the design keeps the groups few:
 //   - a block owns 16 receivers (one warp each), one slice of one class's
-//     columns (at most 64: whole u groups of d3 columns, the class's slices
-//     balanced) and one group of hidden rows (32, or 16 when H+1 <= 16).
-//     Each warp keeps its receiver's P tile (hidden rows x slice columns)
-//     in registers for the whole neighbour loop, and streams its own h_aug
-//     and coupled rows through a 3-stage cp.async ring in shared memory (no
-//     block barrier in the loop; coupled in 8-byte pairs where the slice
-//     starts on an even column). h_aug and coupled are read once per
-//     (slice, group); the blocks that share a receiver tile are launched
-//     next to each other, where those repeated reads hit L2;
-//   - the P tiles of the 16 receivers then go to shared memory, and the
-//     block runs the weight product over them: W_c's (group, slice) block
-//     is read once per 16 receivers, each W fragment feeds every
-//     (receiver, d) tile, and the (u, h) depth is split across the warps;
-//   - the partial sums of the depth split, and of the groups and slices,
-//     are added in a fixed order (in shared memory, and in a second small
-//     kernel over a scratch buffer), so the result does not depend on
-//     scheduling: two launches on the same inputs give the same bits.
-// One block per SM (16 warps at 128 registers); nothing is split with
-// atomics.
+//     columns (whole u groups, at most 24 columns, at most xp_cap input
+//     floats, 64 CG-weight columns and 32 harmonics per neighbour) and one
+//     group of hidden rows: the fewest groups of at most 80 rows (5 m16
+//     tiles), balanced, so H+1 = 145 and 97 take 2 groups and 73 one. Each
+//     warp keeps its receiver's P tile (up to 80 x 24) in registers over
+//     all neighbours; each T_c fragment of the weight product feeds the
+//     block's 16 receivers. A warp of 32 x 64 (the shape of this kernel
+//     before it built the coupling) would rebuild it 5 times at H+1 = 145,
+//     and such a warp took 1.3-2.1x as long as these tall, narrow tiles
+//     (measured on gen 2's kernel, factored_tp.cuh, whose design this is);
+//   - the coupling is built by the warp that multiplies it, per stage of 8
+//     neighbours: its hidden rows, the slice's window of harmonics and the
+//     slice's input floats arrive through a 2-stage cp.async ring (no block
+//     barrier in the neighbour loop); the warp computes the stage's CG
+//     weights, then the coupled columns straight into its B tile, in the
+//     row stride (40) the fragment reads want, 8 neighbours side by side
+//     in each lane;
+//   - the slice's geometry (which paths it touches, where each coupled
+//     column reads its inputs and CG weights, which floats of a neighbour's
+//     row each stage copies) is worked out once per block into shared
+//     tables, from the class and path tables the call passes by value;
+//   - the partial sums of the weight product's depth split, and of the
+//     groups and slices, are added in a fixed order (in shared memory, and
+//     in a second small kernel over a scratch buffer): two launches give
+//     the same bits. Nothing is split with atomics.
 //
 // The bfloat16 operand mode is a kernel of its own, designed for Hopper's
-// TMA and wgmma: fused_tp3_bf16.cu.
-//
-// The 3xTF32 and cp.async helpers are in tp_mma.cuh. Plain C
-// interface (no PyTorch headers), built with nvcc into a shared library
-// and called through ctypes; see diffdock_tpu_torch/ops/fused_tp3.py.
+// TMA and wgmma: fused_tp3_bf16.cu. Plain C interface (no PyTorch
+// headers), built with nvcc into a shared library and called through
+// ctypes; see diffdock_tpu_torch/ops/fused_tp3.py, whose tile_plan mirrors
+// make_plan below.
 
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <cmath>
 #include <cstdint>
 
 #include "tp_mma.cuh"
@@ -60,76 +78,201 @@ namespace {
 using namespace tp_mma;
 
 constexpr int kMaxClasses = 16;
-constexpr int kWarps = 16;                // receivers per block, one per warp
+constexpr int kMaxPaths = 64;
+constexpr int kWarps = 16;                 // receivers per block, one per warp
 constexpr int kThreads = kWarps * 32;
-constexpr int kNT = 8;                    // n8 tiles of P per warp: 64 columns
+constexpr int kNT = 3;                     // n8 tiles of P per warp: 24 columns
 constexpr int kSliceCols = kNT * 8;
-constexpr int kKC = 8;                    // neighbours per pipeline stage
-constexpr int kStages = 3;
-constexpr int kBStride = kSliceCols + 8;  // 72: conflict-free fragment reads
-constexpr int kMaxWN = 6;                 // weight-product n8 tiles per warp
-constexpr int kPrefetch = 8;              // weight-product depth steps in flight
-constexpr int kMaxOutputs = 256;          // mul*d3 of one class
-constexpr int kMaxColumns = 4096;         // fan*d3 of one class
+constexpr int kMaxMT = 5;                  // m16 tiles of P per warp: up to 80 hidden rows
+constexpr int kKC = 8;                     // neighbours per pipeline stage
+constexpr int kStages = 2;
+constexpr int kBStride = kSliceCols + 16;  // 40: conflict-free fragment reads
+constexpr int kMaxWN = 6;                  // weight-product n8 tiles per warp
+constexpr int kPrefetch = 8;               // weight-product depth steps in flight
+constexpr int kMaxOutputs = 256;           // mul*d3 of one class
+constexpr int kMaxColumns = 4096;          // fan*d3 of one class
+constexpr int kMaxXp = 96;                 // input floats per neighbour of a slice (cap)
+constexpr int kMaxW = 64;                  // CG-weight columns of a slice
+constexpr int kMaxSh = 32;                 // harmonics a slice stages per neighbour
+constexpr int kMaxCgRows = 16;             // rows of the CG matrix (the largest d2)
+constexpr int kMaxSmemBytes = 232448;
+// the block's shared tables at their largest: colinfo, wcol, xmap, cg_s
+constexpr int kTableFloats = 4 * kSliceCols + 2 * kMaxW + kMaxXp + kMaxCgRows * kMaxW;
 
-struct ClassTable {
-  int f_off[kMaxClasses];    // column offset of the class in `coupled`
-  int fan[kMaxClasses];
-  int d3[kMaxClasses];
-  int mul[kMaxClasses];
-  int out_off[kMaxClasses];  // column offset of the class in `out`
-  int us[kMaxClasses];       // u per column slice (us * d3 <= 64)
-  int n_slices[kMaxClasses]; // ceil(fan / us)
+// The most input floats per neighbour a slice may take with hr hidden rows
+// and sh staged harmonics: kMaxXp, or what each warp's share of shared
+// memory holds beside its ring's hidden rows and harmonics, its B tile and
+// kMaxW CG-weight columns.
+inline int xp_cap(int hr, int sh) {
+  const int per_warp = (kMaxSmemBytes / 4 - kTableFloats) / kWarps;
+  const int room = per_warp - kKC * kBStride - kKC * kMaxW - kStages * kKC * (hr + 8 + sh);
+  const int cap = room / (kStages * kKC);
+  return cap < kMaxXp ? cap : kMaxXp;
+}
+
+// The class and path tables of one tensor product. Every output class is
+// a row, those without a path too (fan 0: zeros). Path columns are
+// relative to their class: u_off into its fan, col into its CG columns
+// (from col0).
+struct Tables {
+  int n_classes, n_paths;
+  int fan[kMaxClasses], d3[kMaxClasses], mul[kMaxClasses], out_off[kMaxClasses];
+  int w_off[kMaxClasses];  // the class's first column of out_kernel and out_bias
+  int col0[kMaxClasses], path0[kMaxClasses], np[kMaxClasses];
+  float scale[kMaxClasses];  // 1/sqrt(fan) in float32
+  int us[kMaxClasses];       // u per column slice
+  int n_slices[kMaxClasses];
   int slice_base[kMaxClasses];  // slices of the classes before this one
-  int pairs[kMaxClasses];    // 1: the class's coupled slices load as 8-byte pairs
-  long long w_off[kMaxClasses];  // element offset of the class's W_c
+  int u_off[kMaxPaths], pmul[kMaxPaths], d1[kMaxPaths], x_start[kMaxPaths];
+  int col[kMaxPaths], sh_start[kMaxPaths], d2[kMaxPaths];
 };
 
-__device__ __forceinline__ void cp_async_wait_stages() { cp_async_wait<kStages - 2>(); }
+// Every operand is float32; x, sh and h are (N, K, width) and mw (N, K),
+// each with a contiguous last axis and the given row strides.
+struct Operands {
+  const float* x;       // x_nbr (N, K, X)
+  const float* sh;      // edge_sh (N, K, J)
+  const float* h;       // (N, K, H)
+  const float* mw;      // (N, K)
+  const float* cg;      // (cg_rows, cg_cols)
+  const float* kernel;  // out_kernel (H, WN)
+  const float* bias;    // out_bias (WN)
+  long long x_n, x_k, sh_n, sh_k, h_n, h_k, mw_n, mw_k;
+};
+
+struct Dims {
+  long long n_rows;
+  int K, X, J, H, WN, cg_rows, cg_cols, D;
+  int n_groups, n_sl, s_max, xs_max, nc_max, sh_max;
+};
+
+// The paths pa..pb of class c that a slice [u0, u0 + nu) touches, its
+// input floats per neighbour (xs), its CG-weight columns (nc, from column
+// cw0 of the class) and its window of harmonics (nsh from sh0). Path p of
+// the slice covers u in [max(u0, u_off), min(u0 + nu, u_off + mul)); its
+// inputs are a contiguous run of a neighbour's row, staged after those of
+// the paths before it.
+struct Slice {
+  int pa, pb, xs, cw0, nc, sh0, nsh;
+};
+
+__host__ __device__ inline Slice slice_of(const Tables& tb, int c, int u0, int nu) {
+  Slice sl;
+  const int pend = tb.path0[c] + tb.np[c];
+  int p = tb.path0[c];
+  while (tb.u_off[p] + tb.pmul[p] <= u0) ++p;
+  sl.pa = p;
+  sl.xs = 0;
+  int lo = 1 << 30, hi = 0;
+  for (; p < pend && tb.u_off[p] < u0 + nu; ++p) {
+    const int ua = u0 > tb.u_off[p] ? u0 : tb.u_off[p];
+    const int ub = u0 + nu < tb.u_off[p] + tb.pmul[p] ? u0 + nu : tb.u_off[p] + tb.pmul[p];
+    sl.xs += tb.d1[p] * (ub - ua);
+    lo = tb.sh_start[p] < lo ? tb.sh_start[p] : lo;
+    hi = tb.sh_start[p] + tb.d2[p] > hi ? tb.sh_start[p] + tb.d2[p] : hi;
+  }
+  sl.pb = p - 1;
+  sl.cw0 = tb.col[sl.pa];
+  sl.nc = tb.col[sl.pb] + tb.d1[sl.pb] * tb.d3[c] - sl.cw0;
+  sl.sh0 = lo;
+  sl.nsh = hi - lo;
+  return sl;
+}
 
 // ---- the kernel ---------------------------------------------------------
 
-// MT: m16 tiles of hidden rows per block (2, or 1 when H+1 <= 16)
+// MT: m16 tiles of hidden rows per block (1-5: the hidden rows in the
+// fewest groups of at most 80, balanced)
 template <int MT>
 __global__ void __launch_bounds__(kThreads, 1)
-fused_tp3_kernel(const float* __restrict__ h_aug,
-                 const float* __restrict__ coupled,
-                 const float* __restrict__ weights,
-                 float* __restrict__ dst,            // out, or the scratch parts
-                 ClassTable tbl, int n_classes, long long n_rows, int K, int Ha, int F,
-                 int D, int n_groups, int n_sl, int s_max) {
-  // h_aug (n_rows, K, Ha), coupled (n_rows, K, F), weights the packed W_c
-  using In = float;
+fused_tp3_kernel(Operands op, float* __restrict__ dst, Tables tb, Dims dm) {
   constexpr int HR = MT * 16;          // hidden rows per block
-  constexpr int AStride = HR + 8;      // 24 or 40: conflict-free fragment reads
-  constexpr int StageFloats = kKC * AStride + kKC * kBStride;
+  constexpr int AStride = HR + 8;      // 8 or 24 mod 32: conflict-free fragment reads
+  const int K = dm.K, xs_s = dm.xs_max, nc_s = dm.nc_max, sh_s = dm.sh_max;
+  const int stage_floats = kKC * (AStride + sh_s + xs_s);
+  const int warp_floats = kStages * stage_floats + kKC * kBStride + kKC * nc_s;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
 
   // block -> (receiver tile, slice of a class, hidden group); the groups
   // and slices of one receiver tile are neighbours in launch order
   long long bid = blockIdx.x;
-  const int g = static_cast<int>(bid % n_groups);
-  bid /= n_groups;
-  const int sl = static_cast<int>(bid % n_sl);
-  const long long tile = bid / n_sl;
-  int c = 0;
-  while (c + 1 < n_classes && sl >= tbl.slice_base[c + 1]) ++c;
-  const int s = sl - tbl.slice_base[c];
+  const int g = static_cast<int>(bid % dm.n_groups);
+  bid /= dm.n_groups;
+  const int sl_id = static_cast<int>(bid % dm.n_sl);
+  const long long tile = bid / dm.n_sl;
+  int c = 0;  // classes without a path have no slices: skipped here
+  while (c + 1 < tb.n_classes && sl_id >= tb.slice_base[c + 1]) ++c;
+  const int s = sl_id - tb.slice_base[c];
 
-  const int fan = tbl.fan[c], d3 = tbl.d3[c], mul = tbl.mul[c];
-  const int u0 = s * tbl.us[c];
-  const int nu = min(tbl.us[c], fan - u0);    // u of this slice
-  const int ncols = nu * d3;                  // P columns of this slice (<= 64)
+  const int fan = tb.fan[c], d3 = tb.d3[c], mul = tb.mul[c];
+  const int u0 = s * tb.us[c];
+  const int nu = min(tb.us[c], fan - u0);     // u of this slice
+  const int ncols = nu * d3;                  // P columns of this slice (<= 24)
   const int nt_used = (ncols + 7) / 8;
   const int h0 = g * HR;
   const long long r0 = tile * kWarps;
+  const Slice sl = slice_of(tb, c, u0, nu);
+  const int nc = sl.nc;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gq = lane >> 2, tq = lane & 3;   // mma fragment coordinates
   const long long r = r0 + warp;
-  const bool row_ok = r < n_rows;
+  const bool row_ok = r < dm.n_rows;
   const long long rr = row_ok ? r : 0;
+
+  // ---- the slice's tables, shared by the block's warps ------------------
+  // colinfo[j]: coupled column j reads its d1 inputs at x + i of a stage
+  //   row and its CG weights at w + i*d3 (x, w, d1);
+  // wcol[cc]: CG-weight column cc sums sh[t0 + t] * cg[t][cc] for t < n
+  //   (t0 in the slice's window of harmonics, n);
+  // xmap[e]: the staged input float e, as an offset into a neighbour's row
+  //   of x_nbr; cg_s: the slice's CG columns
+  int4* colinfo = reinterpret_cast<int4*>(smem + kWarps * warp_floats);  // [24]
+  int2* wcol = reinterpret_cast<int2*>(colinfo + kSliceCols);             // [nc_s]
+  int* xmap = reinterpret_cast<int*>(wcol + nc_s);                        // [kMaxXp]
+  float* cg_s = reinterpret_cast<float*>(xmap + kMaxXp);                  // [cg_rows][nc_s]
+  const int tid = threadIdx.x;
+  const int gcol0 = tb.col0[c] + sl.cw0;  // the slice's first CG column
+  if (tid < kSliceCols) {
+    int4 ci = make_int4(0, 0, 0, 0);
+    if (tid < ncols) {
+      const int uu = tid / d3, d = tid - uu * d3, u = u0 + uu;
+      int base = 0;
+      for (int p = sl.pa; p <= sl.pb; ++p) {
+        const int ua = max(u0, tb.u_off[p]);
+        const int len = min(u0 + nu, tb.u_off[p] + tb.pmul[p]) - ua;
+        if (u < ua + len) {
+          ci = make_int4(base + (u - ua) * tb.d1[p], tb.col[p] - sl.cw0 + d, tb.d1[p], 0);
+          break;
+        }
+        base += tb.d1[p] * len;
+      }
+    }
+    colinfo[tid] = ci;
+  } else if (tid < kSliceCols + nc) {
+    const int cc = tid - kSliceCols;
+    int p = sl.pa;
+    while (p < sl.pb && tb.col[p + 1] <= sl.cw0 + cc) ++p;
+    wcol[cc] = make_int2(tb.sh_start[p] - sl.sh0, tb.d2[p]);
+  }
+  for (int e = tid; e < sl.xs; e += kThreads) {
+    int base = 0;
+    for (int p = sl.pa; p <= sl.pb; ++p) {
+      const int ua = max(u0, tb.u_off[p]);
+      const int n = tb.d1[p] * (min(u0 + nu, tb.u_off[p] + tb.pmul[p]) - ua);
+      if (e < base + n) {
+        xmap[e] = tb.x_start[p] + (ua - tb.u_off[p]) * tb.d1[p] + e - base;
+        break;
+      }
+      base += n;
+    }
+  }
+  for (int q = tid; q < dm.cg_rows * nc; q += kThreads) {
+    const int j = q / nc, cc = q - j * nc;
+    cg_s[j * nc_s + cc] = __ldg(op.cg + static_cast<long long>(j) * dm.cg_cols + gcol0 + cc);
+  }
+  __syncthreads();
 
   // ---- P phase: this warp's receiver, every neighbour -----------------
   float acc[MT][kNT][4];
@@ -140,85 +283,128 @@ fused_tp3_kernel(const float* __restrict__ h_aug,
 #pragma unroll
       for (int v = 0; v < 4; ++v) acc[mi][ni][v] = 0.f;
 
-  float* ring = smem + warp * kStages * StageFloats;
-  const In* h_row = h_aug + rr * K * static_cast<long long>(Ha);
-  const In* c_row = coupled + rr * K * static_cast<long long>(F) + tbl.f_off[c] + u0 * d3;
+  float* ring = smem + warp * warp_floats;
+  float* bs = ring + kStages * stage_floats;  // [kKC][kBStride]: the coupled B tile
+  float* ws = bs + kKC * kBStride;            // [kKC][nc_s]: the stage's CG weights
   const int n_steps = (K + kKC - 1) / kKC;
 
-  // stage `st` of the ring <- neighbours [kc*8, kc*8+8): per lane, A takes
-  // hidden row (lane % HR) of 32/HR neighbours per pass, B column lane and
-  // lane+32 of one neighbour per pass
+  // stage `st` of the ring <- neighbours [kc*8, kc*8+8): the hidden rows
+  // (A, k-major; row H from mw, rows past it zero), the slice's window of
+  // harmonics and its input floats
   auto load_stage = [&](int kc, int st) {
-    float* as = ring + st * StageFloats;
-    float* bs = as + kKC * AStride;
+    float* as = ring + st * stage_floats;
+    float* shs = as + kKC * AStride;
+    float* xs = shs + kKC * sh_s;
     const int k0 = kc * kKC;
-    const int ha = lane % HR;
-    const bool h_ok = row_ok && h0 + ha < Ha;
+    const int n_k = row_ok ? min(kKC, K - k0) : 0;  // live neighbours of the stage
+#pragma unroll 1
+    for (int ha = lane; ha < HR; ha += 32) {
+      // consecutive lanes read consecutive hidden rows, each lane its row
+      // for the 8 neighbours
+      const int hh = h0 + ha;
+      const bool h_ok = hh <= dm.H;
+      const float* src = hh < dm.H ? op.h + rr * op.h_n + k0 * op.h_k + hh
+                                   : op.mw + rr * op.mw_n + k0 * op.mw_k;
+      const long long step = hh < dm.H ? op.h_k : op.mw_k;
 #pragma unroll
-    for (int i = 0; i < kKC * HR / 32; ++i) {
-      const int kk = i * (32 / HR) + lane / HR;
-      const bool ok = h_ok && k0 + kk < K;
-      cp_async4(as + kk * AStride + ha,
-                ok ? h_row + static_cast<long long>(k0 + kk) * Ha + h0 + ha : h_aug, ok);
-    }
-    if (tbl.pairs[c]) {  // every slice starts on an even column of an even-width row
-#pragma unroll
-      for (int kk = 0; kk < kKC; ++kk) {
-        const int j = 2 * lane;
-        const int n = row_ok && k0 + kk < K ? max(0, min(2, ncols - j)) : 0;
-        cp_async8(bs + kk * kBStride + j,
-                  n > 0 ? c_row + static_cast<long long>(k0 + kk) * F + j : coupled, n);
+      for (int kk = 0; kk < kKC; ++kk, src += step) {
+        const bool ok = h_ok && kk < n_k;
+        cp_async4(as + kk * AStride + ha, ok ? src : op.h, ok);
       }
-    } else {
+    }
+    const float* sh_row = op.sh + rr * op.sh_n + k0 * op.sh_k + sl.sh0;
+    for (int e = lane; e < kKC * sl.nsh; e += 32) {
+      const int kk = e / sl.nsh, t = e - kk * sl.nsh;
+      const bool ok = kk < n_k;
+      cp_async4(shs + kk * sh_s + t, ok ? sh_row + kk * op.sh_k + t : op.sh, ok);
+    }
+    // each input float's 8 neighbours, one row stride apart
+    const float* x_row = op.x + rr * op.x_n + k0 * op.x_k;
+    for (int e = lane; e < sl.xs; e += 32) {
+      const float* src = x_row + xmap[e];
 #pragma unroll
-      for (int i = 0; i < 2 * kKC; ++i) {
-        const int kk = i >> 1;
-        const int j = lane + 32 * (i & 1);
-        const bool ok = row_ok && k0 + kk < K && j < ncols;
-        cp_async4(bs + kk * kBStride + j,
-                  ok ? c_row + static_cast<long long>(k0 + kk) * F + j : coupled, ok);
+      for (int kk = 0; kk < kKC; ++kk, src += op.x_k) {
+        const bool ok = kk < n_k;
+        cp_async4(xs + kk * xs_s + e, ok ? src : op.x, ok);
       }
     }
   };
 
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < n_steps) load_stage(st, st);
-    cp_async_commit();
-  }
+  load_stage(0, 0);
+  cp_async_commit();
   for (int kc = 0; kc < n_steps; ++kc) {
-    cp_async_wait_stages();
-    __syncwarp();
-    // refill the stage read in the step before, so kStages - 1 stages are
-    // in flight while this one is multiplied
-    if (kc + kStages - 1 < n_steps) load_stage(kc + kStages - 1, (kc + kStages - 1) % kStages);
+    // the next stage loads while this one is coupled and multiplied
+    if (kc + 1 < n_steps) load_stage(kc + 1, (kc + 1) % kStages);
     cp_async_commit();
-    const float* stage = ring + (kc % kStages) * StageFloats;
+    cp_async_wait<1>();
+    __syncwarp();
+    const float* as = ring + (kc % kStages) * stage_floats;
+    const float* shs = as + kKC * AStride;
+    const float* xs = shs + kKC * sh_s;
+
+    // CG weights: ws[kk][cc] = sum_t sh[kk][t0 + t] * cg[t][cc], a chain of
+    // fused multiply-adds from t = 0; lane cc (and cc + 32) sums the 8
+    // neighbours side by side
+    for (int cc = lane; cc < nc; cc += 32) {
+      const int2 wc = wcol[cc];
+      float v[kKC];
 #pragma unroll
-    for (int k8 = 0; k8 < kKC / 8; ++k8) {
-      const float* as = stage + k8 * 8 * AStride;
-      const float* bs = stage + kKC * AStride + k8 * 8 * kBStride;
-      uint32_t ah[MT][4], al[MT][4];
+      for (int kk = 0; kk < kKC; ++kk) v[kk] = 0.f;
+      for (int t = 0; t < wc.y; ++t) {
+        const float gv = cg_s[t * nc_s + cc];
 #pragma unroll
-      for (int mi = 0; mi < MT; ++mi) {
-        split(as[tq * AStride + mi * 16 + gq], ah[mi][0], al[mi][0]);
-        split(as[tq * AStride + mi * 16 + gq + 8], ah[mi][1], al[mi][1]);
-        split(as[(tq + 4) * AStride + mi * 16 + gq], ah[mi][2], al[mi][2]);
-        split(as[(tq + 4) * AStride + mi * 16 + gq + 8], ah[mi][3], al[mi][3]);
+        for (int kk = 0; kk < kKC; ++kk) v[kk] = fmaf(shs[kk * sh_s + wc.x + t], gv, v[kk]);
       }
+#pragma unroll
+      for (int kk = 0; kk < kKC; ++kk) ws[kk * nc_s + cc] = v[kk];
+    }
+    __syncwarp();
+
+    // coupled columns into the B tile: bs[kk][j] = sum_i x[kk][xo + i] *
+    // ws[kk][wo + i*d3]; lane j (zero past the slice), the 8 neighbours
+    // side by side. Each product is rounded, then added (no fused
+    // multiply-add), in the order i = 0, 1, ...: the arithmetic of the plain
+    // version's chain (tensor_product.py:coupled_class_merged)
+    if (lane < nt_used * 8) {
+      const int4 ci = colinfo[lane];
+      float v[kKC];
+#pragma unroll
+      for (int kk = 0; kk < kKC; ++kk) v[kk] = 0.f;
+      for (int i = 0; i < ci.z; ++i) {
+        const float* xr = xs + ci.x + i;
+        const float* wr = ws + ci.y + i * d3;
+#pragma unroll
+        for (int kk = 0; kk < kKC; ++kk)
+          v[kk] = __fadd_rn(v[kk], __fmul_rn(xr[kk * xs_s], wr[kk * nc_s]));
+      }
+#pragma unroll
+      for (int kk = 0; kk < kKC; ++kk) bs[kk * kBStride + lane] = v[kk];
+    }
+    __syncwarp();
+
+    // P += A^T-stage x B-stage, 3xTF32: the B fragments of the slice's
+    // column tiles, then each row tile against all of them
+    {
+      uint32_t bh[kNT][2], bl[kNT][2];
 #pragma unroll
       for (int ni = 0; ni < kNT; ++ni) {
-        if (ni < nt_used) {
-          uint32_t bh0, bl0, bh1, bl1;
-          split(bs[tq * kBStride + ni * 8 + gq], bh0, bl0);
-          split(bs[(tq + 4) * kBStride + ni * 8 + gq], bh1, bl1);
+        split(bs[tq * kBStride + ni * 8 + gq], bh[ni][0], bl[ni][0]);
+        split(bs[(tq + 4) * kBStride + ni * 8 + gq], bh[ni][1], bl[ni][1]);
+      }
 #pragma unroll
-          for (int mi = 0; mi < MT; ++mi)
-            mma_3xtf32(acc[mi][ni], ah[mi], al[mi], bh0, bh1, bl0, bl1);
-        }
+      for (int mi = 0; mi < MT; ++mi) {
+        uint32_t ah[4], al[4];
+        split(as[tq * AStride + mi * 16 + gq], ah[0], al[0]);
+        split(as[tq * AStride + mi * 16 + gq + 8], ah[1], al[1]);
+        split(as[(tq + 4) * AStride + mi * 16 + gq], ah[2], al[2]);
+        split(as[(tq + 4) * AStride + mi * 16 + gq + 8], ah[3], al[3]);
+#pragma unroll
+        for (int ni = 0; ni < kNT; ++ni)
+          if (ni < nt_used)
+            mma_3xtf32(acc[mi][ni], ah, al, bh[ni][0], bh[ni][1], bl[ni][0], bl[ni][1]);
       }
     }
-    __syncwarp();  // every lane has read this stage before it is refilled
+    __syncwarp();  // every lane is done with this stage, ws and bs
   }
   cp_async_wait<0>();
   __syncthreads();  // the ring is free: P and the partial sums reuse it
@@ -226,7 +412,7 @@ fused_tp3_kernel(const float* __restrict__ h_aug,
   // ---- P tiles to shared memory: ps[(uu*HR + hh)][t*d3 + d] -------------
   // (depth rows of the weight product, kWarps*d3 receiver-and-d columns;
   // the row stride kWarps*d3 + 8 is an odd multiple of 8, so fragment reads
-  // are conflict-free). j / d3 for j < 64 by a multiply: exact for d3 <= 64.
+  // are conflict-free). j / d3 for j < 24 by a multiply: exact for d3 <= 24.
   const int nstride = kWarps * d3 + 8;
   const int inv_d3 = (65536 + d3 - 1) / d3;
   float* ps = smem;
@@ -246,12 +432,12 @@ fused_tp3_kernel(const float* __restrict__ h_aug,
       }
   __syncthreads();
 
-  // ---- weight product: O[w][t*d3+d] = sum_(u,h) W_c[h0+hh, u0+uu, w] * ps --
+  // ---- weight product: O[w][t*d3+d] = sum_(u,h) s_c*T_c[h0+hh, u0+uu, w] * ps
   // tiles: m16 over w (n_m of them), n8 over (receiver, d) (n_n = kWarps*d3/8).
   // Main path (n_n <= kMaxWN): a warp takes one m tile and every n tile, so
-  // each W fragment feeds n_n products, and the depth is split into `parts`
-  // contiguous ranges across the warps of the same m tile. Else a warp
-  // takes whole tiles (w, n) in turn over the full depth.
+  // each weight fragment feeds n_n products, and the depth is split into
+  // `parts` contiguous ranges across the warps of the same m tile. Else a
+  // warp takes whole tiles (w, n) in turn over the full depth.
   const int n_m = (mul + 15) / 16;
   const int n_n = kWarps * d3 / 8;
   const bool wide = n_n <= kMaxWN && n_m <= kWarps;
@@ -259,12 +445,8 @@ fused_tp3_kernel(const float* __restrict__ h_aug,
   const int parts = wide ? kWarps / n_m : 1;
   const int part = wide ? warp / n_m : 0;
   const bool w_active = wide ? part < parts : warp < n_tiles;
-  // depth steps of 8 (m16n8k8 TF32)
-  constexpr int kDepthStep = 8;
-  const int steps = depth / kDepthStep;
-  const int k_begin = part * steps / parts * kDepthStep;
-  const int k_end = (part + 1) * steps / parts * kDepthStep;
-  const In* wc = weights + tbl.w_off[c];
+  const int steps = depth / 8;
+  const int k_begin = part * steps / parts * 8, k_end = (part + 1) * steps / parts * 8;
   float* red = ps + depth * nstride;  // [parts][n_m*16][nstride]
 
   float wacc[kMaxWN][4];
@@ -273,18 +455,24 @@ fused_tp3_kernel(const float* __restrict__ h_aug,
 #pragma unroll
     for (int v = 0; v < 4; ++v) wacc[i][v] = 0.f;
 
-  // W_c row of depth row k = uu*HR + hh, or null past the hidden rows
-  auto w_row = [&](int k) -> const In* {
-    const int hh = k % HR, uu = k / HR;
-    return h0 + hh < Ha ? wc + ((h0 + hh) * fan + u0 + uu) * mul : nullptr;
+  // the weight row of depth row k = uu*HR + hh: out_kernel's row for a
+  // hidden row, out_bias for row H, null past it
+  const long long w_col = tb.w_off[c] + static_cast<long long>(u0) * mul;
+  auto w_row = [&](int k) -> const float* {
+    const int hh = h0 + k % HR;
+    const long long col = w_col + static_cast<long long>(k / HR) * mul;
+    if (hh < dm.H) return op.kernel + static_cast<long long>(hh) * dm.WN + col;
+    return hh == dm.H ? op.bias + col : nullptr;
   };
+  const float scale = tb.scale[c];
+  auto ld_w = [scale](const float* row, int w) { return __ldg(row + w) * scale; };
 
   if (w_active && wide) {
     const int mi = warp % n_m;
     const int w0 = mi * 16 + gq, w1 = w0 + 8;
     const bool w0_ok = w0 < mul, w1_ok = w1 < mul;
     for (int kb = k_begin; kb < k_end; kb += 8 * kPrefetch) {
-      // the W fragments of kPrefetch depth steps are loaded together
+      // the weight fragments of kPrefetch depth steps are loaded together
       float raw[kPrefetch][4];
 #pragma unroll
       for (int q = 0; q < kPrefetch; ++q)
@@ -292,8 +480,8 @@ fused_tp3_kernel(const float* __restrict__ h_aug,
         for (int half = 0; half < 2; ++half) {
           const int k = kb + 8 * q + tq + 4 * half;
           const float* wr = k < k_end ? w_row(k) : nullptr;
-          raw[q][2 * half] = wr != nullptr && w0_ok ? __ldg(wr + w0) : 0.f;
-          raw[q][2 * half + 1] = wr != nullptr && w1_ok ? __ldg(wr + w1) : 0.f;
+          raw[q][2 * half] = wr != nullptr && w0_ok ? ld_w(wr, w0) : 0.f;
+          raw[q][2 * half + 1] = wr != nullptr && w1_ok ? ld_w(wr, w1) : 0.f;
         }
 #pragma unroll
       for (int q = 0; q < kPrefetch; ++q) {
@@ -306,9 +494,11 @@ fused_tp3_kernel(const float* __restrict__ h_aug,
 #pragma unroll
           for (int ni = 0; ni < kMaxWN; ++ni) {
             if (ni < n_n) {
+              const float p0 = ps[(k0 + tq) * nstride + ni * 8 + gq];
+              const float p1 = ps[(k0 + tq + 4) * nstride + ni * 8 + gq];
               uint32_t bh0, bl0, bh1, bl1;
-              split(ps[(k0 + tq) * nstride + ni * 8 + gq], bh0, bl0);
-              split(ps[(k0 + tq + 4) * nstride + ni * 8 + gq], bh1, bl1);
+              split(p0, bh0, bl0);
+              split(p1, bh1, bl1);
               mma_3xtf32(wacc[ni], ah, al, bh0, bh1, bl0, bl1);
             }
           }
@@ -334,14 +524,18 @@ fused_tp3_kernel(const float* __restrict__ h_aug,
       for (int k0 = 0; k0 < depth; k0 += 8) {
         const float* wr0 = w_row(k0 + tq);
         const float* wr1 = w_row(k0 + tq + 4);
+        const float a[4] = {wr0 != nullptr && w0 < mul ? ld_w(wr0, w0) : 0.f,
+                            wr0 != nullptr && w1 < mul ? ld_w(wr0, w1) : 0.f,
+                            wr1 != nullptr && w0 < mul ? ld_w(wr1, w0) : 0.f,
+                            wr1 != nullptr && w1 < mul ? ld_w(wr1, w1) : 0.f};
+        const float p0 = ps[(k0 + tq) * nstride + ni * 8 + gq];
+        const float p1 = ps[(k0 + tq + 4) * nstride + ni * 8 + gq];
         uint32_t ah[4], al[4];
-        split(wr0 != nullptr && w0 < mul ? __ldg(wr0 + w0) : 0.f, ah[0], al[0]);
-        split(wr0 != nullptr && w1 < mul ? __ldg(wr0 + w1) : 0.f, ah[1], al[1]);
-        split(wr1 != nullptr && w0 < mul ? __ldg(wr1 + w0) : 0.f, ah[2], al[2]);
-        split(wr1 != nullptr && w1 < mul ? __ldg(wr1 + w1) : 0.f, ah[3], al[3]);
+#pragma unroll
+        for (int v = 0; v < 4; ++v) split(a[v], ah[v], al[v]);
         uint32_t bh0, bl0, bh1, bl1;
-        split(ps[(k0 + tq) * nstride + ni * 8 + gq], bh0, bl0);
-        split(ps[(k0 + tq + 4) * nstride + ni * 8 + gq], bh1, bl1);
+        split(p0, bh0, bl0);
+        split(p1, bh1, bl1);
         mma_3xtf32(o, ah, al, bh0, bh1, bl0, bl1);
       }
 #pragma unroll
@@ -357,31 +551,45 @@ fused_tp3_kernel(const float* __restrict__ h_aug,
   // ---- sum the depth parts in order and store ----------------------------
   // one part (one group, one slice) writes `out`; else scratch part
   // (s * n_groups + g), summed by fused_tp3_reduce
-  const bool direct = n_groups * s_max == 1;
-  float* base = direct ? dst : dst + (static_cast<long long>(s) * n_groups + g) * n_rows * D;
+  const bool direct = dm.n_groups * dm.s_max == 1;
+  float* base =
+      direct ? dst : dst + (static_cast<long long>(s) * dm.n_groups + g) * dm.n_rows * dm.D;
   const int wd = mul * d3;
-  for (int e = threadIdx.x; e < kWarps * wd; e += kThreads) {
+  for (int e = tid; e < kWarps * wd; e += kThreads) {
     // consecutive threads: consecutive outputs (w, d) of one receiver t
     const int t = e / wd, o = e - t * wd;
     const int w = o / d3, n = t * d3 + o - w * d3;
     float sum = 0.f;
     for (int p = 0; p < parts; ++p) sum += red[(p * n_m * 16 + w) * nstride + n];
     const long long ro = r0 + t;
-    if (ro < n_rows) base[ro * D + tbl.out_off[c] + o] = sum;
+    if (ro < dm.n_rows) base[ro * dm.D + tb.out_off[c] + o] = sum;
+  }
+  // writing `out` directly, the tile's first block also writes the zeros
+  // of the classes without a path (else fused_tp3_reduce does)
+  if (direct && sl_id == 0) {
+    for (int ce = 0; ce < tb.n_classes; ++ce) {
+      if (tb.fan[ce] > 0) continue;
+      const int we = tb.mul[ce] * tb.d3[ce];
+      for (int e = tid; e < kWarps * we; e += kThreads) {
+        const int t = e / we;
+        const long long ro = r0 + t;
+        if (ro < dm.n_rows) dst[ro * dm.D + tb.out_off[ce] + e - t * we] = 0.f;
+      }
+    }
   }
 }
 
 // out[r, col] = sum over the class's slices s and the groups g, in order
+// (zero for a class without a path)
 __global__ void fused_tp3_reduce(const float* __restrict__ parts, float* __restrict__ out,
-                                 ClassTable tbl, int n_classes, long long n_rows, int D,
-                                 int n_groups) {
+                                 Tables tb, long long n_rows, int D, int n_groups) {
   const long long total = n_rows * D;
   for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; e < total;
        e += static_cast<long long>(gridDim.x) * blockDim.x) {
     const int col = static_cast<int>(e % D);
     int c = 0;
-    while (c + 1 < n_classes && col >= tbl.out_off[c + 1]) ++c;
-    const int n_parts = tbl.n_slices[c] * n_groups;
+    while (c + 1 < tb.n_classes && col >= tb.out_off[c + 1]) ++c;
+    const int n_parts = tb.n_slices[c] * n_groups;
     float sum = 0.f;
     for (int q = 0; q < n_parts; ++q) sum += parts[q * total + e];
     out[e] = sum;
@@ -401,113 +609,174 @@ int sm_count() {
   return n;
 }
 
-struct Plan {
-  int mt;        // m16 tiles of hidden rows per block
-  int n_groups;  // hidden-row groups
-  int s_max;     // most column slices of a class
-  int n_sl;      // column slices of all classes
-  long long smem_floats;
-};
-
-// Fills the derived columns of `tbl` and returns the launch plan, or
-// mt = 0 if a class does not fit a block.
-Plan make_plan(ClassTable& tbl, int n_classes, int Ha) {
-  Plan p = {};
-  p.mt = Ha <= 16 ? 1 : 2;
-  const int hr = 16 * p.mt;
-  p.n_groups = (Ha + hr - 1) / hr;
-  const long long ring =
-      static_cast<long long>(kWarps) * kStages * (kKC * (hr + 8) + kKC * kBStride);
-  p.smem_floats = ring;
+// class_rows: n_classes rows of 8 int32 (fan, d3, mul, out_off, w_off,
+// col0, path0, n_paths); path_rows: n_paths rows of 7 int32 (u_off, mul,
+// d1, x_start, col, sh_start, d2)
+bool read_tables(const int* class_rows, int n_classes, const int* path_rows, int n_paths,
+                 Tables& tb) {
+  if (n_classes < 1 || n_classes > kMaxClasses || n_paths < 1 || n_paths > kMaxPaths)
+    return false;
+  tb = Tables{};
+  tb.n_classes = n_classes;
+  tb.n_paths = n_paths;
   for (int c = 0; c < n_classes; ++c) {
-    const int fan = tbl.fan[c], d3 = tbl.d3[c], mul = tbl.mul[c];
-    if (fan < 1 || d3 < 1 || mul < 1 || d3 > kSliceCols || mul * d3 > kMaxOutputs ||
-        fan * d3 > kMaxColumns) {
-      p.mt = 0;
-      return p;
-    }
-    // the fewest slices of at most 64 columns, balanced; an even number of
-    // u per slice where that fits, so every slice starts on an even column
-    const int us_max = kSliceCols / d3;
-    tbl.n_slices[c] = (fan + us_max - 1) / us_max;
-    tbl.us[c] = (fan + tbl.n_slices[c] - 1) / tbl.n_slices[c];
-    if (tbl.us[c] % 2 == 1 && tbl.us[c] < us_max) ++tbl.us[c];
-    // as the kernel's weight product splits its depth
-    const int n_m = (mul + 15) / 16, n_n = kWarps * d3 / 8;
-    const int parts = n_n <= kMaxWN && n_m <= kWarps ? kWarps / n_m : 1;
-    const long long nstride = static_cast<long long>(kWarps) * d3 + 8;
-    const long long need = hr * static_cast<long long>(tbl.us[c]) * nstride +
-                           static_cast<long long>(parts) * n_m * 16 * nstride;
-    p.smem_floats = std::max(p.smem_floats, need);
-    p.s_max = std::max(p.s_max, tbl.n_slices[c]);
-    tbl.slice_base[c] = p.n_sl;
-    p.n_sl += tbl.n_slices[c];
+    const int* row = class_rows + 8 * c;
+    tb.fan[c] = row[0];
+    tb.d3[c] = row[1];
+    tb.mul[c] = row[2];
+    tb.out_off[c] = row[3];
+    tb.w_off[c] = row[4];
+    tb.col0[c] = row[5];
+    tb.path0[c] = row[6];
+    tb.np[c] = row[7];
+    tb.scale[c] = row[0] > 0 ? static_cast<float>(1.0 / std::sqrt(static_cast<double>(row[0]))) : 0.f;
   }
-  return p;
-}
-
-bool read_table(const long long* class_table, int n_classes, ClassTable& tbl) {
-  if (n_classes < 1 || n_classes > kMaxClasses) return false;
-  tbl = ClassTable{};
-  for (int c = 0; c < n_classes; ++c) {
-    const long long* row = class_table + 6 * c;
-    tbl.f_off[c] = static_cast<int>(row[0]);
-    tbl.fan[c] = static_cast<int>(row[1]);
-    tbl.d3[c] = static_cast<int>(row[2]);
-    tbl.mul[c] = static_cast<int>(row[3]);
-    tbl.out_off[c] = static_cast<int>(row[4]);
-    tbl.w_off[c] = row[5];
+  for (int p = 0; p < n_paths; ++p) {
+    const int* row = path_rows + 7 * p;
+    tb.u_off[p] = row[0];
+    tb.pmul[p] = row[1];
+    tb.d1[p] = row[2];
+    tb.x_start[p] = row[3];
+    tb.col[p] = row[4];
+    tb.sh_start[p] = row[5];
+    tb.d2[p] = row[6];
   }
   return true;
 }
 
+// The tables are consistent and every read they imply lies inside its
+// operand: classes follow each other in `out` and in the weights' columns,
+// paths tile their class's u and CG columns in order, input runs lie
+// inside X, harmonics inside J, CG blocks inside the CG matrix; at least
+// one class has a path.
+bool tables_ok(const Tables& tb, int X, int J, int cg_rows, int cg_cols, int D, int WN) {
+  if (J < 1 || cg_rows < 1 || cg_rows > kMaxCgRows) return false;
+  int out_end = 0, w_end = 0, live = 0;
+  for (int c = 0; c < tb.n_classes; ++c) {
+    const int fan = tb.fan[c], d3 = tb.d3[c], mul = tb.mul[c];
+    if (fan < 0 || d3 < 1 || d3 > kSliceCols || mul < 1 || mul * d3 > kMaxOutputs ||
+        fan * d3 > kMaxColumns || tb.out_off[c] != out_end || tb.w_off[c] != w_end)
+      return false;
+    out_end += mul * d3;
+    w_end += fan * mul;
+    if (fan == 0) {
+      if (tb.np[c] != 0) return false;
+      continue;
+    }
+    ++live;
+    if (tb.np[c] < 1 || tb.path0[c] < 0 || tb.path0[c] + tb.np[c] > tb.n_paths || tb.col0[c] < 0)
+      return false;
+    int u = 0, col = 0;
+    for (int p = tb.path0[c]; p < tb.path0[c] + tb.np[c]; ++p) {
+      const int d1 = tb.d1[p];
+      if (tb.u_off[p] != u || tb.pmul[p] < 1 || tb.col[p] != col || d1 < 1 || d1 > kMaxXp ||
+          d1 * d3 > kMaxW || tb.x_start[p] < 0 || tb.x_start[p] + d1 * tb.pmul[p] > X ||
+          tb.col0[c] + col + d1 * d3 > cg_cols || tb.d2[p] < 1 || tb.d2[p] > cg_rows ||
+          tb.sh_start[p] < 0 || tb.sh_start[p] + tb.d2[p] > J)
+        return false;
+      u += tb.pmul[p];
+      col += d1 * d3;
+    }
+    if (u != fan) return false;
+  }
+  return live > 0 && out_end == D && w_end == WN;
+}
+
+struct Plan {
+  int mt;        // m16 tiles of hidden rows per block (0: refused)
+  int n_groups;  // hidden-row groups
+  int s_max;     // most column slices of a class
+  int n_sl;      // column slices of all classes
+  int xs_max;    // most input floats per neighbour of a slice
+  int nc_max;    // most CG-weight columns of a slice
+  int sh_max;    // most harmonics per neighbour of a slice
+  long long smem_floats;
+};
+
+// Fills the slice columns of `tb` and returns the launch plan: the hidden
+// rows in the fewest groups of at most 80 (m16 tiles, balanced), per class
+// the fewest slices of at most 24 columns, balanced, that keep every slice
+// within xp_cap input floats, kMaxW CG-weight columns and kMaxSh harmonics
+// (which keeps the block's shared memory within the card's).
+Plan make_plan(Tables& tb, int Ha, int J, int cg_rows) {
+  Plan p = {};
+  p.n_groups = (Ha + 16 * kMaxMT - 1) / (16 * kMaxMT);
+  const int mt = (Ha + 16 * p.n_groups - 1) / (16 * p.n_groups);
+  const int hr = 16 * mt;
+  long long wp_need = 0;
+  const int cap = xp_cap(hr, std::min(J, kMaxSh));
+  for (int c = 0; c < tb.n_classes; ++c) {
+    const int fan = tb.fan[c], d3 = tb.d3[c], mul = tb.mul[c];
+    tb.slice_base[c] = p.n_sl;
+    if (fan == 0) continue;
+    int n = (fan + kSliceCols / d3 - 1) / (kSliceCols / d3);
+    int us = 0, ns = 0;
+    for (;; ++n) {
+      us = (fan + n - 1) / n;
+      ns = (fan + us - 1) / us;
+      bool fits = true;
+      for (int s = 0; s < ns && fits; ++s) {
+        const Slice sl = slice_of(tb, c, s * us, std::min(us, fan - s * us));
+        fits = sl.xs <= cap && sl.nc <= kMaxW && sl.nsh <= kMaxSh;
+      }
+      if (fits) break;
+      if (us == 1) return p;  // mt = 0: one u alone does not fit
+    }
+    tb.us[c] = us;
+    tb.n_slices[c] = ns;
+    p.n_sl += ns;
+    p.s_max = std::max(p.s_max, ns);
+    for (int s = 0; s < ns; ++s) {
+      const Slice sl = slice_of(tb, c, s * us, std::min(us, fan - s * us));
+      p.xs_max = std::max(p.xs_max, sl.xs);
+      p.nc_max = std::max(p.nc_max, sl.nc);
+      p.sh_max = std::max(p.sh_max, sl.nsh);
+    }
+    // as the kernel's weight product splits its depth
+    const int n_m = (mul + 15) / 16, n_n = kWarps * d3 / 8;
+    const int parts = n_n <= kMaxWN && n_m <= kWarps ? kWarps / n_m : 1;
+    const long long nstride = static_cast<long long>(kWarps) * d3 + 8;
+    wp_need = std::max(wp_need, hr * static_cast<long long>(us) * nstride +
+                                    static_cast<long long>(parts) * n_m * 16 * nstride);
+  }
+  const long long warp_floats =
+      static_cast<long long>(kStages) * kKC * (hr + 8 + p.sh_max + p.xs_max) + kKC * kBStride +
+      kKC * p.nc_max;
+  const long long ring = kWarps * warp_floats + 4LL * kSliceCols + 2LL * p.nc_max + kMaxXp +
+                         static_cast<long long>(cg_rows) * p.nc_max;
+  p.smem_floats = std::max(ring, wp_need);
+  if (p.n_sl == 0 || p.smem_floats * 4 > kMaxSmemBytes) return p;
+  p.mt = mt;
+  return p;
+}
+
+long long scratch_floats(const Plan& p, long long n_rows, int D) {
+  const long long n_parts = static_cast<long long>(p.n_groups) * p.s_max;
+  return n_parts == 1 ? 0 : n_parts * n_rows * D;
+}
+
 template <int MT>
-cudaError_t launch(const float* h_aug, const float* coupled, const float* weights, float* out,
-                   float* scratch, const ClassTable& tbl, const Plan& plan, int n_classes,
-                   long long n_rows, int K, int Ha, int F, int D, cudaStream_t stream) {
+cudaError_t launch_mt(const Operands& op, float* out, float* scratch, const Tables& tb,
+                      const Dims& dm, const Plan& plan, cudaStream_t stream) {
   const size_t smem = sizeof(float) * static_cast<size_t>(plan.smem_floats);
   cudaError_t err = cudaFuncSetAttribute(fused_tp3_kernel<MT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const long long n_tiles = (n_rows + kWarps - 1) / kWarps;
+  const long long n_tiles = (dm.n_rows + kWarps - 1) / kWarps;
   const long long n_blocks = n_tiles * plan.n_sl * plan.n_groups;
   if (n_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const bool direct = plan.n_groups * plan.s_max == 1;
-  // a class's coupled slices load in 8-byte pairs if the rows
-  // have an even width and an 8-byte aligned base, and every slice starts on
-  // an even column
-  ClassTable t = tbl;
-  const bool even_rows = F % 2 == 0 && reinterpret_cast<uintptr_t>(coupled) % 8 == 0;
-  for (int c = 0; c < n_classes; ++c)
-    t.pairs[c] = even_rows && t.f_off[c] % 2 == 0 && (t.us[c] * t.d3[c]) % 2 == 0;
   fused_tp3_kernel<MT><<<static_cast<unsigned>(n_blocks), kThreads, smem, stream>>>(
-      h_aug, coupled, weights, direct ? out : scratch, t, n_classes, n_rows, K, Ha, F, D,
-      plan.n_groups, plan.n_sl, plan.s_max);
+      op, direct ? out : scratch, tb, dm);
   err = cudaGetLastError();
   if (err != cudaSuccess || direct) return err;
-  const long long total = n_rows * D;
+  const long long total = dm.n_rows * dm.D;
   const long long blocks = std::min<long long>((total + 255) / 256, 32LL * sm_count());
-  fused_tp3_reduce<<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
-      scratch, out, tbl, n_classes, n_rows, D, plan.n_groups);
+  fused_tp3_reduce<<<static_cast<unsigned>(blocks), 256, 0, stream>>>(scratch, out, tb,
+                                                                      dm.n_rows, dm.D,
+                                                                      plan.n_groups);
   return cudaGetLastError();
-}
-
-int forward(const float* h_aug, const float* coupled, const float* weights, float* out,
-            float* scratch, const long long* class_table, int n_classes, long long n_rows, int K,
-            int Ha, int F, int D, void* stream) {
-  ClassTable tbl;
-  if (!read_table(class_table, n_classes, tbl) || K < 1 || Ha < 1)
-    return cudaErrorInvalidValue;
-  const Plan plan = make_plan(tbl, n_classes, Ha);
-  if (plan.mt == 0) return cudaErrorInvalidValue;
-  if (n_rows == 0) return cudaSuccess;
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (plan.mt == 1)
-    return launch<1>(h_aug, coupled, weights, out, scratch, tbl, plan, n_classes, n_rows,
-                           K, Ha, F, D, s);
-  return launch<2>(h_aug, coupled, weights, out, scratch, tbl, plan, n_classes, n_rows, K,
-                         Ha, F, D, s);
 }
 
 }  // namespace
@@ -515,31 +784,77 @@ int forward(const float* h_aug, const float* coupled, const float* weights, floa
 extern "C" {
 
 int fused_tp3_max_classes() { return kMaxClasses; }
+int fused_tp3_max_paths() { return kMaxPaths; }
 // the widest class a block takes: mul*d3 outputs, fan*d3 coupled columns
 int fused_tp3_max_outputs() { return kMaxOutputs; }
 int fused_tp3_max_columns() { return kMaxColumns; }
 
-// Floats of scratch the call needs (0 when the kernel writes `out`
-// directly), or -1 if the class table is refused.
-long long fused_tp3_scratch_floats(const long long* class_table, int n_classes,
-                                   long long n_rows, int Ha, int D) {
-  ClassTable tbl;
-  if (!read_table(class_table, n_classes, tbl) || Ha < 1) return -1;
-  const Plan plan = make_plan(tbl, n_classes, Ha);
+// The launch plan into plan_out (8 + 2*kMaxClasses ints: n_groups, s_max,
+// n_sl, xs_max, nc_max, sh_max, hidden rows per group, shared memory
+// floats, then us and n_slices of each class); returns the floats of
+// scratch the call needs (0 when the kernel writes `out` directly), or -1
+// if the tables or H are refused.
+long long fused_tp3_plan(const int* class_rows, int n_classes, const int* path_rows, int n_paths,
+                         long long n_rows, int X, int J, int H, int cg_rows, int cg_cols, int D,
+                         int WN, int* plan_out) {
+  Tables tb;
+  if (!read_tables(class_rows, n_classes, path_rows, n_paths, tb) || H < 1 ||
+      !tables_ok(tb, X, J, cg_rows, cg_cols, D, WN))
+    return -1;
+  const Plan plan = make_plan(tb, H + 1, J, cg_rows);
   if (plan.mt == 0) return -1;
-  const long long n_parts = static_cast<long long>(plan.n_groups) * plan.s_max;
-  return n_parts == 1 ? 0 : n_parts * n_rows * D;
+  const int head[8] = {plan.n_groups, plan.s_max, plan.n_sl, plan.xs_max, plan.nc_max,
+                       plan.sh_max, 16 * plan.mt, static_cast<int>(plan.smem_floats)};
+  for (int i = 0; i < 8; ++i) plan_out[i] = head[i];
+  for (int c = 0; c < kMaxClasses; ++c) {
+    plan_out[8 + c] = c < n_classes ? tb.us[c] : 0;
+    plan_out[8 + kMaxClasses + c] = c < n_classes ? tb.n_slices[c] : 0;
+  }
+  return scratch_floats(plan, n_rows, D);
 }
 
-// class_table: host array of n_classes rows of 6 int64 values
-// (f_off, fan, d3, mul, out_off, w_off); scratch: the floats that
-// fused_tp3_scratch_floats asks for. Returns a cudaError_t.
-int fused_tp3_forward(const float* h_aug, const float* coupled, const float* weights,
-                      float* out, float* scratch, const long long* class_table,
-                      int n_classes, long long n_rows, int K, int Ha, int F, int D,
+// x_n ... mw_k: the row strides (N, K) of x, sh, h and mw, in elements;
+// scratch: the floats fused_tp3_plan asks for. Returns a cudaError_t.
+int fused_tp3_forward(const float* x, const float* sh, const float* h, const float* mw,
+                      const float* cg, const float* kernel, const float* bias, float* out,
+                      float* scratch, long long x_n, long long x_k, long long sh_n,
+                      long long sh_k, long long h_n, long long h_k, long long mw_n,
+                      long long mw_k, const int* class_rows,
+                      int n_classes, const int* path_rows, int n_paths, long long n_rows, int K,
+                      int X, int J, int H, int cg_rows, int cg_cols, int D, int WN,
                       void* stream) {
-  return forward(h_aug, coupled, weights, out, scratch, class_table, n_classes, n_rows, K, Ha, F,
-                 D, stream);
+  Tables tb;
+  if (!read_tables(class_rows, n_classes, path_rows, n_paths, tb) || K < 1 || H < 1 ||
+      !tables_ok(tb, X, J, cg_rows, cg_cols, D, WN))
+    return cudaErrorInvalidValue;
+  const Plan plan = make_plan(tb, H + 1, J, cg_rows);
+  if (plan.mt == 0) return cudaErrorInvalidValue;
+  if (n_rows == 0) return cudaSuccess;
+  const Operands op = {x, sh, h, mw, cg, kernel, bias, x_n, x_k, sh_n, sh_k, h_n, h_k, mw_n, mw_k};
+  Dims dm = {};
+  dm.n_rows = n_rows;
+  dm.K = K;
+  dm.X = X;
+  dm.J = J;
+  dm.H = H;
+  dm.WN = WN;
+  dm.cg_rows = cg_rows;
+  dm.cg_cols = cg_cols;
+  dm.D = D;
+  dm.n_groups = plan.n_groups;
+  dm.n_sl = plan.n_sl;
+  dm.s_max = plan.s_max;
+  dm.xs_max = plan.xs_max;
+  dm.nc_max = plan.nc_max;
+  dm.sh_max = plan.sh_max;
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (plan.mt) {
+    case 1: return launch_mt<1>(op, out, scratch, tb, dm, plan, s);
+    case 2: return launch_mt<2>(op, out, scratch, tb, dm, plan, s);
+    case 3: return launch_mt<3>(op, out, scratch, tb, dm, plan, s);
+    case 4: return launch_mt<4>(op, out, scratch, tb, dm, plan, s);
+    default: return launch_mt<5>(op, out, scratch, tb, dm, plan, s);
+  }
 }
 
 }  // extern "C"

@@ -1,7 +1,9 @@
 """Chemistry I/O without RDKit (port of ``diffdock_tpu/data/chem.py``).
 
-* SDF/MOL V2000 reader and writer (atoms, bonds, charges, 3D coords) and a
-  small-molecule PDB reader and writer;
+* SDF/MOL reader and writer (atoms, bonds, charges, 3D coords): V2000, and
+  V3000 where a molecule does not fit V2000's fixed-width fields (a
+  coordinate outside -9999.9999..99999.9999 A, more than 999 atoms or
+  bonds); and a small-molecule PDB reader and writer;
 * a light perception pass (rings up to size 8, aromaticity from bond
   blocks, implicit H counts from standard valences) feeding the
   featurizer's categorical vocabularies;
@@ -75,17 +77,52 @@ class Molecule:
         )
 
 
+def _parse_v3000(lines: List[str], name: str) -> Optional[Molecule]:
+    """One V3000 record from its counts line on: the ``M  V30`` lines (a
+    line ending in ``-`` continues on the next) of the atom and bond blocks,
+    with ``CHG=`` on the atoms."""
+    v30, part = [], ""
+    for ln in lines[1:]:
+        if ln.startswith("M  END"):
+            break
+        if not ln.startswith("M  V30 "):
+            continue
+        part += ln[7:]
+        if part.endswith("-"):
+            part = part[:-1]
+            continue
+        v30.append(part)
+        part = ""
+    elements, coords, charges, bonds, block = [], [], [], [], None
+    for ln in v30:
+        fields = ln.split()
+        if fields[:1] in (["BEGIN"], ["END"]):
+            block = fields[1] if fields[0] == "BEGIN" else None
+        elif block == "ATOM":
+            elements.append(fields[1])
+            coords.append(tuple(float(v) for v in fields[2:5]))
+            chg = [int(f[4:]) for f in fields[6:] if f.startswith("CHG=")]
+            charges.append(chg[0] if chg else 0)
+        elif block == "BOND":
+            bonds.append((int(fields[2]) - 1, int(fields[3]) - 1, int(fields[1])))
+    if not elements:
+        return None
+    return Molecule(elements=elements, coords=np.asarray(coords, np.float32).reshape(-1, 3),
+                    bonds=bonds, charges=charges, name=name)
+
+
 def parse_sdf(text: str) -> List[Molecule]:
-    """Parse an SDF/MOL file (V2000). Multiple records separated by $$$$."""
+    """Parse an SDF/MOL file (V2000 or V3000). Multiple records separated by
+    $$$$."""
     mols = []
     for record in text.split("$$$$"):
         lines = record.splitlines()
-        # locate the V2000 counts line explicitly — the title line of the
-        # 3-line header is legitimately blank in many SDFs (e.g. RDKit
-        # output), so stripping leading blanks would misalign the block
+        # locate the counts line explicitly — the title line of the 3-line
+        # header is legitimately blank in many SDFs (e.g. RDKit output), so
+        # stripping leading blanks would misalign the block
         ci = next(
             (i for i, ln in enumerate(lines[:12])
-             if ln.rstrip().endswith("V2000")),
+             if ln.rstrip().endswith(("V2000", "V3000"))),
             None,
         )
         if ci is None:
@@ -100,6 +137,11 @@ def parse_sdf(text: str) -> List[Molecule]:
         if len(lines) < 4:
             continue
         counts = lines[3]
+        if counts.rstrip().endswith("V3000"):
+            mol = _parse_v3000(lines[3:], lines[0].strip())
+            if mol is not None:
+                mols.append(mol)
+            continue
         try:
             n_atoms = int(counts[0:3])
             n_bonds = int(counts[3:6])
@@ -149,9 +191,13 @@ def write_sdf(
     coords: Optional[np.ndarray] = None,
     props: Optional[Dict[str, str]] = None,
 ) -> str:
-    """Serialize one molecule (V2000) with optional replacement coords."""
+    """Serialize one molecule with optional replacement coords: V2000, or
+    V3000 where a coordinate or a count does not fit V2000's fields."""
     coords = mol.coords if coords is None else np.asarray(coords)
     lines = [mol.name, "  diffdock_tpu", ""]
+    if (mol.num_atoms > 999 or len(mol.bonds) > 999
+            or any(len(f"{v:10.4f}") > 10 for v in np.asarray(coords).ravel().tolist())):
+        return _write_v3000(mol, coords, props, lines)
     lines.append(
         f"{mol.num_atoms:3d}{len(mol.bonds):3d}  0  0  0  0  0  0  0  0999 V2000"
     )
@@ -169,6 +215,10 @@ def write_sdf(
             + f"{len(batch):3d}"
             + "".join(f"{i + 1:4d}{c:4d}" for i, c in batch)
         )
+    return _close_record(lines, props)
+
+
+def _close_record(lines: List[str], props: Optional[Dict[str, str]]) -> str:
     lines.append("M  END")
     for k, v in (props or {}).items():
         lines.append(f"> <{k}>")
@@ -176,6 +226,26 @@ def write_sdf(
         lines.append("")
     lines.append("$$$$")
     return "\n".join(lines) + "\n"
+
+
+def _write_v3000(mol: Molecule, coords: np.ndarray, props, lines: List[str]) -> str:
+    """The V3000 record of :func:`write_sdf`: free-format fields, lines of
+    at most 80 characters (a longer one continues after a ``-``)."""
+    body = ["BEGIN CTAB", f"COUNTS {mol.num_atoms} {len(mol.bonds)} 0 0 0", "BEGIN ATOM"]
+    for k, (el, (x, y, z), c) in enumerate(zip(mol.elements, np.asarray(coords).tolist(), mol.charges)):
+        body.append(f"{k + 1} {el} {x:.4f} {y:.4f} {z:.4f} 0" + (f" CHG={c}" if c else ""))
+    body.append("END ATOM")
+    if mol.bonds:
+        body += ["BEGIN BOND"] + [f"{k + 1} {o} {i + 1} {j + 1}" for k, (i, j, o) in enumerate(mol.bonds)]
+        body.append("END BOND")
+    body.append("END CTAB")
+    lines.append("  0  0  0     0  0            999 V3000")
+    for text in body:
+        while len(text) > 72:
+            lines.append(f"M  V30 {text[:72]}-")
+            text = text[72:]
+        lines.append(f"M  V30 {text}")
+    return _close_record(lines, props)
 
 
 # single-bond covalent radii (A) for distance-based bond perception when a

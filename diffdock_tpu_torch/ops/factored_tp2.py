@@ -7,8 +7,9 @@ signature
 
 (see :mod:`diffdock_tpu_torch.ops.fused_tp3` for the arguments) and
 returns the neighbour SUM of the tensor-product messages in e3nn layout.
-Unlike gen 3, the kernel builds the Clebsch-Gordan coupling itself, from
-the raw neighbour features and edge harmonics:
+As gen 3's float32 kernel does, the kernel builds the Clebsch-Gordan
+coupling itself, from the raw neighbour features and edge harmonics, here
+from operands its host side packs first:
 
 * the host side packs the inputs as the TPU kernel's ``_forward_pallas``
   does: neighbour features in ``[path][i][u]`` order

@@ -12,16 +12,24 @@ mask*edge_weight, ``out_kernel`` (H, weight_numel) and ``out_bias``
 neighbour SUM of the tensor-product messages (``_tp_message_reduced``
 semantics), in e3nn layout, with empty output classes zero.
 
-* :func:`fused_tp3` builds the merged coupled tensor and the per-class
-  weight blocks in torch, then launches ``csrc/fused_tp3.cu`` (which
-  replaces the TPU kernel ``pallas_tpconv3.py:_kernel``; tensor-core
-  products in 3xTF32, float32 accuracy), or for bfloat16 operands
-  ``csrc/fused_tp3_bf16.cu`` (TMA-fed ``wgmma``). On a CPU tensor
-  it runs :func:`fused_tp3_reference` instead; on a CUDA tensor it
-  launches the kernel or raises. When a gradient is wanted it runs as a
-  ``torch.autograd.Function`` (:class:`PlainVJP`) whose backward is the VJP of
-  the plain version, as the TPU kernel's ``custom_vjp`` backward is the VJP
-  of its einsum path (``pallas_tpconv3.py:make_fused_tp_messages``).
+* :func:`fused_tp3` runs ``csrc/fused_tp3.cu`` (which replaces the TPU
+  kernel ``pallas_tpconv3.py:_kernel`` and the coupled tensor its wrapper
+  builds; tensor-core products in 3xTF32, float32 accuracy) through
+  :func:`forward_f32` for float32 operands: the kernel builds the
+  Clebsch-Gordan coupling itself from the inputs as they are (the senders
+  in e3nn layout, the harmonics, ``h`` and ``mw`` apart, the weights and
+  bias as the parameters hold them), so the host only checks shapes and
+  allocates the output; the tables it reads (:func:`tp_geometry`) are
+  built once per tensor product and its plan (:func:`tile_plan`) is
+  checked against the library's once per shape. bfloat16 operands go to
+  ``csrc/fused_tp3_bf16.cu`` (TMA-fed ``wgmma``) through :func:`prepare`
+  and :func:`launch`, which build its coupled tensor and packed weights in
+  torch. On a CPU tensor it runs :func:`fused_tp3_reference` instead; on a
+  CUDA tensor it launches the kernel or raises. When a gradient is wanted
+  it runs as a ``torch.autograd.Function`` (:class:`PlainVJP`) whose
+  backward is the VJP of the plain version, as the TPU kernel's
+  ``custom_vjp`` backward is the VJP of its einsum path
+  (``pallas_tpconv3.py:make_fused_tp_messages``).
 * :func:`fused_tp3_reference` is the plain version: the two einsums of the
   JAX package's merged branch (``models/tpconv.py:_tp_message_reduced``,
   ``merged=True``) against the block-diagonal (H+1, F_tot, W_tot) weight
@@ -167,14 +175,16 @@ class _Kernel:
     def __init__(self):
         lib = build.load("fused_tp3", _SOURCES)
         fn = lib.fused_tp3_forward
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
-        ]
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 8
+                       + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                          ctypes.c_longlong] + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         self.forward = fn
+        plan = lib.fused_tp3_plan
+        plan.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                         ctypes.c_longlong] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        plan.restype = ctypes.c_longlong
+        self.plan = plan
         fb = lib.fused_tp3_bf16_forward
         fb.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -184,20 +194,17 @@ class _Kernel:
         ]
         fb.restype = ctypes.c_int
         self.forward_bf16 = fb
-        plan = lib.fused_tp3_bf16_plan
-        plan.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        plan.restype = ctypes.c_int
-        self.plan_bf16 = plan
-        scratch = lib.fused_tp3_scratch_floats
-        scratch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                            ctypes.c_int]
-        scratch.restype = ctypes.c_longlong
-        for name in ("fused_tp3_max_classes", "fused_tp3_max_outputs", "fused_tp3_max_columns"):
+        plan_bf16 = lib.fused_tp3_bf16_plan
+        plan_bf16.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        plan_bf16.restype = ctypes.c_int
+        self.plan_bf16 = plan_bf16
+        for name in ("fused_tp3_max_classes", "fused_tp3_max_paths", "fused_tp3_max_outputs",
+                     "fused_tp3_max_columns"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ctypes.c_int
-        self.scratch_floats = scratch
         self.max_classes = lib.fused_tp3_max_classes()
+        self.max_paths = lib.fused_tp3_max_paths()
         self.max_outputs = lib.fused_tp3_max_outputs()
         self.max_columns = lib.fused_tp3_max_columns()
 
@@ -225,45 +232,227 @@ def class_table(classes, H1: int) -> np.ndarray:
     return np.asarray(rows, dtype=np.int64).reshape(-1, 6)
 
 
-# the kernel's blocking (csrc/fused_tp3.cu): 16 receivers per block, P
-# column slices of at most 64 columns (whole u groups of d3, balanced, an
-# even number of them where that fits), hidden rows in groups of 32 (16
-# when H+1 <= 16)
+# ---- the float32 kernel (csrc/fused_tp3.cu): its tables and blocking ----
+
+# 16 receivers per block; hidden rows in the fewest groups of at most 80
+# (whole m16 tiles, balanced); per class the fewest column slices of whole
+# u groups, at most 24 columns, balanced, whose staged inputs, CG-weight
+# columns and harmonics fit the block's shared memory
 TILE_ROWS = 16
-SLICE_COLS = 64
+SLICE_COLS = 24
+MAX_HIDDEN_ROWS = 80
+MAX_CLASSES = 16
+_KC, _STAGES, _B_STRIDE = 8, 2, 40  # neighbours per stage, ring stages, B tile row stride
+_MAX_XP, _MAX_W, _MAX_SH = 96, 64, 32  # per slice: input floats, CG-weight columns, harmonics
+_MAX_CG_ROWS = 16  # rows of the CG matrix (the largest d2)
+_MAX_WN = 6  # weight-product n8 tiles per warp
+_SMEM_BYTES = 232448
+_TABLE_FLOATS = 4 * SLICE_COLS + 2 * _MAX_W + _MAX_XP + _MAX_CG_ROWS * _MAX_W
+
+
+class Geometry(NamedTuple):
+    """What the float32 kernel reads of a tensor product, built once per
+    tensor product (:func:`tp_geometry`).
+
+    ``class_rows`` (n_classes, 8) int32, one row per output class, those
+    without a path too: (fan, d3, mul, out_off, w_off, col0, path0,
+    n_paths), ``out_off`` the class's first output column, ``w_off`` its
+    first column of ``out_kernel`` and ``out_bias``. ``path_rows``
+    (n_paths, 7) int32: (u_off, mul, d1, x_start, col, sh_start, d2), the
+    path's first u in its class, its input entry (``mul`` x ``d1`` floats
+    from ``x_start`` of a neighbour's row, e3nn layout), its CG columns from
+    ``col0 + col`` and its harmonic entry (``d2`` floats from
+    ``sh_start``). ``cg`` (max d2, columns) float32: each path's (d2,
+    d1*d3) block ``CG[t, i*d3 + d]``, rows from 0. ``X``, ``J``, ``D``,
+    ``WN``: the widths of x_nbr, edge_sh, the output and the weights."""
+
+    class_rows: np.ndarray
+    path_rows: np.ndarray
+    cg: np.ndarray
+    X: int
+    J: int
+    D: int
+    WN: int
+
+
+def _build_geometry(tp) -> Geometry:
+    if any(e.mul != 1 for e in tp.irreps_in2):
+        raise ValueError(f"fused_tp3: the harmonics' irreps {tp.irreps_in2} must have multiplicity 1")
+    cls_rows, path_rows, blocks = [], [], []
+    col = out_off = 0
+    for (w_off, fan, mul), pk, ek in zip(tp.weight_slices(), tp.paths, tp.irreps_out):
+        d3 = ek.ir.dim
+        col0, path0, u = col, len(path_rows), 0
+        for p in pk:
+            e1 = tp.irreps_in1[p.i]
+            cgm = p.cg.transpose(1, 0, 2).reshape(p.cg.shape[1], -1)  # (d2, d1*d3)
+            path_rows.append((u, e1.mul, e1.ir.dim, tp._sl1[p.i].start, col - col0,
+                              tp._sl2[p.j].start, cgm.shape[0]))
+            blocks.append(cgm)
+            col += cgm.shape[1]
+            u += e1.mul
+        cls_rows.append((fan, d3, mul, out_off, w_off, col0, path0, len(pk)))
+        out_off += mul * d3
+    cg = np.zeros((max([b.shape[0] for b in blocks], default=1), max(col, 1)), np.float32)
+    c = 0
+    for b in blocks:
+        cg[: b.shape[0], c : c + b.shape[1]] = b
+        c += b.shape[1]
+    return Geometry(np.asarray(cls_rows, np.int32).reshape(-1, 8),
+                    np.asarray(path_rows, np.int32).reshape(-1, 7), cg, tp.irreps_in1.dim,
+                    tp.irreps_in2.dim, tp.irreps_out.dim, tp.weight_numel)
+
+
+def tp_geometry(tp) -> Geometry:
+    """The float32 kernel's :class:`Geometry` of ``tp``, built at the first
+    call and kept on ``tp``, beside its constants."""
+    geo = getattr(tp, "_fused_tp3_geometry", None)
+    if geo is None:
+        geo = tp._fused_tp3_geometry = _build_geometry(tp)
+    return geo
+
+
+class SliceTables(NamedTuple):
+    """One column slice of a class as a block of the kernel sees it: the
+    paths ``pa``..``pb`` it touches; ``xs`` input floats staged per
+    neighbour (each path's run of a neighbour's row, path after path;
+    ``xmap[e]`` is staged float e's offset in the row); ``nc`` CG-weight
+    columns from column ``cw0`` of the class; the window of ``nsh``
+    harmonics from ``sh0``; per coupled column ``colinfo[j]`` = (staged
+    offset of its first input, its first CG-weight column, d1), and per
+    CG-weight column ``wcol[cc]`` = (its first harmonic in the window, d2)."""
+
+    pa: int
+    pb: int
+    xs: int
+    cw0: int
+    nc: int
+    sh0: int
+    nsh: int
+    xmap: Tuple[int, ...]
+    colinfo: Tuple[Tuple[int, int, int], ...]
+    wcol: Tuple[Tuple[int, int], ...]
+
+
+def slice_tables(geo: Geometry, c: int, u0: int, nu: int) -> SliceTables:
+    """The kernel's ``slice_of`` and its block tables for the slice [u0,
+    u0 + nu) of class ``c``."""
+    d3 = int(geo.class_rows[c, 1])
+    path0, n_paths = (int(v) for v in geo.class_rows[c, 6:8])
+    paths = geo.path_rows.tolist()
+    p = path0
+    while paths[p][0] + paths[p][1] <= u0:
+        p += 1
+    pa, runs = p, []  # (path, first u, u count)
+    while p < path0 + n_paths and paths[p][0] < u0 + nu:
+        ua = max(u0, paths[p][0])
+        runs.append((p, ua, min(u0 + nu, paths[p][0] + paths[p][1]) - ua))
+        p += 1
+    pb = p - 1
+    cw0 = paths[pa][4]
+    nc = paths[pb][4] + paths[pb][2] * d3 - cw0
+    sh0 = min(paths[q][5] for q, _, _ in runs)
+    nsh = max(paths[q][5] + paths[q][6] for q, _, _ in runs) - sh0
+    xmap, colinfo, base = [], {}, 0
+    for q, ua, n in runs:
+        u_off, _mul, d1, x_start, col, _s, _d2 = paths[q]
+        xmap += [x_start + (ua - u_off) * d1 + e for e in range(d1 * n)]
+        for u in range(ua, ua + n):
+            for d in range(d3):
+                colinfo[(u - u0) * d3 + d] = (base + (u - ua) * d1, col - cw0 + d, d1)
+        base += d1 * n
+    wcol = []
+    for cc in range(nc):
+        q = pa
+        while q < pb and paths[q + 1][4] <= cw0 + cc:
+            q += 1
+        wcol.append((paths[q][5] - sh0, paths[q][6]))
+    return SliceTables(pa, pb, len(xmap), cw0, nc, sh0, nsh, tuple(xmap),
+                       tuple(colinfo[j] for j in range(nu * d3)), tuple(wcol))
+
+
+def xp_cap(hidden_rows: int, sh: int) -> int:
+    """The most input floats per neighbour a slice may stage with these
+    hidden rows and harmonics (the kernel's ``xp_cap``)."""
+    per_warp = (_SMEM_BYTES // 4 - _TABLE_FLOATS) // TILE_ROWS
+    room = (per_warp - _KC * _B_STRIDE - _KC * _MAX_W
+            - _STAGES * _KC * (hidden_rows + 8 + sh))
+    return min(room // (_STAGES * _KC), _MAX_XP)
 
 
 class TilePlan(NamedTuple):
-    """How the kernel cuts one call: ``hidden_rows`` per group, ``n_groups``
-    groups, per class ``us`` u per column slice and ``n_slices`` slices,
-    ``s_max`` the most slices of a class; partial outputs go to
-    ``n_groups * s_max`` scratch parts unless that is 1."""
+    """How the float32 kernel cuts a call (its ``make_plan``):
+    ``hidden_rows`` per group, ``n_groups`` groups; per class ``us`` u per
+    column slice and ``n_slices`` slices (0 for a class without a path);
+    ``s_max`` the most slices of a class, ``n_sl`` all of them; the most
+    staged input floats, CG-weight columns and harmonics of a slice; the
+    shared memory of a block in floats. Partial outputs go to ``n_groups *
+    s_max`` scratch parts unless that is 1."""
 
     hidden_rows: int
     n_groups: int
     us: Tuple[int, ...]
     n_slices: Tuple[int, ...]
     s_max: int
+    n_sl: int
+    xs_max: int
+    nc_max: int
+    sh_max: int
+    smem_floats: int
 
-    def scratch_floats(self, n_rows: int, w_tot: int) -> int:
+    def scratch_floats(self, n_rows: int, out_dim: int) -> int:
         parts = self.n_groups * self.s_max
-        return 0 if parts == 1 else parts * n_rows * w_tot
+        return 0 if parts == 1 else parts * n_rows * out_dim
+
+    def as_ints(self) -> List[int]:
+        """The numbers ``fused_tp3_plan`` reports."""
+        pad = [0] * (MAX_CLASSES - len(self.us))
+        return ([self.n_groups, self.s_max, self.n_sl, self.xs_max, self.nc_max, self.sh_max,
+                 self.hidden_rows, self.smem_floats] + list(self.us) + pad + list(self.n_slices) + pad)
 
 
-def tile_plan(table: np.ndarray, H1: int) -> TilePlan:
-    """The kernel's :class:`TilePlan` for a class table (mirrors its
-    ``make_plan``)."""
-    hr = 16 if H1 <= 16 else 32
-    us, n_slices = [], []
-    for fan, d3 in table[:, 1:3].tolist():
-        # the fewest slices of at most 64 columns, balanced; an even number
-        # of u per slice where that fits
-        us_max = SLICE_COLS // d3
-        n = -(-fan // us_max)
-        u = -(-fan // n)
-        us.append(u + 1 if u % 2 and u < us_max else u)
-        n_slices.append(n)
-    return TilePlan(hr, -(-H1 // hr), tuple(us), tuple(n_slices), max(n_slices))
+def tile_plan(geo: Geometry, H: int) -> TilePlan:
+    """The float32 kernel's :class:`TilePlan` for ``H`` hidden channels;
+    ValueError where it refuses the tensor product."""
+    Ha = H + 1
+    n_groups = -(-Ha // MAX_HIDDEN_ROWS)
+    hr = 16 * -(-Ha // (16 * n_groups))
+    cap = xp_cap(hr, min(geo.J, _MAX_SH))
+    us_all, ns_all, slices, wp_need = [], [], [], 0
+    for c, (fan, d3, mul, *_rest) in enumerate(geo.class_rows.tolist()):
+        if fan == 0:
+            us_all.append(0)
+            ns_all.append(0)
+            continue
+        n = -(-fan // (SLICE_COLS // d3))
+        while True:
+            us = -(-fan // n)
+            ns = -(-fan // us)
+            cut = [slice_tables(geo, c, s * us, min(us, fan - s * us)) for s in range(ns)]
+            if all(sl.xs <= cap and sl.nc <= _MAX_W and sl.nsh <= _MAX_SH for sl in cut):
+                break
+            if us == 1:
+                raise ValueError(f"fused_tp3: one u of class {c} does not fit a block")
+            n += 1
+        us_all.append(us)
+        ns_all.append(ns)
+        slices += cut
+        # as the kernel's weight product splits its depth
+        n_m, n_n = -(-mul // 16), TILE_ROWS * d3 // 8
+        parts = TILE_ROWS // n_m if n_n <= _MAX_WN and n_m <= TILE_ROWS else 1
+        nstride = TILE_ROWS * d3 + 8
+        wp_need = max(wp_need, hr * us * nstride + parts * n_m * 16 * nstride)
+    if not slices:
+        raise ValueError("fused_tp3: no output class has a path")
+    xs_max, nc_max, sh_max = (max(getattr(sl, f) for sl in slices) for f in ("xs", "nc", "nsh"))
+    warp = _STAGES * _KC * (hr + 8 + sh_max + xs_max) + _KC * _B_STRIDE + _KC * nc_max
+    ring = TILE_ROWS * warp + 4 * SLICE_COLS + 2 * nc_max + _MAX_XP + geo.cg.shape[0] * nc_max
+    smem = max(ring, wp_need)
+    if smem * 4 > _SMEM_BYTES:
+        raise ValueError(f"fused_tp3: a block needs {smem * 4} bytes of shared memory, the card "
+                         f"has {_SMEM_BYTES}")
+    return TilePlan(hr, n_groups, tuple(us_all), tuple(ns_all), max(ns_all), len(slices), xs_max,
+                    nc_max, sh_max, smem)
 
 
 # the bfloat16 kernel's blocking (csrc/fused_tp3_bf16.cu, make_plan): hidden
@@ -536,56 +725,15 @@ def _pad_rows(t: torch.Tensor) -> torch.Tensor:
 
 def launch(h: torch.Tensor, coupled: torch.Tensor, weights: torch.Tensor,
            table: np.ndarray, mw: torch.Tensor = None) -> torch.Tensor:
-    """Launch the kernel on prepared operands (:func:`prepare`), ``table``
-    from :func:`class_table`. Float32: ``h`` is h_aug (N, K, H+1),
-    ``coupled`` (N, K, F_tot), ``weights`` the packed (H+1, fan, mul)
-    blocks. bfloat16: ``h`` (N, K, H) and ``coupled`` with rows a multiple
-    of 8 elements apart, ``weights`` packed by :func:`pack_bf16_weights`,
-    ``mw`` (N, K). Returns (N, W_tot) f32."""
-    mode = _MODES.get(h.dtype)
-    if mode is None or not h.dtype == coupled.dtype == weights.dtype:
-        raise TypeError(f"fused_tp3: h, coupled and weights must be all float32 or all "
-                        f"bfloat16, got {h.dtype}, {coupled.dtype}, {weights.dtype}")
-    if mode == "fused_tp3_bf16":
-        return _launch_bf16(h, coupled, weights, table, mw)
-    h_aug = h
-    for name, t in (("h_aug", h_aug), ("coupled", coupled), ("weights", weights)):
-        if not t.is_cuda:
-            raise ValueError(f"fused_tp3: {name} must be a CUDA tensor")
-        if not t.is_contiguous():
-            raise ValueError(f"fused_tp3: {name} must be contiguous")
-        if t.device != h_aug.device:
-            raise ValueError(f"fused_tp3: {name} is on {t.device}, h_aug on {h_aug.device}")
-    N, K, H1 = h_aug.shape
-    if coupled.shape[:2] != (N, K):
-        raise ValueError(f"fused_tp3: coupled {tuple(coupled.shape)} vs h_aug {tuple(h_aug.shape)}")
-    n_classes = table.shape[0]
-    kern = _get_kernel()
-    _check_classes(kern, table)
-    f_tot = int((table[:, 1] * table[:, 2]).sum())
-    w_tot = int((table[:, 3] * table[:, 2]).sum())
-    w_len = int((H1 * table[:, 1] * table[:, 3]).sum())
-    if coupled.shape[2] != f_tot or weights.numel() != w_len:
-        raise ValueError("fused_tp3: operand widths do not match the class table")
-    table = np.ascontiguousarray(table, dtype=np.int64)
-    n_scratch = kern.scratch_floats(table.ctypes.data, n_classes, N, H1, w_tot)
-    if n_scratch < 0:
-        raise ValueError(f"fused_tp3: the kernel refuses the class table {table.tolist()}")
-    planned = tile_plan(table, H1).scratch_floats(N, w_tot)
-    if n_scratch != planned:
-        raise RuntimeError(f"fused_tp3: the kernel asks for {n_scratch} scratch floats, "
-                           f"tile_plan for {planned}")
-    out = torch.empty(N, w_tot, device=h_aug.device, dtype=torch.float32)
-    scratch = torch.empty(max(n_scratch, 1), device=h_aug.device, dtype=torch.float32)
-    err = kern.forward(
-        h_aug.data_ptr(), coupled.data_ptr(), weights.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), table.ctypes.data, n_classes, N, K, H1, f_tot, w_tot,
-        torch.cuda.current_stream(h_aug.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"{mode} kernel launch failed: cudaError {err}")
-    counts.add(mode)
-    return out
+    """Launch the bfloat16 kernel on prepared operands (:func:`prepare`):
+    ``h`` (N, K, H) and ``coupled`` with rows a multiple of 8 elements
+    apart, ``weights`` packed by :func:`pack_bf16_weights`, ``table`` from
+    :func:`bf16_class_table`, ``mw`` (N, K). Returns (N, W_tot) f32 over the
+    live classes. The float32 kernel's call is :func:`forward_f32`."""
+    if not h.dtype == coupled.dtype == weights.dtype == torch.bfloat16:
+        raise TypeError(f"fused_tp3: launch takes the bfloat16 kernel's operands, got {h.dtype}, "
+                        f"{coupled.dtype}, {weights.dtype} (float32: forward_f32)")
+    return _launch_bf16(h, coupled, weights, table, mw)
 
 
 def _check_classes(kern, table: np.ndarray) -> None:
@@ -645,23 +793,17 @@ def _launch_bf16(h, coupled, weights, table, mw):
 
 
 def prepare(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias):
-    """The torch side of the kernel call, the operands in ``h``'s dtype.
-    Float32: (classes, h_aug, coupled, packed weights, class table).
-    bfloat16: (classes, h, coupled, packed weights, class table, mw), with
-    ``h``, ``coupled`` and ``mw`` views whose rows are a multiple of 8
-    elements apart (zero columns appended where the width is not), the
-    classes of ``coupled`` at the columns of :func:`bf16_class_table`, and the weights in
-    the bfloat16 kernel's layout. ``launch(*prepare(...)[1:])`` runs either."""
-    if h.dtype == torch.bfloat16:
-        return _prepare_bf16(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias)
-    classes, coupled = merged_coupled(tp, x_nbr, edge_sh)
-    h_aug = torch.cat([h, mw[..., None].to(h.dtype)], dim=-1).contiguous()
-    H1 = h_aug.shape[-1]
-    weights = torch.cat(
-        [b.reshape(-1) for b in class_weights(tp, classes, out_kernel, out_bias, h.dtype)]
-    )
-    table = class_table(classes, H1)
-    return classes, h_aug, coupled.contiguous(), weights.contiguous(), table
+    """The torch side of the bfloat16 kernel's call: (classes, h, coupled,
+    packed weights, class table, mw), with ``h``, ``coupled`` and ``mw``
+    views whose rows are a multiple of 8 elements apart (zero columns
+    appended where the width is not), the classes of ``coupled`` at the
+    columns of :func:`bf16_class_table`, and the weights in the bfloat16
+    kernel's layout; ``launch(*prepare(...)[1:])`` runs it. The float32
+    kernel has no torch side (:func:`forward_f32`)."""
+    if h.dtype != torch.bfloat16:
+        raise TypeError(f"fused_tp3: prepare builds the bfloat16 kernel's operands, got {h.dtype} "
+                        "(float32: forward_f32)")
+    return _prepare_bf16(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias)
 
 
 def _prepare_bf16(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias):
@@ -690,11 +832,123 @@ def _prepare_bf16(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias):
     return classes, h, coupled, weights, table, mw
 
 
+_F32_NAMES = ("x_nbr", "edge_sh", "h", "mw", "out_kernel", "out_bias")
+
+
+class _TpState:
+    """The float32 kernel's state of one tensor product, kept on it: the
+    geometry's tables as the library reads them, their limits checked once,
+    and the scratch floats of each (N, K, H) the library's plan was checked
+    at."""
+
+    def __init__(self, tp, kern: _Kernel):
+        geo = tp_geometry(tp)
+        rows = geo.class_rows
+        wd, fd = rows[:, 2] * rows[:, 1], rows[:, 0] * rows[:, 1]
+        if not 1 <= rows.shape[0] <= kern.max_classes or geo.path_rows.shape[0] > kern.max_paths:
+            raise ValueError(f"fused_tp3: {rows.shape[0]} classes and {geo.path_rows.shape[0]} "
+                             f"paths, the kernel takes 1..{kern.max_classes} and at most "
+                             f"{kern.max_paths}")
+        if wd.max() > kern.max_outputs:
+            raise ValueError(f"fused_tp3: a class has mul*d3 = {wd.max()} outputs, "
+                             f"the kernel takes at most {kern.max_outputs}")
+        if fd.max() > kern.max_columns:
+            raise ValueError(f"fused_tp3: a class has fan*d3 = {fd.max()} coupled columns, "
+                             f"the kernel takes at most {kern.max_columns}")
+        self.geo = geo
+        self.consts = tp._consts
+        self.cls = np.ascontiguousarray(rows, np.int32)
+        self.paths = np.ascontiguousarray(geo.path_rows, np.int32)
+        self.scratch: Dict[Tuple[int, int, int], int] = {}
+
+    def scratch_floats(self, kern: _Kernel, N: int, K: int, H: int) -> int:
+        """The library's plan against :func:`tile_plan` (once per shape);
+        the scratch floats of the call."""
+        key = (N, K, H)
+        n = self.scratch.get(key)
+        if n is None:
+            geo = self.geo
+            plan = tile_plan(geo, H)
+            got = np.zeros(8 + 2 * MAX_CLASSES, np.int32)
+            n = kern.plan(self.cls.ctypes.data, self.cls.shape[0], self.paths.ctypes.data,
+                          self.paths.shape[0], N, geo.X, geo.J, H, geo.cg.shape[0],
+                          geo.cg.shape[1], geo.D, geo.WN, got.ctypes.data)
+            if n < 0:
+                raise ValueError(f"fused_tp3: the kernel refuses the class table "
+                                 f"{self.cls.tolist()} at H = {H}")
+            if got.tolist() != plan.as_ints() or n != plan.scratch_floats(N, geo.D):
+                raise RuntimeError(f"fused_tp3: the kernel plans {got.tolist()} ({n} scratch "
+                                   f"floats), tile_plan {plan.as_ints()}")
+            self.scratch[key] = n
+        return n
+
+
+def forward_f32(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias) -> torch.Tensor:
+    """The float32 kernel's whole call: (N, dim_out) f32 in e3nn layout,
+    from the inputs as they are (CUDA tensors, float32, each with a
+    contiguous last axis; rows at any stride). On the host only checks and
+    the output's and scratch's allocation run; the tables and the plan of
+    each shape are built and checked once. One launch, and the fixed-order
+    reduce where the plan has several parts. Raises on anything else; never
+    falls back to the plain version."""
+    for name, t in zip(_F32_NAMES, (x_nbr, edge_sh, h, mw, out_kernel, out_bias)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"fused_tp3: the float32 kernel takes float32 operands, {name} is "
+                            f"{t.dtype}")
+        if not t.is_cuda:
+            raise ValueError(f"fused_tp3: {name} must be a CUDA tensor")
+        if t.device != x_nbr.device:
+            raise ValueError(f"fused_tp3: {name} is on {t.device}, x_nbr on {x_nbr.device}")
+    kern = _get_kernel()
+    st = getattr(tp, "_fused_tp3_state", None)
+    if st is None:
+        st = tp._fused_tp3_state = _TpState(tp, kern)
+    geo = st.geo
+    N, K, H = h.shape
+    if (x_nbr.shape != (N, K, geo.X) or edge_sh.shape != (N, K, geo.J) or mw.shape != (N, K)
+            or out_kernel.shape != (H, geo.WN) or out_bias.shape != (geo.WN,)):
+        raise ValueError(f"fused_tp3: x_nbr {tuple(x_nbr.shape)}, edge_sh {tuple(edge_sh.shape)}, "
+                         f"h {tuple(h.shape)}, mw {tuple(mw.shape)}, out_kernel "
+                         f"{tuple(out_kernel.shape)}, out_bias {tuple(out_bias.shape)} do not fit "
+                         f"{tp.irreps_in1} x {tp.irreps_in2} -> {tp.irreps_out}")
+    if x_nbr.stride(2) != 1:
+        x_nbr = x_nbr.contiguous()
+    if edge_sh.stride(2) != 1:
+        edge_sh = edge_sh.contiguous()
+    if h.stride(2) != 1:
+        h = h.contiguous()
+    if not out_kernel.is_contiguous():
+        out_kernel = out_kernel.contiguous()
+    if not out_bias.is_contiguous():
+        out_bias = out_bias.contiguous()
+    n_scratch = st.scratch_floats(kern, N, K, H)
+    cg = st.consts.get("fused_tp3_cg", geo.cg, x_nbr)
+    dev = x_nbr.device
+    out = torch.empty((N, geo.D), device=dev, dtype=torch.float32)
+    scratch = torch.empty(max(n_scratch, 1), device=dev, dtype=torch.float32)
+    err = kern.forward(
+        x_nbr.data_ptr(), edge_sh.data_ptr(), h.data_ptr(), mw.data_ptr(), cg.data_ptr(),
+        out_kernel.data_ptr(), out_bias.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        x_nbr.stride(0), x_nbr.stride(1), edge_sh.stride(0), edge_sh.stride(1), h.stride(0),
+        h.stride(1), mw.stride(0), mw.stride(1), st.cls.ctypes.data, st.cls.shape[0],
+        st.paths.ctypes.data, st.paths.shape[0], N, K, geo.X, geo.J, H, geo.cg.shape[0],
+        geo.cg.shape[1], geo.D, geo.WN, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fused_tp3 kernel launch failed: cudaError {err}")
+    counts.add("fused_tp3")
+    return out
+
+
 def _forward_kernel(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias):
-    if not tp.live_classes():
-        return x_nbr.new_zeros(x_nbr.shape[0], tp.irreps_out.dim)
-    classes, *ops = prepare(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias)
-    return _scatter_classes(tp, classes, launch(*ops))
+    if h.dtype == torch.bfloat16:
+        if not tp.live_classes():
+            return x_nbr.new_zeros(x_nbr.shape[0], tp.irreps_out.dim, dtype=torch.float32)
+        classes, *ops = _prepare_bf16(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias)
+        return _scatter_classes(tp, classes, _launch_bf16(*ops))
+    if not tp_geometry(tp).path_rows.shape[0]:
+        return x_nbr.new_zeros(x_nbr.shape[0], tp.irreps_out.dim, dtype=torch.float32)
+    return forward_f32(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias)
 
 
 class PlainVJP(torch.autograd.Function):
@@ -730,14 +984,14 @@ def _vjp_plain(tp, *inputs):
 
 def fused_tp3(tp, x_nbr, edge_sh, h, mw, out_kernel, out_bias):
     """Summed TP messages (N, dim_out) f32 through the Hopper kernel (the mode
-    of the inputs' dtype); on a CPU tensor through
-    :func:`fused_tp3_reference`. Differentiable: when
+    of the inputs' dtype: float32 through :func:`forward_f32`); on a CPU
+    tensor through :func:`fused_tp3_reference`. Differentiable: when
     autograd records and an input requires a gradient, the call goes
     through :class:`PlainVJP`, which saves the six inputs; otherwise nothing
     is saved."""
     inputs = (x_nbr, edge_sh, h, mw, out_kernel, out_bias)
     forward = _forward_kernel if x_nbr.is_cuda else fused_tp3_reference
-    if tp.live_classes() and torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs) and tp.live_classes():
         if h.dtype != torch.float32:
             raise TypeError(f"fused_tp3: no gradient through {h.dtype} inputs; training "
                             "computes in float32, as the JAX package's trainers do")

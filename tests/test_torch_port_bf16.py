@@ -266,9 +266,10 @@ def test_fused_tp3_refuses_bf16_gradients_and_mixed_operands():
     out = ft.fused_tp3(tp, *args)
     out.sum().backward()
     assert args[4].grad is not None
-    # launch takes all-float32 or all-bfloat16 operands only (checked
-    # before it looks at the device)
-    with pytest.raises(TypeError, match="all float32 or all"):
+    # launch takes the bfloat16 kernel's operands, all bfloat16, only
+    # (checked before it looks at the device; the float32 kernel's call is
+    # forward_f32)
+    with pytest.raises(TypeError, match="bfloat16 kernel's operands"):
         ft.launch(torch.zeros(2, 3, 4, dtype=BF16, device="meta"),
                   torch.zeros(2, 3, 5, device="meta"), torch.zeros(20, dtype=BF16, device="meta"),
                   np.array([[0, 5, 1, 1, 0, 0]], np.int64))

@@ -255,3 +255,26 @@ def test_implicit_h_counts_with_charges_and_aromatic_bonds():
                         [1, 0, -1, 1, 0, 0, -1, 0])
     jmol = jchem.Molecule(mol.elements, mol.coords, mol.bonds, mol.charges)
     np.testing.assert_array_equal(chem.implicit_h_counts(mol), jchem.implicit_h_counts(jmol))
+
+
+def test_sdf_coordinates_wider_than_v2000_fields_go_to_v3000_and_parse_back():
+    """A pose far out (a coordinate that %10.4f cannot hold in ten columns)
+    is written as V3000, continuation lines included, and parses back to
+    the same atoms, bonds, charges and coordinates; a pose that fits stays
+    V2000."""
+    mol = chem.Molecule(["C", "N", "O", "Cl"],
+                        np.array([[0, 0, 0], [1.4, 0, 0], [2.1, 1.1, 0], [-1.7, 0.2, 0.1]], np.float32),
+                        [(0, 1, 1), (1, 2, 2), (0, 3, 1)], [0, 1, -1, 0], name="far")
+    assert "V2000" in chem.write_sdf(mol, mol.coords + np.float32(9999.0))
+    for far in ([1519147.625, 13991.0, 5.1], [2894615.5, -10046652.0, -28075.2], [1e30, -3e38, 0.5]):
+        coords = mol.coords + np.asarray(far, np.float32)
+        text = chem.write_sdf(mol, coords, {"confidence": "-64.68"})
+        assert "V3000" in text and "V2000" not in text
+        assert max(len(ln) for ln in text.splitlines()) <= 80
+        back = chem.parse_sdf(text + text)
+        assert len(back) == 2
+        for b in back:
+            assert b.name == "far" and b.elements == mol.elements and b.bonds == mol.bonds
+            assert b.charges == mol.charges
+            np.testing.assert_allclose(b.coords, coords, rtol=1e-6, atol=5e-5)
+        assert text.split("> <confidence>\n", 1)[1].split("\n", 1)[0] == "-64.68"

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from diffdock_tpu_torch.models.config import PRESETS
 from diffdock_tpu_torch.ops import fused_tp3 as ft
 from diffdock_tpu_torch.ops.irreps import get_irrep_seq
@@ -101,6 +102,111 @@ def test_fused_tp3_zero_fills_empty_classes_on_the_card():
     torch.cuda.synchronize()
     assert torch.all(out[:, 4:19] == 0)
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=1e-5, atol=1e-5)
+
+
+# the cells' largest blocks (bucket (32, 1536) at 10 poses: 320 ligand and
+# 15,360 receptor rows; the confidence model's 8,704 receptor atoms): the
+# score models' rec<-lig (15360 x 32), lig<-rec (320 x 1536) and rec<-rec
+# (15360 x 24); the confidence model's lig<-atom (320 x 8704) and
+# atom<-atom (87040 x 8)
+MODEL_TPS = chip_smoke.model_tps()
+CELL_BLOCKS = {"score": [(15360, 32), (320, 1536), (15360, 24)],
+               "confidence": [(320, 8704), (87040, 8)]}
+
+
+@pytest.mark.parametrize("where,key,rows,K", [
+    (where, key, rows, K) for where, key in MODEL_TPS
+    for rows, K in CELL_BLOCKS["confidence" if where.startswith("confidence") else "score"]
+], ids=lambda v: v if isinstance(v, str) else None)
+def test_fused_tp3_matches_plain_version_at_every_model_tp(where, key, rows, K):
+    """The float32 kernel, which builds the coupling itself, against the
+    plain version at every TP the cells run (H+1 = 145, 97 and 73) and the
+    cells' largest blocks; one launch counted per call."""
+    dev = _card()
+    ins, shs, outs, H = key
+    tp = FullyConnectedTensorProduct(ins, shs, outs)
+    args = _inputs(tp, rows, K, H, dev, seed=rows + K)
+    before = ft.counts["fused_tp3"]
+    out = ft.fused_tp3(tp, *args)
+    assert ft.counts["fused_tp3"] == before + 1
+    ref = ft.fused_tp3_reference(tp, *args)
+    torch.cuda.synchronize()
+    scale = max(ref.abs().max().item(), 1.0)
+    assert (out - ref).abs().max().item() <= 1e-4 * scale
+
+
+def test_fused_tp3_zero_fills_an_empty_class_through_the_reduce():
+    """An empty class beside classes of several slices and two hidden
+    groups: the fixed-order reduce writes its zeros."""
+    dev = _card()
+    tp = FullyConnectedTensorProduct("48x0e + 10x1o", "1x0e + 1x1o", "48x0e + 3x2o + 10x1o")
+    plan = ft.tile_plan(ft.tp_geometry(tp), 144)
+    assert plan.n_groups * plan.s_max > 1 and plan.n_slices[1] == 0
+    args = _inputs(tp, 75, 19, 144, dev, seed=7)
+    out = ft.fused_tp3(tp, *args)
+    ref = ft.fused_tp3_reference(tp, *args)
+    torch.cuda.synchronize()
+    assert torch.all(out[:, 48:63] == 0)
+    assert (out - ref).abs().max().item() <= 1e-4 * max(ref.abs().max().item(), 1.0)
+
+
+def test_fused_tp3_reads_strided_operands_in_place():
+    """Views whose rows are not packed (a wider buffer's columns, a
+    transposed receiver axis) give the result of their contiguous copies."""
+    dev = _card()
+    tp = _joint_tp()
+    x, sh, h, mw, wk, wb = _inputs(tp, 70, 13, 144, dev, seed=8)
+    wide = lambda t: torch.cat([t, torch.ones_like(t[..., :3])], dim=-1)[..., :t.shape[-1]]
+    views = (wide(x), wide(sh), h.transpose(0, 1).contiguous().transpose(0, 1),
+             mw.t().contiguous().t(), wk, wb)
+    assert not any(v.is_contiguous() for v in views[:4])
+    got = ft.fused_tp3(tp, *views)
+    want = ft.fused_tp3(tp, x, sh, h, mw, wk, wb)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_fused_tp3_contraction_is_its_kernel_alone():
+    """Under the profiler, one merged contraction's ``tp_contract`` range
+    holds no torch op but the output's and scratch's allocation, and at most
+    2 device kernels (the kernel and its reduce), both fused_tp3's."""
+    from diffdock_tpu_torch.models.encoders import FCBlock
+    from diffdock_tpu_torch.models.tpconv import NeighborBlock, _tp_message_reduced
+
+    dev = _card()
+    tp = _joint_tp()
+    B, R, K, S, E = 10, 32, 24, 150, 32
+    g = torch.Generator(device=dev).manual_seed(9)
+    fc = FCBlock(E, 3 * 48, tp.weight_numel).to(dev)
+    blk = NeighborBlock(torch.randn(1, S, tp.irreps_in1.dim, device=dev, generator=g),
+                        torch.randint(0, S, (B, R, K), device=dev, generator=g),
+                        torch.rand(B, R, K, device=dev, generator=g) < 0.8,
+                        torch.randn(B, R, K, E, device=dev, generator=g),
+                        torch.randn(B, R, K, tp.irreps_in2.dim, device=dev, generator=g))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.inference_mode():
+        _tp_message_reduced(tp, fc, blk)  # the plan, the tables and the CG matrix, once
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            _tp_message_reduced(tp, fc, blk)
+            torch.cuda.synchronize()
+    # the profiler's raw events: the range on the host (it is mirrored on
+    # the device timeline), what the host did inside it, the device kernels
+    raw = list(prof.profiler.kineto_results.events())
+    host = [e for e in raw if e.device_type() != torch.autograd.DeviceType.CUDA]
+    contract = [e for e in host if e.name() == "tp_contract"]
+    assert len(contract) == 1
+    lo = contract[0].start_ns()
+    hi = lo + contract[0].duration_ns()
+    inside = [e.name() for e in host if lo < e.start_ns() < hi]
+    assert {n for n in inside if n.startswith("aten::")} <= {"aten::empty"}, inside
+    assert len([n for n in inside if n.startswith(("cudaLaunch", "cuLaunch"))]) <= 2, inside
+    # the kernel and its reduce, launched from the kernel library (which the
+    # profiler may not tie to the range), are the profile's only fused_tp3
+    # kernels
+    kernels = [e.name() for e in raw if e.device_type() == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation() and "fused_tp3" in e.name()]
+    assert 1 <= len(kernels) <= 2, kernels
 
 
 # the six timed blocks (chip_smoke.py phase 6): the score model's rec<-lig

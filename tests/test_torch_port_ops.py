@@ -139,9 +139,16 @@ def test_fused_tp3_on_cpu_runs_the_plain_version_and_keeps_empty_classes_zero():
 
 
 def test_fused_tp3_launch_refuses_cpu_operands():
-    """The kernel entry raises on a CPU tensor (before any build); it never
-    falls back to the plain version."""
+    """The float32 kernel's entry raises on a CPU tensor (before any build);
+    it never falls back to the plain version. ``launch`` and ``prepare``
+    take the bfloat16 kernel's operands only."""
+    tp = FullyConnectedTensorProduct(IN_IR, SH_IR, OUT_IR)
+    args = [T(a) for a in _tp3_inputs(tp, 4, 3, h_dim=5)]
     with pytest.raises(ValueError, match="CUDA"):
+        ft.forward_f32(tp, *args)
+    with pytest.raises(TypeError, match="forward_f32"):
+        ft.prepare(tp, *args)
+    with pytest.raises(TypeError, match="forward_f32"):
         ft.launch(torch.zeros(2, 3, 4), torch.zeros(2, 3, 5), torch.zeros(20),
                   np.array([[0, 5, 1, 1, 0, 0]], np.int64))
 

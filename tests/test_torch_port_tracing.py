@@ -8,8 +8,9 @@ its counts against ``dock_bucket``; a chunked dock's pose batches; the
 dock ids; the anomaly guard's quarantine; poses and confidences bit for
 bit with and without a profiler; the ranges in a profiler's trace, nested
 as the record nests them; no range opened without a profiler; the
-per-step callback against forward hooks on the score model; and which
-spans take device events.
+per-step callback against forward hooks on the score model; which
+spans take device events; and ``chip_smoke.follow_steps``, which holds a
+plain dock to another dock step by step from that dock's own state.
 """
 
 import pickle
@@ -27,6 +28,8 @@ from diffdock_tpu_torch.inference.pipeline import DockingPipeline
 from diffdock_tpu_torch.inference.sampler import SamplerConfig
 from diffdock_tpu_torch.models.config import ScoreModelConfig
 from diffdock_tpu_torch.utils import profiling
+
+import chip_smoke
 
 STEPS = 3
 SAMPLER = SamplerConfig(inference_steps=4, actual_steps=STEPS)
@@ -275,3 +278,34 @@ def test_only_device_spans_take_events(monkeypatch, tables, complex_):
     assert timed == {"diffusion", "confidence", "rank"}
     assert all((s.start_event is None) == (s.end_event is None) for s in rec.spans)
     assert len(made) == 1 + 2 * 3 and rec.origin is made[0]
+
+
+@pytest.mark.parametrize("score", ["new", "v1"])
+def test_follow_steps_holds_each_step_from_the_docks_own_state(tables, complex_, score):
+    """Between two docks of the same weights every step is held to 0; with
+    other weights the first held step is the whole docks' first-step gap (the
+    same state), every step parts, and a chunked dock gives one gap a step."""
+    data, aa = complex_
+    so3, torus = tables
+    P, batch = 4, 2
+    pipe = pipeline(tables, score)
+    drawn = {}
+
+    def noise(num_poses, n_bonds, seed):
+        if seed not in drawn:
+            drawn[seed] = pipe.draw_noise(num_poses, n_bonds, seed)
+        return drawn[seed]
+
+    kw = dict(num_poses=P, seed=0, aa_data=aa, batch_size=batch)
+    start, held = chip_smoke.follow_steps(pipe, pipeline(tables, score), data, noise, kw)
+    assert start == 0.0 and held == [0.0] * STEPS
+    other = DockingPipeline(SCORE[score], 1, SAMPLER, so3, torus, device="cpu",
+                            confidence_cfg=CONFIDENCE, confidence_weights=1)
+    start, held = chip_smoke.follow_steps(pipe, other, data, noise, kw)
+    a = pipe.dock_complex(data, noise=noise, return_trajectory=True, **kw)
+    b = other.dock_complex(data, noise=noise, return_trajectory=True, **kw)
+    assert start == 0.0 and len(held) == STEPS and min(held) > 0.0
+    whole = [float(np.abs(a.trajectory[k] - b.trajectory[k]).max()) for k in range(1, STEPS + 1)]
+    assert held[0] == pytest.approx(whole[0], rel=1e-5)
+    # later steps start from the dock's state, not from the plain dock's own
+    assert all(h != pytest.approx(w, rel=1e-3) for h, w in zip(held[1:], whole[1:]))
